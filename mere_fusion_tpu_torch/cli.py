@@ -4,6 +4,8 @@ Port of mere_fusion_tpu/cli.py for the slices the PyTorch package carries:
 
     python -m mere_fusion_tpu_torch.cli --model musetalk --tts procedural \\
         --transport loopback
+    python -m mere_fusion_tpu_torch.cli --model ernerf --pose data/transforms.json \\
+        --au data/au.csv --tts procedural --transport loopback
 
 Sessions are placed on the host's CUDA devices; ``--device cpu`` runs them
 on the CPU instead.
@@ -37,6 +39,13 @@ _FLAG_TO_KEY = {
     "unet_config": "avatar.unet_config",
     "vae_int8": "avatar.vae_int8",
     "whisper_ckpt": "avatar.whisper_ckpt",
+    "pose": "nerf.pose_path",
+    "au": "nerf.au_path",
+    "bg_img": "nerf.bg_img",
+    "fix_eye": "nerf.fix_eye",
+    "torso": "nerf.torso",
+    "nerf_ckpt": "nerf.ckpt",
+    "asr_model": "nerf.asr_model",
 }
 
 
@@ -48,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-r", type=int, default=10, help="right stride")
     p.add_argument("--model", default="musetalk",
                    choices=["wav2lip", "musetalk", "ernerf"],
-                   help="avatar engine; only musetalk is ported so far")
+                   help="avatar engine; musetalk and ernerf are ported so far")
     p.add_argument("--avatar_id", default="avator_1")
     p.add_argument("--avatar_dir", default="./data/avatars")
     p.add_argument("--batch_size", type=int, default=16)
@@ -73,6 +82,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 VAE decode tier: not ported, auto serves float")
     p.add_argument("--whisper_ckpt", default="",
                    help="whisper-tiny weights for MuseASR features (OpenAI .pt)")
+    # ER-NeRF serving flags; --torso, --nerf_ckpt and --asr_model name parts
+    # that are not ported yet and raise
+    p.add_argument("--pose", default="data/transforms.json")
+    p.add_argument("--au", default="data/au.csv")
+    p.add_argument("--bg_img", default="white")
+    p.add_argument("--fix_eye", type=float, default=-1.0)
+    p.add_argument("--torso", action="store_true")
+    p.add_argument("--nerf_ckpt", default="")
+    p.add_argument("--asr_model", default="",
+                   help="ER-NeRF live featurizer; only the built-in fake (empty) "
+                        "is ported")
     p.add_argument("--device", default="",
                    help="place sessions on this device (e.g. cpu); default: "
                         "every CUDA device")

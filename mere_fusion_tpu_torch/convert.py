@@ -1,7 +1,8 @@
 """JAX param trees → the port's state dicts.
 
 Inverse of the JAX package's ``utils/diffusers_convert.py::convert_vae`` /
-``convert_musetalk_unet`` and ``utils/torch_convert.py::convert_whisper``:
+``convert_musetalk_unet`` and ``utils/torch_convert.py::convert_whisper``,
+plus the ER-NeRF head (``ernerf_from_flax``, whose names already match):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder) key names, which the
 port's modules load with ``load_state_dict(strict=True)``. Layouts:
@@ -24,6 +25,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
+from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
 from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims, sinusoids
@@ -144,3 +147,28 @@ def whisper_encoder_from_flax(tree: Mapping, dims: WhisperDims) -> dict[str, tor
     sd["positional_embedding"] = torch.from_numpy(
         sinusoids(dims.n_audio_ctx, dims.n_audio_state))
     return sd
+
+
+def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig) -> dict[str, torch.Tensor]:
+    """JAX NeRFNetwork variables → the port's NeRFNetwork state dict. The
+    hash tables and individual codes are top-level leaves and keep their
+    names; dense and conv kernels are transposed."""
+    p = tree.get("params", tree)
+    leaves = {k: v for k, v in p.items() if not isinstance(v, Mapping)}
+    modules = {k: v for k, v in p.items() if isinstance(v, Mapping)}
+    expected = _expected_keys(lambda: NeRFNetwork(cfg))
+    sd = _translate(modules, [], expected - set(leaves))
+    for name, value in leaves.items():
+        if name not in expected:
+            raise KeyError(f"tree does not match the module: extra {name!r}")
+        sd[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return sd
+
+
+def density_from_flax(density, device=None) -> DensityGrid:
+    """The JAX package's DensityGrid (any object with ``grid``, ``occupancy``
+    and ``mean_density`` arrays) → the port's."""
+    return DensityGrid(
+        grid=torch.from_numpy(np.array(density.grid, dtype=np.float32)).to(device),
+        occupancy=torch.from_numpy(np.array(density.occupancy, dtype=bool)).to(device),
+        mean_density=torch.tensor(float(np.asarray(density.mean_density)), device=device))

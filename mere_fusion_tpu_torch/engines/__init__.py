@@ -1,10 +1,10 @@
 """Real-time avatar engines.
 
 Each engine owns a TTS adapter feeding 20 ms PCM chunks, an ASR feeder that
-featurizes audio for its model, a device inference thread launching work on
-the engine's GPU, and a frame-assembly thread pasting generated crops into
-full frames for the output tracks. Port of mere_fusion_tpu/engines: only
-the MuseTalk engine is ported so far.
+featurizes audio for its model, and device work launched on the engine's
+GPU. Port of mere_fusion_tpu/engines: the MuseTalk engine (an inference
+thread and a frame-assembly thread) and the ER-NeRF engine (one render
+loop over kernel K2) are ported; Wav2Lip is not yet.
 """
 from __future__ import annotations
 
@@ -140,7 +140,27 @@ def make_engine(cfg: Config, **kw):
             "the wav2lip engine is not ported to the PyTorch package yet "
             "(ROADMAP: 'Wav2Lip session')")
     if kind == "ernerf":
-        raise NotImplementedError(
-            "the ernerf engine is not ported to the PyTorch package yet "
-            "(ROADMAP: 'ER-NeRF serving slice')")
+        from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
+        from mere_fusion_tpu_torch.device import resolve_device
+        from mere_fusion_tpu_torch.engines.nerf import NeRFReal
+
+        nc = cfg.nerf
+        kw["device"] = resolve_device(kw.get("device"))
+        if nc.ckpt:
+            raise NotImplementedError(
+                "ER-NeRF checkpoint loading (load_nerf_checkpoint) is not ported "
+                "to the PyTorch package yet (ROADMAP: 'ER-NeRF checkpoints')")
+        if nc.fullbody_imgs:
+            raise NotImplementedError(
+                "the ER-NeRF fullbody paste is not ported to the PyTorch package "
+                "yet (ROADMAP: 'ER-NeRF fullbody')")
+        if "dataset" not in kw:
+            kw["dataset"] = NeRFTestDataset.load(
+                nc.pose_path, nc.au_path, bg_img=nc.bg_img, scale=nc.scale,
+                offset=tuple(nc.offset), smooth_path=nc.smooth_path,
+                smooth_path_window=nc.smooth_path_window, smooth_eye=nc.smooth_eye,
+                data_range=tuple(nc.data_range))
+        if nc.fix_eye >= 0:
+            kw["dataset"].eye_area[:] = nc.fix_eye
+        return NeRFReal(cfg, **kw)
     raise ValueError(f"unknown avatar kind {kind!r}")

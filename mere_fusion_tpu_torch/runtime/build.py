@@ -3,7 +3,8 @@
 Every library is named after a hash of its sources and compiler command, so
 a changed source rebuilds and an unchanged one loads the cached file. The
 output is written to a temporary name and renamed into place, so concurrent
-builds never load a half-written library.
+builds never load a half-written library. Builds of different libraries run
+in parallel (one lock per output file).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import threading
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "_build")
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 
 
 def build_shared(name: str, sources: list[str], command: list[str],
@@ -29,7 +31,9 @@ def build_shared(name: str, sources: list[str], command: list[str],
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(out, threading.Lock())
+    with lock:
         if os.path.exists(out):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
