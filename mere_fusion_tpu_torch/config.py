@@ -166,7 +166,9 @@ class NeRFConfig:
     # the XLA-gather path (one gather/plane; at a 2× oversampled bake the
     # snap error is sub-texel); "bilinear" its 4-gather exact variant.
     sample_mode: str = "pallas"       # pallas | nearest | bilinear
-    tile_budget: int = 1024           # active 8×8 tiles per frame (pallas)
+    tile_budget: int = 1024           # active 8×8 tiles per frame (pallas;
+                                      # the eager torch step compacts
+                                      # exactly and does not read it)
     span_cache_poses: int = 2048      # max poses with cached spans (~1.3 MB
                                       # each at 512²); bounds warmup prefill
                                       # time and HBM. Poses past the cap

@@ -20,9 +20,11 @@
 //      weight rgb, the rest 0.
 //
 // Bound at serving size (512^2 frame, 16 x 8 tiles: T = 2048, rpt = 128,
-// k = 16, so 4.19 M samples): the head is 23,568 multiply-adds per sample,
-// ~0.20 TFLOP per frame, 0.20 ms at the H100's 989 TFLOP/s bf16 tensor rate;
-// the operands (uv 100 MB, the 195 MB bf16 plane stack counted whole, dproj
+// k = 16, so 4.19 M samples): the head is 21,840 multiply-adds per sample
+// over the 36 real features (the 12 zero lanes of padding are not work),
+// plus 9 operations per real channel of the bilinear sample: 44,004
+// operations, ~0.185 TFLOP per frame, 0.187 ms at the H100's 989 TFLOP/s
+// bf16 tensor rate; the operands (uv 100 MB, the 195 MB bf16 plane stack counted whole, dproj
 // 34 MB, dtv and out 25 MB) take ~0.11 ms at 3.35 TB/s. So the bound is set
 // by operations.
 //

@@ -239,12 +239,10 @@ class NeRFReal(BaseReal):
             self._telemetry_countdown -= 1
             if self._telemetry_countdown <= 0:
                 self._telemetry_countdown = self.fps
-                active = int(n_active)
-                metrics.gauge("nerf.active_tiles", active)
+                metrics.gauge("nerf.active_tiles", int(n_active))
                 metrics.gauge("nerf.overflow_jobs", int(n_overflow))
-                # structurally 0: every active tile renders
-                metrics.gauge("nerf.dropped_tiles",
-                              max(0, active - self._render_step.ladder_top))
+                # the step compacts to exactly the active tiles: none drop
+                metrics.gauge("nerf.dropped_tiles", 0)
             metrics.latency("nerf.render").observe(time.perf_counter() - t0)
             metrics.rate("nerf.render_fps").tick()
             image = cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)

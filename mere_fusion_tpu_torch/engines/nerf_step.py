@@ -258,5 +258,4 @@ def make_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: dict,
 
     step.warmup = warmup
     step.span_cache = span_cache
-    step.ladder_top = t           # full coverage: no frame can drop tiles
     return step

@@ -53,6 +53,7 @@ OVERRIDES = {
     "nerf.tile_budget": 8,
 }
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
+N_TILES = 64 * 64 // (Config().nerf.pallas_tile_w * Config().nerf.pallas_tile_h)  # 64² frame
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +147,7 @@ def test_frame_step_matches_jax(pipelines, datasets):
     pdense = density_from_flax(jdense)
     a0 = rng.standard_normal((8, 44, 16)).astype(np.float32)
     img0, n0 = frame_pair(pipelines, datasets, 0, a0, jdense, pdense, 0)
-    assert n0 == pstep.ladder_top                  # dense grid: every tile active
+    assert n0 == N_TILES                           # dense grid: every tile active
     assert img0.std() > 2, "the frame must show the rendered head"
     assert set(pstep.span_cache) == {0}
     # a cached pose and new audio (the EMA carries the previous code)
@@ -160,7 +161,7 @@ def test_frame_step_matches_jax(pipelines, datasets):
                        mean_density=jnp.zeros(()))
     psparse = density_from_flax(jsparse)
     _, n_sparse = frame_pair(pipelines, datasets, 1, a1, jsparse, psparse, 1)
-    assert 0 < n_sparse < pstep.ladder_top
+    assert 0 < n_sparse < N_TILES
     assert set(pstep.span_cache) == {1}
     # uncached (pose_key None): full coverage, no cache entry
     frame_pair(pipelines, datasets, 2, a0, jsparse, psparse, None)
@@ -176,7 +177,7 @@ def test_warmup_prefills_the_span_cache_up_to_the_cap(datasets):
     assert set(step.span_cache) == {0, 1, 2}
     img, n_act, _ = step(pds.poses[3], torch.zeros(8, 44, 16), pds.collate(3)["eye"],
                          engine.density, engine._bg_dev, pose_key=3)
-    assert img.shape == (64, 64, 3) and int(n_act) == step.ladder_top
+    assert img.shape == (64, 64, 3) and int(n_act) == N_TILES
     assert set(step.span_cache) == {0, 1, 2}, "the cap must hold after warmup"
 
 
