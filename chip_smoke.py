@@ -6,8 +6,9 @@
 Run from the root of a checkout. Phases, each printing one JSON line with
 its seconds; any failure is fatal (exit code 1, no result line):
 
-1. build    — build kernels K1 (csrc/attention.cu) and K2 (csrc/sampler.cu)
-              with nvcc for sm_90a, one nvcc each, started together.
+1. build    — build kernels K1 (csrc/attention.cu), K2 (csrc/sampler.cu) and
+              K3 (csrc/hash_lookup.cu) with nvcc for sm_90a, one nvcc each,
+              started together.
 2. kernels  — K1 at the serving shape [16, 8, 1024, 40] in float32 (TF32
               off) and bfloat16 against its plain PyTorch version: max abs
               error, kernel / plain / SDPA times, the bound; a ragged shape
@@ -17,7 +18,16 @@ its seconds; any failure is fatal (exit code 1, no result line):
               and float32 shade weights against its plain version: max abs
               error, kernel / plain times, the bound; the plain version
               without the bf16 rounding of activations must fail the
-              tolerance; a wrong shape must raise.
+              tolerance; a wrong shape must raise. K3 (hash lookup) at the
+              training shape (65,536 seeded points in [−1, 1]³, the full-width
+              12-level 2^14 triplane spec, tables U(−1, 1), seeded gout):
+              forward against the plain version, the table gradient against
+              the plain version's autograd gradient, each within its limit,
+              which the plain version that drops one corner must fail; kernel
+              / plain / embedding_bag device times (torch.profiler: sub-ms
+              calls are host-bound under CUDA events, which are kept beside
+              them) and the bound, of forward and backward; a wrong dtype
+              and a wrong shape must raise.
 3. model    — a full-width MuseModels (float32, TF32 off): generate with
               ATTN_IMPL "auto" (K1) against "plain" on the same inputs;
               faces within 1 LSB, UNet output within 1e-4 relative, and
@@ -38,6 +48,16 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frames, stop. Kernel counts are zeroed just before
               and read just after; K2 launches must equal the nerf.render
               observations.
+7. nerf_train   — ER-NeRF head training at full width on a synthesized 512²,
+              8-frame dataset in a temporary directory: one train step's loss,
+              gradient norm and gradients with K3 against the plain encode
+              from the same state, batch and jitter noise; step and refresh
+              times with K3 and plain; one step under torch.profiler. Then the
+              training CLI (ernerf_cli.main) for 200 iterations with the
+              kernel counts zeroed just before: exactly 3 forward + 3
+              backward K3 launches a step and 32 forward a density refresh,
+              the loss logged at it 100 below the one at it 0, a checkpoint;
+              and a second call to 216 iterations that resumes from step 200.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -62,7 +82,18 @@ ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the plain version without the bf16 rounding of activations is further off
 # than this limit on the same inputs, which the check asserts.
 K2_ATOL = {"float32": 1e-5, "bfloat16": 1e-5}
+# K3 against its plain version at the training shape: the forward sums the
+# same four f32 products in the same order (bit-equal expected); the table
+# gradient's atomics add in another order, held relative to its largest entry.
+# The plain version that drops one corner must fail both limits.
+K3_FWD_ATOL = 1e-6
+K3_BWD_RTOL = 1e-5
+# one train step with K3 against the plain encode from the same state: loss and
+# gradient norm, relative; each parameter's gradient relative to its largest entry
+K3_STEP_RTOL = 1e-6
+K3_STEP_GRAD_RTOL = 1e-5
 NERF_HW = 512
+TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
 
 
 def emit(obj: dict) -> None:
@@ -89,6 +120,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn: the device rows of torch.profiler summed
+    over iters calls. Unlike CUDA events around the calls, it leaves out the
+    idle gaps when the host takes longer to launch a call than the device
+    takes to run it, as it does for kernels of a fraction of a millisecond."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / 1e3 / iters
 
 
 def attention_bound_ms(shape, dtype) -> tuple[float, str]:
@@ -136,10 +188,11 @@ def profile_generate(fn, kernel: str = "attention_kernel") -> dict:
 def phase_build(state: dict) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
-    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
 
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        paths = dict(zip(("K1", "K2"), pool.map(lambda m: m.build(), (attention, sampler))))
+    mods = {"K1": attention, "K2": sampler, "K3": hash_lookup}
+    with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source, together
+        paths = dict(zip(mods, pool.map(lambda m: m.build(), mods.values())))
     out = {}
     for name, path in paths.items():
         with open(path[:-3] + ".log") as f:
@@ -185,6 +238,7 @@ def phase_kernels(state: dict) -> dict:
         raise AssertionError("K1 accepted a ragged sequence length")
     state["kernel_numbers"] = out["bfloat16"]
     out["K2"] = k2_check(state)
+    out["K3"] = k3_check(state)
     return out
 
 
@@ -329,6 +383,135 @@ def k2_check(state: dict) -> dict:
     return out
 
 
+def k3_operands(dev, n: int = TRAIN_N, spec=None, seed: int = 0):
+    """K3's operands at the training shape: n seeded points in [−1, 1]³
+    through the full-width triplane spec's corner rows and weights, tables
+    U(−1, 1), a seeded output gradient. Returns (spec, tables, idx, w, gout)."""
+    import torch
+
+    from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig
+    from mere_fusion_tpu_torch.ops.hash_lookup import triplane_corners
+
+    spec = spec or NeRFNetConfig().plane_spec
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tables = [(torch.rand(spec.total_params, spec.level_dim, generator=gen) * 2 - 1).to(dev)
+              for _ in range(3)]
+    xyz = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    gout = torch.randn(n, 3 * spec.num_levels * spec.level_dim, generator=gen).to(dev)
+    idx, w = triplane_corners(xyz, spec, 1.0)
+    return spec, tables, idx, w, gout
+
+
+def k3_plain_grad(spec, tables, idx, w, gout):
+    """The plain version's autograd gradient of every table."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops import hash_lookup
+
+    leaves = [t.detach().requires_grad_() for t in tables]
+    out = hash_lookup.lookup_plain(leaves, idx, w, spec)
+    return torch.autograd.grad(out, leaves, gout)
+
+
+def k3_bound_ms(tables, idx, w, gout) -> tuple[float, str]:
+    """Least time for K3 on these operands, forward and backward alike: each
+    operand read once and the result written once (forward: idx, w, tables,
+    out; backward: idx, w, gout, the table gradient; out and gout are the
+    same size, as are the tables and their gradient) at 3.35 TB/s, against
+    its f32 operations (a multiply and an add per corner) at the card's f32
+    rate. The corner rows are int32: every row is below the 2^14 table size,
+    and the TPU kernel's indices are 4 bytes too."""
+    nbytes = idx.numel() * idx.element_size() + w.numel() * w.element_size()
+    nbytes += gout.numel() * 4 + sum(t.numel() * 4 for t in tables)   # out / gout, tables / grads
+    ops = 2 * 4 * gout.numel()
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_check(state: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from mere_fusion_tpu_torch.ops import hash_lookup
+
+    dev = torch.device("cuda", 0)
+    spec, tables, idx, w, gout = k3_operands(dev)
+    out = {"points": TRAIN_N, "levels": spec.num_levels, "table_rows": spec.total_params}
+    got = hash_lookup.lookup(tables, idx, w, spec)
+    torch.cuda.synchronize()
+    ref = hash_lookup.lookup_plain(tables, idx, w, spec)
+    fwd_err = (got - ref).abs().max().item()
+    dtables = hash_lookup.lookup_bwd_cuda(idx, w, gout, spec, tables)
+    torch.cuda.synchronize()
+    dref = k3_plain_grad(spec, tables, idx, w, gout)
+    scale = max(d.abs().max().item() for d in dref)
+    bwd_abs = max((a - b).abs().max().item() for a, b in zip(dtables, dref))
+    # the limits must catch a lookup that drops one corner
+    dropped = w.clone()
+    dropped[..., 3] = 0
+    drop_fwd = (hash_lookup.lookup_plain(tables, idx, dropped, spec) - ref).abs().max().item()
+    drop_bwd = max((a - b).abs().max().item() for a, b in zip(
+        k3_plain_grad(spec, tables, idx, dropped, gout), dref)) / scale
+    out.update({"fwd_max_abs_err": fwd_err, "fwd_tol": K3_FWD_ATOL,
+                "bwd_max_abs_err": bwd_abs, "bwd_max_rel_err": bwd_abs / scale,
+                "bwd_tol_rel": K3_BWD_RTOL, "bwd_grad_scale": scale,
+                "dropped_corner_fwd_err": drop_fwd, "dropped_corner_bwd_rel_err": drop_bwd})
+    if not fwd_err <= K3_FWD_ATOL or not bwd_abs / scale <= K3_BWD_RTOL:
+        raise AssertionError(f"K3 against plain: forward {fwd_err} (limit {K3_FWD_ATOL}), "
+                             f"backward {bwd_abs / scale} of its scale (limit {K3_BWD_RTOL})")
+    if not drop_fwd > K3_FWD_ATOL or not drop_bwd > K3_BWD_RTOL:
+        raise AssertionError(f"K3 limits pass a lookup that drops a corner ({drop_fwd}, "
+                             f"{drop_bwd})")
+    if not bool(torch.isfinite(got).all()) or float(got.abs().max()) < 0.1:
+        raise AssertionError("K3 output not finite or trivially small")
+    raises = {}
+    for name, bad_idx, bad_w, says in (("dtype", idx, w.double(), "float32"),
+                                       ("shape", idx[:, :-1].contiguous(), w, "shape")):
+        try:
+            hash_lookup.lookup(tables, bad_idx, bad_w, spec)
+        except (TypeError, ValueError) as e:
+            raises[name] = str(e)
+        else:
+            raise AssertionError(f"K3 accepted a wrong {name}")
+        if says not in raises[name]:
+            raise AssertionError(f"K3's raise on a wrong {name} says: {raises[name]}")
+    out["raises"] = raises
+    # the yardstick: embedding_bag over the three tables stacked, global rows
+    offsets = torch.tensor(hash_lookup.level_offsets(spec), device=dev)
+    rows = torch.stack([i + offsets[:, None] + q * spec.total_params
+                        for q, i in enumerate(idx)], dim=1).reshape(-1, 4)
+    psw = w.transpose(0, 1).reshape(-1, 4)
+    weight = torch.cat(tables).requires_grad_()
+    gflat = gout.reshape(-1, spec.level_dim)
+
+    def lib_fwd():
+        return F.embedding_bag(rows, weight, mode="sum", per_sample_weights=psw)
+
+    lib_out = lib_fwd()
+    out["library_max_abs_err"] = (lib_out.reshape(got.shape) - ref).abs().max().item()
+    leaves = [t.detach().requires_grad_() for t in tables]
+    plain_out = hash_lookup.lookup_plain(leaves, idx, w, spec)
+    bound, by = k3_bound_ms(tables, idx, w, gout)
+    fwd_calls = {
+        "kernel": lambda: hash_lookup.lookup_fwd_cuda(tables, idx, w, spec),
+        "plain": lambda: hash_lookup.lookup_plain(tables, idx, w, spec),
+        "library": lambda: lib_fwd().detach()}
+    bwd_calls = {
+        "kernel": lambda: hash_lookup.lookup_bwd_cuda(idx, w, gout, spec, tables),
+        "plain": lambda: torch.autograd.grad(plain_out, leaves, gout, retain_graph=True),
+        "library": lambda: torch.autograd.grad(lib_out, weight, gflat, retain_graph=True)}
+    for part, calls, err in (("forward", fwd_calls, fwd_err), ("backward", bwd_calls, bwd_abs)):
+        # device time (torch.profiler) and the time per call (CUDA events, host gaps included)
+        out[part] = {"bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                     **{f"{name}_ms": device_ms(fn) for name, fn in calls.items()},
+                     **{f"{name}_call_ms": time_ms(fn) for name, fn in calls.items()}}
+    state["k3_numbers"] = out
+    del (tables, idx, w, gout, got, ref, dtables, dref, rows, psw, weight, lib_out, leaves,
+         plain_out, fwd_calls, bwd_calls)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_model(state: dict) -> dict:
     import numpy as np
     import torch
@@ -427,7 +610,7 @@ async def _session(state: dict) -> dict:
 
     client = TestClient(TestServer(create_app(cfg, factory)))
     await client.start_server()
-    attention.launches = sampler.launches = 0  # the main path starts here
+    zero_kernel_counts()                       # the main path starts here
     t0 = time.perf_counter()
     try:
         r = await client.post("/start_session", json={})
@@ -460,8 +643,8 @@ async def _session(state: dict) -> dict:
     launches = attention.launches              # ... and ends here
     if launches == 0:
         raise AssertionError("K1 never launched during the session")
-    if sampler.launches:
-        raise AssertionError("K2 launched in the MuseTalk session")
+    if sampler.launches or any(k3_counts()):
+        raise AssertionError("K2 or K3 launched in the MuseTalk session")
     if frame is None or frame.image.shape != engines[0].avatar.frame_cycle[0].shape:
         raise AssertionError("no emitted frame of the avatar's shape")
     lat = {k: metrics.latency(k) for k in ("muse.infer_batch", "muse.featurize",
@@ -595,7 +778,7 @@ async def _nerf_session(state: dict) -> dict:
     render = metrics.latency("nerf.render")
     client = TestClient(TestServer(create_app(cfg, factory)))
     await client.start_server()
-    sampler.launches = attention.launches = 0   # the main path starts here
+    zero_kernel_counts()                        # the main path starts here
     renders0 = render.count
     t0 = time.perf_counter()
     try:
@@ -626,8 +809,8 @@ async def _nerf_session(state: dict) -> dict:
     launches, renders = sampler.launches, render.count - renders0   # ... and ends here
     if launches < 50 or launches != renders:
         raise AssertionError(f"K2 launched {launches} times for {renders} rendered frames")
-    if attention.launches:
-        raise AssertionError("K1 launched in the ER-NeRF session")
+    if attention.launches or any(k3_counts()):
+        raise AssertionError("K1 or K3 launched in the ER-NeRF session")
     if frame is None or frame.image.shape != (NERF_HW, NERF_HW, 3):
         raise AssertionError("no emitted frame of the dataset's shape")
     gauges = metrics.snapshot()["gauges"]
@@ -650,9 +833,171 @@ def phase_nerf_session(state: dict) -> dict:
     return asyncio.run(_nerf_session(state))
 
 
+def k3_counts() -> tuple[int, int]:
+    from mere_fusion_tpu_torch.ops import hash_lookup
+
+    return hash_lookup.fwd_launches, hash_lookup.bwd_launches
+
+
+def zero_kernel_counts() -> None:
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
+
+    attention.launches = sampler.launches = 0
+    hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
+
+
+def run_cli(argv: list) -> list[str]:
+    """ernerf_cli.main(argv) in this process; returns its printed lines."""
+    import contextlib
+    import io
+
+    from mere_fusion_tpu_torch.train import ernerf_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ernerf_cli.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def phase_nerf_train(state: dict) -> dict:
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        return _nerf_train(state, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _nerf_train(state: dict, dev, tmp: str) -> dict:
+    import json as _json
+    import os
+
+    import numpy as np
+    import torch
+
+    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
+    from mere_fusion_tpu_torch.data.provider import (
+        NeRFTrainDataset,
+        synthesize_nerf_train_data,
+    )
+    from mere_fusion_tpu_torch.models.ernerf.network import (
+        NeRFNetConfig,
+        NeRFNetwork,
+        init_ernerf_,
+    )
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.train.ernerf_train import (
+        NeRFTrainConfig,
+        compute_grads,
+        init_nerf_train,
+        make_nerf_train_step,
+        refresh_density_grid,
+    )
+    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+
+    # poses authored for the loader's default scale (4), which the CLI uses:
+    # the orbit then sits 1.5 from the origin and the box fills the frame
+    root = synthesize_nerf_train_data(os.path.join(tmp, "data"), n_frames=8, hw=NERF_HW,
+                                      scale=4.0)
+    ds = NeRFTrainDataset.load(root, device=dev)      # the CLI's loading defaults
+    tcfg = NeRFTrainConfig(iters=200)
+    net = init_ernerf_(NeRFNetwork(NeRFNetConfig(num_train_frames=len(ds))).to(dev), 0)
+    tstate = init_nerf_train(net, tcfg)
+    batch = ds.sample_rays(3, 4096, np.random.default_rng(0))
+    noise = torch.rand(batch["rays_o"].shape, generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+
+    # 1. one step from the same state, batch and noise: K3 against the plain encode
+    metrics, grads, launches = {}, {}, {}
+    try:
+        for impl in ("plain", "auto"):
+            net_mod.ENCODE_IMPL = impl
+            before = k3_counts()
+            m = compute_grads(tstate, batch, tcfg, noise)
+            torch.cuda.synchronize()
+            launches[impl] = tuple(a - b for a, b in zip(k3_counts(), before))
+            metrics[impl] = {k: float(v) for k, v in m.items()}
+            grads[impl] = {n: p.grad.clone() for n, p in net.named_parameters()}
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    if launches != {"plain": (0, 0), "auto": (3, 3)}:
+        raise AssertionError(f"K3 (forward, backward) launches per step {launches}, "
+                             "want plain (0, 0), auto (3, 3)")
+    step_rel = {k: abs(metrics["auto"][k] - metrics["plain"][k]) / abs(metrics["plain"][k])
+                for k in ("loss", "grad_norm")}
+    grad_rel = {n: ((grads["auto"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in grads["plain"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    if max(step_rel.values()) > K3_STEP_RTOL or grad_rel[worst] > K3_STEP_GRAD_RTOL:
+        raise AssertionError(f"train step with K3 against plain: {step_rel} (limit "
+                             f"{K3_STEP_RTOL}); {worst} gradient {grad_rel[worst]} (limit "
+                             f"{K3_STEP_GRAD_RTOL})")
+    if not all(np.isfinite(v) for v in metrics["auto"].values()):
+        raise AssertionError(f"train step metrics not finite: {metrics['auto']}")
+    del grads
+
+    # 2. step and refresh times with K3 and plain, in turns; one step profiled
+    step = make_nerf_train_step(tcfg)
+    mean_auds = torch.from_numpy(ds.auds).to(dev)
+    times = {}
+    try:
+        for impl in ("plain", "auto", "auto", "plain"):
+            net_mod.ENCODE_IMPL = impl
+            times.setdefault(f"step_{impl}_ms", []).append(
+                time_ms(lambda: step(tstate, batch, noise=noise), iters=20, warmup=3))
+            times.setdefault(f"refresh_{impl}_ms", []).append(
+                time_ms(lambda: refresh_density_grid(tstate, mean_auds, tcfg), iters=3,
+                        warmup=1))
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    profile = profile_generate(lambda: step(tstate, batch, noise=noise), kernel="lookup")
+    del tstate, net, step
+    torch.cuda.empty_cache()
+
+    # 3. the training CLI: the slice's main path, counts zeroed just before
+    ws = os.path.join(tmp, "workspace")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    lines = run_cli([root, "--workspace", ws, "--iters", "200"])
+    cli_s = time.perf_counter() - t0
+    fwd, bwd = k3_counts()                                  # ... and ends here
+    want = (200 * 3 + 13 * 32, 200 * 3)
+    if (fwd, bwd) != want or attention.launches or sampler.launches:
+        raise AssertionError(f"CLI run: K3 (forward, backward) launches {(fwd, bwd)}, want "
+                             f"{want}; K1 {attention.launches}, K2 {sampler.launches}")
+    with open(os.path.join(ws, "scalars.jsonl")) as f:
+        logged = {r["step"]: r for r in map(_json.loads, f)}
+    if not logged[100]["loss"] < logged[0]["loss"]:
+        raise AssertionError(f"loss did not fall: it 0 {logged[0]['loss']}, "
+                             f"it 100 {logged[100]['loss']}")
+    if Checkpointer(ws).steps() != [200]:
+        raise AssertionError(f"checkpoints after the CLI run: {Checkpointer(ws).steps()}")
+    state["k3_cli_launches"] = (fwd, bwd)
+    zero_kernel_counts()
+    resumed = run_cli([root, "--workspace", ws, "--iters", "216"])
+    if "[train] resumed from step 200" not in resumed or Checkpointer(ws).latest_step != 216:
+        raise AssertionError(f"the second CLI call did not resume: {resumed}")
+    if k3_counts() != (16 * 3 + 32, 16 * 3):
+        raise AssertionError(f"resumed run: K3 launches {k3_counts()}, want (80, 48)")
+    return {"step_loss": metrics["auto"]["loss"], "step_grad_norm": metrics["auto"]["grad_norm"],
+            "step_rel_err": step_rel, "step_grad_rel_err_max": [worst, grad_rel[worst]],
+            "k3_launches_per_step": launches["auto"], "step_profile": profile, **times,
+            "cli_seconds_200_iters": cli_s, "cli_k3_launches": [fwd, bwd],
+            "cli_lines": lines, "cli_resume_lines": resumed,
+            "loss_it0": logged[0]["loss"], "loss_it100": logged[100]["loss"],
+            "it_per_s_at_it100": logged[100]["it_per_s"]}
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("nerf_model", phase_nerf_model),
-          ("nerf_session", phase_nerf_session))
+          ("nerf_session", phase_nerf_session), ("nerf_train", phase_nerf_train))
 
 
 def main() -> int:
@@ -683,7 +1028,7 @@ def main() -> int:
             return 1
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
               "card": gpu, **result})
-    k1, k2 = state["kernel_numbers"], state["k2_numbers"]
+    k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -692,6 +1037,7 @@ def main() -> int:
         "launches": state["session_launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "ms_measure": "per call, CUDA events",
     }, {
         "name": "sample_shade_comp_tiles (K2)", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",
@@ -700,7 +1046,21 @@ def main() -> int:
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         # no single PyTorch call computes K2's function
         "bound_by": k2["bound_by"], "library_ms": None,
-    }]})
+        "ms_measure": "per call, CUDA events",
+    }] + [{
+        "name": f"hash lookup {part} (K3)", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/hash_lookup.cu",
+        "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",
+        "launches": launches, "max_abs_err": k3[part]["max_abs_err"],
+        "ms": k3[part]["kernel_ms"], "plain_ms": k3[part]["plain_ms"],
+        "bound_ms": k3[part]["bound_ms"], "bound_by": k3[part]["bound_by"],
+        # embedding_bag(mode="sum", per_sample_weights) over the stacked tables
+        "library_ms": k3[part]["library_ms"],
+        # sub-ms calls: device time, with the time per call (host gaps included) beside it
+        "ms_measure": "device time, torch.profiler",
+        "call_ms": k3[part]["kernel_call_ms"], "plain_call_ms": k3[part]["plain_call_ms"],
+        "library_call_ms": k3[part]["library_call_ms"],
+    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

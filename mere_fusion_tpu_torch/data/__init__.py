@@ -1,1 +1,1 @@
-"""Datasets of the PyTorch port (the ER-NeRF test set)."""
+"""Datasets of the PyTorch port (the ER-NeRF test and training sets)."""

@@ -1,20 +1,27 @@
-"""ER-NeRF test-time dataset: poses, blink areas, background.
+"""ER-NeRF datasets: the test set (poses, blink areas, background) and the
+training set (frames, face masks, audio windows, random-pixel ray batches).
 
-Port of the test-set half of mere_fusion_tpu/data/provider.py (the twin of
-the reference's NeRFDataset_Test): transforms.json poses converted to NGP
+Port of mere_fusion_tpu/data/provider.py (the twin of the reference's
+NeRFDataset and NeRFDataset_Test): transforms.json poses converted to NGP
 coordinates, optional camera-path smoothing, AU45 blink areas from
-OpenFace's au.csv, and infinite mirrored looping for live streaming. The
-training dataset (preload tiers) is not ported yet.
+OpenFace's au.csv (read with ``csv``: no pandas), infinite mirrored looping
+for live streaming, the training set's preload tiers 0/1/2, and the
+procedural datasets the tests and ``chip_smoke.py`` train on. The lips and
+torso batches and patch sampling are not ported.
 """
 from __future__ import annotations
 
 import csv
 import json
 import os
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import cv2
 import numpy as np
+import torch
+
+from mere_fusion_tpu_torch.device import resolve_device
 
 
 def nerf_matrix_to_ngp(pose: np.ndarray, scale: float, offset=(0, 0, 0)) -> np.ndarray:
@@ -145,10 +152,204 @@ class NeRFTestDataset:
         return cls(poses, eye_area, bg, intrinsics, H, W)
 
 
-def synthesize_nerf_dataset(dirpath: str, n_frames: int = 4, hw: int = 64) -> str:
-    """Write a small procedural transforms.json + au.csv: a short orbit
-    looking at the origin, authored in NGP space and converted back so
-    loading reproduces it exactly."""
+class LazyFrames:
+    """preload=0 image store: decode ground-truth frames from disk on access
+    with a small LRU. Supports the eager array's consumer surface: len,
+    [i] → float32 [H, W, 3], .shape."""
+
+    def __init__(self, paths: list, cache: int = 16):
+        self._paths = paths
+        self._lru: OrderedDict[int, np.ndarray] = OrderedDict()
+        self._cap = cache
+        first = self._decode(0)
+        self.shape = (len(paths),) + first.shape
+
+    @staticmethod
+    def _imread(path: str) -> np.ndarray:
+        return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+
+    def _decode(self, i: int) -> np.ndarray:
+        img = self._imread(self._paths[i]).astype(np.float32) / 255
+        self._lru[i] = img
+        if len(self._lru) > self._cap:
+            self._lru.popitem(last=False)
+        return img
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        hit = self._lru.get(i)
+        if hit is not None:
+            self._lru.move_to_end(i)
+            return hit
+        return self._decode(i)
+
+
+@dataclass
+class NeRFTrainDataset:
+    """Training-time dataset: poses, ground-truth frames, per-frame audio
+    feature windows, blink areas and face masks, with random-pixel ray
+    batches on ``device``.
+
+    Preload tiers: 0 keeps frames on disk (LazyFrames), 1 decodes them into
+    host RAM, 2 also holds the uint8 frames, the masks and the background on
+    the device, where the batch gathers then run."""
+
+    poses: np.ndarray        # [N, 4, 4]
+    images: np.ndarray       # [N, H, W, 3] float32 RGB in [0, 1] (or LazyFrames)
+    auds: np.ndarray         # [N, A, 16] audio windows
+    eye_area: np.ndarray     # [N]
+    face_masks: np.ndarray   # [N, H, W] bool
+    bg_img: np.ndarray       # [H, W, 3]
+    intrinsics: tuple
+    H: int
+    W: int
+    device: torch.device = torch.device("cpu")
+    images_dev: torch.Tensor | None = None   # preload=2: [N, H·W, 3] uint8
+    masks_dev: torch.Tensor | None = None    # preload=2: [N, H·W] bool
+    bg_dev: torch.Tensor | None = None       # preload=2: [H·W, 3] float32
+
+    def __len__(self) -> int:
+        return len(self.poses)
+
+    def sample_lips_rays(self, *args, **kwargs) -> dict:
+        raise NotImplementedError(
+            "lips fine-tuning batches are not ported to the PyTorch package yet "
+            "(ROADMAP: 'ER-NeRF LPIPS fine-tuning')")
+
+    def sample_torso_rays(self, *args, **kwargs) -> dict:
+        raise NotImplementedError(
+            "torso batches are not ported to the PyTorch package yet "
+            "(ROADMAP: 'ER-NeRF torso')")
+
+    def sample_rays(self, index: int, num_rays: int, rng: np.random.Generator,
+                    att_window: int = 8, patch_size: int | None = None) -> dict:
+        """One training batch of num_rays random pixels of frame ``index``,
+        drawn with the same generator calls as the JAX package, so a seed
+        gives the same pixels. Tensors on ``self.device``."""
+        from mere_fusion_tpu_torch.models.ernerf.renderer import get_rays
+
+        if patch_size is not None:
+            raise NotImplementedError(
+                "patch sampling for the LPIPS loss is not ported to the PyTorch package "
+                "yet (ROADMAP: 'ER-NeRF LPIPS fine-tuning')")
+        dev = self.device
+        pose = torch.from_numpy(self.poses[index]).to(dev)
+        rays_o, rays_d = get_rays(pose, self.intrinsics, self.H, self.W)
+        sel = rng.integers(0, self.H * self.W, size=num_rays)
+        idx = np.clip(np.arange(index - att_window // 2, index + att_window // 2),
+                      0, len(self) - 1)
+        sel_t = torch.from_numpy(sel).to(dev)
+        batch = {
+            "rays_o": rays_o[sel_t],
+            "rays_d": rays_d[sel_t],
+            "auds": torch.from_numpy(self.auds[idx]).to(dev),
+            "eye": torch.tensor([[self.eye_area[index]]], dtype=torch.float32, device=dev),
+            "index": int(index),
+        }
+        if self.images_dev is not None:
+            # preload=2: the gathers run on the device; only sel is shipped
+            batch["rgb"] = self.images_dev[index][sel_t].float() / 255.0
+            batch["bg_color"] = self.bg_dev[sel_t]
+            batch["face_mask"] = self.masks_dev[index][sel_t]
+            return batch
+        batch["rgb"] = torch.from_numpy(self.images[index].reshape(-1, 3)[sel]).to(dev)
+        batch["bg_color"] = torch.from_numpy(self.bg_img.reshape(-1, 3)[sel]).to(dev)
+        batch["face_mask"] = torch.from_numpy(self.face_masks[index].reshape(-1)[sel]).to(dev)
+        return batch
+
+    @classmethod
+    def load(cls, root: str, scale: float = 4.0, offset=(0, 0, 0), bg_img: str = "white",
+             preload: int = 1, device=None) -> "NeRFTrainDataset":
+        """Load an ER-NeRF-format data dir: transforms.json (frames with
+        img_id/aud_id), gt_imgs/{img_id}.jpg|png, aud.npy [N, 16, A] or
+        [N, A, 16] features, au.csv blink areas, optional
+        parsing/{img_id}.png face masks (else the centre half of the frame).
+        ``device`` None means the current CUDA device."""
+        if preload not in (0, 1, 2):
+            raise ValueError(f"preload is 0, 1 or 2, got {preload}")
+        device = resolve_device(device)
+        with open(os.path.join(root, "transforms.json")) as f:
+            transform = json.load(f)
+        H = int(transform["cy"]) * 2
+        W = int(transform["cx"]) * 2
+        aud_features = np.load(os.path.join(root, "aud.npy"))
+        if aud_features.ndim == 3 and aud_features.shape[1] == 16:
+            aud_features = aud_features.transpose(0, 2, 1)   # [N, 16, A] → [N, A, 16]
+        au_blink = read_au45(os.path.join(root, "au.csv"))
+
+        poses, images, auds, eyes, masks, img_paths = [], [], [], [], [], []
+        for fr in transform["frames"]:
+            poses.append(nerf_matrix_to_ngp(
+                np.array(fr["transform_matrix"], np.float32), scale, offset))
+            img_id = fr["img_id"]
+            for ext in (".jpg", ".png"):
+                p = os.path.join(root, "gt_imgs", f"{img_id}{ext}")
+                if os.path.exists(p):
+                    break
+            img_paths.append(p)
+            if preload >= 1:
+                img = cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                images.append(img.astype(np.float32) / 255)
+            auds.append(aud_features[min(fr.get("aud_id", img_id), len(aud_features) - 1)])
+            eyes.append(float(np.clip(au_blink[img_id], 0, 2)) / 2)
+            mp = os.path.join(root, "parsing", f"{img_id}.png")
+            if os.path.exists(mp):
+                parsing = cv2.imread(mp)
+                # semantic maps: the head is BGR (255, 0, 0)
+                masks.append((parsing[..., 0] > 200) & (parsing[..., 2] < 100))
+            else:
+                m = np.zeros((H, W), bool)
+                m[H // 4: 3 * H // 4, W // 4: 3 * W // 4] = True
+                masks.append(m)
+
+        if bg_img == "white":
+            bg = np.ones((H, W, 3), np.float32)
+        else:
+            bg = cv2.cvtColor(cv2.imread(bg_img), cv2.COLOR_BGR2RGB).astype(np.float32) / 255
+        image_store = LazyFrames(img_paths) if preload == 0 else np.stack(images)
+        face_masks = np.stack(masks)
+        images_dev = masks_dev = bg_dev = None
+        if preload == 2:
+            n = len(img_paths)
+            images_dev = torch.from_numpy(
+                np.rint(image_store * 255).astype(np.uint8).reshape(n, H * W, 3)).to(device)
+            masks_dev = torch.from_numpy(face_masks.reshape(n, H * W)).to(device)
+            bg_dev = torch.from_numpy(bg.reshape(H * W, 3).astype(np.float32)).to(device)
+        fl = transform["focal_len"]
+        return cls(poses=np.stack(poses), images=image_store,
+                   auds=np.stack(auds).astype(np.float32),
+                   eye_area=np.asarray(eyes, np.float32), face_masks=face_masks, bg_img=bg,
+                   intrinsics=(fl, fl, transform["cx"], transform["cy"]), H=H, W=W,
+                   device=device, images_dev=images_dev, masks_dev=masks_dev, bg_dev=bg_dev)
+
+
+def synthesize_nerf_train_data(dirpath: str, n_frames: int = 4, hw: int = 64,
+                               audio_dim: int = 44, scale: float = 1.0) -> str:
+    """Procedural ER-NeRF training data dir: a moving bright square over
+    gray, with matching aud.npy and au.csv (with the default scale the JAX
+    package's twin writes the same files)."""
+    synthesize_nerf_dataset(dirpath, n_frames, hw, scale)
+    gt = os.path.join(dirpath, "gt_imgs")
+    os.makedirs(gt, exist_ok=True)
+    for i in range(n_frames):
+        img = np.full((hw, hw, 3), 64, np.uint8)
+        o = hw // 4 + i
+        img[o: o + hw // 2, o: o + hw // 2] = [220, 180, 140]
+        cv2.imwrite(os.path.join(gt, f"{i}.png"), img)
+    rng = np.random.default_rng(0)
+    np.save(os.path.join(dirpath, "aud.npy"),
+            rng.standard_normal((n_frames, 16, audio_dim)).astype(np.float32))
+    return dirpath
+
+
+def synthesize_nerf_dataset(dirpath: str, n_frames: int = 4, hw: int = 64,
+                            scale: float = 1.0) -> str:
+    """Write a small procedural transforms.json + au.csv: a short orbit 1.5
+    from the origin, looking at it, authored in NGP space and converted back
+    so that loading with ``scale`` reproduces it exactly (the box then fills
+    the frame)."""
     os.makedirs(dirpath, exist_ok=True)
     frames = []
     for i in range(n_frames):
@@ -163,7 +364,7 @@ def synthesize_nerf_dataset(dirpath: str, n_frames: int = 4, hw: int = 64) -> st
             ],
             np.float32,
         )
-        mat = ngp_to_nerf_matrix(post, scale=1.0).tolist()
+        mat = ngp_to_nerf_matrix(post, scale=scale).tolist()
         frames.append({"img_id": i, "aud_id": i, "transform_matrix": mat})
     pose_path = os.path.join(dirpath, "transforms.json")
     with open(pose_path, "w") as f:

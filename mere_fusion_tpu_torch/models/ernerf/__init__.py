@@ -1,4 +1,4 @@
-"""ER-NeRF: audio-driven triplane NeRF talking head (serving head only)."""
+"""ER-NeRF: audio-driven triplane NeRF talking head (the head, for serving and training)."""
 
 from mere_fusion_tpu_torch.models.ernerf.network import (  # noqa: F401
     NeRFNetConfig,

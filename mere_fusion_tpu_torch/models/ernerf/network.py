@@ -21,8 +21,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mere_fusion_tpu_torch.ops import hash_lookup
 from mere_fusion_tpu_torch.ops.encoders import sh_encode
-from mere_fusion_tpu_torch.ops.hashgrid import GridSpec, grid_encode
+from mere_fusion_tpu_torch.ops.hashgrid import GridSpec
+
+# Hash-encode implementation of encode_x (mirrors the JAX package's switch to
+# its Pallas lookup):
+#   "auto"  — K3 (ops/hash_lookup.triplane_encode): the CUDA kernels on the
+#             card at every size, the plain version on the CPU
+#   "plain" — the plain version on any device (the comparison path)
+ENCODE_IMPL = "auto"
 
 
 @dataclass(frozen=True)
@@ -152,15 +160,12 @@ class NeRFNetwork(nn.Module):
 
     # ---- encoders -------------------------------------------------------------
     def encode_x(self, xyz):
-        """[N, 3] in [−bound, bound] → triplane features [N, 3·L·C] (the
-        plain hash encode; inference samples baked textures instead)."""
-        spec, bound = self.cfg.plane_spec, self.cfg.bound
-        xy = xyz[:, :2]
-        yz = xyz[:, 1:]
-        xz = torch.stack([xyz[:, 0], xyz[:, 2]], dim=-1)
-        return torch.cat([grid_encode(self.plane_xy, xy, spec, bound),
-                          grid_encode(self.plane_yz, yz, spec, bound),
-                          grid_encode(self.plane_xz, xz, spec, bound)], dim=-1)
+        """[N, 3] in [−bound, bound] → triplane features [N, 3·L·C], all
+        three planes in one K3 lookup (training and the density refresh;
+        inference samples baked textures instead)."""
+        return hash_lookup.triplane_encode(self.plane_xy, self.plane_yz, self.plane_xz, xyz,
+                                           self.cfg.plane_spec, self.cfg.bound,
+                                           impl=ENCODE_IMPL)
 
     def encode_audio(self, a):
         """[W, audio_in_dim, 16] windows → [1, audio_dim] attended code."""

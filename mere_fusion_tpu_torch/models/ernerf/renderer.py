@@ -1,15 +1,18 @@
-"""Volume-rendering geometry for the ER-NeRF serving step.
+"""Volume rendering for ER-NeRF serving and training.
 
-Port of the parts of mere_fusion_tpu/models/ernerf/renderer.py the serving
-step uses: the density grid, the ray/box slab test, voxel lookup, the
-occupancy probe that places each ray's sample span, camera rays from a
-pose, and the front-to-back composite (the tests' oracle; the step
-composites inside kernel K2). Training-time grid maintenance, the plain
-marcher and the torso pass are not ported.
+Port of mere_fusion_tpu/models/ernerf/renderer.py without the torso pass:
+the density grid, the ray/box slab test, voxel lookup, the occupancy probe
+that places each ray's sample span, camera rays from a pose, the
+front-to-back composite (the serving step composites inside kernel K2), and
+the training path: ``plan_rays`` / ``shade`` / ``render_rays`` and the
+density-grid refresh ``update_density_grid``. Ray compaction
+(``max_active_rays``) and the block-shared probe (``probe_block``) are not
+ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -88,9 +91,11 @@ def select_occupied_depths(rays_o, rays_d, near, far, density: DensityGrid,
     return z, dt, any_occ[:, None].expand(n, n_steps)
 
 
-def composite(sigmas, colors, z, dt, valid, bg_color, t_threshold: float = 1e-4):
+def composite(sigmas, colors, z, dt, valid, bg_color, extras: dict | None = None,
+              t_threshold: float = 1e-4):
     """Front-to-back alpha compositing with masked samples: sigmas [N,K],
-    colors [N,K,3], z [N,K], dt [N,1], valid [N,K]."""
+    colors [N,K,3], z [N,K], dt [N,1], valid [N,K]; extras: name → [N,K,Ce]
+    accumulated with the same weights."""
     alpha = 1.0 - torch.exp(-sigmas * dt)
     alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
     trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
@@ -99,7 +104,79 @@ def composite(sigmas, colors, z, dt, valid, bg_color, t_threshold: float = 1e-4)
     ws = weights.sum(dim=-1, keepdim=True)
     image = (weights[..., None] * colors).sum(dim=1) + (1.0 - ws) * bg_color
     depth = (weights * z).sum(dim=-1)
-    return {"image": image, "depth": depth, "weights_sum": ws[:, 0]}
+    out = {"image": image, "depth": depth, "weights_sum": ws[:, 0]}
+    for name, v in (extras or {}).items():
+        out[name] = (weights[..., None] * v).sum(dim=1)
+    return out
+
+
+def plan_rays(rays_o, rays_d, density: DensityGrid, bound: float, grid_size: int,
+              n_candidates: int = 64, n_steps: int = 16, min_near: float = 0.05,
+              max_active_rays: int = 0, probe_block: int = 0) -> dict:
+    """Occupancy probing and sample placement, no network: returns xyz
+    [N,K,3] (clipped to the box), dirs [N,3], z [N,K], dt [N,1], valid
+    [N,K] and sel None (no compaction)."""
+    if max_active_rays > 0 or probe_block > 1:
+        raise NotImplementedError(
+            "ray compaction and the block-shared probe are not ported to the PyTorch "
+            "package yet (ROADMAP: 'ER-NeRF sample modes')")
+    near, far, ray_valid = intersect_aabb(rays_o, rays_d, bound, min_near)
+    z, dt, sample_valid = select_occupied_depths(rays_o, rays_d, near, far, density, bound,
+                                                 grid_size, n_candidates, n_steps)
+    sample_valid = sample_valid & ray_valid[:, None]
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    xyz = torch.clamp(xyz, -bound, bound)
+    return {"xyz": xyz, "dirs": rays_d, "z": z, "dt": dt, "valid": sample_valid,
+            "sel": None}
+
+
+def shade(apply_fn: Callable, plan: dict, bg_color, training: bool = False) -> dict:
+    """Network evaluation and compositing over a plan_rays() plan.
+
+    apply_fn(xyz [M·K,3], dirs [M·K,3], training) → (sigma, color, amb_aud,
+    amb_eye, unc), a closure over the network and the frame's conditions.
+    Returns composite()'s dict with ambient_aud, ambient_eye and uncertainty
+    [N, 1] accumulated beside the image."""
+    z, dt, valid = plan["z"], plan["dt"], plan["valid"]
+    m, k = z.shape
+    xyz = plan["xyz"]
+    dirs = plan["dirs"][:, None, :].expand(xyz.shape)
+    sigma, color, amb_aud, amb_eye, unc = apply_fn(xyz.reshape(-1, 3), dirs.reshape(-1, 3),
+                                                   training)
+    extras = {"ambient_aud": amb_aud.reshape(m, k, 1),
+              "ambient_eye": amb_eye.reshape(m, k, 1),
+              "uncertainty": unc.reshape(m, k, 1)}
+    return composite(sigma.reshape(m, k), color.reshape(m, k, 3), z, dt, valid, bg_color,
+                     extras=extras)
+
+
+def render_rays(apply_fn: Callable, rays_o, rays_d, density: DensityGrid, bound: float,
+                grid_size: int, bg_color, n_candidates: int = 64, n_steps: int = 16,
+                min_near: float = 0.05, training: bool = False,
+                max_active_rays: int = 0, probe_block: int = 0) -> dict:
+    """plan_rays + shade: the training path, where the hash encode is
+    differentiable."""
+    plan = plan_rays(rays_o, rays_d, density, bound, grid_size, n_candidates=n_candidates,
+                     n_steps=n_steps, min_near=min_near, max_active_rays=max_active_rays,
+                     probe_block=probe_block)
+    return shade(apply_fn, plan, bg_color, training=training)
+
+
+def update_density_grid(density_fn: Callable, density: DensityGrid, bound: float,
+                        grid_size: int, decay: float = 0.95, density_thresh: float = 10.0,
+                        chunk: int = 65536) -> DensityGrid:
+    """Decayed max-update over all cell centres, then the occupancy
+    threshold min(mean density, density_thresh). density_fn(xyz [M,3]) →
+    sigma [M]; cells marked −1 (untrained) stay −1."""
+    idx = torch.arange(grid_size, device=density.grid.device)
+    ijk = torch.stack(torch.meshgrid(idx, idx, idx, indexing="ij"), dim=-1).reshape(-1, 3)
+    xyz = (ijk.to(torch.float32) + 0.5) / grid_size * 2 * bound - bound   # cell centres
+    sigmas = torch.cat([density_fn(xyz[i: i + chunk]) for i in range(0, xyz.shape[0], chunk)])
+    old = density.grid
+    new = torch.where(old >= 0, torch.maximum(old * decay, sigmas), old)
+    mean_density = torch.clamp(new, min=0).mean()
+    thresh = torch.clamp(mean_density, max=density_thresh)
+    return DensityGrid(grid=new, occupancy=new > thresh, mean_density=mean_density)
 
 
 def get_rays(pose: torch.Tensor, intrinsics, H: int, W: int):

@@ -4,8 +4,12 @@ Port of mere_fusion_tpu/ops/hashgrid.py (numerics of the reference CUDA
 gridencoder: per level the scale is 2^(l·S)·H − 1, corner indices use the
 stride-or-fast-hash rule with primes {1, 2654435761, 805459861}, and the
 2^D corner embeddings are lerped). The JAX package's uint32 index math runs
-here in int64 masked to 32 bits. Plain PyTorch gathers: the JAX package
-leaves this to XLA too (K4, not a Pallas kernel).
+here in int64 masked to 32 bits, with XLA's saturating float → uint32 cast;
+the rows come out as int32. ``corner_sum`` is the plain weighted corner sum,
+the one plain encode of the package (``grid_encode`` for the bake, and
+``ops/hash_lookup.lookup_plain``, K3's plain version). Plain PyTorch
+gathers: the JAX package leaves the corner rows to XLA too (K4, not a
+Pallas kernel).
 """
 from __future__ import annotations
 
@@ -76,14 +80,15 @@ def _corner_index(pg: list, spec: GridSpec, resolution: int, hsize: int) -> torc
         for d in range(spec.input_dim):
             h = h ^ ((pg[d] * _PRIMES[d]) & _U32)
         index = h
-    return index % hsize
+    return (index % hsize).to(torch.int32)
 
 
 def corner_indices_weights(x: torch.Tensor, spec: GridSpec, bound: float):
     """Per-level corner table rows + bilinear weights for x [N, D].
 
-    Returns (idx [N, L, 2^D] int64 local to each level's table,
-    w [N, L, 2^D] float32)."""
+    Returns (idx [N, L, 2^D] int32 local to each level's table,
+    w [N, L, 2^D] float32). Every row is below the level's table size, at
+    most 2^log2_hashmap_size, so 4-byte indices hold it."""
     x01 = (x + bound) / (2.0 * bound)
     corners = list(itertools.product((0, 1), repeat=spec.input_dim))
     idx_levels, w_levels = [], []
@@ -91,7 +96,10 @@ def corner_indices_weights(x: torch.Tensor, spec: GridSpec, bound: float):
         pos = x01 * scale + (0.0 if spec.align_corners else 0.5)
         pf = torch.floor(pos)
         frac = pos - pf
-        pfi = pf.to(torch.int64) & _U32
+        # XLA's float → uint32 conversion saturates: a point below the box
+        # (pos < 0, e.g. a jittered training point) takes cell 0, not a
+        # wrapped one
+        pfi = torch.clamp(pf.to(torch.int64), 0, _U32)
         idx_corners, w_corners = [], []
         for corner in corners:
             w = torch.ones(x.shape[:-1], dtype=x01.dtype, device=x.device)
@@ -107,17 +115,26 @@ def corner_indices_weights(x: torch.Tensor, spec: GridSpec, bound: float):
             torch.stack(w_levels, dim=-2).to(torch.float32))
 
 
+def level_offsets(spec: GridSpec) -> list[int]:
+    """First table row of each level."""
+    return [off for (_, _, _, off) in spec.level_params()]
+
+
+def corner_sum(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+               spec: GridSpec) -> torch.Tensor:
+    """The weighted corner sum over one table [T, C]: idx (row within the
+    level) and w [..., L, 2^D] → [..., L·C], corner by corner, every product
+    and sum rounded on its own."""
+    offsets = torch.tensor(level_offsets(spec), dtype=torch.int64, device=idx.device)
+    rows = table[idx + offsets[:, None]]                # [..., L, 2^D, C]
+    acc = w[..., 0, None] * rows[..., 0, :]
+    for k in range(1, idx.shape[-1]):
+        acc = acc + w[..., k, None] * rows[..., k, :]
+    return acc.reshape(*acc.shape[:-2], spec.num_levels * spec.level_dim)
+
+
 def grid_encode(table: torch.Tensor, x: torch.Tensor, spec: GridSpec,
                 bound: float = 1.0) -> torch.Tensor:
-    """x [N, D] in [−bound, bound] → features [N, L·C]: every level's corner
-    rows resolve first, then one gather and a weighted corner sum."""
-    idx_local, w = corner_indices_weights(x, spec, bound)
-    offsets = torch.tensor([off for (_, _, _, off) in spec.level_params()],
-                           dtype=torch.int64, device=x.device)
-    idx = idx_local + offsets[:, None]
-    n_corners = idx.shape[-1]
-    lead = x.shape[:-1]
-    emb = table[idx.reshape(*lead, -1)]           # [N, L·2^D, C]
-    out = (w.reshape(*lead, -1)[..., None] * emb).reshape(
-        *lead, spec.num_levels, n_corners, spec.level_dim).sum(dim=-2)
-    return out.reshape(*lead, spec.num_levels * spec.level_dim)
+    """x [..., D] in [−bound, bound] → features [..., L·C]."""
+    idx, w = corner_indices_weights(x, spec, bound)
+    return corner_sum(table, idx, w, spec)

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of mere_fusion_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package."""
+chip_smoke.py, imports jax, flax, optax or the JAX package."""
 from __future__ import annotations
 
 import ast
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "mere_fusion_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "mere_fusion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mere_fusion_tpu")
 
 
 def _port_sources() -> list[str]:
@@ -44,14 +44,15 @@ def test_no_jax_import_in_source(path):
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'mere_fusion_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mere_fusion_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import mere_fusion_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "assert not any(k.split('.')[0] in ('jax', 'flax') and sys.modules[k] is not None\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax')\n"
+        "               and sys.modules[k] is not None\n"
         "               for k in list(sys.modules))\n"
         "print(len(mods))\n"
     )
