@@ -6,9 +6,10 @@
 Run from the root of a checkout. Phases, each printing one JSON line with
 its seconds; any failure is fatal (exit code 1, no result line):
 
-1. build    — build kernels K1 (csrc/attention.cu), K2 (csrc/sampler.cu) and
-              K3 (csrc/hash_lookup.cu) with nvcc for sm_90a, one nvcc each,
-              started together.
+1. build    — build kernels K1 (csrc/attention.cu), the sampler family K2,
+              K2b, K2c, K2d (csrc/sampler.cu) and K3 (csrc/hash_lookup.cu)
+              with nvcc for sm_90a, one nvcc each, started together; ptxas's
+              registers and spills per kernel.
 2. kernels  — K1 at the serving shape [16, 8, 1024, 40] in float32 (TF32
               off) and bfloat16 against its plain PyTorch version: max abs
               error, kernel / plain / SDPA times, the bound; a ragged shape
@@ -48,7 +49,23 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frames, stop. Kernel counts are zeroed just before
               and read just after; K2 launches must equal the nerf.render
               observations.
-7. nerf_train   — ER-NeRF head training at full width on a synthesized 512²,
+7. sampler_family — the dense 512² job set of the K2 check through each
+              member of the sampler family, with bf16 and float32 shade
+              weights, kernel counts zeroed just before and read just after
+              (one launch each of K2, K2b, K2c, K2d): K2b's per-sample σ/rgb
+              through the grouped composite within 2e-5 of K2, K2c on
+              plan_jobs_rays over the same rays within 1e-4 of K2; each of
+              K2b, K2c, K2d against its plain version (max error, kernel /
+              plain times, the bound), each limit failed by its control
+              (K2d: no window clamp; K2b, K2c: no bf16 rounding of
+              activations); wrong shapes and dtypes must raise.
+8. nerf_modes   — the nerf_model frame through the bilinear and nearest
+              steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
+              against the K2 frame with no sampler kernel launched; frame
+              times in turns; one bilinear frame under torch.profiler. Then a
+              loopback session with nerf.sample_mode = "bilinear" at the
+              default config: at least 20 rendered frames, no sampler launch.
+9. nerf_train   — ER-NeRF head training at full width on a synthesized 512²,
               8-frame dataset in a temporary directory: one train step's loss,
               gradient norm and gradients with K3 against the plain encode
               from the same state, batch and jitter noise; step and refresh
@@ -92,6 +109,19 @@ K3_BWD_RTOL = 1e-5
 # gradient norm, relative; each parameter's gradient relative to its largest entry
 K3_STEP_RTOL = 1e-6
 K3_STEP_GRAD_RTOL = 1e-5
+# K2b, K2c and K2d against their plain versions: K2d rounds the same f32
+# features to bf16 as its plain version (equal but for values under 2^-17);
+# K2b (relative above 1: σ = exp(logit)) and K2c sum the head in another
+# order, K2's limit. Each fails its control (K2d: no clamp of coordinates
+# into their job's window, which the dense job set's overflow jobs need; K2b,
+# K2c: no bf16 rounding of activations). K2b through the grouped composite,
+# and K2c, against K2: the JAX package's limits (tests/test_pallas_sampler.py).
+FAMILY_ATOL = {"K2d": 1e-6, "K2b": 1e-5, "K2c": 1e-5}
+FAMILY_K2B_COMPOSITE_ATOL = 2e-5
+FAMILY_K2C_ATOL = 1e-4
+K2C_SYNTH_OPS = 37     # K2c's per-sample kf, z, clipped xyz, texels and mip placement
+MODES_PSNR_DB = 20     # nearest/bilinear against the K2 frame (tests/test_nerf_engine.py)
+MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
 
@@ -196,8 +226,9 @@ def phase_build(state: dict) -> dict:
     out = {}
     for name, path in paths.items():
         with open(path[:-3] + ".log") as f:
-            notes = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        out[name] = {"library": path, "ptxas": notes[:8]}
+            notes = [ln.strip() for ln in f
+                     if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+        out[name] = {"library": path, "ptxas": notes[:24]}
     return out
 
 
@@ -242,18 +273,13 @@ def phase_kernels(state: dict) -> dict:
     return out
 
 
-def k2_operands(dev, hw: int, spec, wdtype, seed: int = 0):
-    """K2's operands for one dense frame: a camera 1.5 from the origin
-    looking at a fully occupied box (every ray valid), planned by the
-    port's own planner, with seeded random planes and network weights."""
+def k2_rays(dev, hw: int, spec):
+    """The dense frame's rays in tiles: a camera 1.5 from the origin looking
+    at a fully occupied box (every ray valid), with the port's occupancy
+    probe's spans. Returns (o_t, d_t, zmin, zmax, valid), zmax == zmin on
+    invalid rays."""
     import torch
 
-    from mere_fusion_tpu_torch.engines.nerf_step import shade_weights
-    from mere_fusion_tpu_torch.models.ernerf.network import (
-        NeRFNetConfig,
-        NeRFNetwork,
-        init_ernerf_,
-    )
     from mere_fusion_tpu_torch.models.ernerf.renderer import (
         DensityGrid,
         get_rays,
@@ -261,13 +287,7 @@ def k2_operands(dev, hw: int, spec, wdtype, seed: int = 0):
         select_occupied_depths,
     )
     from mere_fusion_tpu_torch.ops import sampler
-    from mere_fusion_tpu_torch.ops.encoders import sh_encode
 
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    r = spec.resolution
-    planes = {n: (torch.rand(r * r, spec.channels, generator=gen) * 2 - 1).to(dev)
-              for n in ("plane_xy", "plane_yz", "plane_xz")}
-    planes_major = sampler.pack_planes_major(planes, spec)
     pose = torch.eye(4, device=dev)
     pose[2, 3] = 1.5
     fl = hw * 1.2
@@ -279,7 +299,29 @@ def k2_operands(dev, hw: int, spec, wdtype, seed: int = 0):
     va = tile(valid.any(-1) & ok)
     zmin, zmax = tile(z[:, 0]), tile(z[:, -1])
     zmax = zmin + (zmax - zmin) * va.float()
-    o_t, d_t = tile(rays_o), tile(rays_d)
+    return tile(rays_o), tile(rays_d), zmin, zmax, va
+
+
+def k2_operands(dev, hw: int, spec, wdtype, seed: int = 0):
+    """K2's operands for one dense frame (k2_rays), planned by the port's
+    own planner, with seeded random planes and network weights."""
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf_step import shade_weights
+    from mere_fusion_tpu_torch.models.ernerf.network import (
+        NeRFNetConfig,
+        NeRFNetwork,
+        init_ernerf_,
+    )
+    from mere_fusion_tpu_torch.ops import sampler
+    from mere_fusion_tpu_torch.ops.encoders import sh_encode
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    r = spec.resolution
+    planes = {n: (torch.rand(r * r, spec.channels, generator=gen) * 2 - 1).to(dev)
+              for n in ("plane_xy", "plane_yz", "plane_xz")}
+    planes_major = sampler.pack_planes_major(planes, spec)
+    o_t, d_t, zmin, zmax, va = k2_rays(dev, hw, spec)
     scalars, uv, _ = sampler.plan_jobs_span(o_t, d_t, zmin, zmax, va, spec, 1.0)
     t = o_t.shape[0]
     net = init_ernerf_(NeRFNetwork(NeRFNetConfig(num_levels=spec.channels)).to(dev), seed)
@@ -293,6 +335,23 @@ def k2_operands(dev, hw: int, spec, wdtype, seed: int = 0):
     return (planes_major, scalars.reshape(-1).contiguous(),
             uv.reshape(t * 3, spec.kg, 2, spec.sg).contiguous(), dproj.contiguous(),
             dtv.contiguous(), weights)
+
+
+def family_operands(dev, hw: int, spec, ops) -> dict:
+    """What K2b and K2c take beside K2's operands ops on the same frame:
+    K2b's dproj [T, rpt, 128] (lanes 64: zero); K2c's per-ray rays [T, rpt,
+    8] (o, d, zmin, zmax) and its job table from plan_jobs_rays over the
+    same rays."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops import sampler
+
+    o_t, d_t, zmin, zmax, va = k2_rays(dev, hw, spec)
+    jobs_rays, _ = sampler.plan_jobs_rays(o_t, d_t, zmin, zmax, va, spec, 1.0)
+    dproj = ops[3]
+    return {"dproj128": torch.nn.functional.pad(dproj, (0, 64)).contiguous(),
+            "rays": torch.cat([o_t, d_t, zmin[..., None], zmax[..., None]], -1).contiguous(),
+            "jobs_rays": jobs_rays.reshape(-1).contiguous()}
 
 
 def k2_ops_per_sample(spec) -> int:
@@ -690,26 +749,24 @@ def nerf_config(pose_path: str, au_path: str):
         "nerf.scale": 1.0})
 
 
-def phase_nerf_model(state: dict) -> dict:
-    import numpy as np
+def nerf_frame_model(dev):
+    """The full-width ER-NeRF frame model: Config() defaults over a 4-frame
+    512² pose track, seeded weights with hash tables U(−1, 1) (trained
+    magnitude, so the frame has structure), planes baked at 1024² bf16.
+    Returns (cfg, dataset, network, baked, bake seconds)."""
     import torch
 
     from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
     from mere_fusion_tpu_torch.engines.nerf import net_config
-    from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
     from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork, init_ernerf_
-    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
-    from mere_fusion_tpu_torch.ops import sampler
     from mere_fusion_tpu_torch.ops.triplane_bake import bake_triplanes
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
     pose_path, au_path = nerf_dataset(4)
     cfg = nerf_config(pose_path, au_path)
     nc = cfg.nerf
     ds = NeRFTestDataset.load(pose_path, au_path, scale=nc.scale)
     net = init_ernerf_(NeRFNetwork(net_config(cfg)).to(dev), 0)
-    with torch.no_grad():   # tables of trained magnitude, so the frame has structure
+    with torch.no_grad():
         gen = torch.Generator(device=dev).manual_seed(1)
         for n in ("plane_xy", "plane_yz", "plane_xz"):
             getattr(net, n).uniform_(-1, 1, generator=gen)
@@ -718,13 +775,36 @@ def phase_nerf_model(state: dict) -> dict:
                            net.cfg.plane_spec, nc.bound, resolution=min(1024, 2 * nc.desired_resolution),
                            dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    bake_s = time.perf_counter() - t0
-    steps = {impl: make_render_step(net, ds, cfg, baked, impl=impl) for impl in ("plain", "auto")}
-    dens = DensityGrid.create(nc.grid_size, device=dev)
-    bg = torch.ones(NERF_HW * NERF_HW, 3, device=dev)
+    return cfg, ds, net, baked, time.perf_counter() - t0
+
+
+def nerf_frame_inputs(cfg, ds, dev):
+    """A fully occupied grid, a white background, seeded audio windows and
+    the first frame's eye area: (density, bg, auds, eye)."""
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+
+    nc = cfg.nerf
     auds = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (8, nc.audio_in_dim, 16)).astype(np.float32)).to(dev)
-    eye = ds.collate(0)["eye"]
+    return (DensityGrid.create(nc.grid_size, device=dev),
+            torch.ones(NERF_HW * NERF_HW, 3, device=dev), auds, ds.collate(0)["eye"])
+
+
+def phase_nerf_model(state: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
+    from mere_fusion_tpu_torch.ops import sampler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg, ds, net, baked, bake_s = nerf_frame_model(dev)
+    steps = {impl: make_render_step(net, ds, cfg, baked, impl=impl) for impl in ("plain", "auto")}
+    dens, bg, auds, eye = nerf_frame_inputs(cfg, ds, dev)
 
     def frame(impl):
         return steps[impl](ds.poses[0], auds, eye, dens, bg, pose_key=0)
@@ -833,6 +913,266 @@ def phase_nerf_session(state: dict) -> dict:
     return asyncio.run(_nerf_session(state))
 
 
+def family_counts() -> dict:
+    from mere_fusion_tpu_torch.ops import sampler
+
+    return {"K2": sampler.launches, "K2b": sampler.shade_launches,
+            "K2c": sampler.rays_launches, "K2d": sampler.sample_launches}
+
+
+def family_bound_ms(kernel: str, spec, ops, fam) -> tuple[float, str]:
+    """Least time for K2b, K2c or K2d's work on this run's operands: each
+    operand read once (the whole plane stack, the jobs, the coordinates or
+    rays, the 64 real lanes of the direction projections, the weights of the
+    head) and the output written once at 3.35 TB/s, against the operations:
+    the head's and the sample's per sample at the bf16 tensor rate (as K2's),
+    plus K2c's coordinate synthesis; K2d's 9 f32 operations per real channel
+    at the card's f32 rate."""
+    planes, jobs, uv, dproj, _, weights = ops
+    tiles = uv.shape[0] // 3
+    samples = tiles * spec.rays_per_tile * spec.k
+    size = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
+    head = size(*weights.values())
+    if kernel == "K2d":
+        nbytes = size(planes, jobs, uv) + samples * 3 * 16 * 2
+        t_ops = samples * 3 * spec.channels * 9 / PEAK_F32_FLOPS * 1e3
+    elif kernel == "K2b":
+        # the kernel reads the first 64 lanes of dproj's 128; lanes 64: are padding
+        nbytes = size(planes, jobs, uv, fam["dproj128"][..., :64]) + head + samples * 16 * 4
+        t_ops = samples * k2_ops_per_sample(spec) / PEAK_BF16_FLOPS * 1e3
+    else:
+        nbytes = (size(planes, fam["jobs_rays"], fam["rays"], dproj) + head
+                  + tiles * spec.rays_per_tile * 16 * 4)
+        t_ops = samples * (k2_ops_per_sample(spec) + K2C_SYNTH_OPS) / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_sampler_family(state: dict) -> dict:
+    import dataclasses
+
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf_step import composite_grouped
+    from mere_fusion_tpu_torch.ops import sampler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    spec = k2_spec()
+    rpt, kg = spec.rays_per_tile, spec.kg
+    ks = spec.k // kg
+    out = {}
+    for wdtype in (torch.bfloat16, torch.float32):
+        name = str(wdtype).split(".")[1]
+        ops = k2_operands(dev, NERF_HW, spec, wdtype)
+        fam = family_operands(dev, NERF_HW, spec, ops)
+        planes, jobs, uv, dproj, dtv, weights = ops
+        t = uv.shape[0] // 3
+        # the slice's path: the frame's jobs through each member of the family
+        zero_kernel_counts()
+        k2 = sampler.sample_shade_comp_tiles(*ops, spec)
+        feats = sampler.sample_tiles(planes, jobs, uv, spec)
+        per_sample = sampler.sample_shade_tiles(planes, jobs, uv, fam["dproj128"], weights, spec)
+        rays_out = sampler.render_rays_tiles(planes, fam["jobs_rays"], fam["rays"], dproj,
+                                             weights, spec, 1.0)
+        torch.cuda.synchronize()
+        launches = family_counts()                # ... and ends here
+        if launches != {"K2": 1, "K2b": 1, "K2c": 1, "K2d": 1}:
+            raise AssertionError(f"family launches {launches}, want one each")
+        # K2b through the grouped composite, and K2c, against K2
+        valid = (dtv[..., 0] > 0)[:, None, :, None].expand(t, kg, rpt, ks)
+        image, ws = composite_grouped(per_sample[..., 0].reshape(t, kg, rpt, ks),
+                                      per_sample[..., 1:4].reshape(t, kg, rpt, ks, 3),
+                                      dtv[..., 0], valid, torch.zeros(t, rpt, 3, device=dev))
+        cross = {"K2b_composite_vs_K2": max((ws - k2[..., 0]).abs().max().item(),
+                                            (image - k2[..., 1:4]).abs().max().item()),
+                 "K2c_vs_K2": (rays_out - k2).abs().max().item()}
+        if not (cross["K2b_composite_vs_K2"] <= FAMILY_K2B_COMPOSITE_ATOL
+                and cross["K2c_vs_K2"] <= FAMILY_K2C_ATOL):
+            raise AssertionError(f"{name}: against K2 {cross} (limits "
+                                 f"{FAMILY_K2B_COMPOSITE_ATOL}, {FAMILY_K2C_ATOL})")
+        del image, ws, valid
+        # each kernel against its plain version; with bf16 weights, a control
+        # that the limit must fail
+        unrounded = {k: w.float() for k, w in weights.items()}
+        unclamped = dataclasses.replace(spec, wu=1 << 20, wv=1 << 20)   # no window clamp
+        checks = {
+            "K2d": (feats, lambda: sampler.sample_tiles_plain(planes, jobs, uv, spec),
+                    lambda: sampler.sample_tiles_plain(planes, jobs, uv, unclamped),
+                    lambda: sampler.sample_tiles(planes, jobs, uv, spec)),
+            "K2b": (per_sample,
+                    lambda: sampler.sample_shade_tiles_plain(planes, jobs, uv, fam["dproj128"],
+                                                             weights, spec),
+                    lambda: sampler.sample_shade_tiles_plain(planes, jobs, uv, fam["dproj128"],
+                                                             unrounded, spec),
+                    lambda: sampler.sample_shade_tiles(planes, jobs, uv, fam["dproj128"],
+                                                       weights, spec)),
+            "K2c": (rays_out,
+                    lambda: sampler.render_rays_tiles_plain(planes, fam["jobs_rays"], fam["rays"],
+                                                            dproj, weights, spec, 1.0),
+                    lambda: sampler.render_rays_tiles_plain(planes, fam["jobs_rays"], fam["rays"],
+                                                            dproj, unrounded, spec, 1.0),
+                    lambda: sampler.render_rays_tiles(planes, fam["jobs_rays"], fam["rays"],
+                                                      dproj, weights, spec, 1.0)),
+        }
+        res = {"against_K2": cross}
+        for kernel, (got, plain, control, call) in checks.items():
+            ref = plain()
+            diff = (got.float() - ref.float()).abs()
+            # K2b's σ = exp(logit) is not bounded by 1: its limit is relative above 1
+            scale = ref.float().abs().clamp_min(1.0) if kernel == "K2b" else 1.0
+            err = (diff / scale).max().item()
+            r = {"max_abs_err": diff.max().item(), "err": err, "tol": FAMILY_ATOL[kernel]}
+            if not err <= FAMILY_ATOL[kernel] or not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{kernel} {name} against plain: {err} > "
+                                     f"{FAMILY_ATOL[kernel]}")
+            if name == "bfloat16":
+                r["control_err"] = ((control().float() - ref.float()).abs() / scale).max().item()
+                if not r["control_err"] > FAMILY_ATOL[kernel]:
+                    raise AssertionError(f"{kernel} limit {FAMILY_ATOL[kernel]} passes its "
+                                         f"control ({r['control_err']})")
+            if kernel == "K2d" and name == "float32":
+                continue                           # K2d takes no weights: one dtype suffices
+            bound, by = family_bound_ms(kernel, spec, ops, fam)
+            r.update({"kernel_ms": time_ms(call, iters=10, warmup=2),
+                      "plain_ms": time_ms(plain, iters=3, warmup=1),
+                      "bound_ms": bound, "bound_by": by})
+            res[kernel] = r
+            del ref, diff
+        raises = {}
+        for kernel, bad in (("K2d", lambda: sampler.sample_tiles(planes, jobs, uv[:-3], spec)),
+                            ("K2b", lambda: sampler.sample_shade_tiles(planes, jobs, uv, dproj,
+                                                                       weights, spec)),
+                            ("K2c", lambda: sampler.render_rays_tiles(planes, jobs, fam["rays"],
+                                                                      dproj, weights, spec,
+                                                                      1.0))):
+            try:
+                bad()
+            except ValueError as e:
+                raises[kernel] = str(e)
+            else:
+                raise AssertionError(f"{kernel} accepted an operand of the wrong shape")
+        try:
+            sampler.sample_tiles(planes.float(), jobs, uv, spec)
+        except TypeError as e:
+            raises["K2d_dtype"] = str(e)
+        else:
+            raise AssertionError("K2d accepted float32 planes")
+        res["raises"] = raises
+        res["launches"] = launches
+        out[name] = res
+        del ops, fam, planes, jobs, uv, dproj, dtv, weights, k2, feats, per_sample, rays_out
+        del checks, unrounded
+        torch.cuda.empty_cache()
+    state["family_numbers"] = {k: out["bfloat16"][k] for k in ("K2b", "K2c", "K2d")}
+    state["family_launches"] = out["bfloat16"]["launches"]
+    return out
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(((a.astype(np.float32) - b.astype(np.float32)) ** 2).mean())
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
+
+
+def phase_nerf_modes(state: dict) -> dict:
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf_baked import make_baked_render_step
+    from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
+    from mere_fusion_tpu_torch.ops import sampler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg, ds, net, baked, _ = nerf_frame_model(dev)
+    dens, bg, auds, eye = nerf_frame_inputs(cfg, ds, dev)
+    k2_img, _, _ = make_render_step(net, ds, cfg, baked)(ds.poses[0], auds, eye, dens, bg,
+                                                         pose_key=0)
+    k2_img = k2_img.cpu().numpy()
+    steps, out = {}, {}
+    for mode in ("bilinear", "nearest"):
+        mcfg = cfg.override(**{"nerf.sample_mode": mode,
+                               "nerf.max_active_rays": NERF_HW * NERF_HW})
+        steps[mode] = make_baked_render_step(net, ds, mcfg, baked)
+        zero_kernel_counts()
+        img, _, _ = steps[mode](ds.poses[0], auds, eye, dens, bg)
+        torch.cuda.synchronize()
+        if any(family_counts().values()):
+            raise AssertionError(f"{mode} frame launched a sampler kernel: {family_counts()}")
+        img = img.cpu().numpy()
+        out[f"{mode}_psnr_vs_k2_db"] = psnr(img, k2_img)
+        out[f"{mode}_unsaturated_share"] = float(((img > 0) & (img < 255)).mean())
+        if img.shape != (NERF_HW, NERF_HW, 3) or out[f"{mode}_psnr_vs_k2_db"] < MODES_PSNR_DB:
+            raise AssertionError(f"{mode} frame {img.shape}, PSNR against the K2 frame "
+                                 f"{out[f'{mode}_psnr_vs_k2_db']} dB < {MODES_PSNR_DB}")
+    for mode in ("bilinear", "nearest", "nearest", "bilinear"):
+        ms = time_ms(lambda: steps[mode](ds.poses[0], auds, eye, dens, bg), iters=5, warmup=1)
+        out.setdefault(f"frame_{mode}_ms", []).append(ms)
+    out["bilinear_frame_profile"] = profile_generate(
+        lambda: steps["bilinear"](ds.poses[0], auds, eye, dens, bg), kernel="index")
+    del steps, baked, net, dens, bg
+    torch.cuda.empty_cache()
+    out["session"] = asyncio.run(_nerf_modes_session())
+    if sampler.launches:
+        raise AssertionError("K2 launched in the bilinear session")
+    return out
+
+
+async def _nerf_modes_session() -> dict:
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.app import create_app
+
+    cfg = nerf_config(*nerf_dataset(8)).override(**{"nerf.sample_mode": "bilinear"})
+    engines = []
+
+    def factory(c, **kw):
+        engines.append(make_engine(c, **kw))
+        return engines[-1]
+
+    render = metrics.latency("nerf.render")
+    render.reset()
+    client = TestClient(TestServer(create_app(cfg, factory)))
+    await client.start_server()
+    zero_kernel_counts()                        # the session starts here
+    t0 = time.perf_counter()
+    try:
+        body = await (await client.post("/start_session", json={})).json()
+        if body.get("code") != 0:
+            raise AssertionError(f"/start_session: {body}")
+        sid = body["session_id"]
+        t_started = time.perf_counter()
+        r = await client.post("/talk", json={"session_id": sid, "type": "echo",
+                                             "text": "the bilinear sample mode speaks"})
+        if (await r.json()).get("code") != 0:
+            raise AssertionError("/talk failed")
+        deadline = time.perf_counter() + 120
+        while render.count < MODES_SESSION_FRAMES:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"only {render.count} frames in 120 s")
+            await asyncio.sleep(0.05)
+        t_frames = time.perf_counter()
+        frame = engines[0].latest_frame
+        r = await client.post("/stop_session", json={"session_id": sid})
+        if (await r.json()).get("code") != 0:
+            raise AssertionError("/stop_session failed")
+    finally:
+        await client.close()
+    counts = family_counts()                    # ... and ends here
+    if any(counts.values()):
+        raise AssertionError(f"the bilinear session launched sampler kernels: {counts}")
+    if frame is None or frame.image.shape != (NERF_HW, NERF_HW, 3):
+        raise AssertionError("no emitted frame of the dataset's shape")
+    p50 = render.quantile(0.5)
+    return {"rendered_frames": render.count, "sampler_launches": counts,
+            "session_build_s": t_started - t0, "talk_to_frames_s": t_frames - t_started,
+            "render_p50_ms": p50 * 1e3, "render_fps_at_p50": 1 / p50 if p50 else None,
+            "max_active_rays": cfg.nerf.max_active_rays}
+
+
 def k3_counts() -> tuple[int, int]:
     from mere_fusion_tpu_torch.ops import hash_lookup
 
@@ -843,6 +1183,7 @@ def zero_kernel_counts() -> None:
     from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
 
     attention.launches = sampler.launches = 0
+    sampler.shade_launches = sampler.rays_launches = sampler.sample_launches = 0
     hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
 
 
@@ -997,7 +1338,8 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
 
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("nerf_model", phase_nerf_model),
-          ("nerf_session", phase_nerf_session), ("nerf_train", phase_nerf_train))
+          ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
+          ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train))
 
 
 def main() -> int:
@@ -1029,6 +1371,7 @@ def main() -> int:
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
               "card": gpu, **result})
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
+    fam = state["family_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -1048,6 +1391,18 @@ def main() -> int:
         "bound_by": k2["bound_by"], "library_ms": None,
         "ms_measure": "per call, CUDA events",
     }] + [{
+        "name": f"{fn} ({kernel})", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/sampler.cu",
+        "replaces": f"mere_fusion_tpu/ops/pallas_sampler.py:{line}",
+        "launches": state["family_launches"][kernel],
+        "max_abs_err": fam[kernel]["max_abs_err"], "ms": fam[kernel]["kernel_ms"],
+        "plain_ms": fam[kernel]["plain_ms"], "bound_ms": fam[kernel]["bound_ms"],
+        # no single PyTorch call computes these functions (window clamp, mips, bf16 tents)
+        "bound_by": fam[kernel]["bound_by"], "library_ms": None,
+        "ms_measure": "per call, CUDA events",
+    } for kernel, fn, line in (("K2b", "sample_shade_tiles", 628),
+                               ("K2c", "render_rays_tiles", 717),
+                               ("K2d", "sample_tiles", 760))] + [{
         "name": f"hash lookup {part} (K3)", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/hash_lookup.cu",
         "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",

@@ -46,6 +46,7 @@ _FLAG_TO_KEY = {
     "torso": "nerf.torso",
     "nerf_ckpt": "nerf.ckpt",
     "asr_model": "nerf.asr_model",
+    "sample_mode": "nerf.sample_mode",
 }
 
 
@@ -93,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--asr_model", default="",
                    help="ER-NeRF live featurizer; only the built-in fake (empty) "
                         "is ported")
+    p.add_argument("--sample_mode", default="pallas", choices=["pallas", "nearest", "bilinear"],
+                   help="ER-NeRF texture sampling: the K2 kernel (pallas) or the baked "
+                        "textures' nearest/bilinear gathers")
     p.add_argument("--device", default="",
                    help="place sessions on this device (e.g. cpu); default: "
                         "every CUDA device")

@@ -1,45 +1,61 @@
-// K2: fused triplane sample + NeRF head + volume composite per pixel tile
-// (sm_90a).
+// The triplane sampler family on sm_90a: K2 and its siblings K2b, K2c, K2d.
 //
-// Replaces the Pallas TPU kernel mere_fusion_tpu/ops/pallas_sampler.py:670
-// (sample_shade_comp_tiles -> _shade_comp_kernel :421 on _window_machinery
-// :149, _shade_core :313, _composite_rows :460). For every pixel tile of rpt
-// rays with k samples each (kg depth groups of ks = k/kg), it
-//   1. samples the three bf16 triplanes bilinearly inside each (tile, plane,
+// Replaces the Pallas TPU kernels of mere_fusion_tpu/ops/pallas_sampler.py
+// (all on _window_machinery :149 and, but K2d, _shade_core :313):
+//   K2  sample_shade_comp_tiles :670 (_shade_comp_kernel :421, call :691)
+//   K2b sample_shade_tiles      :628 (_shade_kernel :354, call :643)
+//   K2c render_rays_tiles       :717 (_render_rays_kernel :540, call :733)
+//   K2d sample_tiles            :760 (_sampler_kernel :274, call :781)
+// For every pixel tile of rpt rays with k samples each (kg depth groups of
+// ks = k/kg) they share one device path per sample:
+//   1. sample the three bf16 triplanes bilinearly inside each (tile, plane,
 //      group) job's window: u' = clip(u - ou, 0, wu - 1.001) and likewise v,
 //      the two u tent weights rounded to bf16 and the two v weights kept in
-//      f32, as the TPU kernel's two-hot products round them;
-//   2. runs the ER-NeRF head (audio channel attention, sigma net with the
-//      eye attention, colour net) on the 48 features, rounding the left
-//      operand of every product to bf16 when the weights are bf16, with f32
-//      accumulation, as _shade_core's mm does;
-//   3. composites each ray's samples in depth order: sigma = exp(logit),
-//      alpha = 1 - exp(-sigma dt), T = exp(-sum of earlier sigma dt),
-//      weight = alpha T where T > 1e-4, rgb = sigmoid(logit) 1.002 - 0.001,
-//      and writes [T, rpt, 16]: lane 0 sum of weights, lanes 1:4 sum of
-//      weight rgb, the rest 0.
+//      f32, as the TPU kernel's two-hot products round them (sample_plane);
+//   2. (K2, K2b, K2c) run the ER-NeRF head (audio channel attention, sigma
+//      net with the eye attention, colour net) on the 48 features, rounding
+//      the left operand of every product to bf16 when the weights are bf16,
+//      with f32 accumulation, as _shade_core's mm does (shade);
+//   3. (K2, K2c) composite each ray's samples in depth order: sigma =
+//      exp(logit), alpha = 1 - exp(-sigma dt), T = exp(-sum of earlier
+//      sigma dt), weight = alpha T where T > 1e-4, rgb = sigmoid(logit)
+//      1.002 - 0.001, and write [T, rpt, 16]: lane 0 sum of weights, lanes
+//      1:4 sum of weight rgb, the rest 0 (composite_ray).
+// What differs: K2b writes each sample's activated sigma and rgb ([T, kg
+// sg, 16]) instead of step 3; K2c makes each sample's texel coordinate from
+// its ray's (o, d, zmin, zmax) and the job's mip level (as
+// _render_rays_kernel: kf = (g ks + j) / (k - 1), a true division; xyz =
+// clip(o + d z); texel (xyz + bound) scale - 0.5; tex 2^-lvl + 0.5 2^-lvl -
+// 0.5 (+ mip_base for u)) and takes dt = span / k; K2d writes the 48
+// features as bf16 ([T, kg, sg, 48]) and stops after step 1.
 //
-// Bound at serving size (512^2 frame, 16 x 8 tiles: T = 2048, rpt = 128,
-// k = 16, so 4.19 M samples): the head is 21,840 multiply-adds per sample
-// over the 36 real features (the 12 zero lanes of padding are not work),
-// plus 9 operations per real channel of the bilinear sample: 44,004
-// operations, ~0.185 TFLOP per frame, 0.187 ms at the H100's 989 TFLOP/s
-// bf16 tensor rate; the operands (uv 100 MB, the 195 MB bf16 plane stack counted whole, dproj
-// 34 MB, dtv and out 25 MB) take ~0.11 ms at 3.35 TB/s. So the bound is set
-// by operations.
+// Bounds at the dense 512^2 job set (T = 2048 tiles of 16 x 8 rays, k = 16,
+// so 4.19 M samples, planes [3, 1984, 16384] bf16 = 195 MB, uv 101 MB):
+//   K2, K2b, K2c: the head is 21,840 multiply-adds per sample over the 36
+//   real features (the 12 zero lanes of padding are not work), plus 9
+//   operations per real channel of the bilinear sample: 44,004 operations,
+//   0.187 ms at the H100's 989 TFLOP/s bf16 tensor rate, above their bytes
+//   (K2 0.11 ms; K2b 0.18 ms with its 268 MB of per-sample output and the
+//   64 real lanes of its dproj; K2c 0.07 ms: 8 MB of rays instead of the
+//   uv). Bound by operations.
+//   K2d: no head, 9 operations per real channel; uv, planes and its 403 MB
+//   bf16 output take 0.21 ms at 3.35 TB/s. Bound by bytes.
 //
 // Design (simple and right first; tensor cores are later work):
-//   - one block of 256 threads per tile; the head's weights (~95 KB as f32,
-//     transposed so each output's weights are contiguous) and the tile's
-//     direction projections are staged once into shared memory;
+//   - K2, K2b, K2c: one block of 256 threads per tile; the head's weights
+//     (~95 KB as f32, transposed so each output's weights are contiguous)
+//     and the tile's direction projections are staged once into shared
+//     memory (stage_tile);
 //   - each thread takes samples n = tid, tid + 256, ... of the tile and runs
-//     all of steps 1-2 for it in registers: texels are gathered straight
-//     from global memory (a job's window is local, so L1/L2 serve the reuse
-//     that the TPU kernel got from its DMA'd windows), features and hidden
-//     layers never leave the thread, and only (sigma logit, 3 rgb logits)
-//     go to shared memory;
+//     steps 1-2 for it in registers: texels are gathered straight from
+//     global memory (a job's window is local, so L1/L2 serve the reuse that
+//     the TPU kernel got from its DMA'd windows), features and hidden layers
+//     never leave the thread; K2b writes its sample's row, K2 and K2c put
+//     (sigma logit, 3 rgb logits) in shared memory;
 //   - then one thread per ray folds its k samples in order, so the
-//     transmittance needs no scan.
+//     transmittance needs no scan;
+//   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
+//     96 bytes out, neighbouring threads on neighbouring rows.
 // The head's products run as f32 FMAs on the CUDA cores (exact products of
 // bf16-rounded operands); the next step is mma.sync/wgmma tiles of 64-wide
 // layers over a tile's samples and a cp.async window ring.
@@ -213,7 +229,101 @@ __device__ __forceinline__ float4 shade(float (&x)[XD], const float* __restrict_
   return make_float4(sig, r0, r1, r2);
 }
 
-// WT: the dtype of the shade weights and of dproj (float or bf16).
+// Step 1 for one plane: its CP channels at (u, v) (u absolute in the mip
+// stack, v mip-local), clamped into the window at (ou, ov), into x[q CP ..].
+__device__ __forceinline__ void sample_plane(const __nv_bfloat16* __restrict__ planes, int p,
+                                             int ou, int ov, float u, float v, float umax,
+                                             float vmax, int rows, int rv, float (&x)[XD],
+                                             int q) {
+  const size_t plane_elems = (size_t)rows * rv * CP;
+  const size_t row_elems = (size_t)rv * CP;
+  const float uc = fminf(fmaxf(u - (float)ou, 0.f), umax);
+  const float vc = fminf(fmaxf(v - (float)ov, 0.f), vmax);
+  const float fi = floorf(uc), fj = floorf(vc);
+  const float wu0 = bf16r(fmaxf(1.f - fabsf(fi - uc), 0.f));
+  const float wu1 = bf16r(fmaxf(1.f - fabsf(fi + 1.f - uc), 0.f));
+  const float tv0 = fmaxf(1.f - fabsf(fj - vc), 0.f);
+  const float tv1 = fmaxf(1.f - fabsf(fj + 1.f - vc), 0.f);
+  // in-range jobs (all the planners make) never reach these clamps; they
+  // keep any other job table inside the planes
+  const int row = min(max(ou + (int)fi, 0), rows - 2);
+  const int col = min(max(ov + (int)fj, 0), rv - 2);
+  const uint4* a = reinterpret_cast<const uint4*>(
+      planes + min(max(p, 0), 2) * plane_elems + row * row_elems + (size_t)col * CP);
+  const uint4* b = a + row_elems * 2 / sizeof(uint4);   // next row
+  const uint4 t00[2] = {__ldg(a), __ldg(a + 1)}, t01[2] = {__ldg(a + 2), __ldg(a + 3)};
+  const uint4 t10[2] = {__ldg(b), __ldg(b + 1)}, t11[2] = {__ldg(b + 2), __ldg(b + 3)};
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    const float a00 = channel(t00, c), a01 = channel(t01, c);
+    const float a10 = channel(t10, c), a11 = channel(t11, c);
+    const float m0 = __fadd_rn(__fmul_rn(wu0, a00), __fmul_rn(wu1, a10));
+    const float m1 = __fadd_rn(__fmul_rn(wu0, a01), __fmul_rn(wu1, a11));
+    x[q * CP + c] = __fadd_rn(__fmul_rn(m0, tv0), __fmul_rn(m1, tv1));
+  }
+}
+
+// Step 1 for the three planes of sample `lane` of group g from the explicit
+// coordinates uv [3 tiles, kg, 2, sg] of tile t and its job table jobs
+// [3][1 + 2 kg].
+__device__ __forceinline__ void sample_uv(const __nv_bfloat16* __restrict__ planes,
+                                          const int* jobs, const float* __restrict__ uv,
+                                          int t, int g, int lane, int kg, int sg, float umax,
+                                          float vmax, int rows, int rv, float (&x)[XD]) {
+  const int stride = 1 + 2 * kg;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int* job = jobs + q * stride;
+    const float* uvq = uv + ((size_t)(t * 3 + q) * kg + g) * 2 * sg;
+    sample_plane(planes, job[0], job[1 + 2 * g], job[2 + 2 * g], uvq[lane], uvq[sg + lane],
+                 umax, vmax, rows, rv, x, q);
+  }
+}
+
+__device__ __forceinline__ float rgb_act(float logit) {
+  return __fsub_rn(__fmul_rn(1.f / (1.f + expf(-logit)), 1.002f), 0.001f);
+}
+
+// Step 3 for ray r of a tile: its k (sigma, rgb) logits in res [kg][rpt][ks],
+// its dt; writes the ray's [16] output row.
+__device__ __forceinline__ void composite_ray(const float4* __restrict__ res, int r, int kg,
+                                              int ks, int sg, float dt, float* __restrict__ out) {
+  float acc_sd = 0.f, ws = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+  for (int g = 0; g < kg; ++g) {
+    for (int j = 0; j < ks; ++j) {
+      const float4 v = res[g * sg + r * ks + j];
+      const float sd = __fmul_rn(expf(v.x), dt);
+      const float alpha = 1.f - expf(-sd);
+      const float trans = expf(-acc_sd);
+      const float w = trans > 1e-4f ? __fmul_rn(alpha, trans) : 0.f;
+      acc_sd = __fadd_rn(acc_sd, sd);
+      ws = __fadd_rn(ws, w);
+      c0 = __fadd_rn(c0, __fmul_rn(w, rgb_act(v.y)));
+      c1 = __fadd_rn(c1, __fmul_rn(w, rgb_act(v.z)));
+      c2 = __fadd_rn(c2, __fmul_rn(w, rgb_act(v.w)));
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out);
+  o[0] = make_float4(ws, c0, c1, c2);
+  o[1] = o[2] = o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// A shading block's prologue: the head's weights, the tile's direction
+// projections (the first 64 lanes of each dp_stride-wide row of dproj) and
+// its job table (n_jobs ints) into shared memory.
+template <typename WT>
+__device__ __forceinline__ void stage_tile(float* s, float* s_dp, int* s_jobs, const Weights& wp,
+                                           const WT* __restrict__ dproj, int dp_stride,
+                                           const int* __restrict__ jobs, int n_jobs, int t,
+                                           int rpt) {
+  const int tid = threadIdx.x;
+  stage_weights<WT>(s, wp);
+  const WT* dp = dproj + (size_t)t * rpt * dp_stride;
+  for (int e = tid; e < rpt * HID; e += THREADS) s_dp[e] = ld(dp, (e / HID) * dp_stride + e % HID);
+  for (int e = tid; e < n_jobs; e += THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+}
+
+// K2. WT: the dtype of the shade weights and of dproj (float or bf16).
 template <typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 sample_shade_comp_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
@@ -227,115 +337,191 @@ sample_shade_comp_kernel(const __nv_bfloat16* __restrict__ planes, const int* __
   const int sg = rpt * ks;
   const int ns = kg * sg;
   int* s_jobs = reinterpret_cast<int*>(s_res + ns);            // [3][1 + 2kg]
-  const int stride = 1 + 2 * kg;
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   constexpr bool RB = sizeof(WT) == 2;
 
-  stage_weights<WT>(s, wp);
-  for (int e = tid; e < rpt * HID; e += THREADS)
-    s_dp[e] = ld(dproj + (size_t)t * rpt * HID, e);
-  for (int e = tid; e < 3 * stride; e += THREADS) s_jobs[e] = jobs[(size_t)t * 3 * stride + e];
+  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, HID, jobs, 3 * (1 + 2 * kg), t, rpt);
   __syncthreads();
 
   const float umax = (float)((double)wu - 1.001);
   const float vmax = (float)((double)wv - 1.001);
-  const size_t plane_elems = (size_t)rows * rv * CP;
-  const size_t row_elems = (size_t)rv * CP;
-
   for (int n = tid; n < ns; n += THREADS) {
     const int g = n / sg;
     const int lane = n - g * sg;
     float x[XD];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int* job = s_jobs + q * stride;
-      const int p = min(max(job[0], 0), 2);
-      const int ou = job[1 + 2 * g], ov = job[2 + 2 * g];
-      const float* uvq = uv + ((size_t)(t * 3 + q) * kg + g) * 2 * sg;
-      const float uc = fminf(fmaxf(uvq[lane] - (float)ou, 0.f), umax);
-      const float vc = fminf(fmaxf(uvq[sg + lane] - (float)ov, 0.f), vmax);
-      const float fi = floorf(uc), fj = floorf(vc);
-      const float wu0 = bf16r(fmaxf(1.f - fabsf(fi - uc), 0.f));
-      const float wu1 = bf16r(fmaxf(1.f - fabsf(fi + 1.f - uc), 0.f));
-      const float tv0 = fmaxf(1.f - fabsf(fj - vc), 0.f);
-      const float tv1 = fmaxf(1.f - fabsf(fj + 1.f - vc), 0.f);
-      // in-range jobs (all the planner makes) never reach these clamps; they
-      // keep any other job table inside the planes
-      const int row = min(max(ou + (int)fi, 0), rows - 2);
-      const int col = min(max(ov + (int)fj, 0), rv - 2);
-      const uint4* a = reinterpret_cast<const uint4*>(
-          planes + p * plane_elems + row * row_elems + (size_t)col * CP);
-      const uint4* b = a + row_elems * 2 / sizeof(uint4);   // next row
-      const uint4 t00[2] = {__ldg(a), __ldg(a + 1)}, t01[2] = {__ldg(a + 2), __ldg(a + 3)};
-      const uint4 t10[2] = {__ldg(b), __ldg(b + 1)}, t11[2] = {__ldg(b + 2), __ldg(b + 3)};
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const float a00 = channel(t00, c), a01 = channel(t01, c);
-        const float a10 = channel(t10, c), a11 = channel(t11, c);
-        const float m0 = __fadd_rn(__fmul_rn(wu0, a00), __fmul_rn(wu1, a10));
-        const float m1 = __fadd_rn(__fmul_rn(wu0, a01), __fmul_rn(wu1, a11));
-        x[q * CP + c] = __fadd_rn(__fmul_rn(m0, tv0), __fmul_rn(m1, tv1));
-      }
-    }
+    sample_uv(planes, s_jobs, uv, t, g, lane, kg, sg, umax, vmax, rows, rv, x);
+    s_res[n] = shade<RB>(x, s, s_dp + (lane / ks) * HID);
+  }
+  __syncthreads();
+
+  for (int r = tid; r < rpt; r += THREADS)
+    composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                  out + ((size_t)t * rpt + r) * 16);
+}
+
+// K2b: K2 without the composite; each sample's activated sigma and rgb.
+template <typename WT>
+__global__ void __launch_bounds__(THREADS, 1)
+sample_shade_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
+                    const float* __restrict__ uv, const WT* __restrict__ dproj, Weights wp,
+                    float* __restrict__ out, int rpt, int kg, int ks, int wu, int wv, int rows,
+                    int rv) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
+  int* s_jobs = reinterpret_cast<int*>(s_dp + rpt * HID);      // [3][1 + 2kg]
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  const int t = blockIdx.x;
+  constexpr bool RB = sizeof(WT) == 2;
+
+  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, 2 * HID, jobs, 3 * (1 + 2 * kg), t, rpt);
+  __syncthreads();
+
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+  for (int n = threadIdx.x; n < ns; n += THREADS) {
+    const int g = n / sg;
+    const int lane = n - g * sg;
+    float x[XD];
+    sample_uv(planes, s_jobs, uv, t, g, lane, kg, sg, umax, vmax, rows, rv, x);
+    const float4 v = shade<RB>(x, s, s_dp + (lane / ks) * HID);
+    float4* o = reinterpret_cast<float4*>(out + ((size_t)t * ns + n) * 16);
+    o[0] = make_float4(expf(v.x), rgb_act(v.y), rgb_act(v.z), rgb_act(v.w));
+    o[1] = o[2] = o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// K2c: K2 with each sample's coordinates made from its ray (rays [T, rpt,
+// 8]: o, d, zmin, zmax) and the jobs' (ou, ov, lvl, mip_base) per group.
+template <typename WT>
+__global__ void __launch_bounds__(THREADS, 1)
+render_rays_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
+                   const float* __restrict__ rays, const WT* __restrict__ dproj, Weights wp,
+                   float* __restrict__ out, int rpt, int kg, int ks, int wu, int wv, int rows,
+                   int rv, float bound, float scale) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
+  float* s_rays = s_dp + rpt * HID;                            // [rpt][8]
+  float4* s_res = reinterpret_cast<float4*>(s_rays + rpt * 8);  // [kg * sg]
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  int* s_jobs = reinterpret_cast<int*>(s_res + ns);            // [3][1 + 4kg]
+  const int stride = 1 + 4 * kg;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  constexpr bool RB = sizeof(WT) == 2;
+
+  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, HID, jobs, 3 * stride, t, rpt);
+  for (int e = tid; e < rpt * 8; e += THREADS) s_rays[e] = rays[(size_t)t * rpt * 8 + e];
+  __syncthreads();
+
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+  const float km1 = (float)(kg * ks - 1);
+  for (int n = tid; n < ns; n += THREADS) {
+    const int g = n / sg;
+    const int lane = n - g * sg;
     const int r = lane / ks;
+    const float* ray = s_rays + r * 8;
+    const float kf = __fdiv_rn((float)(g * ks + lane - r * ks), km1);
+    const float z = __fadd_rn(ray[6], __fmul_rn(__fsub_rn(ray[7], ray[6]), kf));
+    float tex[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float xyz = fminf(fmaxf(__fadd_rn(ray[c], __fmul_rn(ray[3 + c], z)), -bound), bound);
+      tex[c] = __fsub_rn(__fmul_rn(__fadd_rn(xyz, bound), scale), 0.5f);
+    }
+    float x[XD];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {   // planes xy (x, y), yz (z, y), xz (z, x)
+      const int* job = s_jobs + q * stride + 4 * g;
+      const float inv = ldexpf(1.f, -job[3]);                  // 2^-lvl
+      const float cv = __fsub_rn(__fmul_rn(0.5f, inv), 0.5f);
+      const float cu = __fadd_rn(cv, (float)job[4]);
+      const float u = __fadd_rn(__fmul_rn(tex[q == 0 ? 0 : 2], inv), cu);
+      const float v = __fadd_rn(__fmul_rn(tex[q == 2 ? 0 : 1], inv), cv);
+      sample_plane(planes, s_jobs[q * stride], job[1], job[2], u, v, umax, vmax, rows, rv, x, q);
+    }
     s_res[n] = shade<RB>(x, s, s_dp + r * HID);
   }
   __syncthreads();
 
   for (int r = tid; r < rpt; r += THREADS) {
-    const float dt = dtv[((size_t)t * rpt + r) * 8];
-    float acc_sd = 0.f, ws = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    for (int g = 0; g < kg; ++g) {
-      for (int j = 0; j < ks; ++j) {
-        const float4 v = s_res[g * sg + r * ks + j];
-        const float sd = __fmul_rn(expf(v.x), dt);
-        const float alpha = 1.f - expf(-sd);
-        const float trans = expf(-acc_sd);
-        const float w = trans > 1e-4f ? __fmul_rn(alpha, trans) : 0.f;
-        acc_sd = __fadd_rn(acc_sd, sd);
-        ws = __fadd_rn(ws, w);
-        const float k0 = __fsub_rn(__fmul_rn(1.f / (1.f + expf(-v.y)), 1.002f), 0.001f);
-        const float k1 = __fsub_rn(__fmul_rn(1.f / (1.f + expf(-v.z)), 1.002f), 0.001f);
-        const float k2 = __fsub_rn(__fmul_rn(1.f / (1.f + expf(-v.w)), 1.002f), 0.001f);
-        c0 = __fadd_rn(c0, __fmul_rn(w, k0));
-        c1 = __fadd_rn(c1, __fmul_rn(w, k1));
-        c2 = __fadd_rn(c2, __fmul_rn(w, k2));
-      }
-    }
-    float4* o = reinterpret_cast<float4*>(out + ((size_t)t * rpt + r) * 16);
-    o[0] = make_float4(ws, c0, c1, c2);
-    o[1] = o[2] = o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* ray = s_rays + r * 8;
+    composite_ray(s_res, r, kg, ks, sg, __fdiv_rn(__fsub_rn(ray[7], ray[6]), (float)(kg * ks)),
+                  out + ((size_t)t * rpt + r) * 16);
   }
 }
 
-template <typename WT>
-cudaError_t launch(const void* planes, const void* jobs, const void* uv, const void* dproj,
-                   const void* dtv, const Weights& wp, void* out, int tiles, int rpt,
-                   int kg, int ks, int wu, int wv, int rows, int rv, cudaStream_t stream) {
-  const size_t ns = (size_t)kg * rpt * ks;
-  const size_t bytes = sizeof(float) * ((size_t)W_FLOATS + (size_t)rpt * HID + 4 * ns)
-                       + sizeof(int) * MAX_JOB_INTS;
-  auto kernel = sample_shade_comp_kernel<WT>;
+// K2d: one thread per sample; its 48 features as bf16.
+__global__ void __launch_bounds__(THREADS)
+sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
+                    const float* __restrict__ uv, __nv_bfloat16* __restrict__ out, int tiles,
+                    int rpt, int kg, int ks, int wu, int wv, int rows, int rv) {
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  const size_t id = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (id >= (size_t)tiles * ns) return;
+  const int t = (int)(id / ns);
+  const int n = (int)(id - (size_t)t * ns);
+  const int g = n / sg;
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+  float x[XD];
+  sample_uv(planes, jobs + (size_t)t * 3 * (1 + 2 * kg), uv, t, g, n - g * sg, kg, sg, umax,
+            vmax, rows, rv, x);
+  uint4* o = reinterpret_cast<uint4*>(out + id * XD);
+#pragma unroll
+  for (int i = 0; i < XD / 8; ++i) {
+    uint32_t w[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(x[8 * i + 2 * h], x[8 * i + 2 * h + 1]);
+      w[h] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
+    o[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Set a kernel's dynamic shared memory, launch one block per tile, and
+// return the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_tiles(Kernel kernel, size_t bytes, int tiles, cudaStream_t stream,
+                         Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<tiles, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(planes), static_cast<const int*>(jobs),
-      static_cast<const float*>(uv), static_cast<const WT*>(dproj),
-      static_cast<const float*>(dtv), wp, static_cast<float*>(out), rpt, kg, ks, wu, wv,
-      rows, rv);
+  kernel<<<tiles, THREADS, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// shared memory of a shading block: the weights, rows floats per ray, the
+// samples' float4 results (if any) and the job table
+size_t shade_smem(int rpt, int rows, size_t samples) {
+  return sizeof(float) * ((size_t)W_FLOATS + (size_t)rpt * rows + 4 * samples)
+         + sizeof(int) * MAX_JOB_INTS;
+}
+
+bool bad_geometry(int tiles, int rpt, int kg, int ks, int wu, int wv, int rows, int rv,
+                  int job_fields) {
+  return tiles <= 0 || rpt <= 0 || kg <= 0 || ks <= 0 || kg * ks < 2 ||
+         3 * (1 + job_fields * kg) > MAX_JOB_INTS || wu < 2 || wv < 2 || rows < wu || rv < wv;
 }
 
 }  // namespace
 
-// planes [3, rows, rv * 16] bf16; jobs [tiles * 3 * (1 + 2 kg)] int32; uv
-// [3 tiles, kg, 2, rpt * ks] f32; dproj [tiles, rpt, 64] and the 13 shade
-// weights in SHADE_WEIGHTS order, all f32 or all bf16 (bf16 != 0); dtv
-// [tiles, rpt, 8] f32; out [tiles, rpt, 16] f32. All contiguous on CUDA
-// device `device`; `stream` belongs to it. Returns the cudaError_t of the
-// launch.
+// Common arguments: planes [3, rows, rv * 16] bf16; jobs int32, per tile 3
+// jobs of (plane, then 2 (K2, K2b, K2d) or 4 (K2c) ints per group); the 13
+// shade weights in SHADE_WEIGHTS order and dproj, all f32 or all bf16 (bf16
+// != 0); geometry tiles, rpt, kg, ks, wu, wv, rows, rv. All contiguous on
+// CUDA device `device`; `stream` belongs to it. Each returns the
+// cudaError_t of its launch.
+
+// K2: uv [3 tiles, kg, 2, rpt * ks] f32; dproj [tiles, rpt, 64]; dtv [tiles,
+// rpt, 8] f32; out [tiles, rpt, 16] f32.
 extern "C" int mf_sample_shade_comp(
     int device, int bf16, const void* planes, const void* jobs, const void* uv,
     const void* dproj, const void* dtv, const void* wx_aud, const void* w_aud1,
@@ -343,17 +529,98 @@ extern "C" int mf_sample_shade_comp(
     const void* w_sig_e, const void* w_sig1, const void* w_sigcol, const void* w_geo,
     const void* w_col_g, const void* w_rgb, const void* col_bias, void* out, int tiles,
     int rpt, int kg, int ks, int wu, int wv, int rows, int rv, void* stream) {
-  if (tiles <= 0 || rpt <= 0 || kg <= 0 || ks <= 0 || 3 * (1 + 2 * kg) > MAX_JOB_INTS ||
-      wu < 2 || wv < 2 || rows < wu || rv < wv)
-    return (int)cudaErrorInvalidValue;
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
+  const size_t bytes = shade_smem(rpt, HID, (size_t)kg * rpt * ks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const __nv_bfloat16*>(planes);
+  const auto* j = static_cast<const int*>(jobs);
+  const auto* u = static_cast<const float*>(uv);
+  const auto* d = static_cast<const float*>(dtv);
+  auto* o = static_cast<float*>(out);
   if (bf16)
-    return (int)launch<__nv_bfloat16>(planes, jobs, uv, dproj, dtv, wp, out, tiles, rpt, kg,
-                                      ks, wu, wv, rows, rv, s);
-  return (int)launch<float>(planes, jobs, uv, dproj, dtv, wp, out, tiles, rpt, kg, ks, wu,
-                            wv, rows, rv, s);
+    return (int)launch_tiles(sample_shade_comp_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, u,
+                             static_cast<const __nv_bfloat16*>(dproj), d, wp, o, rpt, kg, ks,
+                             wu, wv, rows, rv);
+  return (int)launch_tiles(sample_shade_comp_kernel<float>, bytes, tiles, s, p, j, u,
+                           static_cast<const float*>(dproj), d, wp, o, rpt, kg, ks, wu, wv,
+                           rows, rv);
+}
+
+// K2b: uv as K2's; dproj [tiles, rpt, 128] (lanes 64: unused); out [tiles,
+// kg * rpt * ks, 16] f32.
+extern "C" int mf_sample_shade(
+    int device, int bf16, const void* planes, const void* jobs, const void* uv,
+    const void* dproj, const void* wx_aud, const void* w_aud1, const void* wx_sig,
+    const void* w_aud_sig, const void* wx_eye, const void* w_eye1, const void* w_sig_e,
+    const void* w_sig1, const void* w_sigcol, const void* w_geo, const void* w_col_g,
+    const void* w_rgb, const void* col_bias, void* out, int tiles, int rpt, int kg, int ks,
+    int wu, int wv, int rows, int rv, void* stream) {
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
+                       w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
+  const size_t bytes = shade_smem(rpt, HID, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const __nv_bfloat16*>(planes);
+  const auto* j = static_cast<const int*>(jobs);
+  const auto* u = static_cast<const float*>(uv);
+  auto* o = static_cast<float*>(out);
+  if (bf16)
+    return (int)launch_tiles(sample_shade_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, u,
+                             static_cast<const __nv_bfloat16*>(dproj), wp, o, rpt, kg, ks, wu,
+                             wv, rows, rv);
+  return (int)launch_tiles(sample_shade_kernel<float>, bytes, tiles, s, p, j, u,
+                           static_cast<const float*>(dproj), wp, o, rpt, kg, ks, wu, wv, rows,
+                           rv);
+}
+
+// K2c: rays [tiles, rpt, 8] f32 (o, d, zmin, zmax); dproj [tiles, rpt, 64];
+// bound and scale = R / (2 bound) as f32; out [tiles, rpt, 16] f32.
+extern "C" int mf_render_rays(
+    int device, int bf16, const void* planes, const void* jobs, const void* rays,
+    const void* dproj, const void* wx_aud, const void* w_aud1, const void* wx_sig,
+    const void* w_aud_sig, const void* wx_eye, const void* w_eye1, const void* w_sig_e,
+    const void* w_sig1, const void* w_sigcol, const void* w_geo, const void* w_col_g,
+    const void* w_rgb, const void* col_bias, void* out, int tiles, int rpt, int kg, int ks,
+    int wu, int wv, int rows, int rv, float bound, float scale, void* stream) {
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 4)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
+                       w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
+  const size_t bytes = shade_smem(rpt, HID + 8, (size_t)kg * rpt * ks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const __nv_bfloat16*>(planes);
+  const auto* j = static_cast<const int*>(jobs);
+  const auto* r = static_cast<const float*>(rays);
+  auto* o = static_cast<float*>(out);
+  if (bf16)
+    return (int)launch_tiles(render_rays_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, r,
+                             static_cast<const __nv_bfloat16*>(dproj), wp, o, rpt, kg, ks, wu,
+                             wv, rows, rv, bound, scale);
+  return (int)launch_tiles(render_rays_kernel<float>, bytes, tiles, s, p, j, r,
+                           static_cast<const float*>(dproj), wp, o, rpt, kg, ks, wu, wv, rows,
+                           rv, bound, scale);
+}
+
+// K2d: uv as K2's; out [tiles, kg, rpt * ks, 48] bf16.
+extern "C" int mf_sample_tiles(int device, const void* planes, const void* jobs,
+                               const void* uv, void* out, int tiles, int rpt, int kg, int ks,
+                               int wu, int wv, int rows, int rv, void* stream) {
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)tiles * kg * rpt * ks;
+  const size_t blocks = (n + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  sample_tiles_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(planes), static_cast<const int*>(jobs),
+      static_cast<const float*>(uv), static_cast<__nv_bfloat16*>(out), tiles, rpt, kg, ks, wu,
+      wv, rows, rv);
+  return (int)cudaGetLastError();
 }

@@ -8,12 +8,14 @@ attention context, and renders the talking head through the K2 frame step
 (engines/nerf_step.py) from triplanes baked at construction.
 
 Ported: the fake featurizer (``nerf.asr_model = ""``), ``NerfASR`` with its
-device-resident feature ring, the audio-code EMA (in the frame step) and ``NeRFReal`` with
-``nerf.sample_mode = "pallas"``, on random weights from a fixed seed. Not
-yet ported, each raising and naming its ROADMAP item: the DeepSpeech and
-wav2vec featurizers (and with them device-side featurizer flushes), the
-other sample modes, the torso net, the orbit camera, the fullbody paste
-and checkpoint loading.
+device-resident feature ring, the audio-code EMA (in the frame steps) and
+``NeRFReal`` with ``nerf.sample_mode`` "pallas" (the K2 step) or
+"nearest"/"bilinear" (the baked-texture step, engines/nerf_baked.py), on
+random weights from a fixed seed. Not yet ported, each raising and naming
+its ROADMAP item: the DeepSpeech and wav2vec featurizers (and with them
+device-side featurizer flushes), the unbaked per-frame hash-encode step
+(``bake_planes=False``), the torso net, the orbit camera, the fullbody
+paste and checkpoint loading.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
 from mere_fusion_tpu_torch.device import resolve_device
 from mere_fusion_tpu_torch.engines.base import BaseReal, track_put
 from mere_fusion_tpu_torch.engines.base_asr import BaseASR
+from mere_fusion_tpu_torch.engines.nerf_baked import make_baked_render_step
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf.network import (
     NeRFNetConfig,
@@ -161,15 +164,21 @@ def net_config(cfg: Config) -> NeRFNetConfig:
 class NeRFReal(BaseReal):
     """The ER-NeRF engine: network with seeded random weights (seed 0),
     fully occupied density grid, planes baked at 2× the finest hash level
-    (at most 1024²), and the K2 frame step (engines/nerf_step.py)."""
+    (at most 1024²), and the frame step of ``nerf.sample_mode``: K2's
+    (engines/nerf_step.py) for "pallas", the baked-texture step
+    (engines/nerf_baked.py) for "nearest" and "bilinear"."""
 
     def __init__(self, cfg: Config, dataset: NeRFTestDataset,
-                 custom_opts: list[dict] | None = None, device=None):
+                 custom_opts: list[dict] | None = None, device=None,
+                 bake_planes: bool = True):
         nc = cfg.nerf
-        if nc.sample_mode != "pallas":
+        if nc.sample_mode not in ("pallas", "nearest", "bilinear"):
+            raise ValueError(f"nerf.sample_mode {nc.sample_mode!r} is not 'pallas', "
+                             "'nearest' or 'bilinear'")
+        if not bake_planes:
             raise NotImplementedError(
-                f"nerf.sample_mode={nc.sample_mode!r} is not ported to the PyTorch "
-                "package yet (ROADMAP: 'ER-NeRF sample modes'); use 'pallas' (K2)")
+                "the unbaked per-frame hash-encode step is not ported to the PyTorch "
+                "package yet (ROADMAP: 'ER-NeRF unbaked step')")
         if nc.asr_model:
             raise NotImplementedError(
                 f"nerf.asr_model={nc.asr_model!r}: the DeepSpeech and wav2vec "
@@ -190,10 +199,12 @@ class NeRFReal(BaseReal):
                 tables, self.network.cfg.plane_spec, self.network.cfg.bound,
                 resolution=min(1024, 2 * nc.desired_resolution),
                 dtype=torch.bfloat16 if nc.texture_dtype == "bfloat16" else None)
-            self._render_step = make_render_step(self.network, dataset, cfg, baked)
+            make_step = make_render_step if nc.sample_mode == "pallas" else make_baked_render_step
+            self._render_step = make_step(self.network, dataset, cfg, baked)
             if dev.type == "cuda":
-                # prefill the span cache for the pose track and build K2 now,
-                # so the live loop never waits on a probe readback or nvcc
+                # K2's step prefills the span cache for the pose track and
+                # builds K2 now, so the live loop never waits on a probe
+                # readback or nvcc (the baked step has nothing to prefill)
                 self._render_step.warmup(self.density)
             self.asr = NerfASR(cfg, self, fake_logits_fn(nc.audio_in_dim), device=dev)
             self.asr.warm_up()
@@ -235,9 +246,10 @@ class NeRFReal(BaseReal):
                 data["pose"], auds, data["eye"], self.density, self._bg_dev,
                 pose_key=data["index"])
             rgb = rgb.cpu().numpy()
-            # 1 Hz gauges: each int() is a device → host sync
+            # 1 Hz gauges of K2's tiles (the baked step has none): each int()
+            # is a device → host sync
             self._telemetry_countdown -= 1
-            if self._telemetry_countdown <= 0:
+            if n_active is not None and self._telemetry_countdown <= 0:
                 self._telemetry_countdown = self.fps
                 metrics.gauge("nerf.active_tiles", int(n_active))
                 metrics.gauge("nerf.overflow_jobs", int(n_overflow))

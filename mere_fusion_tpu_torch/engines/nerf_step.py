@@ -110,6 +110,29 @@ def shade_weights(net: NeRFNetwork, spec: SamplerSpec, enc_a, ind, eye, dtype) -
     return {name: w[name].contiguous() for name in sampler.SHADE_WEIGHTS}
 
 
+def composite_grouped(sigma, color, dt_r, valid_g, bg_rays, t_threshold: float = 1e-4):
+    """renderer.composite with the depth axis split as (kg, ks), in the
+    sampler kernels' group-major layout (the JAX ``_composite_grouped``): the
+    within-group exclusive transmittance times the exclusive product of the
+    earlier groups' transmittances is the flat exclusive cumprod. It is the
+    oracle that K2b's per-sample output (``ops.sampler.sample_shade_tiles``)
+    feeds, against K2's in-kernel composite.
+
+    sigma/valid_g [B, kg, rpt, ks], color [B, kg, rpt, ks, 3], dt_r [B,
+    rpt], bg_rays [B, rpt, 3] → (image [B, rpt, 3], weights_sum [B, rpt])."""
+    alpha = 1.0 - torch.exp(-sigma * dt_r[:, None, :, None])
+    alpha = torch.where(valid_g, alpha, torch.zeros_like(alpha))
+    cg = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)            # within-group inclusive
+    cg_ex = torch.cat([torch.ones_like(cg[..., :1]), cg[..., :-1]], dim=-1)
+    tg = torch.cumprod(cg[..., -1], dim=1)                      # over groups [B, kg, rpt]
+    tg_ex = torch.cat([torch.ones_like(tg[:, :1]), tg[:, :-1]], dim=1)
+    trans = tg_ex[..., None] * cg_ex
+    weights = torch.where(trans > t_threshold, alpha * trans, torch.zeros_like(trans))
+    ws = weights.sum(dim=(1, 3))
+    image = (weights[..., None] * color).sum(dim=(1, 3)) + (1.0 - ws)[..., None] * bg_rays
+    return image, ws
+
+
 def make_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: dict,
                      impl: str = "auto"):
     """step(pose, auds, eye, density, bg, pose_key=None) →

@@ -3,11 +3,12 @@
 Port of mere_fusion_tpu/models/ernerf/renderer.py without the torso pass:
 the density grid, the ray/box slab test, voxel lookup, the occupancy probe
 that places each ray's sample span, camera rays from a pose, the
-front-to-back composite (the serving step composites inside kernel K2), and
-the training path: ``plan_rays`` / ``shade`` / ``render_rays`` and the
-density-grid refresh ``update_density_grid``. Ray compaction
-(``max_active_rays``) and the block-shared probe (``probe_block``) are not
-ported.
+front-to-back composite (the K2 serving step composites inside the kernel),
+the block-shared probe (``select_depths_blocked``), and ``plan_rays`` /
+``shade`` / ``render_rays`` with the static ray compaction
+(``max_active_rays``) and its scatter back onto the frame: the training path
+and the ``nearest``/``bilinear`` serving step. The density-grid refresh is
+``update_density_grid``.
 """
 from __future__ import annotations
 
@@ -66,29 +67,62 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     return torch.cat([head, torch.ones(1)]).to(device)
 
 
-def select_occupied_depths(rays_o, rays_d, near, far, density: DensityGrid,
-                           bound: float, grid_size: int, n_candidates: int,
-                           n_steps: int):
-    """Probe n_candidates depths per ray, then sample n_steps uniformly in
-    the [first, last] occupied span (±1 candidate pad).
-    Returns (z [N, K], dt [N, 1], sample_valid [N, K])."""
-    n = rays_o.shape[0]
+def _occupied_span(rays_o, rays_d, near, far, density: DensityGrid, bound: float,
+                   grid_size: int, n_candidates: int):
+    """Probe n_candidates depths per ray → (zmin, zmax, any occupied): the
+    [first, last] occupied candidate with one candidate of pad each side."""
     frac = linspace01(n_candidates, near.device)
     z_all = near[:, None] + (far - near)[:, None] * frac[None, :]
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
     vox, inside = voxel_index(xyz, bound, grid_size)
     occ = density.occupancy[vox] & inside
-    any_occ = occ.any(dim=-1)
     occ_i = occ.to(torch.int8)
     first = torch.argmax(occ_i, dim=-1)
     last = n_candidates - 1 - torch.argmax(occ_i.flip(-1), dim=-1)
     step = (far - near) / (n_candidates - 1)
     zmin = near + torch.clamp(first - 1, min=0) * step
     zmax = near + torch.clamp(last + 1, max=n_candidates - 1) * step
-    kfrac = linspace01(n_steps, near.device)
+    return zmin, zmax, occ.any(dim=-1)
+
+
+def _span_samples(zmin, zmax, valid, n_steps: int):
+    """n_steps uniform samples in each ray's span → (z [N, K], dt [N, 1],
+    sample_valid [N, K])."""
+    kfrac = linspace01(n_steps, zmin.device)
     z = zmin[:, None] + (zmax - zmin)[:, None] * kfrac[None, :]
     dt = ((zmax - zmin) / n_steps)[:, None]
-    return z, dt, any_occ[:, None].expand(n, n_steps)
+    return z, dt, valid[:, None].expand(zmin.shape[0], n_steps)
+
+
+def select_occupied_depths(rays_o, rays_d, near, far, density: DensityGrid,
+                           bound: float, grid_size: int, n_candidates: int,
+                           n_steps: int):
+    """Probe n_candidates depths per ray, then sample n_steps uniformly in
+    the [first, last] occupied span (±1 candidate pad).
+    Returns (z [N, K], dt [N, 1], sample_valid [N, K])."""
+    return _span_samples(*_occupied_span(rays_o, rays_d, near, far, density, bound,
+                                         grid_size, n_candidates), n_steps)
+
+
+def select_depths_blocked(rays_o, rays_d, near, far, density: DensityGrid, bound: float,
+                          grid_size: int, n_candidates: int, n_steps: int, block: int,
+                          H: int, W: int):
+    """Block-shared occupancy span: probe the central ray of each block×block
+    pixel tile, and sample n_steps uniformly in its span for every ray of the
+    tile (rays of a tile are near-parallel). Rays are the H×W frame's in
+    raster order. Returns (z [N, K], dt [N, 1], sample_valid [N, K])."""
+    hb, wb = H // block, W // block
+    dev = rays_o.device
+    ctr = ((torch.arange(hb, device=dev) * block + block // 2)[:, None] * W
+           + (torch.arange(wb, device=dev) * block + block // 2)[None, :]).reshape(-1)
+    span = _occupied_span(rays_o[ctr], rays_d[ctr], near[ctr], far[ctr], density, bound,
+                          grid_size, n_candidates)
+
+    def to_pixels(v):
+        return (v.reshape(hb, wb).repeat_interleave(block, 0).repeat_interleave(block, 1)
+                .reshape(-1))
+
+    return _span_samples(*map(to_pixels, span), n_steps)
 
 
 def composite(sigmas, colors, z, dt, valid, bg_color, extras: dict | None = None,
@@ -112,54 +146,87 @@ def composite(sigmas, colors, z, dt, valid, bg_color, extras: dict | None = None
 
 def plan_rays(rays_o, rays_d, density: DensityGrid, bound: float, grid_size: int,
               n_candidates: int = 64, n_steps: int = 16, min_near: float = 0.05,
-              max_active_rays: int = 0, probe_block: int = 0) -> dict:
-    """Occupancy probing and sample placement, no network: returns xyz
-    [N,K,3] (clipped to the box), dirs [N,3], z [N,K], dt [N,1], valid
-    [N,K] and sel None (no compaction)."""
-    if max_active_rays > 0 or probe_block > 1:
-        raise NotImplementedError(
-            "ray compaction and the block-shared probe are not ported to the PyTorch "
-            "package yet (ROADMAP: 'ER-NeRF sample modes')")
+              max_active_rays: int = 0, probe_block: int = 0,
+              image_hw: tuple | None = None) -> dict:
+    """Occupancy probing, sample placement and static ray compaction, no
+    network: returns xyz [M,K,3] (clipped to the box), dirs [M,3], z [M,K],
+    dt [M,1], valid [M,K] and sel. The probe is block-shared
+    (select_depths_blocked) when probe_block > 1 and image_hw = (H, W) is
+    given, else per ray. When 0 < max_active_rays < N, the first
+    max_active_rays rays in a stable order that puts the rays with a valid
+    sample first are kept and sel [M] holds their indices (else None)."""
+    n = rays_o.shape[0]
     near, far, ray_valid = intersect_aabb(rays_o, rays_d, bound, min_near)
-    z, dt, sample_valid = select_occupied_depths(rays_o, rays_d, near, far, density, bound,
-                                                 grid_size, n_candidates, n_steps)
+    if probe_block > 1 and image_hw is not None:
+        z, dt, sample_valid = select_depths_blocked(rays_o, rays_d, near, far, density, bound,
+                                                    grid_size, n_candidates, n_steps,
+                                                    probe_block, *image_hw)
+    else:
+        z, dt, sample_valid = select_occupied_depths(rays_o, rays_d, near, far, density,
+                                                     bound, grid_size, n_candidates, n_steps)
     sample_valid = sample_valid & ray_valid[:, None]
+    sel = None
+    if 0 < max_active_rays < n:
+        active = sample_valid.any(dim=-1)
+        # stable, as jnp.argsort: the kept rays are the first in raster order
+        sel = torch.argsort((~active).to(torch.uint8), stable=True)[:max_active_rays]
+        z, dt, sample_valid = z[sel], dt[sel], sample_valid[sel]
+        rays_o, rays_d = rays_o[sel], rays_d[sel]
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
     xyz = torch.clamp(xyz, -bound, bound)
-    return {"xyz": xyz, "dirs": rays_d, "z": z, "dt": dt, "valid": sample_valid,
-            "sel": None}
+    return {"xyz": xyz, "dirs": rays_d, "z": z, "dt": dt, "valid": sample_valid, "sel": sel}
 
 
-def shade(apply_fn: Callable, plan: dict, bg_color, training: bool = False) -> dict:
+def shade(apply_fn: Callable, plan: dict, bg_color, training: bool = False, enc_x=None,
+          n_rays: int | None = None) -> dict:
     """Network evaluation and compositing over a plan_rays() plan.
 
-    apply_fn(xyz [M·K,3], dirs [M·K,3], training) → (sigma, color, amb_aud,
-    amb_eye, unc), a closure over the network and the frame's conditions.
-    Returns composite()'s dict with ambient_aud, ambient_eye and uncertainty
-    [N, 1] accumulated beside the image."""
-    z, dt, valid = plan["z"], plan["dt"], plan["valid"]
+    apply_fn(pos, dirs [M·K,3], training) → (sigma, color, amb_aud,
+    amb_eye, unc), a closure over the network and the frame's conditions;
+    pos is enc_x [M·K, F] (features encoded apart) when given, else xyz
+    [M·K, 3]. Returns composite()'s dict with ambient_aud, ambient_eye and
+    uncertainty [N, 1] accumulated beside the image. A compacted plan's
+    results are scattered back onto n_rays rays: the rest are background
+    (bg_color [3] or per ray [n_rays, 3]) with zero depth and extras."""
+    z, dt, valid, sel = plan["z"], plan["dt"], plan["valid"], plan["sel"]
     m, k = z.shape
     xyz = plan["xyz"]
     dirs = plan["dirs"][:, None, :].expand(xyz.shape)
-    sigma, color, amb_aud, amb_eye, unc = apply_fn(xyz.reshape(-1, 3), dirs.reshape(-1, 3),
-                                                   training)
+    pos = enc_x if enc_x is not None else xyz.reshape(-1, 3)
+    sigma, color, amb_aud, amb_eye, unc = apply_fn(pos, dirs.reshape(-1, 3), training)
     extras = {"ambient_aud": amb_aud.reshape(m, k, 1),
               "ambient_eye": amb_eye.reshape(m, k, 1),
               "uncertainty": unc.reshape(m, k, 1)}
-    return composite(sigma.reshape(m, k), color.reshape(m, k, 3), z, dt, valid, bg_color,
-                     extras=extras)
+    if sel is None:
+        return composite(sigma.reshape(m, k), color.reshape(m, k, 3), z, dt, valid, bg_color,
+                         extras=extras)
+    if n_rays is None:
+        raise ValueError("shade on a compacted plan needs n_rays")
+    bg_s = bg_color[sel] if bg_color.dim() == 2 else bg_color
+    sub = composite(sigma.reshape(m, k), color.reshape(m, k, 3), z, dt, valid, bg_s,
+                    extras=extras)
+    image = bg_color.expand(n_rays, 3).clone()
+    image[sel] = sub["image"]
+    out = {"image": image}
+    for name, shape in (("depth", (n_rays,)), ("weights_sum", (n_rays,)),
+                        ("ambient_aud", (n_rays, 1)), ("ambient_eye", (n_rays, 1)),
+                        ("uncertainty", (n_rays, 1))):
+        out[name] = torch.zeros(shape, dtype=sub[name].dtype, device=z.device)
+        out[name][sel] = sub[name]
+    return out
 
 
 def render_rays(apply_fn: Callable, rays_o, rays_d, density: DensityGrid, bound: float,
                 grid_size: int, bg_color, n_candidates: int = 64, n_steps: int = 16,
                 min_near: float = 0.05, training: bool = False,
-                max_active_rays: int = 0, probe_block: int = 0) -> dict:
+                max_active_rays: int = 0, probe_block: int = 0,
+                image_hw: tuple | None = None) -> dict:
     """plan_rays + shade: the training path, where the hash encode is
     differentiable."""
     plan = plan_rays(rays_o, rays_d, density, bound, grid_size, n_candidates=n_candidates,
                      n_steps=n_steps, min_near=min_near, max_active_rays=max_active_rays,
-                     probe_block=probe_block)
-    return shade(apply_fn, plan, bg_color, training=training)
+                     probe_block=probe_block, image_hw=image_hw)
+    return shade(apply_fn, plan, bg_color, training=training, n_rays=rays_o.shape[0])
 
 
 def update_density_grid(density_fn: Callable, density: DensityGrid, bound: float,

@@ -55,6 +55,12 @@ class LatencyMeter:
             self.total += seconds
             self._samples.append(seconds)
 
+    def reset(self) -> None:
+        """Forget every sample (a new measurement window)."""
+        with self._lock:
+            self.last, self.count, self.total = 0.0, 0, 0.0
+            self._samples.clear()
+
     def quantile(self, q: float) -> float:
         """Nearest-rank quantile of the retained samples (0.0 when empty)."""
         with self._lock:

@@ -5,7 +5,7 @@ the Pallas kernel in interpret mode (uint8 frames within 1 LSB, the
 ROADMAP rule: float sums in another order can move a value across a
 truncation boundary), its span cache and density swap, the dataset loader,
 the feature ring, and ``make_engine`` serving a loopback session through
-the port's server."""
+the port's server in each sample mode (the K2 step, nearest, bilinear)."""
 from __future__ import annotations
 
 import asyncio
@@ -203,9 +203,11 @@ def test_feature_ring_matches_jax_and_device_window():
 
 def test_unported_options_raise(datasets, data_dir):
     _, pds = datasets
-    for key, value in (("nerf.sample_mode", "nearest"), ("nerf.asr_model", "x.pb")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NeRFReal(Config().override(**OVERRIDES, **{key: value}), dataset=pds, device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NeRFReal(Config().override(**OVERRIDES, **{"nerf.asr_model": "x.pb"}), dataset=pds,
+                 device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NeRFReal(Config().override(**OVERRIDES), dataset=pds, device=CPU, bake_planes=False)
     for key, value in (("nerf.torso", True), ("nerf.ckpt", "ckpt/"),
                        ("nerf.fullbody_imgs", "body/")):
         cfg = Config().override(**OVERRIDES, **{key: value,
@@ -215,11 +217,12 @@ def test_unported_options_raise(datasets, data_dir):
             make_engine(cfg, device=CPU)
 
 
-def test_make_engine_serves_a_loopback_session(data_dir):
+@pytest.mark.parametrize("mode", ["pallas", "bilinear", "nearest"])
+def test_make_engine_serves_a_loopback_session(data_dir, mode):
     cfg = Config().override(**OVERRIDES, **{
         "nerf.pose_path": f"{data_dir}/transforms.json",
         "nerf.au_path": f"{data_dir}/au.csv", "nerf.scale": 1.0,
-        "server.max_sessions": 1})
+        "server.max_sessions": 1, "nerf.sample_mode": mode})
     engines = []
 
     def factory(c, **kw):
@@ -250,5 +253,7 @@ def test_make_engine_serves_a_loopback_session(data_dir):
 
     frame = asyncio.run(main())
     assert isinstance(engines[0], NeRFReal) and engines[0].device == CPU
+    factory = "make_render_step" if mode == "pallas" else "make_baked_render_step"
+    assert engines[0]._render_step.__qualname__.startswith(factory + ".")
     assert frame is not None and frame.image.shape == (64, 64, 3)
     assert frame.image.dtype == np.uint8

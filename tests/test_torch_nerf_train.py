@@ -145,8 +145,13 @@ def test_render_rays_with_extras_matches_jax(nets):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]),
                                    rtol=2e-5, atol=2e-5, err_msg=key)
     assert float(np.asarray(ref["uncertainty"]).max()) > 0.1
-    with pytest.raises(NotImplementedError, match="ER-NeRF sample modes"):
-        prend.plan_rays(t_(b["rays_o"]), t_(b["rays_d"]), dp, 1.0, 16, max_active_rays=8)
+    # the static compaction keeps the first 8 rays with a valid sample, in order
+    cj = jrend.plan_rays(jnp.asarray(b["rays_o"]), jnp.asarray(b["rays_d"]), dj, 1.0, 16,
+                         n_candidates=16, n_steps=4, max_active_rays=8)
+    cp = prend.plan_rays(t_(b["rays_o"]), t_(b["rays_d"]), dp, 1.0, 16, n_candidates=16,
+                         n_steps=4, max_active_rays=8)
+    np.testing.assert_array_equal(cp["sel"].numpy(), np.asarray(cj["sel"]))
+    np.testing.assert_array_equal(cp["valid"].numpy(), np.asarray(cj["valid"]))
 
 
 def test_update_density_grid_matches_jax(nets):
