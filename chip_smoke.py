@@ -7,9 +7,10 @@ Run from the root of a checkout. Phases, each printing one JSON line with
 its seconds; any failure is fatal (exit code 1, no result line):
 
 1. build    — build kernels K1 (csrc/attention.cu), the sampler family K2,
-              K2b, K2c, K2d (csrc/sampler.cu) and K3 (csrc/hash_lookup.cu)
-              with nvcc for sm_90a, one nvcc each, started together; ptxas's
-              registers and spills per kernel.
+              K2b, K2c, K2d (csrc/sampler.cu), K3 (csrc/hash_lookup.cu) and
+              K2's stages S1, S2 (csrc/sampler_stages.cu) with nvcc for
+              sm_90a, one nvcc each, started together; ptxas's registers and
+              spills per kernel.
 2. kernels  — K1 at the serving shape [16, 8, 1024, 40] in float32 (TF32
               off) and bfloat16 against its plain PyTorch version: max abs
               error, kernel / plain / SDPA times, the bound; a ragged shape
@@ -42,7 +43,11 @@ its seconds; any failure is fatal (exit code 1, no result line):
               weights) through make_render_step with K2 against the plain
               step on the same inputs: frames within 1 LSB, exactly one K2
               launch per frame; frame times in turns; one frame under
-              torch.profiler.
+              torch.profiler. Then the unbaked frame (NeRFReal's
+              bake_planes=False step: the hash encode on K3, the bf16 head,
+              65,536 active rays × 16 samples) against the same step with
+              K3's plain version: within 1 LSB, exactly one K3 forward launch
+              per frame (counts zeroed just before); frame times in turns.
 6. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
               synthesized 512² dataset in a temporary directory, procedural
               TTS, loopback transport: start a session, talk, wait for 50
@@ -75,6 +80,20 @@ its seconds; any failure is fatal (exit code 1, no result line):
               backward K3 launches a step and 32 forward a density refresh,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
+10. sampler_stages — the profiling entry points prof_r5m.main and
+              prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
+              made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
+              wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
+              before and read just after (exactly 31 S1, 62 S2 and 155 K2
+              launches: S2's "full" is K2's launch); then at those operands
+              S1 (both modes), S2 (win, shade) and K2 (full) each against
+              its plain version (max error, kernel / plain times, the bound
+              over the texels the samples weigh; S1 and win fail their limit
+              on u moved by 1/512 texel, shade and full without the bf16
+              rounding of activations), S2 with float32 weights against its
+              plain version, S2 full launching K2 and no stage kernel, and
+              K2's split in turns: fetch (win), head at most K2 − win
+              (shade − win beside it, with shade's extra columns).
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -121,6 +140,12 @@ FAMILY_K2B_COMPOSITE_ATOL = 2e-5
 FAMILY_K2C_ATOL = 1e-4
 K2C_SYNTH_OPS = 37     # K2c's per-sample kf, z, clipped xyz, texels and mip placement
 MODES_PSNR_DB = 20     # nearest/bilinear against the K2 frame (tests/test_nerf_engine.py)
+# S1 and S2 against their plain versions on the profiling operands: S1 sums
+# the same exact bf16 products in the same order (0 expected), of its largest
+# value; win the same features in another order, of its largest value; shade
+# the head in another order, relative above 1 (K2b's limit); full K2's limit
+STAGE_TOL = {"S1": 1e-6, "S1_blockdiag": 1e-6, "win": 1e-5, "shade": 1e-5, "full": 1e-5}
+STAGE_KERNEL_MODES = ("win", "shade")   # S2's own kernel; its "full" mode is K2
 MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
@@ -218,9 +243,9 @@ def profile_generate(fn, kernel: str = "attention_kernel") -> dict:
 def phase_build(state: dict) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
-    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler, sampler_stages
 
-    mods = {"K1": attention, "K2": sampler, "K3": hash_lookup}
+    mods = {"K1": attention, "K2": sampler, "K3": hash_lookup, "S1, S2": sampler_stages}
     with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source, together
         paths = dict(zip(mods, pool.map(lambda m: m.build(), mods.values())))
     out = {}
@@ -364,14 +389,56 @@ def k2_ops_per_sample(spec) -> int:
     return 2 * head_macs + 3 * spec.channels * 9
 
 
+def texel_bytes(spec, planes, jobs, uv, s1_blockdiag=None) -> int:
+    """Bytes of the plane texels that a fetch needs on these operands: each
+    texel (CP bf16 lanes) that some sample weighs non-zero, counted once.
+    K2's fetch (s1_blockdiag None): the 2 × 2 texels around each (sample,
+    plane)'s window-clamped (u, v); S1: its u tent's two rows over the
+    window's first 128 lanes (8 texels), the tent made as S1 makes it in
+    either mode."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops.sampler import CP
+
+    n_planes, rows, width = planes.shape
+    rv, kg, sg, dev = width // CP, spec.kg, spec.sg, uv.device
+    jobs = jobs.reshape(-1, 1 + 2 * kg).long()
+    uv = uv.reshape(-1, kg, 2, sg)
+    p = jobs[:, 0].clamp(0, n_planes - 1)[:, None, None]        # [3T, 1, 1]
+    ou, ov = jobs[:, 1::2, None], jobs[:, 2::2, None]            # [3T, kg, 1]
+    shift = (torch.arange(kg, device=dev) * spec.wu if s1_blockdiag
+             else torch.zeros(kg, dtype=torch.long, device=dev))[None, :, None]
+    uc = (uv[:, :, 0] - ou.float()).clamp(0.0, spec.wu - 1.001) + shift.float()
+    fi = uc.floor()
+    tent = lambda d, c: (1.0 - (d - c).abs()).clamp(min=0.0)
+    row = (ou + fi.long() - shift).clamp(0, rows - 2)
+    u_taps = [(0, tent(fi, uc).to(torch.bfloat16)), (1, tent(fi + 1.0, uc).to(torch.bfloat16))]
+    if s1_blockdiag is None:
+        vc = (uv[:, :, 1] - ov.float()).clamp(0.0, spec.wv - 1.001)
+        fj = vc.floor()
+        col = (ov + fj.long()).clamp(0, rv - 2)
+        v_taps = [(0, tent(fj, vc)), (1, tent(fj + 1.0, vc))]
+    else:
+        col = ov.clamp(0, rv - 128 // CP).expand_as(row)
+        v_taps = [(d, None) for d in range(128 // CP)]
+    seen = torch.zeros(n_planes * rows * rv, dtype=torch.bool, device=dev)
+    base = (p * rows + row) * rv + col
+    for du, wu_ in u_taps:
+        for dv, wv_ in v_taps:
+            keep = wu_ != 0 if wv_ is None else (wu_ != 0) & (wv_ != 0)
+            seen[(base + du * rv + dv)[keep]] = True
+    return int(seen.sum().item()) * CP * planes.element_size()
+
+
 def k2_bound_ms(spec, ops) -> tuple[float, str]:
     """Least time for K2's work on these operands: every sample's operations
     at the bf16 tensor rate (the head's operands are bf16) against each
-    operand read once, the whole plane stack included, and the output
-    written once."""
+    operand read once (of the plane stack, the texels the samples weigh:
+    texel_bytes; of dtv, lane 0) and the output written once."""
     tiles = ops[2].shape[0] // 3
     samples = tiles * spec.rays_per_tile * spec.k
-    nbytes = sum(x.numel() * x.element_size() for x in ops[:5])
+    nbytes = texel_bytes(spec, *ops[:3])
+    nbytes += sum(x.numel() * x.element_size() for x in (*ops[1:4], ops[4][..., 0]))
     nbytes += sum(w.numel() * w.element_size() for w in ops[5].values())
     nbytes += tiles * spec.rays_per_tile * 16 * 4
     t_ops = samples * k2_ops_per_sample(spec) / PEAK_BF16_FLOPS * 1e3
@@ -831,12 +898,59 @@ def phase_nerf_model(state: dict) -> dict:
         ms = time_ms(lambda: frame(impl), iters=5, warmup=1)
         times.setdefault(f"frame_{impl}_ms", []).append(ms)
     profile = profile_generate(lambda: frame("auto"), kernel="sample_shade_comp")
-    del steps, baked, net
+    del steps, baked
+    torch.cuda.empty_cache()
+    unbaked = unbaked_frame(cfg, ds, net, (dens, bg, auds, eye))
+    del net
     torch.cuda.empty_cache()
     return {"frames_max_lsb": lsb, "k2_launches_per_frame": launches["auto"],
             "active_tiles": stats["auto"][0], "overflow_jobs": stats["auto"][1],
             "unsaturated_share": float(((frames["plain"] > 0) & (frames["plain"] < 255)).mean()),
-            "bake_s": bake_s, "frame_profile": profile, **times}
+            "bake_s": bake_s, "frame_profile": profile, **times, "unbaked": unbaked}
+
+
+def unbaked_frame(cfg, ds, net, inputs) -> dict:
+    """The nerf_model frame through the unbaked step (NeRFReal with
+    bake_planes=False) at the default budget, with K3 and with K3's plain
+    version (one step each: the audio-code EMA is per step)."""
+    import numpy as np
+    import torch
+
+    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
+    from mere_fusion_tpu_torch.engines.nerf_baked import make_unbaked_render_step
+
+    dens, bg, auds, eye = inputs
+    steps = {impl: make_unbaked_render_step(net, ds, cfg) for impl in ("plain", "auto")}
+
+    def frame(impl):
+        net_mod.ENCODE_IMPL = impl
+        return steps[impl](ds.poses[0], auds, eye, dens, bg)[0]
+
+    frames, launches, times = {}, {}, {}
+    try:
+        for impl in ("plain", "auto"):
+            zero_kernel_counts()
+            img = frame(impl)
+            torch.cuda.synchronize()
+            launches[impl] = k3_counts()                  # ... the frame ends here
+            frames[impl] = img.cpu().numpy()
+        for impl in ("plain", "auto", "auto", "plain"):
+            times.setdefault(f"frame_{impl}_ms", []).append(
+                time_ms(lambda: frame(impl), iters=5, warmup=1))
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    lsb = int(np.abs(frames["auto"].astype(int) - frames["plain"].astype(int)).max())
+    if frames["auto"].shape != (NERF_HW, NERF_HW, 3) or float(frames["auto"].std()) <= 2:
+        raise AssertionError(f"unbaked frame {frames['auto'].shape}, std {frames['auto'].std()}")
+    if lsb > 1:
+        raise AssertionError(f"unbaked frame with K3 differs from plain by {lsb} LSB")
+    if launches != {"plain": (0, 0), "auto": (1, 0)}:
+        raise AssertionError(f"unbaked frame: K3 (forward, backward) launches {launches}, "
+                             "want plain (0, 0), auto (1, 0)")
+    return {"frames_max_lsb": lsb, "k3_fwd_launches_per_frame": launches["auto"][0],
+            "max_active_rays": cfg.nerf.max_active_rays, "samples_per_ray": cfg.nerf.max_steps,
+            "unsaturated_share": float(((frames["auto"] > 0) & (frames["auto"] < 255)).mean()),
+            **times}
 
 
 async def _nerf_session(state: dict) -> dict:
@@ -922,23 +1036,26 @@ def family_counts() -> dict:
 
 def family_bound_ms(kernel: str, spec, ops, fam) -> tuple[float, str]:
     """Least time for K2b, K2c or K2d's work on this run's operands: each
-    operand read once (the whole plane stack, the jobs, the coordinates or
-    rays, the 64 real lanes of the direction projections, the weights of the
-    head) and the output written once at 3.35 TB/s, against the operations:
-    the head's and the sample's per sample at the bf16 tensor rate (as K2's),
-    plus K2c's coordinate synthesis; K2d's 9 f32 operations per real channel
-    at the card's f32 rate."""
+    operand read once (of the plane stack, for K2b and K2d the texels their
+    samples weigh (texel_bytes), for K2c, whose coordinates are made in the
+    kernel, the whole stack; the jobs, the coordinates or rays, the 64 real
+    lanes of the direction projections, the weights of the head) and the
+    output written once at 3.35 TB/s, against the operations: the head's and
+    the sample's per sample at the bf16 tensor rate (as K2's), plus K2c's
+    coordinate synthesis; K2d's 9 f32 operations per real channel at the
+    card's f32 rate."""
     planes, jobs, uv, dproj, _, weights = ops
     tiles = uv.shape[0] // 3
     samples = tiles * spec.rays_per_tile * spec.k
     size = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
     head = size(*weights.values())
     if kernel == "K2d":
-        nbytes = size(planes, jobs, uv) + samples * 3 * 16 * 2
+        nbytes = texel_bytes(spec, planes, jobs, uv) + size(jobs, uv) + samples * 3 * 16 * 2
         t_ops = samples * 3 * spec.channels * 9 / PEAK_F32_FLOPS * 1e3
     elif kernel == "K2b":
         # the kernel reads the first 64 lanes of dproj's 128; lanes 64: are padding
-        nbytes = size(planes, jobs, uv, fam["dproj128"][..., :64]) + head + samples * 16 * 4
+        nbytes = (texel_bytes(spec, planes, jobs, uv) + size(jobs, uv, fam["dproj128"][..., :64])
+                  + head + samples * 16 * 4)
         t_ops = samples * k2_ops_per_sample(spec) / PEAK_BF16_FLOPS * 1e3
     else:
         nbytes = (size(planes, fam["jobs_rays"], fam["rays"], dproj) + head
@@ -1180,11 +1297,12 @@ def k3_counts() -> tuple[int, int]:
 
 
 def zero_kernel_counts() -> None:
-    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler, sampler_stages
 
     attention.launches = sampler.launches = 0
     sampler.shade_launches = sampler.rays_launches = sampler.sample_launches = 0
     hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
+    sampler_stages.m1_launches = sampler_stages.section_launches = 0
 
 
 def run_cli(argv: list) -> list[str]:
@@ -1336,10 +1454,181 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
             "it_per_s_at_it100": logged[100]["it_per_s"]}
 
 
+def stage_counts() -> dict:
+    from mere_fusion_tpu_torch.ops import sampler, sampler_stages
+
+    return {"S1": sampler_stages.m1_launches, "S2": sampler_stages.section_launches,
+            "K2": sampler.launches}
+
+
+def stage_bound_ms(name: str, spec, ops, out) -> tuple[float, str]:
+    """Least time for a stage's work on this run's operands: what the stage
+    reads read once (the plane texels its samples weigh, texel_bytes; the
+    jobs; for S1 the u half of uv, else all of uv; for shade and full the 64
+    lanes of dproj, the weights and, for full, dtv's lane 0) and its output written
+    once at 3.35 TB/s, against its operations. The profiling operands fill
+    every lane, so a sample counts all 48: S1's 4 f32 operations (two
+    products and two sums) per output lane and (plane, group), and win's 9
+    per feature of the sample plus its sum, at the card's f32 rate; shade
+    and full K2's head and sample over 48 features at the bf16 tensor rate,
+    shade with the other 15 columns of w_sigcol and 13 of w_rgb for its
+    returned rows."""
+    import dataclasses
+
+    from mere_fusion_tpu_torch.ops.sampler import CP
+
+    planes, jobs, uv, dproj, dtv, weights = ops
+    size = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
+    tiles = uv.shape[0] // 3
+    samples = tiles * spec.rays_per_tile * spec.k
+    if name.startswith("S1"):
+        blockdiag = name == "S1_blockdiag"
+        nbytes = (texel_bytes(spec, planes, jobs, uv, blockdiag) + size(jobs, out)
+                  + size(uv) // 2)
+        t_ops = 4 * 3 * spec.kg * tiles * spec.sg * 128 / PEAK_F32_FLOPS * 1e3
+    elif name == "win":
+        nbytes = texel_bytes(spec, planes, jobs, uv) + size(jobs, uv, out)
+        t_ops = samples * 3 * CP * 10 / PEAK_F32_FLOPS * 1e3
+    else:
+        nbytes = (texel_bytes(spec, planes, jobs, uv) + size(jobs, uv, out, dproj[..., :64],
+                                                             *weights.values())
+                  + (size(dtv[..., 0]) if name == "full" else 0))
+        ops_ = samples * k2_ops_per_sample(dataclasses.replace(spec, channels=CP))
+        if name == "shade":
+            ops_ += tiles * spec.rays_per_tile * (2 * 64 * (15 + 13) + 16)
+        t_ops = ops_ / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_sampler_stages(state: dict) -> dict:
+    import contextlib
+    import io
+
+    import torch
+
+    from mere_fusion_tpu_torch.ops import sampler, sampler_stages
+    from mere_fusion_tpu_torch.ops.sampler import SamplerSpec
+    from mere_fusion_tpu_torch.scripts import prof_r5k, prof_r5m
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # 1. the slice's main path: the two profiling entry points
+    buf = io.StringIO()
+    zero_kernel_counts()
+    with contextlib.redirect_stdout(buf):
+        prof_r5m.main(dev)
+        prof_r5k.main(dev)
+    torch.cuda.synchronize()
+    launches = stage_counts()                     # ... and ends here
+    if launches != {"S1": 31, "S2": 62, "K2": 155}:
+        raise AssertionError(f"profiling entry points launched {launches}, want S1 31 "
+                             "(m1-only), S2 62 (win, shade), K2 155 (section full, 4 specs)")
+    out = {"main_lines": buf.getvalue().splitlines(), "main_launches": launches}
+
+    # 2. each stage against its plain version on the profiling operands
+    spec = SamplerSpec(resolution=prof_r5k.R, channels=prof_r5k.C, tile_w=16, tile_h=8, k=16,
+                       kg=4, wu=64, wv=32)
+    t = prof_r5k.N_RAYS // spec.rays_per_tile
+    ops = prof_r5k.make_inputs(spec, t, torch.Generator(device=dev).manual_seed(0), dev)
+    jobs, uv, dproj, dtv, weights, planes = ops
+    ops = (planes, jobs, uv, dproj, dtv, weights)
+    nudged = uv.clone()
+    nudged[:, :, 0] += 1 / 512                    # u moved by 1/512 texel
+    unrounded = {k: w.float() for k, w in weights.items()}
+
+    def s1(blockdiag, plain=False, coords=uv):
+        fn = sampler_stages.m1_only_plain if plain else sampler_stages.m1_only
+        return lambda: fn(planes, jobs, coords, spec, blockdiag)
+
+    def s2(mode, plain=False, coords=uv, w=weights, dp=dproj):
+        fn = sampler_stages.sections_plain if plain else sampler_stages.sections
+        return lambda: fn(planes, jobs, coords, dp, dtv, w, spec, mode)
+
+    checks = {   # name: (kernel, plain, control that the limit must fail, limit)
+        "S1": (s1(False), s1(False, True), s1(False, True, nudged), STAGE_TOL["S1"]),
+        "S1_blockdiag": (s1(True), s1(True, True), s1(True, True, nudged), STAGE_TOL["S1"]),
+        "win": (s2("win"), s2("win", True), s2("win", True, nudged), STAGE_TOL["win"]),
+        "shade": (s2("shade"), s2("shade", True),
+                  s2("shade", True, w=unrounded, dp=dproj.float()), STAGE_TOL["shade"]),
+        "full": (s2("full"), s2("full", True),
+                 s2("full", True, w=unrounded, dp=dproj.float()), STAGE_TOL["full"]),
+    }
+    res = {}
+    for name, (kernel, plain, control, tol) in checks.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = stage_err(name, got, ref)
+        control_err = stage_err(name, control(), ref)
+        r = {"max_abs_err": (got - ref).abs().max().item(), "err": err, "tol": tol,
+             "control_err": control_err}
+        if not err <= tol or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} against plain: {err} > {tol}")
+        if not control_err > tol:
+            raise AssertionError(f"{name}: the limit {tol} passes its control ({control_err})")
+        bound, by = stage_bound_ms(name, spec, ops, got)
+        r.update({"kernel_ms": time_ms(kernel, iters=10, warmup=2),
+                  "plain_ms": time_ms(plain, iters=3, warmup=1), "bound_ms": bound,
+                  "bound_by": by})
+        res[name] = r
+        del got, ref
+    out.update(res)
+
+    # 3. S2 full launches K2 (and no stage kernel); win and shade with float32
+    # weights against their plain versions
+    before = stage_counts()
+    sampler_stages.sections(*ops, spec, "full")
+    torch.cuda.synchronize()
+    after = stage_counts()
+    if {k: after[k] - before[k] for k in after} != {"S1": 0, "S2": 0, "K2": 1}:
+        raise AssertionError(f"S2 full launched {before} -> {after}, want one K2 launch")
+    f32 = {}
+    for mode in STAGE_KERNEL_MODES:
+        got = sampler_stages.sections(planes, jobs, uv, dproj.float(), dtv, unrounded, spec, mode)
+        ref = sampler_stages.sections_plain(planes, jobs, uv, dproj.float(), dtv, unrounded,
+                                            spec, mode)
+        f32[mode] = stage_err(mode, got, ref)
+        if not f32[mode] <= STAGE_TOL[mode]:
+            raise AssertionError(f"S2 {mode} with float32 weights against plain: {f32[mode]}")
+    out["float32_weights_err"] = f32
+    out["full_is_k2"] = True
+
+    # 4. K2's split, in turns: fetch (win); head at most K2 − win (shade − win
+    # also counts shade's extra columns); the composite is below what they resolve
+    calls = {"K2": lambda: sampler.sample_shade_comp_tiles(*ops, spec),
+             **{m: s2(m) for m in STAGE_KERNEL_MODES}}
+    turns = {}
+    for name in ("K2", "win", "shade", "shade", "win", "K2"):
+        turns.setdefault(name, []).append(time_ms(calls[name], iters=10, warmup=2))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    out["split_ms"] = {"turns": turns, "fetch": mean["win"], "head_at_most": mean["K2"] - mean["win"],
+                       "shade_minus_win": mean["shade"] - mean["win"],
+                       "k2_minus_shade": mean["K2"] - mean["shade"], "k2": mean["K2"]}
+    state["stage_numbers"] = res
+    state["stage_launches"] = launches
+    del ops, planes, jobs, uv, dproj, dtv, weights, nudged, unrounded, checks, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_err(name: str, got, ref) -> float:
+    """A stage's error against its plain version, in its limit's terms:
+    S1 and win relative to the largest value, shade relative above 1,
+    full absolute."""
+    diff = (got - ref).abs()
+    if name.startswith("S1") or name == "win":
+        return diff.max().item() / ref.abs().max().item()
+    if name == "shade":
+        return (diff / ref.abs().clamp_min(1.0)).max().item()
+    return diff.max().item()
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
-          ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train))
+          ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
+          ("sampler_stages", phase_sampler_stages))
 
 
 def main() -> int:
@@ -1371,7 +1660,7 @@ def main() -> int:
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
               "card": gpu, **result})
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
-    fam = state["family_numbers"]
+    fam, st = state["family_numbers"], state["stage_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -1415,7 +1704,24 @@ def main() -> int:
         "ms_measure": "device time, torch.profiler",
         "call_ms": k3[part]["kernel_call_ms"], "plain_call_ms": k3[part]["plain_call_ms"],
         "library_call_ms": k3[part]["library_call_ms"],
-    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"])]})
+    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"])] + [{
+        "name": name, "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/sampler_stages.cu",
+        "replaces": f"scripts/prof_r5m.py:{line}",
+        "launches": state["stage_launches"][kernel],
+        "max_abs_err": st[key]["max_abs_err"], "ms": st[key]["kernel_ms"],
+        "plain_ms": st[key]["plain_ms"], "bound_ms": st[key]["bound_ms"],
+        "bound_by": st[key]["bound_by"],
+        # no single PyTorch call computes these functions (window clamp, bf16 tents)
+        "library_ms": None, "ms_measure": "per call, CUDA events",
+        "modes": {m: {k: st[m][k] for k in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                                            "bound_by")} for m in modes},
+        **extra,
+    } for name, kernel, key, line, modes, extra in (
+        ("m1_only (S1)", "S1", "S1", 40, ("S1", "S1_blockdiag"), {}),
+        # the headline is stage_kernel at "shade"; mode "full" launches K2 (its row)
+        ("sections (S2)", "S2", "shade", 197, STAGE_KERNEL_MODES,
+         {"full_mode": "sample_shade_comp_tiles (K2)"}))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,12 +10,12 @@ attention context, and renders the talking head through the K2 frame step
 Ported: the fake featurizer (``nerf.asr_model = ""``), ``NerfASR`` with its
 device-resident feature ring, the audio-code EMA (in the frame steps) and
 ``NeRFReal`` with ``nerf.sample_mode`` "pallas" (the K2 step) or
-"nearest"/"bilinear" (the baked-texture step, engines/nerf_baked.py), on
-random weights from a fixed seed. Not yet ported, each raising and naming
-its ROADMAP item: the DeepSpeech and wav2vec featurizers (and with them
-device-side featurizer flushes), the unbaked per-frame hash-encode step
-(``bake_planes=False``), the torso net, the orbit camera, the fullbody
-paste and checkpoint loading.
+"nearest"/"bilinear" (the baked-texture step, engines/nerf_baked.py), or
+with ``bake_planes=False`` the unbaked per-frame hash-encode step
+(engines/nerf_baked.py, kernel K3), on random weights from a fixed seed.
+Not yet ported, each raising and naming its ROADMAP item: the DeepSpeech
+and wav2vec featurizers (and with them device-side featurizer flushes), the
+torso net, the orbit camera, the fullbody paste and checkpoint loading.
 """
 from __future__ import annotations
 
@@ -31,7 +31,10 @@ from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
 from mere_fusion_tpu_torch.device import resolve_device
 from mere_fusion_tpu_torch.engines.base import BaseReal, track_put
 from mere_fusion_tpu_torch.engines.base_asr import BaseASR
-from mere_fusion_tpu_torch.engines.nerf_baked import make_baked_render_step
+from mere_fusion_tpu_torch.engines.nerf_baked import (
+    make_baked_render_step,
+    make_unbaked_render_step,
+)
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf.network import (
     NeRFNetConfig,
@@ -166,7 +169,10 @@ class NeRFReal(BaseReal):
     fully occupied density grid, planes baked at 2× the finest hash level
     (at most 1024²), and the frame step of ``nerf.sample_mode``: K2's
     (engines/nerf_step.py) for "pallas", the baked-texture step
-    (engines/nerf_baked.py) for "nearest" and "bilinear"."""
+    (engines/nerf_baked.py) for "nearest" and "bilinear". With
+    ``bake_planes=False`` nothing is baked and every mode renders through
+    the unbaked step (engines/nerf_baked.py), which hash-encodes each
+    frame's samples."""
 
     def __init__(self, cfg: Config, dataset: NeRFTestDataset,
                  custom_opts: list[dict] | None = None, device=None,
@@ -175,10 +181,6 @@ class NeRFReal(BaseReal):
         if nc.sample_mode not in ("pallas", "nearest", "bilinear"):
             raise ValueError(f"nerf.sample_mode {nc.sample_mode!r} is not 'pallas', "
                              "'nearest' or 'bilinear'")
-        if not bake_planes:
-            raise NotImplementedError(
-                "the unbaked per-frame hash-encode step is not ported to the PyTorch "
-                "package yet (ROADMAP: 'ER-NeRF unbaked step')")
         if nc.asr_model:
             raise NotImplementedError(
                 f"nerf.asr_model={nc.asr_model!r}: the DeepSpeech and wav2vec "
@@ -193,18 +195,23 @@ class NeRFReal(BaseReal):
             self._bg_dev = torch.from_numpy(
                 np.asarray(dataset.bg_img, np.float32).reshape(-1, 3)).to(dev)
             self.density = DensityGrid.create(nc.grid_size, device=dev)
-            tables = {n: getattr(self.network, n).detach()
-                      for n in ("plane_xy", "plane_yz", "plane_xz")}
-            baked = bake_triplanes(
-                tables, self.network.cfg.plane_spec, self.network.cfg.bound,
-                resolution=min(1024, 2 * nc.desired_resolution),
-                dtype=torch.bfloat16 if nc.texture_dtype == "bfloat16" else None)
-            make_step = make_render_step if nc.sample_mode == "pallas" else make_baked_render_step
-            self._render_step = make_step(self.network, dataset, cfg, baked)
+            if bake_planes:
+                tables = {n: getattr(self.network, n).detach()
+                          for n in ("plane_xy", "plane_yz", "plane_xz")}
+                baked = bake_triplanes(
+                    tables, self.network.cfg.plane_spec, self.network.cfg.bound,
+                    resolution=min(1024, 2 * nc.desired_resolution),
+                    dtype=torch.bfloat16 if nc.texture_dtype == "bfloat16" else None)
+                make_step = (make_render_step if nc.sample_mode == "pallas"
+                             else make_baked_render_step)
+                self._render_step = make_step(self.network, dataset, cfg, baked)
+            else:
+                self._render_step = make_unbaked_render_step(self.network, dataset, cfg)
             if dev.type == "cuda":
                 # K2's step prefills the span cache for the pose track and
-                # builds K2 now, so the live loop never waits on a probe
-                # readback or nvcc (the baked step has nothing to prefill)
+                # builds K2 now, the unbaked step builds K3, so the live loop
+                # never waits on a probe readback or nvcc (the baked step has
+                # nothing to prefill)
                 self._render_step.warmup(self.density)
             self.asr = NerfASR(cfg, self, fake_logits_fn(nc.audio_in_dim), device=dev)
             self.asr.warm_up()

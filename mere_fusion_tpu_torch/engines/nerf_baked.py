@@ -1,14 +1,20 @@
-"""ER-NeRF frame step in the ``nearest`` and ``bilinear`` sample modes.
+"""ER-NeRF frame steps without K2: the ``nearest`` and ``bilinear`` sample
+modes on baked textures, and the unbaked per-frame hash-encode step.
 
-Port of the baked branch of mere_fusion_tpu/engines/nerf.py
-(``make_nerf_render_step`` with baked textures), the step ``NeRFReal``
-serves when ``nerf.sample_mode`` is not "pallas". One frame: camera rays
-from the pose → occupancy probe (block-shared every ``nerf.probe_block``
-pixels) and sample placement → static compaction to the first
-``nerf.max_active_rays`` rays with a valid sample, in raster order
-(``models.ernerf.renderer.plan_rays``) → texture features of every sample
-(``ops.triplane_bake.encode_x_baked``, nearest or bilinear) → the NeRF head
-→ composite, scattered back over the background → uint8 RGB.
+Port of mere_fusion_tpu/engines/nerf.py's ``make_nerf_render_step``: with
+baked textures (``make_baked_render_step``, the step ``NeRFReal`` serves
+when ``nerf.sample_mode`` is not "pallas") and without
+(``make_unbaked_render_step``, its ``baked is None`` branch, which
+``NeRFReal(bake_planes=False)`` serves in every sample mode). One frame:
+camera rays from the pose → occupancy probe (block-shared every
+``nerf.probe_block`` pixels) and sample placement → static compaction to
+the first ``nerf.max_active_rays`` rays with a valid sample, in raster
+order (``models.ernerf.renderer.plan_rays``) → every sample's features:
+texture samples (``ops.triplane_bake.encode_x_baked``, nearest or
+bilinear), or the network's hash encode (``NeRFNetwork.encode_x``, kernel
+K3 on CUDA, in float32 as the JAX package's) → the NeRF head → composite,
+scattered back over the background (the background colour: no torso) →
+uint8 RGB, the clipped image times 255 truncated.
 
 The head runs in ``nerf.shade_dtype``. In bfloat16 it rounds where the JAX
 package's ``NeRFNetwork(dtype=bfloat16)`` rounds as XLA compiles it: each
@@ -16,9 +22,9 @@ Dense rounds its input and its kernel to bf16 and sums the products in f32;
 its result rounds to bf16 where a bf16 operation (relu, the sigmoid's
 steps, a slice read twice) consumes it, and stays f32 where the next
 operation promotes it to f32 (the audio attention's product with the audio
-code, σ's exp and the outputs' cast). No kernel of this repository runs in
-these modes: the JAX package samples with XLA gathers here, and the port
-with PyTorch's.
+code, σ's exp and the outputs' cast). No kernel of this repository samples
+the textures: the JAX package gathers them with XLA, and the port with
+PyTorch.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from mere_fusion_tpu_torch.config import Config
 from mere_fusion_tpu_torch.engines.nerf_step import smooth_enc_a_fn
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid, get_rays, plan_rays, shade
+from mere_fusion_tpu_torch.ops import hash_lookup
 from mere_fusion_tpu_torch.ops.encoders import sh_encode
 from mere_fusion_tpu_torch.ops.triplane_bake import encode_x_baked
 
@@ -88,6 +95,40 @@ def make_baked_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: di
     nc = cfg.nerf
     if nc.sample_mode not in SAMPLE_MODES:
         raise ValueError(f"nerf.sample_mode {nc.sample_mode!r} is not one of {SAMPLE_MODES}")
+    render = _frame_renderer(network, dataset, cfg, lambda xyz: encode_x_baked(
+        baked, xyz, nc.bound, nc.sample_mode))
+
+    def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
+        return render(pose, auds, eye, density, bg), None, None
+
+    step.warmup = lambda density: None
+    return step
+
+
+def make_unbaked_render_step(network: NeRFNetwork, dataset, cfg: Config):
+    """The baked step's call and result with each sample's features from the
+    network's hash encode (``encode_x``: K3 on CUDA, its plain version on
+    the CPU or with ``models.ernerf.network.ENCODE_IMPL = "plain"``), in every
+    sample mode. ``warmup`` builds K3 on CUDA, so the live loop never waits
+    on nvcc."""
+    render = _frame_renderer(network, dataset, cfg, network.encode_x)
+
+    def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
+        return render(pose, auds, eye, density, bg), None, None
+
+    def warmup(density):
+        if network.plane_xy.device.type == "cuda":
+            hash_lookup.load()
+
+    step.warmup = warmup
+    return step
+
+
+def _frame_renderer(network: NeRFNetwork, dataset, cfg: Config, encode):
+    """render(pose, auds, eye, density, bg) → RGB uint8 [H, W, 3]: one frame
+    around ``encode`` (sample positions [M, 3] → features [M, F]); see the
+    module docstring."""
+    nc = cfg.nerf
     dev = network.plane_xy.device
     H, W = dataset.H, dataset.W
     intrinsics = dataset.intrinsics
@@ -105,10 +146,10 @@ def make_baked_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: di
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     @torch.no_grad()
-    def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
+    def render(pose, auds, eye, density: DensityGrid, bg):
         rays_o, rays_d = get_rays(as_dev(pose), intrinsics, H, W)
         plan = plan_rays(rays_o, rays_d, density, **plan_kw)
-        enc_x = encode_x_baked(baked, plan["xyz"].reshape(-1, 3), nc.bound, nc.sample_mode)
+        enc_x = encode(plan["xyz"].reshape(-1, 3))
         enc_a = network.encode_audio(as_dev(auds))
         if nc.smooth_lips:
             if smooth_state["enc_a"] is not None:
@@ -124,7 +165,6 @@ def make_baked_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: di
 
         out = shade(apply_fn, plan, as_dev(bg), enc_x=enc_x, n_rays=H * W)
         img = torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
-        return (img * 255).to(torch.uint8), None, None
+        return (img * 255).to(torch.uint8)
 
-    step.warmup = lambda density: None
-    return step
+    return render

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import sys
 import threading
 from dataclasses import dataclass
 
@@ -53,8 +54,9 @@ SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 # fixed widths of the ER-NeRF head the kernel is written for
 HID, AUD, EYE_HID = 64, 32, 16
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "sampler.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_SRC = os.path.join(_CSRC, "sampler.cu")
+CORE_HEADER = os.path.join(_CSRC, "sampler_core.cuh")   # device code shared with S1/S2
 
 launches = 0          # K2
 shade_launches = 0    # K2b
@@ -391,31 +393,43 @@ def _tile_features(planes_major, jobs, uv, spec: SamplerSpec):
     return feat.permute(0, 2, 3, 1, 4).reshape(tc, kg * sg, 3 * CP)
 
 
-def shade_core_plain(x, dsamp, w: dict):
-    """The NeRF head chain on per-sample features x [.., 3·CP] with per-sample
-    direction rows dsamp [.., 64] (the JAX ``_shade_core``): every matmul's
+def _mm(a, b, dtype):
+    """a @ b with a rounded to ``dtype`` (the weights'), in float32."""
+    return torch.matmul(a.to(dtype).to(torch.float32), b.to(torch.float32))
+
+
+def head_hidden(x, dsamp, w: dict):
+    """The NeRF head chain of the JAX ``_shade_core`` on per-sample features
+    x [.., 3·CP] with per-sample direction rows dsamp [.., 64], up to the
+    inputs of its last two products: (h, the sigma net's last hidden layer,
+    and relu(ch), the colour net's), both [.., 64] float32. Every matmul's
     left operand is rounded to the weights' dtype, products accumulate in
-    float32. Returns (σ logit [..], rgb logits [.., 3])."""
+    float32."""
     dtype = w["wx_aud"].dtype
     f32 = torch.float32
-
-    def mm(a, b):
-        return torch.matmul(a.to(dtype).to(f32), b.to(f32))
-
     na, ns_, ne = w["wx_aud"].shape[1], w["wx_sig"].shape[1], w["wx_eye"].shape[1]
-    hx = mm(x, torch.cat([w["wx_aud"], w["wx_sig"], w["wx_eye"]], dim=1))
+    hx = _mm(x, torch.cat([w["wx_aud"], w["wx_sig"], w["wx_eye"]], dim=1), dtype)
     aud_h = torch.relu(hx[..., :na])
     h0 = hx[..., na:na + ns_]
     eye_h = torch.relu(hx[..., na + ns_:na + ns_ + ne])
-    aud_ch = mm(aud_h, w["w_aud1"])
-    h = h0 + mm(aud_ch, w["w_aud_sig"])
-    eye_att = torch.sigmoid(mm(eye_h, w["w_eye1"][:, :1]))
+    aud_ch = _mm(aud_h, w["w_aud1"], dtype)
+    h = h0 + _mm(aud_ch, w["w_aud_sig"], dtype)
+    eye_att = torch.sigmoid(_mm(eye_h, w["w_eye1"][:, :1], dtype))
     h = torch.relu(h + eye_att * w["w_sig_e"][0].to(f32))
-    h = torch.relu(mm(h, w["w_sig1"]))
-    sig = mm(h, w["w_sigcol"][:, :1])[..., 0]
-    geo = mm(h, w["w_geo"])
-    ch = mm(geo, w["w_col_g"]) + dsamp + w["col_bias"][0].to(f32)
-    rgb = mm(torch.relu(ch), w["w_rgb"][:, 1:4])
+    h = torch.relu(_mm(h, w["w_sig1"], dtype))
+    geo = _mm(h, w["w_geo"], dtype)
+    ch = _mm(geo, w["w_col_g"], dtype) + dsamp + w["col_bias"][0].to(f32)
+    return h, torch.relu(ch)
+
+
+def shade_core_plain(x, dsamp, w: dict):
+    """The NeRF head chain on per-sample features x [.., 3·CP] with per-sample
+    direction rows dsamp [.., 64] (the JAX ``_shade_core``), as
+    ``head_hidden``. Returns (σ logit [..], rgb logits [.., 3])."""
+    dtype = w["wx_aud"].dtype
+    h, rch = head_hidden(x, dsamp, w)
+    sig = _mm(h, w["w_sigcol"][:, :1], dtype)[..., 0]
+    rgb = _mm(rch, w["w_rgb"][:, 1:4], dtype)
     return sig, rgb
 
 
@@ -555,7 +569,7 @@ def build() -> str:
     return build_shared(
         "mf_sampler", [_SRC],
         [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"])
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"], headers=(CORE_HEADER,))
 
 
 _GEOMETRY = [ctypes.c_int] * 8        # tiles, rpt, kg, ks, wu, wv, rows, rv
@@ -632,7 +646,7 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
     if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > 64:
         raise ValueError(f"{kernel} needs k % kg == 0, k >= 2 and 3·(1 + {job_fields}·kg) "
                          f"<= 64 (k={spec.k}, kg={spec.kg})")
-    if kernel != "K2d" and smem_bytes(spec, kernel) > SMEM_LIMIT:
+    if kernel in ("K2", "K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
         raise ValueError(f"{kernel} tile of {spec.rays_per_tile} rays × {spec.k} samples "
                          f"needs {smem_bytes(spec, kernel)} B of shared memory > {SMEM_LIMIT}")
 
@@ -648,12 +662,14 @@ def _geometry(spec: SamplerSpec, t: int, planes_major) -> list:
             planes_major.shape[1], planes_major.shape[2] // CP]
 
 
-def _launched(err: int, kernel: str, counter: str) -> None:
-    """Raise on a failed launch; count a good one."""
+def _launched(err: int, kernel: str, counter: str, module=None) -> None:
+    """Raise on a failed launch; count a good one in ``module``'s (this
+    module's by default) launch count ``counter``."""
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
+    module = module or sys.modules[__name__]
     with _count_lock:
-        globals()[counter] += 1
+        setattr(module, counter, getattr(module, counter) + 1)
 
 
 def _stream(dev) -> int:

@@ -21,13 +21,14 @@ _locks_lock = threading.Lock()
 
 
 def build_shared(name: str, sources: list[str], command: list[str],
-                 timeout: float = 600.0) -> str:
+                 timeout: float = 600.0, headers: tuple[str, ...] = ()) -> str:
     """Compile ``sources`` with ``command + ["-o", out] + sources`` into
     ``_build/lib<name>-<hash>.so`` unless it is already there; returns the
-    path. The compiler's output goes beside it as ``.log``. Raises
+    path. ``headers`` are files the sources include: they are hashed with
+    them. The compiler's output goes beside it as ``.log``. Raises
     RuntimeError with that output on failure."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of mere_fusion_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax or the JAX package."""
+"""The PyTorch port stands alone: no module of mere_fusion_tpu_torch (its
+scripts/ included), and not chip_smoke.py, imports jax, flax, optax, the JAX
+package or the JAX package's scripts/."""
 from __future__ import annotations
 
 import ast
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "mere_fusion_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mere_fusion_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mere_fusion_tpu", "scripts")
 
 
 def _port_sources() -> list[str]:
@@ -44,7 +45,7 @@ def test_no_jax_import_in_source(path):
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mere_fusion_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mere_fusion_tpu', 'scripts'):\n"
         "    sys.modules[name] = None\n"
         "import mere_fusion_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"

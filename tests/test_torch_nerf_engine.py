@@ -3,9 +3,11 @@ CPU at toy sizes (64² frames, 4 hash levels, 8 samples per ray, 16×8
 tiles): the whole K2 frame step against ``make_pallas_render_step`` with
 the Pallas kernel in interpret mode (uint8 frames within 1 LSB, the
 ROADMAP rule: float sums in another order can move a value across a
-truncation boundary), its span cache and density swap, the dataset loader,
-the feature ring, and ``make_engine`` serving a loopback session through
-the port's server in each sample mode (the K2 step, nearest, bilinear)."""
+truncation boundary), its span cache and density swap, the unbaked
+hash-encode step against ``make_nerf_render_step(baked=None)`` (1 LSB),
+the dataset loader, the feature ring, and ``make_engine`` serving a
+loopback session through the port's server in each sample mode (the K2
+step, nearest, bilinear) and unbaked."""
 from __future__ import annotations
 
 import asyncio
@@ -21,6 +23,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from mere_fusion_tpu.config import Config as JConfig
 from mere_fusion_tpu.data.provider import NeRFTestDataset as JDataset
 from mere_fusion_tpu.engines.nerf import NerfASR as JNerfASR
+from mere_fusion_tpu.engines.nerf import make_nerf_render_step
 from mere_fusion_tpu.engines.nerf_pallas import make_pallas_render_step
 from mere_fusion_tpu.engines.nerf_pallas import shade_weights as j_shade_weights
 from mere_fusion_tpu.models.ernerf.network import NeRFNetConfig as JNetConfig
@@ -33,6 +36,7 @@ from mere_fusion_tpu_torch.convert import density_from_flax, ernerf_from_flax
 from mere_fusion_tpu_torch.data.provider import NeRFTestDataset, synthesize_nerf_dataset
 from mere_fusion_tpu_torch.engines import make_engine
 from mere_fusion_tpu_torch.engines.nerf import NeRFReal, NerfASR, fake_logits_fn
+from mere_fusion_tpu_torch.engines.nerf_baked import make_unbaked_render_step
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step, shade_weights
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
 from mere_fusion_tpu_torch.ops import sampler as psamp
@@ -206,8 +210,6 @@ def test_unported_options_raise(datasets, data_dir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NeRFReal(Config().override(**OVERRIDES, **{"nerf.asr_model": "x.pb"}), dataset=pds,
                  device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeRFReal(Config().override(**OVERRIDES), dataset=pds, device=CPU, bake_planes=False)
     for key, value in (("nerf.torso", True), ("nerf.ckpt", "ckpt/"),
                        ("nerf.fullbody_imgs", "body/")):
         cfg = Config().override(**OVERRIDES, **{key: value,
@@ -217,15 +219,50 @@ def test_unported_options_raise(datasets, data_dir):
             make_engine(cfg, device=CPU)
 
 
-@pytest.mark.parametrize("mode", ["pallas", "bilinear", "nearest"])
+@pytest.mark.parametrize("shade_dtype", ["bfloat16", "float32"])
+def test_unbaked_step_matches_jax(pipelines, datasets, shade_dtype):
+    _, _, (jnet, variables), pnet = pipelines
+    jds, pds = datasets
+    over = {**OVERRIDES, "nerf.shade_dtype": shade_dtype,
+            # half the 64² frame: the compaction keeps the first rays in raster order
+            "nerf.max_active_rays": 2048}
+    jstep = make_nerf_render_step(jnet, variables, jds, JConfig().override(**over), baked=None)
+    pstep = make_unbaked_render_step(pnet, pds, Config().override(**over))
+    g = 16
+    occ = np.zeros((g, g, g), bool)
+    occ[5:11, 4:12, 5:11] = True
+    grids = [JDensity.create(g), JDensity(grid=jnp.zeros(g**3), mean_density=jnp.zeros(()),
+                                          occupancy=jnp.asarray(occ.reshape(-1)))]
+    rng = np.random.default_rng(8)
+    frames = []
+    for index, jdens in ((0, grids[0]), (1, grids[1]), (2, grids[1])):
+        auds = rng.standard_normal((8, 44, 16)).astype(np.float32)   # the EMA carries over
+        jd, pd = jds.collate(index), pds.collate(index)
+        ji = np.asarray(jstep(jd["pose"], jnp.asarray(auds), jnp.asarray(jd["eye"]), jdens,
+                              jnp.asarray(jd["bg_color"])))
+        pi, n_active, n_overflow = pstep(pd["pose"], torch.from_numpy(auds), pd["eye"],
+                                         density_from_flax(jdens), torch.from_numpy(pd["bg_color"]))
+        assert n_active is None and n_overflow is None
+        assert pi.dtype == torch.uint8 and pi.shape == (64, 64, 3)
+        diff = np.abs(pi.numpy().astype(int) - ji.astype(int))
+        assert diff.max() <= 1, f"unbaked frame {index} differs by {diff.max()} LSB"
+        frames.append(pi.numpy())
+    # the budget cuts the dense frame: its lower half is background
+    assert frames[0][:32].std() > 2 and (frames[0][40:] == frames[0][63, 0]).all()
+    assert (frames[1] != frames[2]).any()
+
+
+@pytest.mark.parametrize("mode", ["pallas", "bilinear", "nearest", "unbaked"])
 def test_make_engine_serves_a_loopback_session(data_dir, mode):
     cfg = Config().override(**OVERRIDES, **{
         "nerf.pose_path": f"{data_dir}/transforms.json",
         "nerf.au_path": f"{data_dir}/au.csv", "nerf.scale": 1.0,
-        "server.max_sessions": 1, "nerf.sample_mode": mode})
+        "server.max_sessions": 1, "nerf.sample_mode": "pallas" if mode == "unbaked" else mode})
     engines = []
 
     def factory(c, **kw):
+        if mode == "unbaked":
+            kw["bake_planes"] = False
         engines.append(make_engine(c, **kw))
         return engines[-1]
 
@@ -253,7 +290,8 @@ def test_make_engine_serves_a_loopback_session(data_dir, mode):
 
     frame = asyncio.run(main())
     assert isinstance(engines[0], NeRFReal) and engines[0].device == CPU
-    factory = "make_render_step" if mode == "pallas" else "make_baked_render_step"
+    factory = {"pallas": "make_render_step", "unbaked": "make_unbaked_render_step"}.get(
+        mode, "make_baked_render_step")
     assert engines[0]._render_step.__qualname__.startswith(factory + ".")
     assert frame is not None and frame.image.shape == (64, 64, 3)
     assert frame.image.dtype == np.uint8
