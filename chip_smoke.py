@@ -13,8 +13,11 @@ its seconds; any failure is fatal (exit code 1, no result line):
               spills per kernel.
 2. kernels  — K1 at the serving shape [16, 8, 1024, 40] in float32 (TF32
               off) and bfloat16 against its plain PyTorch version: max abs
-              error, kernel / plain / SDPA times, the bound; a ragged shape
-              must raise. K2 on the dense 512² job set (2048 tiles of 16×8
+              error (and relative to the output's largest magnitude),
+              kernel / plain / SDPA times, the bound; for the bf16 kernel
+              also ptxas's registers and spills (none allowed), its HGMMA
+              count in the SASS (> 0) and the exponential floor beside the
+              bound; a ragged shape must raise. K2 on the dense 512² job set (2048 tiles of 16×8
               rays × 16 samples, planned by the port's planner from a
               synthetic pose, seeded random planes and weights) with bf16
               and float32 shade weights against its plain version: max abs
@@ -33,7 +36,11 @@ its seconds; any failure is fatal (exit code 1, no result line):
 3. model    — a full-width MuseModels (float32, TF32 off): generate with
               ATTN_IMPL "auto" (K1) against "plain" on the same inputs;
               faces within 1 LSB, UNet output within 1e-4 relative, and
-              exactly 5 K1 launches per generate.
+              exactly 5 K1 launches per generate; generate times in turns
+              in float32 and bfloat16; one bf16 generate under
+              torch.profiler (K1's rows must be there); then the same
+              check in bfloat16 within BF16_GENERATE_LSB and
+              BF16_GENERATE_REL, 5 launches.
 4. session  — the port's aiohttp app in-process, MuseTalk, procedural TTS,
               loopback transport, bf16, batch 16: start a session, talk,
               wait for 32 generated frames, stop. Kernel counts are zeroed
@@ -110,9 +117,19 @@ import traceback
 
 SERVE_SHAPE = (16, 8, 1024, 40)   # batch 16 × 8 heads, 32² latents, head_dim 40
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor rate
+EX2_PER_SM_CLOCK = 16             # H100 special-function unit: exp2 per SM per clock
 PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# generate in bf16, K1 against the plain attention, same inputs and weights
+# (phase "model"): the parent commit's K1 (no rounding of p at all) read 10
+# LSB and 1.85e-2 of the UNet output's largest magnitude on these inputs, the
+# wgmma K1 10 LSB and 1.66e-2 (k1_turns, NVIDIA H100 80GB HBM3, 700 W): the
+# bf16 UNet's own roundings, which the plain path takes elsewhere, dominate.
+# Twice the parent's reading leaves room for another kernel's rounding order;
+# a kernel fault (a wrong lane, a lost tile) moves the output by its own size.
+BF16_GENERATE_LSB = 20
+BF16_GENERATE_REL = 0.037
 # K2 against its plain version, both dtypes of shade weights: the largest
 # error read on the dense job set is 3e-7 (f32 sums in another order), and
 # the plain version without the bf16 rounding of activations is further off
@@ -211,6 +228,49 @@ def attention_bound_ms(shape, dtype) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def exp_floor_ms(shape) -> float:
+    """Least time for the softmax's exponentials alone: one exp2 per score
+    (G·L²) at EX2_PER_SM_CLOCK per SM per clock on every SM at the card's
+    top SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    b, h, lq, _ = shape
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * h * lq * lq / (EX2_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
+
+
+def k1_bf16_build(path: str, head_dim: int = SERVE_SHAPE[3]) -> dict:
+    """ptxas's registers and spills of the bf16 kernel's instantiation for
+    head_dim (nvcc -Xptxas -v, the library's .log) and the HGMMA (wgmma)
+    instructions in its SASS (cuobjdump -sass on the library). Raises if it
+    spills or has no HGMMA."""
+    import os
+
+    from mere_fusion_tpu_torch.ops import attention
+
+    tag = attention.wgmma_instance(head_dim)
+    with open(path[:-3] + ".log") as f:
+        log = f.read().splitlines()
+    start = next(i for i, ln in enumerate(log) if "Compiling entry" in ln and tag in ln)
+    notes = [ln.strip() for ln in log[start + 1:start + 4] if "spill" in ln or "registers" in ln]
+    cuobjdump = os.path.join(os.path.dirname(attention.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout.splitlines()
+    first = next(i for i, ln in enumerate(sass) if "Function" in ln and tag in ln)
+    end = next((i for i in range(first + 1, len(sass)) if "Function" in sass[i]), len(sass))
+    hgmma = sum("HGMMA" in ln for ln in sass[first:end])
+    registers = int(next(ln for ln in notes if "registers" in ln).split("Used ")[1].split()[0])
+    spills = [int(w) for ln in notes if "spill" in ln for w in ln.split() if w.isdigit()]
+    out = {"instance": tag, "registers": registers, "spill_bytes": sum(spills[1:]),
+           "hgmma": hgmma, "ptxas": notes}
+    if hgmma <= 0 or out["spill_bytes"]:
+        raise AssertionError(f"K1 bf16 build: {out}")
+    return out
+
+
 def profile_generate(fn, kernel: str = "attention_kernel") -> dict:
     """torch.profiler over one call: device time by kernel (top 6), the
     device's busy share of the call's wall time, and the device time of the
@@ -280,11 +340,15 @@ def phase_kernels(state: dict) -> dict:
         bound, by = attention_bound_ms(SERVE_SHAPE, dtype)
         out[name] = {
             "max_abs_err": err, "tol": ATOL[name],
+            "rel_err": err / ref.float().abs().max().item(),
             "kernel_ms": time_ms(lambda: attention.self_attention(q, k, v)),
             "plain_ms": time_ms(lambda: attention.self_attention_plain(q, k, v)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bound, "bound_by": by,
         }
+        if dtype == torch.bfloat16:
+            out[name]["build"] = k1_bf16_build(attention.build())
+            out[name]["exp_floor_ms"] = exp_floor_ms(SERVE_SHAPE)
     ragged = torch.zeros((1, 1, 300, 40), device="cuda")
     try:
         attention.self_attention(ragged, ragged, ragged)
@@ -638,13 +702,53 @@ def k3_check(state: dict) -> dict:
     return out
 
 
+def generate_check(models, lat, feats) -> dict:
+    """generate and the UNet with ATTN_IMPL "auto" (K1) against "plain" on the
+    same inputs, in the models' dtype: the faces' largest difference in LSB,
+    the UNet output's largest difference relative to its largest magnitude,
+    the share of unsaturated face values, K1 launches per generate, and the
+    faces' shape and finiteness of the UNet output (raised on)."""
+    import numpy as np
+    import torch
+
+    import mere_fusion_tpu_torch.models.musetalk.unet as unet_mod
+    from mere_fusion_tpu_torch.models.musetalk import positional_encoding
+    from mere_fusion_tpu_torch.ops import attention
+
+    b = lat.shape[0]
+    faces, preds, launches = {}, {}, {}
+    try:
+        for impl in ("plain", "auto"):
+            unet_mod.ATTN_IMPL = impl
+            before = attention.launches
+            faces[impl] = models.generate(lat, feats).cpu().numpy()
+            launches[impl] = attention.launches - before
+            with torch.no_grad():
+                preds[impl] = models.unet(
+                    lat.permute(0, 3, 1, 2).to(models.dtype), torch.zeros(b, device=lat.device),
+                    positional_encoding(feats)).float().cpu().numpy()
+    finally:
+        unet_mod.ATTN_IMPL = "auto"
+    if faces["auto"].shape != (b, models.face_size, models.face_size, 3):
+        raise AssertionError(f"faces shape {faces['auto'].shape}")
+    if not np.isfinite(preds["auto"]).all():
+        raise AssertionError("UNet output is not finite")
+    return {
+        "faces_max_lsb": int(np.abs(faces["auto"].astype(int)
+                                    - faces["plain"].astype(int)).max()),
+        "unet_max_rel": float(np.abs(preds["auto"] - preds["plain"]).max()
+                              / max(1e-12, float(np.abs(preds["plain"]).max()))),
+        "unsaturated_share": float(((faces["plain"] > 0) & (faces["plain"] < 255)).mean()),
+        "k1_launches_per_generate": launches["auto"], "plain_launches": launches["plain"],
+    }
+
+
 def phase_model(state: dict) -> dict:
     import numpy as np
     import torch
 
     import mere_fusion_tpu_torch.models.musetalk.unet as unet_mod
     from mere_fusion_tpu_torch.engines.muse import MuseModels
-    from mere_fusion_tpu_torch.models.musetalk import positional_encoding
     from mere_fusion_tpu_torch.ops import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -657,29 +761,11 @@ def phase_model(state: dict) -> dict:
     feats = torch.from_numpy(
         rng.standard_normal((b, 50, models.unet_cfg.cross_attention_dim))
         .astype(np.float32)).to(dev)
-    faces, preds, launches = {}, {}, {}
-    try:
-        for impl in ("plain", "auto"):
-            unet_mod.ATTN_IMPL = impl
-            before = attention.launches
-            faces[impl] = models.generate(lat, feats).cpu().numpy()
-            launches[impl] = attention.launches - before
-            with torch.no_grad():
-                preds[impl] = models.unet(
-                    lat.permute(0, 3, 1, 2), torch.zeros(b, device=dev),
-                    positional_encoding(feats)).float().cpu().numpy()
-    finally:
-        unet_mod.ATTN_IMPL = "auto"
-    lsb = int(np.abs(faces["auto"].astype(int) - faces["plain"].astype(int)).max())
-    rel = float(np.abs(preds["auto"] - preds["plain"]).max()
-                / max(1e-12, float(np.abs(preds["plain"]).max())))
-    unsaturated = float(((faces["plain"] > 0) & (faces["plain"] < 255)).mean())
-    if faces["auto"].shape != (b, models.face_size, models.face_size, 3):
-        raise AssertionError(f"faces shape {faces['auto'].shape}")
-    if not np.isfinite(preds["auto"]).all():
-        raise AssertionError("UNet output is not finite")
+    f32 = generate_check(models, lat, feats)
+    lsb, rel = f32["faces_max_lsb"], f32["unet_max_rel"]
     if lsb > 1 or rel > 1e-4:
         raise AssertionError(f"auto vs plain: faces differ by {lsb} LSB, UNet rel {rel}")
+    launches = {"plain": f32["plain_launches"], "auto": f32["k1_launches_per_generate"]}
     if launches != {"plain": 0, "auto": 5}:
         raise AssertionError(f"K1 launches per generate {launches}, want plain 0, auto 5")
     # the whole step with and without K1, in turns (plain, auto, auto, plain)
@@ -696,12 +782,23 @@ def phase_model(state: dict) -> dict:
                 times.setdefault(f"generate_{name}_{impl}_ms", []).append(ms)
     finally:
         unet_mod.ATTN_IMPL = "auto"
-    profile = profile_generate(lambda: models.generate(lat, feats))
+    kernel = attention.KERNEL_NAMES[torch.bfloat16]
+    profile = profile_generate(lambda: models.generate(lat, feats), kernel=kernel)
+    if profile["device_ms"] != "not measured" and not profile[f"{kernel}_ms"] > 0:
+        raise AssertionError(f"no {kernel} rows in the bf16 generate's profile")
+    # the same generate in bf16, auto against plain
+    bf16 = generate_check(models, lat, feats)
+    if (bf16["faces_max_lsb"] > BF16_GENERATE_LSB or bf16["unet_max_rel"] > BF16_GENERATE_REL
+            or bf16["k1_launches_per_generate"] != 5):
+        raise AssertionError(f"bf16 generate, auto vs plain: {bf16}")
     del models
     torch.cuda.empty_cache()
     return {"bf16_generate_profile": profile,
-            "faces_max_lsb": lsb, "unet_max_rel": rel, "unsaturated_share": unsaturated,
+            "faces_max_lsb": lsb, "unet_max_rel": rel,
+            "unsaturated_share": f32["unsaturated_share"],
             "k1_launches_per_generate": launches["auto"], "batch": b, "dtype": "float32",
+            "bf16_check": {**bf16, "lsb_limit": BF16_GENERATE_LSB,
+                           "rel_limit": BF16_GENERATE_REL},
             **times}
 
 
@@ -1669,7 +1766,10 @@ def main() -> int:
         "launches": state["session_launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-        "ms_measure": "per call, CUDA events",
+        "ms_measure": "per call, CUDA events", "dtype": "bfloat16",
+        "rel_err": k1["rel_err"], "exp_floor_ms": k1["exp_floor_ms"],
+        "registers": k1["build"]["registers"], "spill_bytes": k1["build"]["spill_bytes"],
+        "hgmma": k1["build"]["hgmma"],
     }, {
         "name": "sample_shade_comp_tiles (K2)", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",

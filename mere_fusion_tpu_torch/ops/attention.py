@@ -8,7 +8,10 @@ Port of the Pallas TPU kernel mere_fusion_tpu/ops/attention.py
   The CPU path and the yardstick the kernel is held against.
 - ``self_attention_cuda``: launches the hand-written CUDA C++ kernel
   (``csrc/attention.cu``, built with nvcc for sm_90a on first use and bound
-  through ctypes). It raises on anything the kernel does not take.
+  through ctypes): in bfloat16 the tensor-core kernel (wgmma tiles fed by a
+  TMA K/V ring, P rounded to bf16 unnormalised and divided by the f32 row
+  sum once at the end), in float32 the CUDA-core kernel (true f32 products).
+  It raises on anything the kernel does not take.
 - ``self_attention``: the wrapper the model calls. A CPU tensor goes to the
   plain version; a CUDA tensor goes to the kernel, which launches or raises.
 
@@ -26,10 +29,13 @@ import torch
 
 BLOCK = 64            # query and key rows per tile of the kernel
 MAX_HEAD_DIM = 128
+BF16_HEAD_DIM_STEP = 8   # bf16 rows are read by TMA: 16-byte strides
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's name in profiler rows, by dtype
+KERNEL_NAMES = {torch.float32: "attention_kernel", torch.bfloat16: "attention_wgmma_kernel"}
 
 launches = 0
 _count_lock = threading.Lock()
@@ -80,8 +86,6 @@ def _load():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"K1 needs CUDA tensors; {name} is on {t.device}")
         if t.dim() != 4:
             raise ValueError(f"K1 takes [B, H, L, D]; {name} has shape {tuple(t.shape)}")
         if t.dtype not in _DTYPES:
@@ -90,8 +94,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"K1 needs contiguous input; {name} is not")
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise TypeError(f"K1 dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    if q.device != k.device or q.device != v.device:
-        raise ValueError("K1 inputs lie on different devices")
     b, h, lq, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"K1 shapes disagree: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -101,6 +103,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, n in (("q", lq), ("k", k.shape[2])):
         if n % BLOCK:
             raise ValueError(f"seq {n} of {name} not divisible by block {BLOCK}")
+    if q.dtype == torch.bfloat16:
+        if d % BF16_HEAD_DIM_STEP:
+            raise ValueError(f"K1 in bfloat16 takes a head_dim that is a multiple of "
+                             f"{BF16_HEAD_DIM_STEP}, got {d}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"K1 in bfloat16 needs 16-byte aligned input; {name} is not")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"K1 needs CUDA tensors; {name} is on {t.device}")
+    if q.device != k.device or q.device != v.device:
+        raise ValueError("K1 inputs lie on different devices")
 
 
 def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -119,6 +133,14 @@ def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     with _count_lock:
         launches += 1
     return out
+
+
+def wgmma_instance(head_dim: int) -> str:
+    """The bf16 kernel's instantiation for head_dim as it appears in its
+    mangled name: attention_wgmma_kernel<ceil(d/16) k16 steps, the N of
+    P·V> (48 at d = 40, where V carries the row sum as column 40, else 64)."""
+    nks = -(-head_dim // 16)
+    return f"attention_wgmma_kernelILi{nks}ELi{48 if head_dim == 40 else 64}E"
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -3,12 +3,16 @@
 The plain version against the JAX Pallas kernel ``self_attention_fused``
 run in interpret mode, at the shapes of tests/test_attention.py, within
 2e-6 (f32; only the summation order differs), and the wrapper's CPU
-dispatch. The CUDA kernel itself is held against the plain version in
-tests/test_torch_attention_cuda.py.
+dispatch. A plain-torch model of the bf16 CUDA kernel's order of operations
+(64-key tiles, running max and sum in f32, P rounded to bf16 unnormalised,
+one division at the end) against the JAX kernel and the plain version
+within the bf16 limit of 1e-2. The CUDA kernel itself is held against the
+plain version in tests/test_torch_attention_cuda.py.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,3 +72,71 @@ def test_plain_bf16_casts_probabilities_before_pv():
     ref = torch.softmax(s, dim=-1).to(torch.bfloat16) @ v
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def bf16_kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sum_of_rounded: bool) -> torch.Tensor:
+    """The bf16 K1's arithmetic in its order: f32 scores of one 64-key tile
+    at a time; a running row max (raw scores) and row sum in f32; p =
+    exp2(s·c − m·c) with c = log2(e)/√d, rounded to bf16 *unnormalised*
+    before P·V (f32 accumulate); the output and the sum rescaled by
+    exp2((m_old − m_new)·c) when the max moves; one division at the end. At
+    D = 40 the kernel sums the bf16 P on the tensor cores (V's column 40 is
+    1.0): ``sum_of_rounded``; at other D it sums the f32 p."""
+    c = math.log2(math.e) / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1], -math.inf)
+    den = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, k.shape[2], attention.BLOCK):
+        s = qf @ kf[:, :, k0:k0 + attention.BLOCK].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - (m_new * c)[..., None])
+        pb = p.to(torch.bfloat16).float()
+        den = den * alpha + (pb if sum_of_rounded else p).sum(-1)
+        acc = acc * alpha[..., None] + pb @ vf[:, :, k0:k0 + attention.BLOCK]
+        m = m_new
+    return (acc / den[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("sum_of_rounded", [True, False], ids=["sum_bf16_p", "sum_f32_p"])
+def test_bf16_kernel_order_within_tolerance(interpret_pallas, sum_of_rounded):
+    """The redesigned kernel rounds p before normalising, where the JAX
+    kernel and the plain version round the normalised p: at the serving
+    head_dim and length the difference stays inside the bf16 limit."""
+    rng = np.random.default_rng(3)
+    shape = (2, 8, 1024, 40)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    out = bf16_kernel_model(q, k, v, sum_of_rounded).float()
+    jax_ref = np.asarray(jax_attention.self_attention_fused(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v)),
+        block_q=512).astype(jnp.float32))
+    plain = attention.self_attention_plain(q, k, v).float()
+    err_jax = float(np.abs(out.numpy() - jax_ref).max())
+    err_plain = (out - plain).abs().max().item()
+    print(f"bf16 kernel model ({'bf16' if sum_of_rounded else 'f32'} p summed): "
+          f"max abs err {err_jax:.3e} against the JAX kernel, {err_plain:.3e} against "
+          f"the plain version")
+    assert err_jax <= 1e-2
+    assert err_plain <= 1e-2
+
+
+@pytest.mark.parametrize("case", ["head_dim_36", "misaligned"])
+def test_kernel_launcher_refuses_what_tma_cannot_read(case):
+    """bf16 rows reach the kernel by TMA: a head_dim that is a multiple of 8
+    (16-byte row strides) and 16-byte aligned tensors. The launcher checks
+    these before the device, so the refusal shows on the CPU too."""
+    if case == "head_dim_36":
+        t = torch.zeros(1, 1, 64, 36, dtype=torch.bfloat16)
+        match = "multiple of 8"
+    else:
+        t = torch.zeros(64 * 40 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 64, 40)
+        match = "16-byte aligned"
+    with pytest.raises(ValueError, match=match):
+        attention.self_attention_cuda(t, t, t)
+    # float32 keeps the CUDA-core kernel, which reads any head_dim up to 128
+    with pytest.raises(ValueError, match="CUDA"):
+        f = torch.zeros(1, 1, 64, 36)
+        attention.self_attention_cuda(f, f, f)
