@@ -14,16 +14,21 @@ its seconds; any failure is fatal (exit code 1, no result line):
 2. kernels  — K1 at the serving shape [16, 8, 1024, 40] in float32 (TF32
               off) and bfloat16 against its plain PyTorch version: max abs
               error (and relative to the output's largest magnitude),
-              kernel / plain / SDPA times, the bound; for the bf16 kernel
-              also ptxas's registers and spills (none allowed), its HGMMA
-              count in the SASS (> 0) and the exponential floor beside the
-              bound; a ragged shape must raise. K2 on the dense 512² job set (2048 tiles of 16×8
+              kernel / plain / SDPA times, the bound and the exponential
+              floor; ptxas's registers and spills (none allowed) and the
+              tensor-core instructions in the SASS (> 0: HGMMA for the bf16
+              kernel, HMMA for the f32 3xTF32 kernel); for f32 the bound is
+              the lesser of the CUDA-core f32 bound and three TF32 products
+              at the TF32 tensor rate, and the plain version with TF32
+              matmuls (single TF32 products) must fail the f32 limit; a
+              ragged shape must raise. K2 on the dense 512² job set (2048 tiles of 16×8
               rays × 16 samples, planned by the port's planner from a
               synthetic pose, seeded random planes and weights) with bf16
               and float32 shade weights against its plain version: max abs
               error, kernel / plain times, the bound; the plain version
               without the bf16 rounding of activations must fail the
-              tolerance; a wrong shape must raise. K3 (hash lookup) at the
+              tolerance; the bf16 (tensor-core) kernel's registers, spills
+              and HGMMA count; a wrong shape must raise. K3 (hash lookup) at the
               training shape (65,536 seeded points in [−1, 1]³, the full-width
               12-level 2^14 triplane spec, tables U(−1, 1), seeded gout):
               forward against the plain version, the table gradient against
@@ -36,8 +41,9 @@ its seconds; any failure is fatal (exit code 1, no result line):
 3. model    — a full-width MuseModels (float32, TF32 off): generate with
               ATTN_IMPL "auto" (K1) against "plain" on the same inputs;
               faces within 1 LSB, UNet output within 1e-4 relative, and
-              exactly 5 K1 launches per generate; generate times in turns
-              in float32 and bfloat16; one bf16 generate under
+              exactly 5 K1 launches per generate; one f32 generate under
+              torch.profiler (K1's f32 rows must be there); generate times
+              in turns in float32 and bfloat16; one bf16 generate under
               torch.profiler (K1's rows must be there); then the same
               check in bfloat16 within BF16_GENERATE_LSB and
               BF16_GENERATE_REL, 5 launches.
@@ -110,6 +116,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +126,8 @@ SERVE_SHAPE = (16, 8, 1024, 40)   # batch 16 × 8 heads, 32² latents, head_dim 
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor rate
 EX2_PER_SM_CLOCK = 16             # H100 special-function unit: exp2 per SM per clock
 PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12          # H100 SXM dense TF32 tensor rate
+TF32_TERMS = 3                    # TF32 products per f32 product in K1's f32 kernel
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # generate in bf16, K1 against the plain attention, same inputs and weights
@@ -217,7 +226,8 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def attention_bound_ms(shape, dtype) -> tuple[float, str]:
     """Least time for softmax(q kᵀ/√d) v: each of q, k, v, o moved once vs
-    the two products at the card's peak for the dtype."""
+    the two products at the card's peak for the dtype (f32: on the CUDA
+    cores; see tf32x3_bound_ms for the tensor cores)."""
     import torch
 
     b, h, l, d = shape
@@ -225,6 +235,16 @@ def attention_bound_ms(shape, dtype) -> tuple[float, str]:
     nbytes = 4.0 * b * h * l * d * torch.finfo(dtype).bits / 8
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tf32x3_bound_ms(shape) -> tuple[float, str]:
+    """Least time for the f32 attention's products as K1's f32 kernel takes
+    them: three TF32 products per f32 product at the card's TF32 tensor rate,
+    against q, k, v, o in f32 moved once."""
+    b, h, l, d = shape
+    t_ops = TF32_TERMS * 4.0 * b * h * l * l * d / PEAK_TF32_FLOPS * 1e3
+    t_bytes = 4.0 * b * h * l * d * 4 / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -242,16 +262,15 @@ def exp_floor_ms(shape) -> float:
     return b * h * lq * lq / (EX2_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
 
 
-def k1_bf16_build(path: str, head_dim: int = SERVE_SHAPE[3]) -> dict:
-    """ptxas's registers and spills of the bf16 kernel's instantiation for
-    head_dim (nvcc -Xptxas -v, the library's .log) and the HGMMA (wgmma)
-    instructions in its SASS (cuobjdump -sass on the library). Raises if it
-    spills or has no HGMMA."""
+def kernel_build(path: str, tag: str, instruction: str) -> dict:
+    """ptxas's registers and spills of the kernel whose mangled name holds
+    tag (nvcc -Xptxas -v, the library's .log) and the count of instruction
+    (HMMA: mma.sync; HGMMA: wgmma) in its SASS (cuobjdump -sass on the
+    library). Raises if it spills or has no such instruction."""
     import os
 
     from mere_fusion_tpu_torch.ops import attention
 
-    tag = attention.wgmma_instance(head_dim)
     with open(path[:-3] + ".log") as f:
         log = f.read().splitlines()
     start = next(i for i, ln in enumerate(log) if "Compiling entry" in ln and tag in ln)
@@ -261,13 +280,13 @@ def k1_bf16_build(path: str, head_dim: int = SERVE_SHAPE[3]) -> dict:
                           timeout=300, check=True).stdout.splitlines()
     first = next(i for i, ln in enumerate(sass) if "Function" in ln and tag in ln)
     end = next((i for i in range(first + 1, len(sass)) if "Function" in sass[i]), len(sass))
-    hgmma = sum("HGMMA" in ln for ln in sass[first:end])
+    count = sum(bool(re.search(rf"\b{instruction}\b", ln)) for ln in sass[first:end])
     registers = int(next(ln for ln in notes if "registers" in ln).split("Used ")[1].split()[0])
     spills = [int(w) for ln in notes if "spill" in ln for w in ln.split() if w.isdigit()]
     out = {"instance": tag, "registers": registers, "spill_bytes": sum(spills[1:]),
-           "hgmma": hgmma, "ptxas": notes}
-    if hgmma <= 0 or out["spill_bytes"]:
-        raise AssertionError(f"K1 bf16 build: {out}")
+           instruction.lower(): count, "ptxas": notes}
+    if count <= 0 or out["spill_bytes"]:
+        raise AssertionError(f"{tag} build: {out}")
     return out
 
 
@@ -345,10 +364,33 @@ def phase_kernels(state: dict) -> dict:
             "plain_ms": time_ms(lambda: attention.self_attention_plain(q, k, v)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": bound, "bound_by": by,
+            "exp_floor_ms": exp_floor_ms(SERVE_SHAPE),
         }
         if dtype == torch.bfloat16:
-            out[name]["build"] = k1_bf16_build(attention.build())
-            out[name]["exp_floor_ms"] = exp_floor_ms(SERVE_SHAPE)
+            out[name]["build"] = kernel_build(
+                attention.build(), attention.wgmma_instance(SERVE_SHAPE[3]), "HGMMA")
+        else:
+            # the products run on the tensor cores as three TF32 products: the
+            # bound is the lesser of that and the CUDA-core f32 bound; the limit
+            # must fail single TF32 products (the plain version with TF32 on)
+            tf32_bound, tf32_by = tf32x3_bound_ms(SERVE_SHAPE)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                single = attention.self_attention_plain(q, k, v)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            control = (single - ref).abs().max().item()
+            if not control > ATOL[name]:
+                raise AssertionError(f"K1 f32 limit {ATOL[name]} passes single TF32 products "
+                                     f"({control})")
+            out[name].update({
+                "cuda_core_bound_ms": bound, "tf32x3_bound_ms": tf32_bound,
+                "bound_ms": min(bound, tf32_bound),
+                "bound_by": tf32_by if tf32_bound < bound else by,
+                "single_tf32_err": control,
+                "build": kernel_build(attention.build(),
+                                      attention.tf32_instance(SERVE_SHAPE[3]), "HMMA")})
+        del q, k, v, got, ref
     ragged = torch.zeros((1, 1, 300, 40), device="cuda")
     try:
         attention.self_attention(ragged, ragged, ragged)
@@ -357,6 +399,7 @@ def phase_kernels(state: dict) -> dict:
     else:
         raise AssertionError("K1 accepted a ragged sequence length")
     state["kernel_numbers"] = out["bfloat16"]
+    state["k1_f32_numbers"] = out["float32"]
     out["K2"] = k2_check(state)
     out["K3"] = k3_check(state)
     return out
@@ -560,6 +603,8 @@ def k2_check(state: dict) -> dict:
                                 iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by,
         }
+    out["bfloat16"]["build"] = kernel_build(sampler.build(), sampler.KERNEL_NAMES["bfloat16"],
+                                            "HGMMA")
     planes, jobs, uv, dproj, dtv, weights = ops
     try:
         sampler.sample_shade_comp_tiles(planes, jobs, uv[:-3], dproj, dtv, weights, spec)
@@ -768,6 +813,11 @@ def phase_model(state: dict) -> dict:
     launches = {"plain": f32["plain_launches"], "auto": f32["k1_launches_per_generate"]}
     if launches != {"plain": 0, "auto": 5}:
         raise AssertionError(f"K1 launches per generate {launches}, want plain 0, auto 5")
+    state["k1_f32_launches"] = launches["auto"]
+    f32_kernel = attention.KERNEL_NAMES[torch.float32]
+    f32_profile = profile_generate(lambda: models.generate(lat, feats), kernel=f32_kernel)
+    if f32_profile["device_ms"] != "not measured" and not f32_profile[f"{f32_kernel}_ms"] > 0:
+        raise AssertionError(f"no {f32_kernel} rows in the f32 generate's profile")
     # the whole step with and without K1, in turns (plain, auto, auto, plain)
     times = {}
     try:
@@ -793,7 +843,7 @@ def phase_model(state: dict) -> dict:
         raise AssertionError(f"bf16 generate, auto vs plain: {bf16}")
     del models
     torch.cuda.empty_cache()
-    return {"bf16_generate_profile": profile,
+    return {"bf16_generate_profile": profile, "f32_generate_profile": f32_profile,
             "faces_max_lsb": lsb, "unet_max_rel": rel,
             "unsaturated_share": f32["unsaturated_share"],
             "k1_launches_per_generate": launches["auto"], "batch": b, "dtype": "float32",
@@ -1757,6 +1807,7 @@ def main() -> int:
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
               "card": gpu, **result})
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
+    k1f = state["k1_f32_numbers"]
     fam, st = state["family_numbers"], state["stage_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
@@ -1771,6 +1822,20 @@ def main() -> int:
         "registers": k1["build"]["registers"], "spill_bytes": k1["build"]["spill_bytes"],
         "hgmma": k1["build"]["hgmma"],
     }, {
+        # the f32 path: the model phase's f32 generate, 5 launches
+        "name": "self_attention f32 (K1)", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/attention.cu",
+        "replaces": "mere_fusion_tpu/ops/attention.py:49",
+        "launches": state["k1_f32_launches"], "max_abs_err": k1f["max_abs_err"],
+        "ms": k1f["kernel_ms"], "plain_ms": k1f["plain_ms"], "bound_ms": k1f["bound_ms"],
+        "bound_by": k1f["bound_by"], "library_ms": k1f["library_ms"],
+        "ms_measure": "per call, CUDA events", "dtype": "float32",
+        "cuda_core_bound_ms": k1f["cuda_core_bound_ms"],
+        "tf32x3_bound_ms": k1f["tf32x3_bound_ms"], "exp_floor_ms": k1f["exp_floor_ms"],
+        "single_tf32_err": k1f["single_tf32_err"],
+        "registers": k1f["build"]["registers"], "spill_bytes": k1f["build"]["spill_bytes"],
+        "hmma": k1f["build"]["hmma"],
+    }, {
         "name": "sample_shade_comp_tiles (K2)", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",
         "replaces": "mere_fusion_tpu/ops/pallas_sampler.py:670",
@@ -1778,7 +1843,9 @@ def main() -> int:
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         # no single PyTorch call computes K2's function
         "bound_by": k2["bound_by"], "library_ms": None,
-        "ms_measure": "per call, CUDA events",
+        "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
+        "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
+        "hgmma": k2["build"]["hgmma"],
     }] + [{
         "name": f"{fn} ({kernel})", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",

@@ -44,17 +44,36 @@
 //     part taken out): no one unit; taking out the exponentials, either
 //     product or the loads each saves little, so the dependent steps of a
 //     tile (S, its softmax, P V) and their latencies set the time.
-// float32 (attention_kernel): the CUDA-core kernel below, unchanged since it
-// was first written. Its products are true f32 FMAs (no TF32), which the f32
-// model check needs:
-//   - one block of 256 threads per (g, 64-query tile); K/V stream through
-//     shared memory 64 rows at a time and are converted to f32 on load;
-//   - online softmax: running row max and sum stay in f32 (shared memory),
-//     the f32 output accumulator stays in registers and is rescaled per tile;
-//   - each thread owns a 4x4 patch of the 64x64 score tile and a 4 x ceil(D/16)
-//     patch of the output; only the D real columns are touched (no padding),
-//     and Q/K rows use an odd shared-memory stride so column reads are free of
+// float32 (attention_3xtf32_kernel): the products on the tensor cores at
+// f32 accuracy, by a three-term TF32 split. Single TF32 products (10-bit
+// mantissas) fail the f32 model check; so every f32 operand a becomes
+// a_hi = tf32(a) and a_lo = tf32(a - a_hi), and each product is taken as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 (the dropped a_lo b_lo is ~2^-22
+// relative). Bound at the serving shape: 3 x 21.5 GFLOP at 495 TFLOP/s TF32,
+// 0.130 ms, under the 0.32 ms of true f32 FMAs on the CUDA cores.
+//   - One block of 8 warps per 128 queries of one (b, h); each warp owns 16
+//     query rows for the whole key loop (FlashAttention-2's split), so the
+//     online softmax needs only the four lanes of a quad, never the block.
+//   - Q, K and V reach shared memory by cp.async (16-byte copies, 4-byte
+//     ones where a row is not 16-byte aligned): Q once, 64-key K/V tiles
+//     through a two-stage ring, so the next tile's copy runs under this
+//     tile's products. Rows keep a stride of D' + 4 floats (D' = D rounded
+//     up to 8; zeros past D), which makes every fragment read below free of
 //     bank conflicts.
+//   - S = Q K^T and O += P V are mma.sync.m16n8k8 TF32, fragments in
+//     registers, three per product. The S accumulator of a key tile is P's
+//     A fragment as it stands: an accumulator holds keys 2t, 2t + 1 of each
+//     8-key block where A wants positions t, t + 4, so each thread reads V's
+//     rows 2t and 2t + 1 for those positions (a permutation of the keys of
+//     the contraction, not a shuffle). No score passes through shared
+//     memory.
+//   - Online softmax in f32 registers: the running row max over the quad
+//     (two shuffles), exp2 with the scale folded in as scale * log2(e), the
+//     row sum of the f32 P per thread, one division at the end. Each key
+//     tile's P V starts from a zeroed accumulator and is added to the
+//     rescaled O in f32: the tensor cores' own accumulation rounds coarser
+//     than f32 adds, and over all key tiles in one accumulator the output
+//     strays further from the plain version (scripts/prof_k1.py).
 // Requires L % 64 == 0 for q and k and D <= 128, and in bf16 D % 8 == 0 and
 // 16-byte aligned tensors (TMA's strides and addresses); the wrapper checks
 // and raises before calling. cuTensorMapEncodeTiled is taken through
@@ -70,195 +89,295 @@
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int PS = BK + 1;    // row stride of the probability tile
+constexpr int BQ = 64;  // q and k lengths must be multiples of this
+constexpr int BK = 64;
 constexpr int MAX_D = 128;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 mma.sync tiles fed by a cp.async K/V ring
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+constexpr int TF_BQ = 128;     // queries per block: 8 warps of 16 rows
+constexpr int TF_BK = 64;      // keys per ring stage
+constexpr int TF_THREADS = 256;
+
+// Shared memory of a block, in floats, for NT = D' / 8 column blocks: Q
+// [128][D' + 4], then two stages of K [64][D' + 4] and V [64][D' + 4].
+__host__ __device__ constexpr int tf_stride(int nt) { return 8 * nt + 4; }
+__host__ __device__ constexpr int tf_floats(int nt) {
+  return (TF_BQ + 2 * 2 * TF_BK) * tf_stride(nt);
 }
 
-__host__ __device__ constexpr int qk_stride(int d) { return d | 1; }
-
-size_t smem_bytes(int d) {
-  const int ds = qk_stride(d);
-  return sizeof(float) * (size_t)(BQ * ds + BK * ds + BK * d + BQ * PS + 3 * BQ);
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// DJ = ceil(D / 16): output columns per thread.
-template <typename T, int DJ>
-__global__ void __launch_bounds__(THREADS)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 int lq, int lk, int d, float scale) {
-  extern __shared__ float smem[];
-  const int ds = qk_stride(d);
-  float* sq = smem;                 // [BQ][ds]  query tile
-  float* sk = sq + BQ * ds;         // [BK][ds]  key tile
-  float* sv = sk + BK * ds;         // [BK][d]   value tile
-  float* sp = sv + BK * d;          // [BQ][PS]  scores, then probabilities
-  float* row_max = sp + BQ * PS;    // [BQ] running max
-  float* row_sum = row_max + BQ;    // [BQ] running sum of exp
-  float* row_scale = row_sum + BQ;  // [BQ] rescale of this tile
+// a = hi + lo, both TF32 (lo rounds x - hi, which f32 holds exactly)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
-  const int q_tiles = lq / BQ;
+// d += A B for one m16n8k8 step: A 16 x 8 row-major fragments (a0: row g,
+// col t; a1: row g + 8, col t; a2, a3: cols t + 4), B 8 x 8 (b0: row t, b1:
+// row t + 4, col g), d rows g / g + 8, cols 2t, 2t + 1 (g = lane / 4, t =
+// lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B at f32 accuracy: the small terms first, then hi x hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows [0, rows) of a row-major [*, d] f32 matrix at src into shared rows of
+// `stride` floats at dst (columns 0 .. d - 1), 16 bytes a copy where vec
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* __restrict__ src, int rows,
+                                          int d, int stride, bool vec) {
+  if (vec) {
+    const int chunks = d / 4;
+    for (int e = threadIdx.x; e < rows * chunks; e += TF_THREADS) {
+      const int r = e / chunks, c = 4 * (e - r * chunks);
+      cp_async16(dst + 4 * (r * stride + c), src + (size_t)r * d + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * d; e += TF_THREADS) {
+      const int r = e / d, c = e - r * d;
+      cp_async4(dst + 4 * (r * stride + c), src + (size_t)r * d + c);
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// NT = ceil(D / 8): k8 steps of Q K^T and n8 column blocks of O. Two
+// blocks an SM up to D' = 64 (at most 128 registers a thread), one above.
+template <int NT>
+__global__ void __launch_bounds__(TF_THREADS, NT <= 8 ? 2 : 1)
+attention_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, int lq, int lk,
+                        int d, float scale_log2, int vec) {
+  constexpr int S = tf_stride(NT);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const float* sq = sm;                      // [128][S]
+  const float* skv = sm + TF_BQ * S;         // stages of K [64][S], V [64][S]
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+  const uint32_t q_dst = base, kv_dst = base + 4 * TF_BQ * S;
+  constexpr uint32_t STAGE = 2 * TF_BK * S;  // floats of one stage
+
+  const int q_tiles = (lq + TF_BQ - 1) / TF_BQ;
   const int g = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int q0 = (blockIdx.x % q_tiles) * TF_BQ;
+  const int nk = lk / TF_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const float* kg = k + (size_t)g * lk * d;
+  const float* vg = v + (size_t)g * lk * d;
 
-  const T* qg = q + ((size_t)g * lq + q0) * d;
-  const T* kg = k + (size_t)g * lk * d;
-  const T* vg = v + (size_t)g * lk * d;
+  // zeros past column d (the padded depth of Q K^T reads them) and in the
+  // rows of a last, partial query tile
+  for (int e = threadIdx.x; e < tf_floats(NT) / 4; e += TF_THREADS)
+    smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
 
-  for (int e = tid; e < BQ * d; e += THREADS) sq[(e / d) * ds + e % d] = to_f32(qg[e]);
-  if (tid < BQ) {
-    row_max[tid] = -INFINITY;
-    row_sum[tid] = 0.f;
+  copy_rows(q_dst, q + ((size_t)g * lq + q0) * d, min(TF_BQ, lq - q0), d, S, vec);
+  copy_rows(kv_dst, kg, TF_BK, d, S, vec);
+  copy_rows(kv_dst + 4 * TF_BK * S, vg, TF_BK, d, S, vec);
+  cp_async_commit();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float* qw = sq + (16 * warp) * S;
+
+  for (int j = 0; j < nk; ++j) {
+    if (j + 1 < nk) {  // the next tile into the other stage, under this one's products
+      const uint32_t dst = kv_dst + 4 * ((j + 1) % 2) * STAGE;
+      copy_rows(dst, kg + (size_t)(j + 1) * TF_BK * d, TF_BK, d, S, vec);
+      copy_rows(dst + 4 * TF_BK * S, vg + (size_t)(j + 1) * TF_BK * d, TF_BK, d, S, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile j have landed ...
+    __syncthreads();     // ... and everyone's
+    const float* sk = skv + (j % 2) * STAGE;
+    const float* sv = sk + TF_BK * S;
+
+    // S = Q K^T: 16 rows x 64 keys, 8 n8 blocks of keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      uint32_t ah[4], al[4];
+      const float* qa = qw + gr * S + 8 * ks + t;
+      split_tf32(qa[0], ah[0], al[0]);
+      split_tf32(qa[8 * S], ah[1], al[1]);
+      split_tf32(qa[4], ah[2], al[2]);
+      split_tf32(qa[8 * S + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float* kb = sk + (8 * n + gr) * S + 8 * ks + t;
+        mma_3xtf32(s[n], ah, al, kb[0], kb[4]);
+      }
+    }
+
+    // online softmax on rows gr (registers 0, 1) and gr + 8 (2, 3)
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float alpha0 = ex2((m0 - mx0) * scale_log2);  // 0 on the first tile
+    const float alpha1 = ex2((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    const float b0 = -mx0 * scale_log2, b1 = -mx1 * scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      s[n][0] = ex2(fmaf(s[n][0], scale_log2, b0));
+      s[n][1] = ex2(fmaf(s[n][1], scale_log2, b0));
+      s[n][2] = ex2(fmaf(s[n][2], scale_log2, b1));
+      s[n][3] = ex2(fmaf(s[n][3], scale_log2, b1));
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+
+    // O = alpha O + P V, this tile's P V from zero on the tensor cores and
+    // added in f32 (chained over every tile in one tensor-core accumulator,
+    // the output is further from the plain version). Key block kk's
+    // accumulator is P's A fragment with positions t, t + 4 standing for
+    // keys 2t, 2t + 1, so B reads V's rows 2t, 2t + 1.
+    float pv[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+      const float* vb = sv + (8 * kk + 2 * t) * S + gr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_3xtf32(pv[n], ah, al, vb[8 * n], vb[S + 8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] = fmaf(acc[n][0], alpha0, pv[n][0]);
+      acc[n][1] = fmaf(acc[n][1], alpha0, pv[n][1]);
+      acc[n][2] = fmaf(acc[n][2], alpha1, pv[n][2]);
+      acc[n][3] = fmaf(acc[n][3], alpha1, pv[n][3]);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  float acc[4][DJ];
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = q0 + 16 * warp + gr;  // rows past lq belong to no query of g
+  float* o0 = o + ((size_t)g * lq + r0) * d;
+  float* o1 = o0 + 8 * (size_t)d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < lk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed; Q and row state are written
-    const T* kt = kg + (size_t)k0 * d;
-    const T* vt = vg + (size_t)k0 * d;
-    for (int e = tid; e < BK * d; e += THREADS) {
-      sk[(e / d) * ds + e % d] = to_f32(kt[e]);
-      sv[e] = to_f32(vt[e]);
+  for (int n = 0; n < NT; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (r0 < lq) {
+      if (c < d) o0[c] = acc[n][0] * inv0;
+      if (c + 1 < d) o0[c + 1] = acc[n][1] * inv0;
     }
-    __syncthreads();
-
-    // scores for rows ty + 16i and keys tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sq[(ty + 16 * i) * ds + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sk[(tx + 16 * j) * ds + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sp[(ty + 16 * i) * PS + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-
-    // online softmax: four neighbouring lanes share one row
-    {
-      const int r = tid / 4;
-      const int part = tid % 4;
-      float* row = sp + r * PS;
-      float mx = -INFINITY;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = row_max[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = part; c < BK; c += 4) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();  // every lane has read row_max[r] before it changes
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        row_scale[r] = alpha;
-        row_sum[r] = row_sum[r] * alpha + sum;
-        row_max[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_scale[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= a;
-    }
-    for (int c = 0; c < BK; ++c) {
-      float pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sp[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int col = tx + 16 * j;
-        if (col < d) {
-          const float vb = sv[c * d + col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pa[i], vb, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float inv = 1.f / row_sum[r];
-    T* orow = o + ((size_t)g * lq + q0 + r) * d;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) orow[col] = from_f32<T>(acc[i][j] * inv);
+    if (r0 + 8 < lq) {
+      if (c < d) o1[c] = acc[n][2] * inv1;
+      if (c + 1 < d) o1[c + 1] = acc[n][3] * inv1;
     }
   }
 }
 
-template <typename T, int DJ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int g,
-                   int lq, int lk, int d, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d);
-  auto kernel = attention_kernel<T, DJ>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const unsigned blocks = (unsigned)g * (unsigned)(lq / BQ);
-  kernel<<<blocks, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lq, lk, d, scale);
+template <int NT>
+cudaError_t launch_3xtf32(const void* q, const void* k, const void* v, void* o, int g, int lq,
+                          int lk, int d, float scale, cudaStream_t stream) {
+  const auto kernel = attention_3xtf32_kernel<NT>;
+  const int bytes = static_cast<int>(sizeof(float)) * tf_floats(NT);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const bool vec = d % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  const int blocks = g * ((lq + TF_BQ - 1) / TF_BQ);
+  kernel<<<blocks, TF_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lq, lk, d, scale * 1.4426950408889634f, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int g,
-                     int lq, int lk, int d, float scale, cudaStream_t stream) {
-  switch ((d + 15) / 16) {
-    case 1: return launch<T, 1>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 5: return launch<T, 5>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 6: return launch<T, 6>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 7: return launch<T, 7>(q, k, v, o, g, lq, lk, d, scale, stream);
-    case 8: return launch<T, 8>(q, k, v, o, g, lq, lk, d, scale, stream);
-    default: return cudaErrorInvalidValue;
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// Calls f(NT) with NT = ceil(d / 8) for 1 <= d <= 128.
+template <typename F>
+auto dispatch_3xtf32(int d, F f) {
+  switch ((d + 7) / 8) {
+    case 1: return f(Int<1>());
+    case 2: return f(Int<2>());
+    case 3: return f(Int<3>());
+    case 4: return f(Int<4>());
+    case 5: return f(Int<5>());
+    case 6: return f(Int<6>());
+    case 7: return f(Int<7>());
+    case 8: return f(Int<8>());
+    case 9: return f(Int<9>());
+    case 10: return f(Int<10>());
+    case 11: return f(Int<11>());
+    case 12: return f(Int<12>());
+    case 13: return f(Int<13>());
+    case 14: return f(Int<14>());
+    case 15: return f(Int<15>());
+    default: return f(Int<16>());
   }
 }
 
@@ -422,12 +541,6 @@ __device__ __forceinline__ void wgmma_rs_bt(float (&d)[24], const uint32_t (&a)[
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -724,9 +837,6 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   return cudaGetLastError();
 }
 
-template <int N>
-using Int = std::integral_constant<int, N>;
-
 // Calls f(NKS, NV) with the instantiation for head_dim d (8 <= d <= 128,
 // d % 8 == 0): NKS = ceil(d / 16), NV = 48 for d = 40 (the row sum as V's
 // column 40), else 64.
@@ -757,7 +867,9 @@ extern "C" int mf_self_attention(int device, int dtype, const void* q, const voi
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(q, k, v, o, g, lq, lk, d, scale, s);
+  if (dtype == 0)
+    return (int)dispatch_3xtf32(
+        d, [&](auto nt) { return launch_3xtf32<decltype(nt)::value>(q, k, v, o, g, lq, lk, d, scale, s); });
   if (dtype != 1 || d % 8) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)

@@ -41,24 +41,37 @@
 //   K2d: no head, 9 operations per real channel; uv, planes and its 403 MB
 //   bf16 output take 0.21 ms at 3.35 TB/s. Bound by bytes.
 //
-// Design (simple and right first; tensor cores are later work):
-//   - K2, K2b, K2c: one block of 256 threads per tile; the head's weights
-//     (~95 KB as f32, transposed so each output's weights are contiguous)
-//     and the tile's direction projections are staged once into shared
-//     memory (stage_tile);
-//   - each thread takes samples n = tid, tid + 256, ... of the tile and runs
-//     steps 1-2 for it in registers: texels are gathered straight from
-//     global memory (a job's window is local, so L1/L2 serve the reuse that
-//     the TPU kernel got from its DMA'd windows), features and hidden layers
-//     never leave the thread; K2b writes its sample's row, K2 and K2c put
-//     (sigma logit, 3 rgb logits) in shared memory;
-//   - then one thread per ray folds its k samples in order, so the
-//     transmittance needs no scan;
+// Design:
+//   - K2 with bf16 weights (sample_shade_comp_wgmma_kernel): the head on the
+//     tensor cores (head_rows in csrc/sampler_core.cuh). A grid of the
+//     resident blocks loops over the tiles; each block stages the bf16
+//     weights once (~54 KB of swizzled W^T tiles), then per tile the tile's
+//     direction projections and job table. Each of its three warpgroups
+//     takes a 64-sample row block of the tile at a time: two threads a
+//     sample fetch its 48 features (step 1, as below; 8 channels of each
+//     plane a thread) into a swizzled bf16 x tile, then the warpgroup runs
+//     the head on it as wgmma products (a last partial block padded with
+//     zero rows, not stored). A hidden value that lies near a bf16 rounding
+//     tie is summed again on the CUDA cores in the plain version's
+//     sequential order, so that it rounds as the plain version rounds it
+//     (settle). The (sigma, rgb) logits go to shared memory and one thread
+//     per ray folds them (step 3).
+//   - K2 with f32 weights, K2b, K2c: one block of 256 threads per tile; the
+//     head's weights (~95 KB as f32, transposed so each output's weights are
+//     contiguous) and the tile's direction projections are staged into
+//     shared memory (stage_tile); each thread takes samples n = tid, tid +
+//     256, ... of the tile and runs steps 1-2 for it in registers (the head
+//     as f32 FMAs on the CUDA cores: exact products of bf16-rounded operands
+//     with bf16 weights); K2b writes its sample's row, the others put
+//     (sigma logit, 3 rgb logits) in shared memory for step 3.
+//   - Step 1 gathers texels straight from global memory (a job's window is
+//     local, so L1/L2 serve the reuse that the TPU kernel got from its DMA'd
+//     windows); one thread per ray folds its k samples in order, so the
+//     transmittance needs no scan.
 //   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
 //     96 bytes out, neighbouring threads on neighbouring rows.
-// The head's products run as f32 FMAs on the CUDA cores (exact products of
-// bf16-rounded operands); the next step is mma.sync/wgmma tiles of 64-wide
-// layers over a tile's samples and a cp.async window ring.
+// Next: K2b, K2c and S2's stage kernel on head_rows; f32 weights on 3xTF32
+// or bf16-split products; a cp.async window ring for the fetch.
 //
 // The device code the four kernels share, which S1 and S2 are also made of,
 // is in csrc/sampler_core.cuh.
@@ -67,7 +80,8 @@
 
 namespace {
 
-// K2. WT: the dtype of the shade weights and of dproj (float or bf16).
+// K2 with f32 weights (bf16 weights take sample_shade_comp_wgmma_kernel).
+// WT: the dtype of the shade weights and of dproj.
 template <typename WT>
 __global__ void __launch_bounds__(THREADS, 1)
 sample_shade_comp_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
@@ -102,6 +116,62 @@ sample_shade_comp_kernel(const __nv_bfloat16* __restrict__ planes, const int* __
   for (int r = tid; r < rpt; r += THREADS)
     composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
                   out + ((size_t)t * rpt + r) * 16);
+}
+
+// K2 with bf16 weights and dproj: the head on the tensor cores. A grid of
+// resident blocks of two warpgroups, each block looping over tiles.
+__global__ void __launch_bounds__(HEAD_THREADS, 1)
+sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
+                               const int* __restrict__ jobs, const float* __restrict__ uv,
+                               const __nv_bfloat16* __restrict__ dproj,
+                               const float* __restrict__ dtv, Weights wp, float* __restrict__ out,
+                               int tiles, int rpt, int kg, int ks, int wu, int wv, int rows,
+                               int rv) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  auto* s_dp = reinterpret_cast<__nv_bfloat16*>(base + H_FIXED);   // [rpt][64]
+  auto* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);        // [kg * sg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + ns);                 // [3][1 + 2kg]
+  const int n_jobs = 3 * (1 + 2 * kg);
+  const int tid = threadIdx.x, wg = tid / WG_SIZE, wt = tid % WG_SIZE;
+  uint8_t* x_wg = base + H_X + wg * X_TILE;   // this warpgroup's x tile
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+
+  stage_head_weights(base, wp);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const uint4* dp = reinterpret_cast<const uint4*>(dproj + (size_t)t * rpt * HID);
+    for (int e = tid; e < rpt * HID / 8; e += HEAD_THREADS) reinterpret_cast<uint4*>(s_dp)[e] = dp[e];
+    for (int e = tid; e < n_jobs; e += HEAD_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+    __syncthreads();   // the weights (first tile), dp and jobs are staged; the last
+                       // tile's composite is done with s_res
+
+    // row blocks of 64 samples in turn; two threads a sample fetch half its
+    // channels each
+    for (int n0 = HEAD_ROWS * wg; n0 < ns; n0 += HEAD_ROWS * HEAD_WGS) {
+      const int n = n0 + wt % HEAD_ROWS, h = wt / HEAD_ROWS;
+      float x[24];
+      if (n < ns) {
+        const int g = n / sg;
+        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, x, h);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 24; ++k) x[k] = 0.f;
+      }
+      write_x_half(x_wg, wt % HEAD_ROWS, h, x);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // seen by wgmma
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");
+      head_rows(base, x_wg, s_dp, s_res, n0, ns, sg, ks);
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");  // x tile read
+    }
+    __syncthreads();
+
+    for (int r = tid; r < rpt; r += HEAD_THREADS)
+      composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                    out + ((size_t)t * rpt + r) * 16);
+  }
 }
 
 // K2b: K2 without the composite; each sample's activated sigma and rgb.
@@ -240,7 +310,9 @@ sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restr
 // cudaError_t of its launch.
 
 // K2: uv [3 tiles, kg, 2, rpt * ks] f32; dproj [tiles, rpt, 64]; dtv [tiles,
-// rpt, 8] f32; out [tiles, rpt, 16] f32.
+// rpt, 8] f32; out [tiles, rpt, 16] f32. bf16 weights take the tensor-core
+// kernel, whose shared memory (head_smem) must fit a block's 227 KB; f32
+// weights the CUDA-core one.
 extern "C" int mf_sample_shade_comp(
     int device, int bf16, const void* planes, const void* jobs, const void* uv,
     const void* dproj, const void* dtv, const void* wx_aud, const void* w_aud1,
@@ -253,17 +325,30 @@ extern "C" int mf_sample_shade_comp(
   if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  const size_t bytes = shade_smem(rpt, HID, (size_t)kg * rpt * ks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const __nv_bfloat16*>(planes);
   const auto* j = static_cast<const int*>(jobs);
   const auto* u = static_cast<const float*>(uv);
   const auto* d = static_cast<const float*>(dtv);
   auto* o = static_cast<float*>(out);
-  if (bf16)
-    return (int)launch_tiles(sample_shade_comp_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, u,
-                             static_cast<const __nv_bfloat16*>(dproj), d, wp, o, rpt, kg, ks,
-                             wu, wv, rows, rv);
+  if (bf16) {
+    const size_t bytes = head_smem(rpt, (size_t)kg * rpt * ks);
+    if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    const auto kernel = sample_shade_comp_wgmma_kernel;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, HEAD_THREADS, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    const int blocks = tiles < resident ? tiles : resident;
+    kernel<<<blocks, HEAD_THREADS, bytes, s>>>(p, j, u, static_cast<const __nv_bfloat16*>(dproj),
+                                               d, wp, o, tiles, rpt, kg, ks, wu, wv, rows, rv);
+    return (int)cudaGetLastError();
+  }
+  const size_t bytes = shade_smem(rpt, HID, (size_t)kg * rpt * ks);
   return (int)launch_tiles(sample_shade_comp_kernel<float>, bytes, tiles, s, p, j, u,
                            static_cast<const float*>(dproj), d, wp, o, rpt, kg, ks, wu, wv,
                            rows, rv);

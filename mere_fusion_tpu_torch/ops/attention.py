@@ -10,8 +10,10 @@ Port of the Pallas TPU kernel mere_fusion_tpu/ops/attention.py
   (``csrc/attention.cu``, built with nvcc for sm_90a on first use and bound
   through ctypes): in bfloat16 the tensor-core kernel (wgmma tiles fed by a
   TMA K/V ring, P rounded to bf16 unnormalised and divided by the f32 row
-  sum once at the end), in float32 the CUDA-core kernel (true f32 products).
-  It raises on anything the kernel does not take.
+  sum once at the end), in float32 the 3xTF32 kernel (mma.sync tiles fed by
+  a cp.async K/V ring, each f32 operand split into two TF32 terms and each
+  product taken as three TF32 products, f32 accurate). It raises on
+  anything the kernel does not take.
 - ``self_attention``: the wrapper the model calls. A CPU tensor goes to the
   plain version; a CUDA tensor goes to the kernel, which launches or raises.
 
@@ -35,7 +37,8 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's name in profiler rows, by dtype
-KERNEL_NAMES = {torch.float32: "attention_kernel", torch.bfloat16: "attention_wgmma_kernel"}
+KERNEL_NAMES = {torch.float32: "attention_3xtf32_kernel",
+                torch.bfloat16: "attention_wgmma_kernel"}
 
 launches = 0
 _count_lock = threading.Lock()
@@ -141,6 +144,12 @@ def wgmma_instance(head_dim: int) -> str:
     P·V> (48 at d = 40, where V carries the row sum as column 40, else 64)."""
     nks = -(-head_dim // 16)
     return f"attention_wgmma_kernelILi{nks}ELi{48 if head_dim == 40 else 64}E"
+
+
+def tf32_instance(head_dim: int) -> str:
+    """The f32 kernel's instantiation for head_dim as it appears in its
+    mangled name: attention_3xtf32_kernel<ceil(d/8) k8 steps>."""
+    return f"attention_3xtf32_kernelILi{-(-head_dim // 8)}E"
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,10 @@ group, and texel coordinates per sample), ``enc_selector`` and
 ``regroup_features``. The kernels, one per TPU kernel:
 
 - **K2** ``sample_shade_comp_tiles`` (``_shade_comp_kernel``): sample +
-  NeRF head + volume composite, per ray. The serving frame's kernel.
+  NeRF head + volume composite, per ray. The serving frame's kernel. With
+  bf16 weights its head runs on the tensor cores (``wgmma`` products over
+  64-sample row blocks); with f32 weights on the CUDA cores, as K2b and
+  K2c do.
 - **K2b** ``sample_shade_tiles`` (``_shade_kernel``): sample + head, the
   activated σ and rgb per sample (the unfused oracle of K2's composite).
 - **K2c** ``render_rays_tiles`` (``_render_rays_kernel``): K2 with each
@@ -57,6 +60,10 @@ HID, AUD, EYE_HID = 64, 32, 16
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SRC = os.path.join(_CSRC, "sampler.cu")
 CORE_HEADER = os.path.join(_CSRC, "sampler_core.cuh")   # device code shared with S1/S2
+
+#: K2's kernel by the dtype of its shade weights, as named in profiler rows
+KERNEL_NAMES = {"bfloat16": "sample_shade_comp_wgmma_kernel",
+                "float32": "sample_shade_comp_kernel"}
 
 launches = 0          # K2
 shade_launches = 0    # K2b
@@ -601,9 +608,24 @@ def load():
     return _lib
 
 
+#: the fixed part of a tensor-core K2 block's shared memory (H_FIXED in
+#: csrc/sampler_core.cuh): the bf16 W^T tiles, the f32 vectors, an x tile
+#: and four warps' scratch rows for each of three warpgroups
+HEAD_FIXED_BYTES = 106496
+
+
+def head_smem_bytes(spec: SamplerSpec) -> int:
+    """Dynamic shared memory of one block of K2 with bf16 weights (the
+    tensor-core head, ``head_smem`` in csrc/sampler_core.cuh): the fixed
+    part, the tile's dproj rows as bf16, a float4 per sample, the job table
+    and 1024 bytes to align the base."""
+    return (HEAD_FIXED_BYTES + spec.rays_per_tile * HID * 2 + 16 * spec.kg * spec.sg
+            + 4 * 64 + 1024)
+
+
 def smem_bytes(spec: SamplerSpec, kernel: str = "K2") -> int:
-    """Dynamic shared memory of one block of K2, K2b or K2c (see
-    csrc/sampler.cu); K2d uses none."""
+    """Dynamic shared memory of one CUDA-core block of K2 (f32 weights), K2b
+    or K2c (see csrc/sampler.cu); K2d uses none."""
     weights = (3 * CP * (2 * HID + EYE_HID) + HID * AUD + AUD * HID + EYE_HID + HID
                + 3 * HID * HID + HID + 4 * HID + HID)
     rows = {"K2": HID, "K2b": HID, "K2c": HID + 8}[kernel]
@@ -646,7 +668,15 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
     if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > 64:
         raise ValueError(f"{kernel} needs k % kg == 0, k >= 2 and 3·(1 + {job_fields}·kg) "
                          f"<= 64 (k={spec.k}, kg={spec.kg})")
-    if kernel in ("K2", "K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
+    if (kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.bfloat16):
+        if head_smem_bytes(spec) > SMEM_LIMIT:
+            raise ValueError(f"K2 with bfloat16 weights: a tile of {spec.rays_per_tile} rays × "
+                             f"{spec.k} samples needs {head_smem_bytes(spec)} B of shared "
+                             f"memory > {SMEM_LIMIT}")
+        if operands["dproj"][0].data_ptr() % 16:
+            raise ValueError("K2 with bfloat16 weights reads dproj in 16-byte rows; it must "
+                             "be 16-byte aligned")
+    elif kernel in ("K2", "K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
         raise ValueError(f"{kernel} tile of {spec.rays_per_tile} rays × {spec.k} samples "
                          f"needs {smem_bytes(spec, kernel)} B of shared memory > {SMEM_LIMIT}")
 

@@ -1,4 +1,4 @@
-"""Where K1's bf16 time goes: the kernel against probes of itself, on the card.
+"""Where K1's time goes: the kernel against probes of itself, on the card.
 
     python -m mere_fusion_tpu_torch.scripts.prof_k1
 
@@ -26,6 +26,17 @@ attention; their largest difference from the kernel is printed.
   launched as only the blocks that fit on the card at once, each looping
   over the 128-query work tiles, against one block per work tile: the tail
   wave of the last, partly filled round of blocks.
+
+The float32 kernel (3xTF32 on mma.sync) has probes of its own, timed the
+same way at the serving shape in f32, in turns with it:
+
+- ``f32_single_tf32``: one TF32 product (hi × hi) per term instead of
+  three (the share of the products; not f32 accurate);
+- ``f32_no_pv``: O += P V not computed;
+- ``f32_one_pv_accumulator``: P V chained over every key tile in one
+  tensor-core accumulator, rescaled in place, instead of each tile's P V
+  from zero added in f32 (a design probe: its error against the plain
+  version is printed beside the kernel's).
 
 Prints one JSON line per measurement, the work tiles and resident blocks,
 the card's name and power limit, and a JSON summary as the last line.
@@ -176,6 +187,75 @@ PROBES = {
 }
 
 
+# this tile's P V from zero, added to the rescaled O in f32 (the kernel)
+F32_PV = """    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+
+    // O = alpha O + P V, this tile's P V from zero on the tensor cores and
+    // added in f32 (chained over every tile in one tensor-core accumulator,
+    // the output is further from the plain version). Key block kk's
+    // accumulator is P's A fragment with positions t, t + 4 standing for
+    // keys 2t, 2t + 1, so B reads V's rows 2t, 2t + 1.
+    float pv[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+      const float* vb = sv + (8 * kk + 2 * t) * S + gr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_3xtf32(pv[n], ah, al, vb[8 * n], vb[S + 8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] = fmaf(acc[n][0], alpha0, pv[n][0]);
+      acc[n][1] = fmaf(acc[n][1], alpha0, pv[n][1]);
+      acc[n][2] = fmaf(acc[n][2], alpha1, pv[n][2]);
+      acc[n][3] = fmaf(acc[n][3], alpha1, pv[n][3]);
+    }
+"""
+# P V chained over the key tiles in one accumulator, rescaled in place
+F32_ONE_PV = """    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // O += P V: key block kk's accumulator is P's A fragment with positions
+    // t, t + 4 standing for keys 2t, 2t + 1, so B reads V's rows 2t, 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+      const float* vb = sv + (8 * kk + 2 * t) * S + gr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_3xtf32(acc[n], ah, al, vb[8 * n], vb[S + 8 * n]);
+    }
+"""
+F32_PROBES = {
+    "f32_single_tf32": ([("""  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);""", "  mma_tf32(d, ah, bh0, bh1);")], ""),
+    "f32_no_pv": ([("      for (int n = 0; n < NT; ++n) mma_3xtf32(pv[n], ah, al, vb[8 * n], "
+                    "vb[S + 8 * n]);\n", "")], ""),
+    "f32_one_pv_accumulator": ([(F32_PV, F32_ONE_PV)], ""),
+}
+F32_DESIGN_PROBES = ("f32_one_pv_accumulator",)
+
+
 def build_all(out_dir: str) -> dict[str, str]:
     """The kernel's library and one per probe; returns name -> path."""
     from mere_fusion_tpu_torch.ops import attention
@@ -185,7 +265,7 @@ def build_all(out_dir: str) -> dict[str, str]:
         src = f.read()
     sources = {"kernel": attention._SRC}
     os.makedirs(out_dir, exist_ok=True)
-    for name, (edits, tail) in PROBES.items():
+    for name, (edits, tail) in {**PROBES, **F32_PROBES}.items():
         probe = src
         for old, new in edits:
             if probe.count(old) != 1:
@@ -261,6 +341,32 @@ def main() -> int:
         print(json.dumps({"variant": name, "max_abs_diff_from_kernel": diff}), flush=True)
         if not diff <= 1e-2:
             raise AssertionError(f"{name} computes another function: {diff}")
+    # the f32 kernel and its probes, at the serving shape in f32 (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qf, kf, vf = (torch.randn(SERVE_SHAPE, generator=gen, device="cuda") for _ in range(3))
+    out_f = torch.empty_like(qf)
+
+    def launch_f32(lib):
+        err = lib.mf_self_attention(0, 0, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                                    out_f.data_ptr(), b * h, lq, lq, d, 1 / math.sqrt(d), stream)
+        if err:
+            raise RuntimeError(f"launch failed with cudaError {err}")
+
+    f32_order = ["kernel", *F32_PROBES, *reversed(F32_PROBES), "kernel"]
+    f32_times: dict[str, list[float]] = {}
+    for name in f32_order:
+        t = ms(lambda: launch_f32(libs[name]), iters=20)
+        f32_times.setdefault(name, []).append(t)
+        print(json.dumps({"variant": name, "dtype": "float32", "ms": t}), flush=True)
+    f32_times["sdpa"] = [ms(lambda: F.scaled_dot_product_attention(qf, kf, vf), iters=20)
+                         for _ in range(2)]
+    ref = attention.self_attention_plain(qf, kf, vf)
+    f32_errors = {}
+    for name in ("kernel", *F32_DESIGN_PROBES):
+        launch_f32(libs[name])
+        f32_errors[name] = (out_f - ref).abs().max().item()
+        print(json.dumps({"variant": name, "dtype": "float32",
+                          "max_abs_err": f32_errors[name]}), flush=True)
     lib = libs["resident_grid"]
     lib.mf_probe_resident_blocks.argtypes = [ctypes.c_int]
     resident = lib.mf_probe_resident_blocks(d)
@@ -271,7 +377,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    print(json.dumps({"card": card, "shape": SERVE_SHAPE, **grid, "ms": times}), flush=True)
+    print(json.dumps({"card": card, "shape": SERVE_SHAPE, **grid, "ms": times,
+                      "f32_ms": f32_times, "f32_max_abs_err": f32_errors}), flush=True)
     return 0
 
 

@@ -6,8 +6,12 @@ run in interpret mode, at the shapes of tests/test_attention.py, within
 dispatch. A plain-torch model of the bf16 CUDA kernel's order of operations
 (64-key tiles, running max and sum in f32, P rounded to bf16 unnormalised,
 one division at the end) against the JAX kernel and the plain version
-within the bf16 limit of 1e-2. The CUDA kernel itself is held against the
-plain version in tests/test_torch_attention_cuda.py.
+within the bf16 limit of 1e-2. A model of the f32 kernel's 3xTF32 order
+(each operand split into two TF32 terms, three TF32 products per term, 64-key
+tiles with an f32 online softmax) against the JAX kernel and the plain
+version within the f32 limit of 1e-5, which the same model with single TF32
+products fails. The CUDA kernel itself is held against the plain version in
+tests/test_torch_attention_cuda.py.
 """
 from __future__ import annotations
 
@@ -140,3 +144,74 @@ def test_kernel_launcher_refuses_what_tma_cannot_read(case):
     with pytest.raises(ValueError, match="CUDA"):
         f = torch.zeros(1, 1, 64, 36)
         attention.self_attention_cuda(f, f, f)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: the f32 mantissa to
+    10 bits, ties away from zero (the 13 low bits of the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b as the f32 kernel's mma.sync steps take it: with terms = 3,
+    a_lo b_hi + a_hi b_lo + a_hi b_hi over a = a_hi + a_lo (both TF32; the
+    products exact in f32, the sums in f32); with terms = 1, a_hi b_hi."""
+    ah, bh = tf32(a), tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def tf32_kernel_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      terms: int) -> torch.Tensor:
+    """The f32 K1's arithmetic in its order: S of one 64-key tile at a time
+    by tf32_matmul; a running row max (raw scores) and row sum in f32; p =
+    exp2(s·c − m·c) with c = log2(e)/√d; O and the sum rescaled by
+    exp2((m_old − m_new)·c); O += P V by tf32_matmul; one division at the
+    end."""
+    c = math.log2(math.e) / math.sqrt(q.shape[-1])
+    m = torch.full(q.shape[:-1], -math.inf)
+    den = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[2], attention.BLOCK):
+        s = tf32_matmul(q, k[:, :, k0:k0 + attention.BLOCK].transpose(-1, -2), terms)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - (m_new * c)[..., None])
+        den = den * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + tf32_matmul(p, v[:, :, k0:k0 + attention.BLOCK], terms)
+        m = m_new
+    return acc / den[..., None]
+
+
+@pytest.fixture(scope="module")
+def f32_serving_case():
+    """(q, k, v) f32 at (2, 8, 1024, 40) and the JAX kernel's output in
+    interpret mode on them, computed once for the cases below."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((2, 8, 1024, 40)).astype(np.float32) for _ in range(3))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_attention.pl, "pallas_call",
+                   functools.partial(pl.pallas_call, interpret=True))
+        ref = np.asarray(jax_attention.self_attention_fused(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=512))
+    return tuple(torch.from_numpy(a) for a in (q, k, v)), ref
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "single_tf32"])
+def test_f32_kernel_order_within_tolerance(f32_serving_case, terms):
+    """The three-term split holds the f32 limit of 1e-5 against the JAX
+    kernel and the plain version; single TF32 products do not, so the limit
+    tells the two apart."""
+    (q, k, v), jax_ref = f32_serving_case
+    out = tf32_kernel_model(q, k, v, terms)
+    err_jax = float(np.abs(out.numpy() - jax_ref).max())
+    err_plain = (out - attention.self_attention_plain(q, k, v)).abs().max().item()
+    print(f"f32 kernel model, {terms} TF32 product(s) a term: max abs err {err_jax:.3e} "
+          f"against the JAX kernel, {err_plain:.3e} against the plain version")
+    if terms == 3:
+        assert err_jax <= 1e-5 and err_plain <= 1e-5
+    else:
+        assert err_jax > 1e-5 and err_plain > 1e-5

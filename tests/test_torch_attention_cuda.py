@@ -5,11 +5,12 @@ JAX, so it runs on a machine with the card and no JAX:
 
     python -m pytest -m cuda tests/test_torch_attention_cuda.py
 
-float32 with TF32 off within 1e-5 (only the summation order differs);
-bfloat16 within 1e-2 at unit-normal inputs (output rounding at 2^-8
-relative). The bf16 kernel (wgmma tiles, P rounded to bf16 unnormalised) is
+float32 with TF32 off within 1e-5 (the 3xTF32 kernel's products are f32
+accurate; only the summation order differs); bfloat16 within 1e-2 at
+unit-normal inputs (output rounding at 2^-8 relative). Both kernels are
 also held on a peaked softmax and with the largest score in the last key
-tile.
+tile; and the f32 limit must fail the plain version with single TF32
+products (``allow_tf32``), so that it tells a three-term split from one.
 """
 from __future__ import annotations
 
@@ -58,16 +59,8 @@ def test_bf16_kernel_on_hard_softmax(cuda_device, case, head_dim):
     where one ulp is 0.031 and any bf16 rounding difference exceeds 1e-2, so
     there the error is held at 1e-2 of the output's largest magnitude (the
     limit's own reason: rounding at 2^-8 relative)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
     shape = (16, 8, 1024, head_dim)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device) for _ in range(3))
-    if case == "peaked":
-        q = q * 4
-    else:
-        u = torch.randn(head_dim, generator=gen, device=cuda_device)
-        u = 8 * u / u.norm()
-        q = q + u
-        k[:, :, -attention.BLOCK:] += u
+    q, k, v = hard_softmax_inputs(cuda_device, case, head_dim)
     q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
     if case == "max_in_last_tile":
         scores = q.float() @ k.float().transpose(-1, -2)
@@ -83,6 +76,83 @@ def test_bf16_kernel_on_hard_softmax(cuda_device, case, head_dim):
         if v_scale < 1:
             assert err <= 1e-2
         assert rel <= 1e-2
+
+
+def hard_softmax_inputs(device, case: str, head_dim: int):
+    """q, k, v [16, 8, 1024, head_dim] f32: q × 4 ("peaked"), or every query
+    and the last key tile's keys shifted by 8 along one unit vector
+    ("max_in_last_tile": every row's largest score sits in the last tile)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    shape = (16, 8, 1024, head_dim)
+    q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+    if case == "peaked":
+        q = q * 4
+    else:
+        u = torch.randn(head_dim, generator=gen, device=device)
+        u = 8 * u / u.norm()
+        q = q + u
+        k[:, :, -attention.BLOCK:] += u
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [40, 80, 128])
+@pytest.mark.parametrize("case", ["peaked", "max_in_last_tile"])
+def test_f32_kernel_on_hard_softmax(cuda_device, case, head_dim):
+    """The 3xTF32 kernel on the hard softmaxes of the bf16 test, f32 in and
+    out: within 1e-5 at v × 1/4 (|o| < 2) and within 1e-5 of the output's
+    largest magnitude at unit v (a peaked |o| reaches ~4.6)."""
+    q, k, v = hard_softmax_inputs(cuda_device, case, head_dim)
+    if case == "max_in_last_tile":
+        scores = q @ k.transpose(-1, -2)
+        assert (scores.argmax(-1) >= k.shape[2] - attention.BLOCK).all()
+        del scores
+    for v_scale in (0.25, 1.0):
+        vv = v * v_scale
+        out = attention.self_attention(q, k, vv)
+        ref = attention.self_attention_plain(q, k, vv)
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        print(f"f32 {case} D={head_dim} v×{v_scale}: max abs err {err:.3e}, "
+              f"relative to the largest |o| {rel:.3e}")
+        if v_scale < 1:
+            assert err <= 1e-5
+        assert rel <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 1024, 40), (1, 2, 192, 40)])
+def test_f32_limit_fails_single_tf32_products(cuda_device, shape):
+    """The kernel holds 1e-5; the plain version with TF32 matmuls (one TF32
+    product per term) does not, on the same inputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device) for _ in range(3))
+    ref = attention.self_attention_plain(q, k, v)
+    out = attention.self_attention(q, k, v)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        single = attention.self_attention_plain(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, control = ((x - ref).abs().max().item() for x in (out, single))
+    print(f"f32 {shape}: kernel {err:.3e}, single TF32 products {control:.3e}")
+    assert err <= 1e-5 < control
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["head_dim_37", "misaligned"])
+def test_f32_kernel_copies_rows_four_bytes_at_a_time(cuda_device, case):
+    """Rows that are not 16-byte aligned (head_dim 37, or a tensor offset by
+    one float) reach shared memory by 4-byte copies: same limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    if case == "head_dim_37":
+        q, k, v = (torch.randn(1, 2, 128, 37, generator=gen, device=cuda_device)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.randn(2 * 128 * 40 + 1, generator=gen, device=cuda_device)[1:]
+                   .view(1, 2, 128, 40) for _ in range(3))
+    out = attention.self_attention(q, k, v)
+    assert (out - attention.self_attention_plain(q, k, v)).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda

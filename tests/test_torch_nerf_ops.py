@@ -11,7 +11,8 @@ Inputs come from numpy seeds; weights from the JAX init through
 - MLP heads: 2e-5 (ROADMAP rule; matmul summation order differs);
 - K2 with float32 weights: 2e-5 (summation order of the head's products);
   with bfloat16 weights 1e-5, which the plain version without the bf16
-  rounding of activations fails on the same inputs.
+  rounding of activations fails on the same inputs; a model of the
+  tensor-core head's order (f32 sums in k16 chunks) within the same 1e-5.
 """
 from __future__ import annotations
 
@@ -299,6 +300,41 @@ def test_k2_plain_matches_pallas_interpret(wdtype, tol):
         unrounded = psamp.sample_shade_comp_tiles_plain(
             *args[:5], {k: w.float() for k, w in args[5].items()}, psamp.SamplerSpec(**SAMPLER))
         assert np.abs(unrounded.numpy() - ref).max() > tol
+
+
+def chunked_mm(a, b, dtype, chunk: int = 16):
+    """_mm with its f32 sum taken in k16 chunks, one after another: a
+    stand-in for the order of wgmma's k16 steps (each chunk summed by
+    torch.matmul, the chunks' partial sums added in order)."""
+    a = a.to(dtype).to(torch.float32)
+    b = b.to(torch.float32)
+    acc = a[..., :chunk] @ b[:chunk]
+    for k0 in range(chunk, a.shape[-1], chunk):
+        acc = acc + a[..., k0:k0 + chunk] @ b[k0:k0 + chunk]
+    return acc
+
+
+def test_k2_head_in_k16_chunks_matches_pallas_interpret(monkeypatch):
+    """With bf16 weights K2's head runs as wgmma products, summing each
+    layer in k16 steps: the plain version with that order of f32 sums holds
+    K2's limit of 1e-5 against the JAX K2 in interpret mode, as the plain
+    version does (bf16 roundings of hidden activations may flip with the
+    order; at this size they do not move the output past the limit)."""
+    scal, uv, planes, weights, proj, dtv = k2_inputs(0, "bfloat16")
+    ref = np.asarray(jsamp.sample_shade_comp_tiles(
+        jnp.asarray(planes, jnp.bfloat16), jnp.asarray(scal), jnp.asarray(uv),
+        jnp.asarray(proj), jnp.asarray(dtv),
+        {k: jnp.asarray(v, jnp.bfloat16) for k, v in weights.items()},
+        jsamp.SamplerSpec(**SAMPLER), interpret=True))
+    args = k2_torch(scal, uv, planes, weights, proj, dtv, "bfloat16")
+    plain = psamp.sample_shade_comp_tiles_plain(*args, psamp.SamplerSpec(**SAMPLER))
+    monkeypatch.setattr(psamp, "_mm", chunked_mm)
+    got = psamp.sample_shade_comp_tiles_plain(*args, psamp.SamplerSpec(**SAMPLER))
+    err = float(np.abs(got.numpy() - ref).max())
+    print(f"K2 bf16 head in k16 chunks: max abs err {err:.3e} against the JAX K2, "
+          f"{(got - plain).abs().max().item():.3e} against the plain version")
+    assert np.abs(ref[..., 0]).max() > 0.5
+    assert err <= 1e-5
 
 
 def test_k2_cuda_path_refuses_cpu_operands():
