@@ -25,10 +25,14 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rays × 16 samples, planned by the port's planner from a
               synthetic pose, seeded random planes and weights) with bf16
               and float32 shade weights against its plain version: max abs
-              error, kernel / plain times, the bound; the plain version
-              without the bf16 rounding of activations must fail the
-              tolerance; the bf16 (tensor-core) kernel's registers, spills
-              and HGMMA count; a wrong shape must raise. K3 (hash lookup) at the
+              error, kernel / plain times, the bound (f32 weights: the
+              lesser of the CUDA-core f32 bound and three TF32 products at
+              the TF32 tensor rate, both beside it); the plain version
+              without the bf16 rounding of activations (bf16 weights) or
+              with single TF32 products (f32 weights, allow_tf32) must fail
+              the tolerance; each kernel's registers, spills and HGMMA
+              (bf16 weights) or HMMA (f32) count; a wrong shape must raise.
+              K3 (hash lookup) at the
               training shape (65,536 seeded points in [−1, 1]³, the full-width
               12-level 2^14 triplane spec, tables U(−1, 1), seeded gout):
               forward against the plain version, the table gradient against
@@ -36,8 +40,11 @@ its seconds; any failure is fatal (exit code 1, no result line):
               which the plain version that drops one corner must fail; kernel
               / plain / embedding_bag device times (torch.profiler: sub-ms
               calls are host-bound under CUDA events, which are kept beside
-              them) and the bound, of forward and backward; a wrong dtype
-              and a wrong shape must raise.
+              them) and the bound, of forward and backward; the backward
+              writes every row of a gradient buffer filled with NaN (no
+              zero fill), and its registers, spills and shared-memory
+              atomics (ATOMS) in the SASS; a wrong dtype and a wrong shape
+              must raise.
 3. model    — a full-width MuseModels (float32, TF32 off): generate with
               ATTN_IMPL "auto" (K1) against "plain" on the same inputs;
               faces within 1 LSB, UNet output within 1e-4 relative, and
@@ -56,7 +63,11 @@ its seconds; any failure is fatal (exit code 1, no result line):
               weights) through make_render_step with K2 against the plain
               step on the same inputs: frames within 1 LSB, exactly one K2
               launch per frame; frame times in turns; one frame under
-              torch.profiler. Then the unbaked frame (NeRFReal's
+              torch.profiler. Then the same frame at nerf.shade_dtype
+              "float32" (K2's 3xTF32 kernel, TF32 off) against its plain
+              step: within 1 LSB, exactly one K2 launch (counts zeroed just
+              before), frame times in turns, one frame under torch.profiler
+              whose K2 rows are the f32 kernel's. Then the unbaked frame (NeRFReal's
               bake_planes=False step: the hash encode on K3, the bf16 head,
               65,536 active rays × 16 samples) against the same step with
               K3's plain version: within 1 LSB, exactly one K3 forward launch
@@ -127,7 +138,7 @@ PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor rate
 EX2_PER_SM_CLOCK = 16             # H100 special-function unit: exp2 per SM per clock
 PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12          # H100 SXM dense TF32 tensor rate
-TF32_TERMS = 3                    # TF32 products per f32 product in K1's f32 kernel
+TF32_TERMS = 3                    # TF32 products per f32 product in the f32 kernels (K1, K2)
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 ATOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # generate in bf16, K1 against the plain attention, same inputs and weights
@@ -141,8 +152,9 @@ BF16_GENERATE_LSB = 20
 BF16_GENERATE_REL = 0.037
 # K2 against its plain version, both dtypes of shade weights: the largest
 # error read on the dense job set is 3e-7 (f32 sums in another order), and
-# the plain version without the bf16 rounding of activations is further off
-# than this limit on the same inputs, which the check asserts.
+# the plain version without the bf16 rounding of activations (bf16 weights)
+# or with single TF32 products (f32 weights, allow_tf32) is further off than
+# this limit on the same inputs, which the check asserts.
 K2_ATOL = {"float32": 1e-5, "bfloat16": 1e-5}
 # K3 against its plain version at the training shape: the forward sums the
 # same four f32 products in the same order (bit-equal expected); the table
@@ -537,18 +549,32 @@ def texel_bytes(spec, planes, jobs, uv, s1_blockdiag=None) -> int:
     return int(seen.sum().item()) * CP * planes.element_size()
 
 
+def head_ops_ms(operations: float, weights: dict) -> tuple[float, dict]:
+    """Least time for a head's operations with these shade weights: bf16
+    weights at the bf16 tensor rate; f32 weights the lesser of the card's
+    f32 rate on the CUDA cores and three TF32 products a term at the TF32
+    tensor rate (as tf32x3_bound_ms), both beside it."""
+    import torch
+
+    if weights["wx_aud"].dtype == torch.bfloat16:
+        return operations / PEAK_BF16_FLOPS * 1e3, {}
+    cuda_core = operations / PEAK_F32_FLOPS * 1e3
+    tf32 = TF32_TERMS * operations / PEAK_TF32_FLOPS * 1e3
+    return min(cuda_core, tf32), {"cuda_core_bound_ms": cuda_core, "tf32x3_bound_ms": tf32}
+
+
 def k2_bound_ms(spec, ops) -> tuple[float, str]:
     """Least time for K2's work on these operands: every sample's operations
-    at the bf16 tensor rate (the head's operands are bf16) against each
-    operand read once (of the plane stack, the texels the samples weigh:
-    texel_bytes; of dtv, lane 0) and the output written once."""
+    at the rate of its weights' dtype (head_ops_ms) against each operand read
+    once (of the plane stack, the texels the samples weigh: texel_bytes; of
+    dtv, lane 0) and the output written once."""
     tiles = ops[2].shape[0] // 3
     samples = tiles * spec.rays_per_tile * spec.k
     nbytes = texel_bytes(spec, *ops[:3])
     nbytes += sum(x.numel() * x.element_size() for x in (*ops[1:4], ops[4][..., 0]))
     nbytes += sum(w.numel() * w.element_size() for w in ops[5].values())
     nbytes += tiles * spec.rays_per_tile * 16 * 4
-    t_ops = samples * k2_ops_per_sample(spec) / PEAK_BF16_FLOPS * 1e3
+    t_ops = head_ops_ms(samples * k2_ops_per_sample(spec), ops[5])[0]
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -584,18 +610,26 @@ def k2_check(state: dict) -> dict:
             raise AssertionError(f"K2 {name} max abs err {err} > {K2_ATOL[name]}")
         if not bool(torch.isfinite(got).all()) or float(ref[..., 0].min()) <= 0:
             raise AssertionError("K2 output not finite or rays not occupied")
-        control = {}
         if wdtype == torch.bfloat16:   # the limit must catch a dropped rounding
             unrounded = sampler.sample_shade_comp_tiles_plain(
                 *ops[:5], {k: w.float() for k, w in ops[5].items()}, spec)
             control = {"unrounded_err": (unrounded - ref).abs().max().item()}
-            if not control["unrounded_err"] > K2_ATOL[name]:
-                raise AssertionError(f"K2 tolerance {K2_ATOL[name]} passes the plain version "
-                                     f"without bf16 rounding ({control['unrounded_err']})")
-            del unrounded
+        else:   # ... and single TF32 products (the plain version with TF32 matmuls)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                unrounded = sampler.sample_shade_comp_tiles_plain(*ops, spec)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            control = {"single_tf32_err": (unrounded - ref).abs().max().item()}
+        if not next(iter(control.values())) > K2_ATOL[name]:
+            raise AssertionError(f"K2 {name} tolerance {K2_ATOL[name]} passes its control "
+                                 f"{control}")
+        del unrounded
         bound, by = k2_bound_ms(spec, ops)
+        samples = ops[2].shape[0] // 3 * spec.rays_per_tile * spec.k
         out[name] = {
             "max_abs_err": err, "tol": K2_ATOL[name], **control,
+            **head_ops_ms(samples * k2_ops_per_sample(spec), ops[5])[1],
             "weights_sum_mean": float(ref[..., 0].mean()),
             "kernel_ms": time_ms(lambda: sampler.sample_shade_comp_tiles(*ops, spec),
                                  iters=10, warmup=2),
@@ -603,8 +637,9 @@ def k2_check(state: dict) -> dict:
                                 iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by,
         }
-    out["bfloat16"]["build"] = kernel_build(sampler.build(), sampler.KERNEL_NAMES["bfloat16"],
-                                            "HGMMA")
+    for name, instruction in (("bfloat16", "HGMMA"), ("float32", "HMMA")):
+        out[name]["build"] = kernel_build(sampler.build(), sampler.KERNEL_NAMES[name],
+                                          instruction)
     planes, jobs, uv, dproj, dtv, weights = ops
     try:
         sampler.sample_shade_comp_tiles(planes, jobs, uv[:-3], dproj, dtv, weights, spec)
@@ -615,6 +650,7 @@ def k2_check(state: dict) -> dict:
     del ops, planes, jobs, uv, dproj, dtv, weights, got, ref
     torch.cuda.empty_cache()
     state["k2_numbers"] = out["bfloat16"]
+    state["k2_f32_numbers"] = out["float32"]
     return out
 
 
@@ -676,8 +712,13 @@ def k3_check(state: dict) -> dict:
     torch.cuda.synchronize()
     ref = hash_lookup.lookup_plain(tables, idx, w, spec)
     fwd_err = (got - ref).abs().max().item()
-    dtables = hash_lookup.lookup_bwd_cuda(idx, w, gout, spec, tables)
+    # the backward writes every row: into a buffer of NaN, with no zero fill
+    dtables = hash_lookup.lookup_bwd_cuda(
+        idx, w, gout, spec, tables,
+        out=torch.full((3, spec.total_params, 1), float("nan"), device=dev))
     torch.cuda.synchronize()
+    if bool(torch.isnan(torch.stack(dtables)).any()):
+        raise AssertionError("K3 backward left rows of its gradient unwritten")
     dref = k3_plain_grad(spec, tables, idx, w, gout)
     scale = max(d.abs().max().item() for d in dref)
     bwd_abs = max((a - b).abs().max().item() for a, b in zip(dtables, dref))
@@ -740,6 +781,9 @@ def k3_check(state: dict) -> dict:
         out[part] = {"bound_ms": bound, "bound_by": by, "max_abs_err": err,
                      **{f"{name}_ms": device_ms(fn) for name, fn in calls.items()},
                      **{f"{name}_call_ms": time_ms(fn) for name, fn in calls.items()}}
+    # the backward's registers, spills and shared-memory atomics (ATOMS)
+    out["backward"]["build"] = kernel_build(
+        hash_lookup.build(), "lookup_bwd_kernel", "ATOMS")
     state["k3_numbers"] = out
     del (tables, idx, w, gout, got, ref, dtables, dref, rows, psw, weight, lib_out, leaves,
          plain_out, fwd_calls, bwd_calls)
@@ -1045,7 +1089,10 @@ def phase_nerf_model(state: dict) -> dict:
         ms = time_ms(lambda: frame(impl), iters=5, warmup=1)
         times.setdefault(f"frame_{impl}_ms", []).append(ms)
     profile = profile_generate(lambda: frame("auto"), kernel="sample_shade_comp")
-    del steps, baked
+    del steps
+    f32 = f32_frame(cfg, ds, net, baked, (dens, bg, auds, eye))
+    state["k2_f32_launches"] = f32["k2_launches_per_frame"]
+    del baked
     torch.cuda.empty_cache()
     unbaked = unbaked_frame(cfg, ds, net, (dens, bg, auds, eye))
     del net
@@ -1053,7 +1100,55 @@ def phase_nerf_model(state: dict) -> dict:
     return {"frames_max_lsb": lsb, "k2_launches_per_frame": launches["auto"],
             "active_tiles": stats["auto"][0], "overflow_jobs": stats["auto"][1],
             "unsaturated_share": float(((frames["plain"] > 0) & (frames["plain"] < 255)).mean()),
-            "bake_s": bake_s, "frame_profile": profile, **times, "unbaked": unbaked}
+            "bake_s": bake_s, "frame_profile": profile, **times, "float32": f32,
+            "unbaked": unbaked}
+
+
+def f32_frame(cfg, ds, net, baked, inputs) -> dict:
+    """The nerf_model frame at nerf.shade_dtype "float32" (f32 shade
+    weights, TF32 off) through make_render_step with K2 and with the plain
+    step: within 1 LSB, exactly one K2 launch (counts zeroed just before
+    the frame, read just after), frame times in turns, and one frame under
+    torch.profiler whose K2 rows are the f32 kernel's."""
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
+    from mere_fusion_tpu_torch.ops import sampler
+
+    f32cfg = cfg.override(**{"nerf.shade_dtype": "float32"})
+    steps = {impl: make_render_step(net, ds, f32cfg, baked, impl=impl)
+             for impl in ("plain", "auto")}
+    dens, bg, auds, eye = inputs
+
+    def frame(impl):
+        return steps[impl](ds.poses[0], auds, eye, dens, bg, pose_key=0)
+
+    frames, launches = {}, {}
+    for impl in ("plain", "auto"):
+        zero_kernel_counts()                     # the f32 frame starts here ...
+        img, _, _ = frame(impl)
+        torch.cuda.synchronize()
+        launches[impl] = sampler.launches        # ... and ends here
+        frames[impl] = img.cpu().numpy()
+    lsb = int(np.abs(frames["auto"].astype(int) - frames["plain"].astype(int)).max())
+    if frames["auto"].shape != (NERF_HW, NERF_HW, 3) or float(frames["auto"].std()) <= 2:
+        raise AssertionError(f"f32 frame {frames['auto'].shape}, std {frames['auto'].std()}")
+    if lsb > 1:
+        raise AssertionError(f"f32 K2 frame differs from the plain frame by {lsb} LSB")
+    if launches != {"plain": 0, "auto": 1}:
+        raise AssertionError(f"f32 frame: K2 launches {launches}, want plain 0, auto 1")
+    times = {}
+    for impl in ("plain", "auto", "auto", "plain"):
+        times.setdefault(f"frame_{impl}_ms", []).append(
+            time_ms(lambda: frame(impl), iters=5, warmup=1))
+    kernel = sampler.KERNEL_NAMES["float32"]
+    profile = profile_generate(lambda: frame("auto"), kernel=kernel)
+    if not isinstance(profile.get(f"{kernel}_ms"), float) or profile[f"{kernel}_ms"] <= 0:
+        raise AssertionError(f"the f32 frame's profile has no {kernel} rows: {profile}")
+    return {"frames_max_lsb": lsb, "k2_launches_per_frame": launches["auto"],
+            "unsaturated_share": float(((frames["auto"] > 0) & (frames["auto"] < 255)).mean()),
+            "frame_profile": profile, **times}
 
 
 def unbaked_frame(cfg, ds, net, inputs) -> dict:
@@ -1188,9 +1283,9 @@ def family_bound_ms(kernel: str, spec, ops, fam) -> tuple[float, str]:
     kernel, the whole stack; the jobs, the coordinates or rays, the 64 real
     lanes of the direction projections, the weights of the head) and the
     output written once at 3.35 TB/s, against the operations: the head's and
-    the sample's per sample at the bf16 tensor rate (as K2's), plus K2c's
-    coordinate synthesis; K2d's 9 f32 operations per real channel at the
-    card's f32 rate."""
+    the sample's per sample at the rate of the weights' dtype (head_ops_ms,
+    as K2's), plus K2c's coordinate synthesis; K2d's 9 f32 operations per
+    real channel at the card's f32 rate."""
     planes, jobs, uv, dproj, _, weights = ops
     tiles = uv.shape[0] // 3
     samples = tiles * spec.rays_per_tile * spec.k
@@ -1203,11 +1298,11 @@ def family_bound_ms(kernel: str, spec, ops, fam) -> tuple[float, str]:
         # the kernel reads the first 64 lanes of dproj's 128; lanes 64: are padding
         nbytes = (texel_bytes(spec, planes, jobs, uv) + size(jobs, uv, fam["dproj128"][..., :64])
                   + head + samples * 16 * 4)
-        t_ops = samples * k2_ops_per_sample(spec) / PEAK_BF16_FLOPS * 1e3
+        t_ops = head_ops_ms(samples * k2_ops_per_sample(spec), weights)[0]
     else:
         nbytes = (size(planes, fam["jobs_rays"], fam["rays"], dproj) + head
                   + tiles * spec.rays_per_tile * 16 * 4)
-        t_ops = samples * (k2_ops_per_sample(spec) + K2C_SYNTH_OPS) / PEAK_BF16_FLOPS * 1e3
+        t_ops = head_ops_ms(samples * (k2_ops_per_sample(spec) + K2C_SYNTH_OPS), weights)[0]
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1807,7 +1902,7 @@ def main() -> int:
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
               "card": gpu, **result})
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
-    k1f = state["k1_f32_numbers"]
+    k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
     fam, st = state["family_numbers"], state["stage_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
@@ -1846,6 +1941,19 @@ def main() -> int:
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],
+    }, {
+        # the f32 path: the nerf_model phase's f32 frame, one launch
+        "name": "sample_shade_comp_tiles f32 (K2)", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/sampler.cu",
+        "replaces": "mere_fusion_tpu/ops/pallas_sampler.py:670",
+        "launches": state["k2_f32_launches"], "max_abs_err": k2f["max_abs_err"],
+        "ms": k2f["kernel_ms"], "plain_ms": k2f["plain_ms"], "bound_ms": k2f["bound_ms"],
+        "bound_by": k2f["bound_by"], "library_ms": None,
+        "ms_measure": "per call, CUDA events", "dtype": "float32 weights",
+        "cuda_core_bound_ms": k2f["cuda_core_bound_ms"],
+        "tf32x3_bound_ms": k2f["tf32x3_bound_ms"], "single_tf32_err": k2f["single_tf32_err"],
+        "registers": k2f["build"]["registers"], "spill_bytes": k2f["build"]["spill_bytes"],
+        "hmma": k2f["build"]["hmma"],
     }] + [{
         "name": f"{fn} ({kernel})", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",
@@ -1871,6 +1979,9 @@ def main() -> int:
         "ms_measure": "device time, torch.profiler",
         "call_ms": k3[part]["kernel_call_ms"], "plain_call_ms": k3[part]["plain_call_ms"],
         "library_call_ms": k3[part]["library_call_ms"],
+        **({"registers": k3[part]["build"]["registers"],
+            "spill_bytes": k3[part]["build"]["spill_bytes"],
+            "atoms": k3[part]["build"]["atoms"]} if "build" in k3[part] else {}),
     } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"])] + [{
         "name": name, "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler_stages.cu",

@@ -37,7 +37,9 @@
 //   0.187 ms at the H100's 989 TFLOP/s bf16 tensor rate, above their bytes
 //   (K2 0.11 ms; K2b 0.18 ms with its 268 MB of per-sample output and the
 //   64 real lanes of its dproj; K2c 0.07 ms: 8 MB of rays instead of the
-//   uv). Bound by operations.
+//   uv). Bound by operations. With f32 weights the same operations as three
+//   TF32 products a term take 1.12 ms at 495 TFLOP/s (2.76 ms as f32 FMAs
+//   at 67 TFLOP/s on the CUDA cores): K2's f32 bound.
 //   K2d: no head, 9 operations per real channel; uv, planes and its 403 MB
 //   bf16 output take 0.21 ms at 3.35 TB/s. Bound by bytes.
 //
@@ -56,7 +58,20 @@
 //     sequential order, so that it rounds as the plain version rounds it
 //     (settle). The (sigma, rgb) logits go to shared memory and one thread
 //     per ray folds them (step 3).
-//   - K2 with f32 weights, K2b, K2c: one block of 256 threads per tile; the
+//   - K2 with f32 weights (sample_shade_comp_tf32_kernel): the head on the
+//     tensor cores as mma.sync m16n8k8 TF32 products, each f32 product
+//     taken as three (a_lo b_hi + a_hi b_lo + a_hi b_hi; a_hi rounded as
+//     cvt.rna.tf32 rounds, by two integer operations; f32 weights round
+//     nothing, so nothing needs settling) (head_tf32 in csrc/sampler_core.cuh). A grid of the resident blocks of eight warps
+//     loops over the tiles; each block stages the f32 weights once as W^T
+//     rows padded to a conflict-free stride (~106 KB); each warp takes 32
+//     samples of the tile at a time: one thread a sample fetches its 48
+//     features (step 1) into the warp's x rows in shared memory, then the
+//     warp runs the head as two m16 row tiles, each B fragment read and
+//     split once for both; a layer's accumulator is the next layer's A
+//     fragment in registers (the contraction permuted within each k8 step,
+//     no shuffle). The logits go to shared memory for step 3, as above.
+//   - K2b, K2c: one block of 256 threads per tile; the
 //     head's weights (~95 KB as f32, transposed so each output's weights are
 //     contiguous) and the tile's direction projections are staged into
 //     shared memory (stage_tile); each thread takes samples n = tid, tid +
@@ -70,8 +85,9 @@
 //     transmittance needs no scan.
 //   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
 //     96 bytes out, neighbouring threads on neighbouring rows.
-// Next: K2b, K2c and S2's stage kernel on head_rows; f32 weights on 3xTF32
-// or bf16-split products; a cp.async window ring for the fetch.
+// Next: K2b, K2c and S2's stage kernel on the tensor-core heads; K2's bf16
+// settle; the f32 head's B fragments split once per block rather than per
+// use; a cp.async window ring for the fetch.
 //
 // The device code the four kernels share, which S1 and S2 are also made of,
 // is in csrc/sampler_core.cuh.
@@ -79,44 +95,6 @@
 #include "sampler_core.cuh"
 
 namespace {
-
-// K2 with f32 weights (bf16 weights take sample_shade_comp_wgmma_kernel).
-// WT: the dtype of the shade weights and of dproj.
-template <typename WT>
-__global__ void __launch_bounds__(THREADS, 1)
-sample_shade_comp_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
-                         const float* __restrict__ uv, const WT* __restrict__ dproj,
-                         const float* __restrict__ dtv, Weights wp, float* __restrict__ out,
-                         int rpt, int kg, int ks, int wu, int wv, int rows, int rv) {
-  extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
-  float4* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);  // [kg * sg]
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  int* s_jobs = reinterpret_cast<int*>(s_res + ns);            // [3][1 + 2kg]
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  constexpr bool RB = sizeof(WT) == 2;
-
-  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, HID, jobs, 3 * (1 + 2 * kg), t, rpt);
-  __syncthreads();
-
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-  for (int n = tid; n < ns; n += THREADS) {
-    const int g = n / sg;
-    const int lane = n - g * sg;
-    float x[XD];
-    sample_uv(planes, s_jobs, uv, t, g, lane, kg, sg, umax, vmax, rows, rv, x);
-    s_res[n] = shade<RB>(x, s, s_dp + (lane / ks) * HID);
-  }
-  __syncthreads();
-
-  for (int r = tid; r < rpt; r += THREADS)
-    composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
-                  out + ((size_t)t * rpt + r) * 16);
-}
 
 // K2 with bf16 weights and dproj: the head on the tensor cores. A grid of
 // resident blocks of two warpgroups, each block looping over tiles.
@@ -169,6 +147,66 @@ sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
     __syncthreads();
 
     for (int r = tid; r < rpt; r += HEAD_THREADS)
+      composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                    out + ((size_t)t * rpt + r) * 16);
+  }
+}
+
+// K2 with f32 weights and dproj: the head on the tensor cores as three TF32
+// products a term (head_tf32). A grid of resident blocks of TF_WARPS warps,
+// each block looping over tiles; each warp takes TF_ROWS samples at a time.
+__global__ void __launch_bounds__(TF_THREADS, 1)
+sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
+                              const int* __restrict__ jobs, const float* __restrict__ uv,
+                              const float* __restrict__ dproj, const float* __restrict__ dtv,
+                              Weights wp, float* __restrict__ out, int tiles, int rpt, int kg,
+                              int ks, int wu, int wv, int rows, int rv) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  float4* s_res = reinterpret_cast<float4*>(sm + F_FIXED);   // [kg * sg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + ns);          // [3][1 + 2kg]
+  const int n_jobs = 3 * (1 + 2 * kg);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+
+  stage_tf32_weights(sm, wp);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int e = tid; e < n_jobs; e += TF_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+    __syncthreads();   // the weights (first tile) and jobs are staged; the last
+                       // tile's composite is done with s_res
+
+    // row blocks of TF_ROWS samples a warp; 32 / TF_ROWS threads a sample
+    // fetch its features (all, or half of each plane's) into the x rows
+    constexpr int HALVES = TF_ROWS == 32 ? 2 : 1;
+    float* xs = sm + F_X + warp * TF_ROWS * TS48;
+    for (int n0 = TF_ROWS * warp; n0 < ns; n0 += TF_ROWS * TF_WARPS) {
+      const int r = lane % TF_ROWS, h = lane / TF_ROWS, n = n0 + r;
+      float x[24 * HALVES];
+      if (n < ns) {
+        const int gr = n / sg;
+        sample_uv<HALVES>(planes, s_jobs, uv, t, gr, n - gr * sg, kg, sg, umax, vmax, rows, rv, x,
+                          h);
+      } else {   // a last partial row block: zero rows, not stored
+#pragma unroll
+        for (int k = 0; k < 24 * HALVES; ++k) x[k] = 0.f;
+      }
+      __syncwarp();   // the last row block's products have read the x rows
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int c = 0; c < 8 * HALVES; c += 4)
+          *reinterpret_cast<float4*>(xs + r * TS48 + CP * q + 8 * h + c) =
+              make_float4(x[8 * HALVES * q + c], x[8 * HALVES * q + c + 1],
+                          x[8 * HALVES * q + c + 2], x[8 * HALVES * q + c + 3]);
+      __syncwarp();
+      head_tf32<TF_MT>(sm, xs, dproj + (size_t)t * rpt * HID, s_res, n0, ns, sg, ks);
+    }
+    __syncthreads();
+
+    for (int r = tid; r < rpt; r += TF_THREADS)
       composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
                     out + ((size_t)t * rpt + r) * 16);
   }
@@ -300,6 +338,26 @@ sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restr
   }
 }
 
+// Launch a tile-looping kernel on a grid of its resident blocks (at most
+// one per tile) with `bytes` of dynamic shared memory; returns the launch's
+// error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_resident(Kernel kernel, int threads, size_t bytes, int tiles, int device,
+                            cudaStream_t stream, Args... args) {
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  if (err != cudaSuccess) return err;
+  const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  kernel<<<tiles < resident ? tiles : resident, threads, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Common arguments: planes [3, rows, rv * 16] bf16; jobs int32, per tile 3
@@ -310,9 +368,9 @@ sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restr
 // cudaError_t of its launch.
 
 // K2: uv [3 tiles, kg, 2, rpt * ks] f32; dproj [tiles, rpt, 64]; dtv [tiles,
-// rpt, 8] f32; out [tiles, rpt, 16] f32. bf16 weights take the tensor-core
-// kernel, whose shared memory (head_smem) must fit a block's 227 KB; f32
-// weights the CUDA-core one.
+// rpt, 8] f32; out [tiles, rpt, 16] f32. bf16 weights take the wgmma kernel,
+// f32 weights the 3xTF32 one; the block's shared memory (head_smem,
+// tf32_smem) must fit its 227 KB.
 extern "C" int mf_sample_shade_comp(
     int device, int bf16, const void* planes, const void* jobs, const void* uv,
     const void* dproj, const void* dtv, const void* wx_aud, const void* w_aud1,
@@ -331,27 +389,15 @@ extern "C" int mf_sample_shade_comp(
   const auto* u = static_cast<const float*>(uv);
   const auto* d = static_cast<const float*>(dtv);
   auto* o = static_cast<float*>(out);
-  if (bf16) {
-    const size_t bytes = head_smem(rpt, (size_t)kg * rpt * ks);
-    if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    const auto kernel = sample_shade_comp_wgmma_kernel;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, HEAD_THREADS, bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
-    const int blocks = tiles < resident ? tiles : resident;
-    kernel<<<blocks, HEAD_THREADS, bytes, s>>>(p, j, u, static_cast<const __nv_bfloat16*>(dproj),
-                                               d, wp, o, tiles, rpt, kg, ks, wu, wv, rows, rv);
-    return (int)cudaGetLastError();
-  }
-  const size_t bytes = shade_smem(rpt, HID, (size_t)kg * rpt * ks);
-  return (int)launch_tiles(sample_shade_comp_kernel<float>, bytes, tiles, s, p, j, u,
-                           static_cast<const float*>(dproj), d, wp, o, rpt, kg, ks, wu, wv,
-                           rows, rv);
+  if (bf16)
+    return (int)launch_resident(sample_shade_comp_wgmma_kernel, HEAD_THREADS,
+                                head_smem(rpt, (size_t)kg * rpt * ks), tiles, device, s, p, j, u,
+                                static_cast<const __nv_bfloat16*>(dproj), d, wp, o, tiles, rpt,
+                                kg, ks, wu, wv, rows, rv);
+  return (int)launch_resident(sample_shade_comp_tf32_kernel, TF_THREADS,
+                              tf32_smem((size_t)kg * rpt * ks), tiles, device, s, p, j, u,
+                              static_cast<const float*>(dproj), d, wp, o, tiles, rpt, kg, ks,
+                              wu, wv, rows, rv);
 }
 
 // K2b: uv as K2's; dproj [tiles, rpt, 128] (lanes 64: unused); out [tiles,

@@ -14,7 +14,9 @@
 //   - composite_ray: step 3, one ray's composite in depth order;
 //   - launch_tiles, shade_smem, bad_geometry: host-side launch helpers;
 //   - stage_head_weights, write_x_half, head_rows, head_smem: step 2 with
-//     bf16 weights on the tensor cores, 64 samples at a time (K2's head).
+//     bf16 weights on the tensor cores, 64 samples at a time (K2's head);
+//   - stage_tf32_weights, head_tf32, tf32_smem: step 2 with f32 weights on
+//     the tensor cores as three TF32 products a term, 32 samples a warp.
 // See csrc/sampler.cu for the functions, the bounds and the design.
 
 #pragma once
@@ -848,6 +850,300 @@ __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
   if (t == 0) {
     if (na < ns) res[na] = ra;
     if (nb < ns) res[nb] = rb;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Step 2 with f32 weights on the tensor cores: each warp runs the head on
+// TF_ROWS samples (TF_MT m16 row tiles) as mma.sync m16n8k8 TF32 products,
+// each f32 product taken as three TF32 products (a_lo b_hi + a_hi b_lo +
+// a_hi b_hi, operands split as a = a_hi + a_lo with a_hi rounded as
+// cvt.rna.tf32 rounds: split_tf32; the dropped a_lo b_lo is ~2^-21
+// relative), summed in the f32 accumulators. f32 weights round nothing
+// (act<false>), so no value needs settling.
+//   - The f32 weights are staged once per block as W^T rows [N][K + 8]
+//     (TS48, TS64, TS32 floats: a stride of 8 mod 32 makes every fragment
+//     read below free of bank conflicts). B fragments are read as float2 and
+//     split into hi/lo as they are loaded; each split fragment serves the
+//     warp's TF_MT row tiles.
+//   - Fragment map: an m16n8 accumulator holds columns 2t, 2t + 1 of rows
+//     g, g + 8 where the next product's A fragment wants k positions t,
+//     t + 4. So position t of k8 step s stands for input 8s + 2t and t + 4
+//     for 8s + 2t + 1 (a permutation of the contraction, no shuffle): B is
+//     read at W^T columns 8s + 2t, 8s + 2t + 1, and an accumulator n-tile s
+//     is A's k8 step s as it stands (registers 0, 2, 1, 3).
+//   - The fetch writes each sample's 48 f32 features into the warp's x rows
+//     in shared memory ([TF_ROWS][TS48]), which the three products of x
+//     read as float2 A fragments in the same order; the hidden layers stay
+//     in registers.
+//   - The narrow products (eye 16 -> 1, sigma 64 -> 1, rgb 64 -> 3) are f32
+//     dots on the accumulator lanes, then the quad's four lanes by shuffles.
+
+constexpr int TF_WARPS = 8;                   // warps of a K2 f32 block
+constexpr int TF_THREADS = 32 * TF_WARPS;
+constexpr int TF_MT = 2;                      // m16 row tiles of a warp
+constexpr int TF_ROWS = 16 * TF_MT;           // samples of a warp's row block
+constexpr int TS48 = XD + 8, TS64 = HID + 8, TS32 = AUD + 8;   // row strides in floats
+
+// shared memory of the f32 head, in floats: W^T rows, the f32 vectors, then
+// each warp's x rows
+constexpr int F_WXA = 0;                       // [64][TS48] wx_aud^T
+constexpr int F_WXS = F_WXA + HID * TS48;      // [64][TS48] wx_sig^T
+constexpr int F_WXE = F_WXS + HID * TS48;      // [16][TS48] wx_eye^T
+constexpr int F_AUD1 = F_WXE + EYE * TS48;     // [32][TS64] w_aud1^T
+constexpr int F_AUDSIG = F_AUD1 + AUD * TS64;  // [64][TS32] w_aud_sig^T
+constexpr int F_SIG1 = F_AUDSIG + HID * TS32;  // [64][TS64] w_sig1^T
+constexpr int F_GEO = F_SIG1 + HID * TS64;     // [64][TS64] w_geo^T
+constexpr int F_COLG = F_GEO + HID * TS64;     // [64][TS64] w_col_g^T
+constexpr int F_VEC = F_COLG + HID * TS64;     // V_* vectors as in the bf16 head
+constexpr int F_X = F_VEC + V_FLOATS;          // [TF_WARPS][TF_ROWS][TS48] x rows
+constexpr int F_FIXED = F_X + TF_WARPS * TF_ROWS * TS48;   // then the results, the jobs
+static_assert(F_X % 4 == 0 && F_FIXED % 4 == 0, "rows must stay 16-byte aligned");
+
+// shared memory of a K2 block with the f32 tensor-core head: the fixed part,
+// the samples' float4 results and the job table
+size_t tf32_smem(size_t samples) {
+  return sizeof(float) * (size_t)F_FIXED + 16 * samples + sizeof(int) * MAX_JOB_INTS;
+}
+
+// x = hi + lo as tensor-core operands. hi is x rounded to TF32 as
+// cvt.rna.tf32.f32 rounds it (to nearest, halves away from zero: half an ulp
+// of the 10-bit mantissa added, the 13 low bits cleared), in two integer
+// operations: ptxas expands cvt.rna into a longer sequence that also guards
+// infinities and NaN, and with it for both halves K2 took ~1.8x as long
+// (scripts/prof_k2.py, f32_cvt_rna). lo = x - hi is exact in f32; a TF32
+// product reads only its top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += A B for one m16n8k8 TF32 step (A: a0 row g col t, a1 row g + 8,
+// a2 / a3 col t + 4; B: b0 row t, b1 row t + 4, col g; d rows g / g + 8,
+// cols 2t, 2t + 1; g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[m] += A_m W for each of the warp's MT row tiles at f32 accuracy, K =
+// 8 KS, N = 8 NT: a_at(m, s) gives row tile m's A fragment of k8 step s
+// (a0, a1, a2, a3 as mma_tf32 takes them) in f32; W^T rows at wt, `stride`
+// floats apart.
+template <int MT, int KS, int NT, typename At>
+__device__ __forceinline__ void mma3_layer(float (&acc)[MT][NT][4], At a_at,
+                                           const float* __restrict__ wt, int stride) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float4 a = a_at(m, s);
+      split_tf32(a.x, ah[m][0], al[m][0]);
+      split_tf32(a.y, ah[m][1], al[m][1]);
+      split_tf32(a.z, ah[m][2], al[m][2]);
+      split_tf32(a.w, ah[m][3], al[m][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(wt + (8 * j + g) * stride + 8 * s + 2 * t);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b.x, bh0, bl0);
+      split_tf32(b.y, bh1, bl1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {   // the small terms first, then hi x hi
+        mma_tf32(acc[m][j], al[m], bh0, bh1);
+        mma_tf32(acc[m][j], ah[m], bl0, bl1);
+        mma_tf32(acc[m][j], ah[m], bh0, bh1);
+      }
+    }
+  }
+}
+
+// A fragments from an accumulator (n-tile s is k8 step s, registers 0, 2, 1, 3)
+template <int MT, int NT>
+struct FromAcc {
+  const float (&v)[MT][NT][4];
+  __device__ __forceinline__ float4 operator()(int m, int s) const {
+    return make_float4(v[m][s][0], v[m][s][2], v[m][s][1], v[m][s][3]);
+  }
+};
+template <int MT, int NT>
+__device__ __forceinline__ FromAcc<MT, NT> from_acc(const float (&v)[MT][NT][4]) {
+  return {v};
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+}
+
+// The f32 weights into the f32 head's layout (s: the block's shared memory).
+__device__ void stage_tf32_weights(float* s, const Weights& wp) {
+  auto W = [&](int i) { return static_cast<const float*>(wp.p[i]); };
+  // w [K][N] row-major -> W^T [N][stride]
+  auto tile = [&](int off, const float* w, int k_dim, int n_dim, int stride) {
+    for (int e = threadIdx.x; e < n_dim * k_dim; e += TF_THREADS) {
+      const int k = e / n_dim, n = e - k * n_dim;
+      s[off + n * stride + k] = w[e];
+    }
+  };
+  tile(F_WXA, W(WX_AUD), XD, HID, TS48);
+  tile(F_WXS, W(WX_SIG), XD, HID, TS48);
+  tile(F_WXE, W(WX_EYE), XD, EYE, TS48);
+  tile(F_AUD1, W(W_AUD1), HID, AUD, TS64);
+  tile(F_AUDSIG, W(W_AUD_SIG), AUD, HID, TS32);
+  tile(F_SIG1, W(W_SIG1), HID, HID, TS64);
+  tile(F_GEO, W(W_GEO), HID, HID, TS64);
+  tile(F_COLG, W(W_COL_G), HID, HID, TS64);
+  float* vec = s + F_VEC;
+  for (int e = threadIdx.x; e < HID; e += TF_THREADS) {
+    vec[V_SIGE + e] = W(W_SIG_E)[e];
+    vec[V_SIGCOL + e] = W(W_SIGCOL)[e * 16];
+    vec[V_CB + e] = W(COL_BIAS)[e];
+    vec[V_RGB + 4 * e + 0] = W(W_RGB)[e * 16 + 1];
+    vec[V_RGB + 4 * e + 1] = W(W_RGB)[e * 16 + 2];
+    vec[V_RGB + 4 * e + 2] = W(W_RGB)[e * 16 + 3];
+    vec[V_RGB + 4 * e + 3] = 0.f;
+  }
+  for (int e = threadIdx.x; e < EYE; e += TF_THREADS) vec[V_EYE1 + e] = W(W_EYE1)[e * 8];
+}
+
+// The head on the warp's row tiles, whose features are the warp's x rows xs
+// ([TF_ROWS][TS48], rows n0 + r of the tile's samples); the (sigma, r, g, b)
+// logits of each sample n < ns into res[n]. sm: the block's shared memory;
+// dp: the tile's dproj rows (f32 [rpt][64], read through L1 where the colour
+// layer adds them). Samples are group-major, sample n of ray (n % sg) / ks.
+template <int MT>
+__device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const float* xs,
+                                          const float* __restrict__ dp, float4* __restrict__ res,
+                                          int n0, int ns, int sg, int ks) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* vec = sm + F_VEC;
+  auto col = [&](int j, int i) { return 8 * j + 2 * t + (i & 1); };   // register i of n-tile j
+  auto x_at = [&](int m, int s) {   // rows g, g + 8 of row tile m, features 8s + 2t, + 1
+    const float2 a = *reinterpret_cast<const float2*>(xs + (16 * m + g) * TS48 + 8 * s + 2 * t);
+    const float2 b = *reinterpret_cast<const float2*>(xs + (16 * m + g + 8) * TS48 + 8 * s + 2 * t);
+    return make_float4(a.x, b.x, a.y, b.y);
+  };
+
+  // audio channel attention: aud_ch = relu(x Wx_aud) W_aud1
+  float ach[MT][4][4];
+  {
+    float ah[MT][8][4];
+    zero(ah);
+    mma3_layer<MT, XD / 8>(ah, x_at, sm + F_WXA, TS48);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ah[m][j][i] = fmaxf(ah[m][j][i], 0.f);
+    zero(ach);
+    mma3_layer<MT, 8>(ach, from_acc(ah), sm + F_AUD1, TS64);
+  }
+  // the eye scalar: sigmoid(relu(x Wx_eye) . w_eye1[:, 0]) of rows g (eye[m][0]), g + 8
+  float eye[MT][2];
+  {
+    float e[MT][2][4];
+    zero(e);
+    mma3_layer<MT, XD / 8>(e, x_at, sm + F_WXE, TS48);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = fmaxf(e[m][j][i], 0.f) * vec[V_EYE1 + col(j, i)];
+          if (i & 2) e1 += v;
+          else e0 += v;
+        }
+      eye[m][0] = 1.f / (1.f + expf(-quad_sum(e0)));
+      eye[m][1] = 1.f / (1.f + expf(-quad_sum(e1)));
+    }
+  }
+  // sigma layer 0: h = relu(x Wx_sig + aud_ch W_aud_sig + eye w_sig_e)
+  float h[MT][8][4];
+  zero(h);
+  mma3_layer<MT, XD / 8>(h, x_at, sm + F_WXS, TS48);
+  mma3_layer<MT, 4>(h, from_acc(ach), sm + F_AUDSIG, TS32);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        h[m][j][i] = fmaxf(__fadd_rn(h[m][j][i], __fmul_rn(eye[m][i / 2], vec[V_SIGE + col(j, i)])),
+                           0.f);
+  // sigma layer 1: h2 = relu(h W_sig1); sigma = h2 . w_sigcol[:, 0]
+  float h2[MT][8][4];
+  zero(h2);
+  mma3_layer<MT, 8>(h2, from_acc(h), sm + F_SIG1, TS64);
+  // sigma into the samples' results now (lane 0 of each quad), rgb below
+  float* out = reinterpret_cast<float*>(res);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float sa = 0.f, sb = 0.f;   // rows g, g + 8
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h2[m][j][i] = fmaxf(h2[m][j][i], 0.f);
+        if (i & 2) sb = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sb);
+        else sa = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sa);
+      }
+    sa = quad_sum(sa);
+    sb = quad_sum(sb);
+    const int n = n0 + 16 * m + g;
+    if (t == 0 && n < ns) out[4 * n] = sa;
+    if (t == 0 && n + 8 < ns) out[4 * (n + 8)] = sb;
+  }
+  // geo = h2 W_geo (into h)
+  zero(h);
+  mma3_layer<MT, 8>(h, from_acc(h2), sm + F_GEO, TS64);
+  // colour: relu(geo W_col_g + dproj + bias) . w_rgb[:, 1:4] (into h2)
+  zero(h2);
+  mma3_layer<MT, 8>(h2, from_acc(h), sm + F_COLG, TS64);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float c[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+    int ray[2];   // padding rows (n >= ns) read some ray's row too: n % sg < sg
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = n0 + 16 * m + g + 8 * hf;
+      ray[hf] = (n - (n / sg) * sg) / ks;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = col(j, i), hf = i / 2;
+        const float cr = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray[hf] * HID + k)),
+                                         vec[V_CB + k]), 0.f);
+        c[hf][0] = fmaf(cr, vec[V_RGB + 4 * k], c[hf][0]);
+        c[hf][1] = fmaf(cr, vec[V_RGB + 4 * k + 1], c[hf][1]);
+        c[hf][2] = fmaf(cr, vec[V_RGB + 4 * k + 2], c[hf][2]);
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float r = quad_sum(c[hf][0]), gr = quad_sum(c[hf][1]), b = quad_sum(c[hf][2]);
+      const int n = n0 + 16 * m + g + 8 * hf;
+      if (t == 0 && n < ns) {
+        out[4 * n + 1] = r;
+        out[4 * n + 2] = gr;
+        out[4 * n + 3] = b;
+      }
+    }
   }
 }
 

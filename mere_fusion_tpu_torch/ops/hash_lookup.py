@@ -155,9 +155,13 @@ def lookup_fwd_cuda(tables, idx: torch.Tensor, w: torch.Tensor, spec: GridSpec) 
 
 
 def lookup_bwd_cuda(idx: torch.Tensor, w: torch.Tensor, gout: torch.Tensor, spec: GridSpec,
-                    tables) -> list:
+                    tables, out: torch.Tensor | None = None) -> list:
     """Launch K3's backward: the tables' gradients [T, 1] float32, one per
-    grid, from gout [N, G·L]. ``tables`` are only checked, not read."""
+    grid, from gout [N, G·L]. ``tables`` are only checked, not read. The
+    kernel writes every row, so ``out`` (a [G, T, 1] float32 buffer to fill,
+    by default a new one) needs no zeroing. It takes any table size: the
+    kernel cuts each plane's rows into pieces that fit a block's shared
+    memory."""
     global bwd_launches
     n = _check(tables, idx, w, spec)
     g, dev = len(tables), tables[0].device
@@ -166,16 +170,22 @@ def lookup_bwd_cuda(idx: torch.Tensor, w: torch.Tensor, gout: torch.Tensor, spec
             n, g * spec.num_levels):
         raise ValueError(f"K3 backward takes gout [{n}, {g * spec.num_levels}] float32 "
                          f"on {dev}, got {tuple(gout.shape)} {gout.dtype} on {gout.device}")
-    dtables = torch.zeros(g, spec.total_params, 1, dtype=torch.float32, device=dev)
+    shape = (g, spec.total_params, 1)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (out.shape != shape or out.dtype != torch.float32 or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"K3 backward writes out {shape} float32 contiguous on {dev}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
     err = load().mf_hash_lookup_bwd(
         dev.index, g, idx.data_ptr(), w.data_ptr(), _offsets(spec), spec.num_levels, n,
-        spec.total_params, gout.data_ptr(), dtables.data_ptr(),
+        spec.total_params, gout.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K3 backward launch failed with cudaError {err}")
     with _count_lock:
         bwd_launches += 1
-    return list(dtables.unbind(0))
+    return list(out.unbind(0))
 
 
 def weights_grad(tables, idx: torch.Tensor, gout: torch.Tensor, spec: GridSpec) -> torch.Tensor:

@@ -10,10 +10,11 @@ group, and texel coordinates per sample), ``enc_selector`` and
 ``regroup_features``. The kernels, one per TPU kernel:
 
 - **K2** ``sample_shade_comp_tiles`` (``_shade_comp_kernel``): sample +
-  NeRF head + volume composite, per ray. The serving frame's kernel. With
-  bf16 weights its head runs on the tensor cores (``wgmma`` products over
-  64-sample row blocks); with f32 weights on the CUDA cores, as K2b and
-  K2c do.
+  NeRF head + volume composite, per ray. The serving frame's kernel. Its
+  head runs on the tensor cores: with bf16 weights as ``wgmma`` products
+  over 64-sample row blocks, with f32 weights as ``mma.sync`` TF32 products
+  over 32-sample row blocks, three a term (f32 accuracy). K2b and K2c run
+  it on the CUDA cores.
 - **K2b** ``sample_shade_tiles`` (``_shade_kernel``): sample + head, the
   activated σ and rgb per sample (the unfused oracle of K2's composite).
 - **K2c** ``render_rays_tiles`` (``_render_rays_kernel``): K2 with each
@@ -63,7 +64,7 @@ CORE_HEADER = os.path.join(_CSRC, "sampler_core.cuh")   # device code shared wit
 
 #: K2's kernel by the dtype of its shade weights, as named in profiler rows
 KERNEL_NAMES = {"bfloat16": "sample_shade_comp_wgmma_kernel",
-                "float32": "sample_shade_comp_kernel"}
+                "float32": "sample_shade_comp_tf32_kernel"}
 
 launches = 0          # K2
 shade_launches = 0    # K2b
@@ -623,9 +624,23 @@ def head_smem_bytes(spec: SamplerSpec) -> int:
             + 4 * 64 + 1024)
 
 
+#: the fixed part of an f32 tensor-core K2 block's shared memory (F_FIXED
+#: floats in csrc/sampler_core.cuh): the f32 Wᵀ rows, each padded by 8
+#: floats, the f32 vectors, and each warp's 32 rows of x
+TF32_FIXED_BYTES = 166208
+
+
+def tf32_smem_bytes(spec: SamplerSpec) -> int:
+    """Dynamic shared memory of one block of K2 with f32 weights (the 3×TF32
+    tensor-core head, ``tf32_smem`` in csrc/sampler_core.cuh): the fixed
+    part, a float4 per sample and the job table."""
+    return TF32_FIXED_BYTES + 16 * spec.kg * spec.sg + 4 * 64
+
+
 def smem_bytes(spec: SamplerSpec, kernel: str = "K2") -> int:
-    """Dynamic shared memory of one CUDA-core block of K2 (f32 weights), K2b
-    or K2c (see csrc/sampler.cu); K2d uses none."""
+    """Dynamic shared memory of one block with the CUDA-core head: K2b, K2c,
+    or "K2", the layout of S2's stage kernel (see csrc/sampler.cu,
+    csrc/sampler_stages.cu); K2d uses none."""
     weights = (3 * CP * (2 * HID + EYE_HID) + HID * AUD + AUD * HID + EYE_HID + HID
                + 3 * HID * HID + HID + 4 * HID + HID)
     rows = {"K2": HID, "K2b": HID, "K2c": HID + 8}[kernel]
@@ -668,7 +683,12 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
     if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > 64:
         raise ValueError(f"{kernel} needs k % kg == 0, k >= 2 and 3·(1 + {job_fields}·kg) "
                          f"<= 64 (k={spec.k}, kg={spec.kg})")
-    if (kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.bfloat16):
+    if kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.float32:
+        if tf32_smem_bytes(spec) > SMEM_LIMIT:
+            raise ValueError(f"K2 with float32 weights: a tile of {spec.rays_per_tile} rays × "
+                             f"{spec.k} samples needs {tf32_smem_bytes(spec)} B of shared "
+                             f"memory > {SMEM_LIMIT}")
+    elif kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.bfloat16:
         if head_smem_bytes(spec) > SMEM_LIMIT:
             raise ValueError(f"K2 with bfloat16 weights: a tile of {spec.rays_per_tile} rays × "
                              f"{spec.k} samples needs {head_smem_bytes(spec)} B of shared "

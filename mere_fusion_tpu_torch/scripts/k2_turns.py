@@ -1,5 +1,5 @@
-"""K1 in float32, K2 and the ER-NeRF frame of several checkouts, in turns,
-on one card.
+"""K1 in float32, K2, K3's backward and the ER-NeRF frame of several
+checkouts, in turns, on one card.
 
     python -m mere_fusion_tpu_torch.scripts.k2_turns PARENT . . PARENT
 
@@ -17,8 +17,12 @@ this checkout's ``chip_smoke.py``:
 - K2 on the dense 512² job set (``chip_smoke.k2_operands``) with bfloat16
   and float32 shade weights: kernel ms by CUDA events and the largest error
   against the plain version;
-- the ``nerf_model`` frame (``chip_smoke.nerf_frame_model``, the K2 step):
-  its ms by CUDA events and one frame under torch.profiler (device ms, busy
+- K3's backward at the training shape (``chip_smoke.k3_operands``): its
+  device ms (torch.profiler, as ``chip_smoke`` times it; a zero fill that a
+  checkout's wrapper launches before the kernel is counted with it);
+- the ``nerf_model`` frame (``chip_smoke.nerf_frame_model``, the K2 step)
+  with bfloat16 and with float32 shade weights (``nerf.shade_dtype``): its
+  ms by CUDA events and one frame under torch.profiler (device ms, busy
   share, K2's device ms);
 - an ER-NeRF loopback session (``chip_smoke._nerf_session``): nerf.render
   p50 and the other session numbers.
@@ -58,7 +62,7 @@ def measure(root: str) -> dict:
 
     from mere_fusion_tpu_torch.engines.muse import MuseModels
     from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
-    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
 
     if not torch.cuda.is_available():
         raise RuntimeError("k2_turns measures on a CUDA card; none is visible")
@@ -106,16 +110,25 @@ def measure(root: str) -> dict:
         del ops, got, ref
         torch.cuda.empty_cache()
 
+    spec3, tables, idx, w, gout = cs.k3_operands(dev)
+    out["k3_bwd"] = {"device_ms": cs.device_ms(
+        lambda: hash_lookup.lookup_bwd_cuda(idx, w, gout, spec3, tables))}
+    del tables, idx, w, gout
+    torch.cuda.empty_cache()
+
     cfg, ds, net, baked, _ = cs.nerf_frame_model(dev)
-    step = make_render_step(net, ds, cfg, baked, impl="auto")
     dens, bg, auds, eye = cs.nerf_frame_inputs(cfg, ds, dev)
+    for key, shade_dtype in (("nerf_frame", "bfloat16"), ("nerf_frame_f32", "float32")):
+        step = make_render_step(net, ds, cfg.override(**{"nerf.shade_dtype": shade_dtype}),
+                                baked, impl="auto")
 
-    def frame():
-        return step(ds.poses[0], auds, eye, dens, bg, pose_key=0)
+        def frame():
+            return step(ds.poses[0], auds, eye, dens, bg, pose_key=0)
 
-    out["nerf_frame"] = {"ms": cs.time_ms(frame, iters=5, warmup=1),
-                         "profile": cs.profile_generate(frame, kernel="sample_shade_comp")}
-    del step, baked, net
+        out[key] = {"ms": cs.time_ms(frame, iters=5, warmup=1),
+                    "profile": cs.profile_generate(frame, kernel="sample_shade_comp")}
+        del step
+    del baked, net
     torch.cuda.empty_cache()
     out["nerf_session"] = asyncio.run(cs._nerf_session({}))
     return out
@@ -162,6 +175,11 @@ def main(argv: list[str] | None = None) -> int:
             ("frame_device_ms", lambda r: r["nerf_frame"]["profile"].get("device_ms")),
             ("frame_k2_device_ms",
              lambda r: r["nerf_frame"]["profile"].get("sample_shade_comp_ms")),
+            ("frame_f32_ms", lambda r: r["nerf_frame_f32"]["ms"]),
+            ("frame_f32_device_ms", lambda r: r["nerf_frame_f32"]["profile"].get("device_ms")),
+            ("frame_f32_k2_device_ms",
+             lambda r: r["nerf_frame_f32"]["profile"].get("sample_shade_comp_ms")),
+            ("k3_bwd_device_ms", lambda r: r["k3_bwd"]["device_ms"]),
             ("render_p50_ms", lambda r: r["nerf_session"]["render_p50_ms"]),
             ("rendered_frames", lambda r: r["nerf_session"]["rendered_frames"])):
         summary[key] = [pick(r) for r in runs]

@@ -1,5 +1,5 @@
-"""Where K2's time goes with bf16 weights: the kernel against probes of
-itself, on the card.
+"""Where K2's time goes with bf16 and with f32 weights: each kernel against
+probes of itself, on the card.
 
     python -m mere_fusion_tpu_torch.scripts.prof_k2
 
@@ -28,6 +28,12 @@ the kernel's.
 - ``tie_floor`` (design): values under 1/64 of their row's largest
   magnitude not settled;
 - ``two_warpgroups`` (design): two warpgroups a block instead of three;
+- ``f32_cvt_rna``, ``f32_lo_rna``, ``f32_one_tile``, ``f32_single`` (the
+  f32 kernel, ``sample_shade_comp_tf32_kernel``, timed and checked on the
+  same job set with f32 weights, in turns with it): both halves of each
+  TF32 split by ``cvt.rna.tf32.f32``; a_lo rounded too (by the integer
+  rounding a_hi takes); one m16 row tile a warp at 16 warps a block; one
+  TF32 product a term (a_hi b_hi; no longer f32-accurate);
 - ``dump`` (diagnostic, not timed): the kernel writing every hidden layer's
   f32 values before their bf16 rounding (after ``settle``) for the samples
   of the first DUMP_TILES tiles. Each layer is recomputed by the plain arithmetic from
@@ -173,6 +179,26 @@ PROBES = {
                         "constexpr int HEAD_WGS = 2;")],
     "dump": DUMP_EDITS,
 }
+SPLIT = """  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+"""
+MMA3 = """        mma_tf32(acc[m][j], al[m], bh0, bh1);
+        mma_tf32(acc[m][j], ah[m], bl0, bl1);
+        mma_tf32(acc[m][j], ah[m], bh0, bh1);
+"""
+F32_PROBES = {
+    "f32_cvt_rna": [("sampler_core.cuh", SPLIT, """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+""")],
+    "f32_lo_rna": [("sampler_core.cuh", SPLIT, SPLIT.replace(
+        "lo = __float_as_uint(x - __uint_as_float(hi));",
+        "lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;"))],
+    "f32_one_tile": [("sampler_core.cuh", "constexpr int TF_WARPS = 8;",
+                      "constexpr int TF_WARPS = 16;"),
+                     ("sampler_core.cuh", "constexpr int TF_MT = 2;", "constexpr int TF_MT = 1;")],
+    "f32_single": [("sampler_core.cuh", MMA3, "        mma_tf32(acc[m][j], ah[m], bh0, bh1);\n")],
+}
+PROBES.update(F32_PROBES)
 TIMED_PROBES = ("fetch_only", "head_only", "no_composite", "no_settle", "promoted", "tie_half",
                 "tie_floor", "two_warpgroups")
 DESIGN_PROBES = ("no_settle", "promoted", "tie_half", "tie_floor")
@@ -306,12 +332,38 @@ def main() -> int:
                         spec)
     for name, row in flips.items():
         print(json.dumps({"layer": name, **row}), flush=True)
+    # the f32 kernel and its probes, f32 weights (TF32 off in the plain version)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    planes, jobs, uv, dproj, dtv, weights = cs.k2_operands(dev, cs.NERF_HW, spec,
+                                                            torch.float32)
+
+    def launch_f32(lib):
+        err = lib.mf_sample_shade_comp(
+            0, 0, planes.data_ptr(), jobs.data_ptr(), uv.data_ptr(), dproj.data_ptr(),
+            dtv.data_ptr(), *[weights[n].data_ptr() for n in sampler.SHADE_WEIGHTS],
+            out.data_ptr(), *sampler._geometry(spec, t, planes), stream)
+        if err:
+            raise RuntimeError(f"launch failed with cudaError {err}")
+
+    f32_times: dict[str, list[float]] = {}
+    for name in ["kernel", *F32_PROBES, *reversed(list(F32_PROBES)), "kernel"]:
+        ms = cs.time_ms(lambda: launch_f32(libs[name]), iters=10, warmup=2)
+        f32_times.setdefault(name, []).append(ms)
+        print(json.dumps({"variant": name, "weights": "float32", "ms": ms}), flush=True)
+    ref = sampler.sample_shade_comp_tiles_plain(planes, jobs, uv, dproj, dtv, weights, spec)
+    f32_errors = {}
+    for name in ("kernel", *F32_PROBES):
+        launch_f32(libs[name])
+        f32_errors[name] = (out - ref).abs().max().item()
+        print(json.dumps({"variant": name, "weights": "float32",
+                          "max_abs_err": f32_errors[name]}), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     print(json.dumps({"card": card, "tiles": t, "samples": t * spec.rays_per_tile * spec.k,
-                      "ms": times, "max_abs_err": errors, "flips": flips}), flush=True)
+                      "ms": times, "max_abs_err": errors, "flips": flips,
+                      "f32_ms": f32_times, "f32_max_abs_err": f32_errors}), flush=True)
     return 0
 
 

@@ -73,10 +73,9 @@ def datasets(data_dir):
 
 
 @pytest.fixture(scope="module")
-def pipelines(datasets):
-    """(JAX step, port step, JAX net+variables, port net) on the same
-    weights and the same baked textures."""
-    jds, pds = datasets
+def parts(datasets):
+    """(JAX network, its variables, the baked textures, the port's network
+    with those weights, the textures as torch tensors)."""
     jnet = JNetwork(JNetConfig(**NET))
     variables = jax.jit(jnet.init, static_argnames="method")(
         jax.random.key(0), jnp.zeros((8, 44, 16)), jnp.zeros((4, 3)),
@@ -89,14 +88,30 @@ def pipelines(datasets):
     variables = {"params": params}
     baked = j_bake(params, JNetConfig(**NET).plane_spec, 1.0, resolution=128,
                    dtype=jnp.bfloat16)
-    jstep = make_pallas_render_step(jnet, variables, jds, JConfig().override(**OVERRIDES),
-                                    baked=baked, interpret=True)
     pnet = NeRFNetwork(NeRFNetConfig(**NET))
     pnet.load_state_dict(ernerf_from_flax(variables, NeRFNetConfig(**NET)), strict=True)
     pbaked = {k: torch.from_numpy(np.asarray(v.astype(jnp.float32))).to(torch.bfloat16)
               for k, v in baked.items()}
-    pstep = make_render_step(pnet.eval(), pds, Config().override(**OVERRIDES), pbaked)
-    return jstep, pstep, (jnet, variables), pnet
+    return jnet, variables, baked, pnet.eval(), pbaked
+
+
+def make_steps(parts, datasets, shade_dtype: str):
+    """(JAX step with the Pallas K2 in interpret mode, port step) on the same
+    weights and baked textures, at nerf.shade_dtype ``shade_dtype``."""
+    jnet, variables, baked, pnet, pbaked = parts
+    jds, pds = datasets
+    over = {**OVERRIDES, "nerf.shade_dtype": shade_dtype}
+    return (make_pallas_render_step(jnet, variables, jds, JConfig().override(**over),
+                                    baked=baked, interpret=True),
+            make_render_step(pnet, pds, Config().override(**over), pbaked))
+
+
+@pytest.fixture(scope="module")
+def pipelines(parts, datasets):
+    """(JAX step, port step, JAX net+variables, port net) on the same
+    weights and the same baked textures, bf16 shade weights."""
+    jnet, variables, _, pnet, _ = parts
+    return (*make_steps(parts, datasets, "bfloat16"), (jnet, variables), pnet)
 
 
 def test_dataset_load_matches_jax(datasets):
@@ -128,8 +143,8 @@ def test_shade_weights_match_jax(pipelines):
                                        rtol=0, atol=1e-6, err_msg=name)
 
 
-def frame_pair(pipelines, datasets, index, auds, jdens, pdens, pose_key):
-    jstep, pstep, _, _ = pipelines
+def frame_pair(steps, datasets, index, auds, jdens, pdens, pose_key):
+    jstep, pstep = steps[:2]
     jds, pds = datasets
     jd, pd = jds.collate(index), pds.collate(index)
     ji, jn, jo = jstep(jd["pose"], jnp.asarray(auds), jnp.asarray(jd["eye"]), jdens,
@@ -143,20 +158,22 @@ def frame_pair(pipelines, datasets, index, auds, jdens, pdens, pose_key):
     return pi.numpy(), int(pn)
 
 
-def test_frame_step_matches_jax(pipelines, datasets):
-    _, pstep, _, _ = pipelines
+@pytest.mark.parametrize("shade_dtype", ["bfloat16", "float32"])
+def test_frame_step_matches_jax(parts, pipelines, datasets, shade_dtype):
+    steps = pipelines if shade_dtype == "bfloat16" else make_steps(parts, datasets, shade_dtype)
+    pstep = steps[1]
     rng = np.random.default_rng(8)
     g = 16
     jdense = JDensity.create(g)
     pdense = density_from_flax(jdense)
     a0 = rng.standard_normal((8, 44, 16)).astype(np.float32)
-    img0, n0 = frame_pair(pipelines, datasets, 0, a0, jdense, pdense, 0)
+    img0, n0 = frame_pair(steps, datasets, 0, a0, jdense, pdense, 0)
     assert n0 == N_TILES                           # dense grid: every tile active
     assert img0.std() > 2, "the frame must show the rendered head"
     assert set(pstep.span_cache) == {0}
     # a cached pose and new audio (the EMA carries the previous code)
     a1 = rng.standard_normal((8, 44, 16)).astype(np.float32)
-    frame_pair(pipelines, datasets, 0, a1, jdense, pdense, 0)
+    frame_pair(steps, datasets, 0, a1, jdense, pdense, 0)
     # a density swap drops the cache; the sparse grid leaves tiles inactive,
     # so the port compacts while the JAX step pads to a ladder rung
     occ = np.zeros((g, g, g), bool)
@@ -164,11 +181,11 @@ def test_frame_step_matches_jax(pipelines, datasets):
     jsparse = JDensity(grid=jnp.zeros(g**3), occupancy=jnp.asarray(occ.reshape(-1)),
                        mean_density=jnp.zeros(()))
     psparse = density_from_flax(jsparse)
-    _, n_sparse = frame_pair(pipelines, datasets, 1, a1, jsparse, psparse, 1)
+    _, n_sparse = frame_pair(steps, datasets, 1, a1, jsparse, psparse, 1)
     assert 0 < n_sparse < N_TILES
     assert set(pstep.span_cache) == {1}
     # uncached (pose_key None): full coverage, no cache entry
-    frame_pair(pipelines, datasets, 2, a0, jsparse, psparse, None)
+    frame_pair(steps, datasets, 2, a0, jsparse, psparse, None)
     assert set(pstep.span_cache) == {1}
 
 

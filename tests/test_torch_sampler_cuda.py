@@ -16,7 +16,12 @@ ROADMAP rule). With bfloat16 weights K2's head runs on the tensor cores
 tiles): it is held at both tile shapes, every depth grouping, a tile count
 that leaves the last round of resident blocks partly filled, a sample count
 that leaves the last 64-sample row block partly filled, and tiles with
-empty rays; float32 weights keep the CUDA-core kernel.
+empty rays. With float32 weights the head runs on the tensor cores as three
+TF32 products a term (``sample_shade_comp_tf32_kernel``, 32-sample row
+blocks): it is held at both tile shapes, every depth grouping, sample counts
+that leave the last row block partly filled, and on the dense job set
+against the same limit, which the plain version with single TF32 products
+(``allow_tf32``) must fail.
 """
 from __future__ import annotations
 
@@ -121,15 +126,92 @@ def test_wgmma_head_partial_row_block(cuda_device, k, kg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kg", [1, 2, 4])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 8)])
+def test_tf32_head_geometries(cuda_device, tile, kg):
+    """K2 with f32 weights at both tile shapes and every depth grouping of
+    k 16, as test_wgmma_head_geometries holds the bf16 kernel: the resident
+    grid's last round partly filled, a third of the tiles with half their
+    rays empty."""
+    spec = sampler.SamplerSpec(resolution=1024, channels=12, tile_w=tile[0], tile_h=tile[1],
+                               k=16, kg=kg, wu=64, wv=32)
+    planes, jobs, uv, dproj, dtv, weights = k2_operands(cuda_device, 256, spec, torch.float32)
+    dtv[::3, : spec.rays_per_tile // 2] = 0
+    before = sampler.launches
+    out = sampler.sample_shade_comp_tiles(planes, jobs, uv, dproj, dtv, weights, spec)
+    torch.cuda.synchronize()
+    assert sampler.launches == before + 1
+    ref = sampler.sample_shade_comp_tiles_plain(planes, jobs, uv, dproj, dtv, weights, spec)
+    assert bool(torch.isfinite(out).all()) and float(ref[..., 0].max()) > 0.5
+    assert bool((out[::3, : spec.rays_per_tile // 2] == 0).all())
+    err = (out - ref).abs().max().item()
+    print(f"K2 f32 {tile} kg {kg}: max abs err {err:.3e}")
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,k,kg", [((4, 4), 5, 1), ((8, 4), 5, 1), ((8, 4), 6, 3)])
+def test_tf32_head_partial_row_block(cuda_device, tile, k, kg):
+    """Tiles of 80 samples (16 rays × 5: row blocks of 32, 32 and 16, the last
+    padded), 160 and 192: the f32 head's 32-sample row blocks, a warp's
+    second row tile partly or wholly empty."""
+    spec = sampler.SamplerSpec(resolution=128, channels=12, tile_w=tile[0], tile_h=tile[1],
+                               k=k, kg=kg, wu=32, wv=16)
+    ops = k2_operands(cuda_device, 64, spec, torch.float32)
+    out = sampler.sample_shade_comp_tiles(*ops, spec)
+    ref = sampler.sample_shade_comp_tiles_plain(*ops, spec)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and float(ref[..., 0].max()) > 0.1
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["serving", "small"])
+def test_f32_limit_fails_single_tf32_products(cuda_device, size):
+    """The f32 kernel's limit of 1e-5 tells three TF32 products a term from
+    one: the plain version with TF32 matmuls (single TF32 products) fails it
+    on the same operands."""
+    spec = sampler.SamplerSpec(**SPECS[size]["spec"])
+    ops = k2_operands(cuda_device, SPECS[size]["hw"], spec, torch.float32)
+    ref = sampler.sample_shade_comp_tiles_plain(*ops, spec)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        single = sampler.sample_shade_comp_tiles_plain(*ops, spec)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    got = sampler.sample_shade_comp_tiles(*ops, spec)
+    assert (got - ref).abs().max().item() <= 1e-5 < (single - ref).abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wdtype,name", [(torch.bfloat16, "sample_shade_comp_wgmma_kernel"),
-                                         (torch.float32, "sample_shade_comp_kernel")])
+                                         (torch.float32, "sample_shade_comp_tf32_kernel")])
 def test_weights_dtype_picks_the_kernel(cuda_device, wdtype, name):
-    """bf16 weights take the tensor-core kernel, f32 weights the CUDA-core one."""
+    """bf16 weights take the wgmma kernel, f32 weights the 3×TF32 one."""
     spec = sampler.SamplerSpec(**SPECS["small"]["spec"])
     ops = k2_operands(cuda_device, 64, spec, wdtype)
     names = kernel_names(lambda: sampler.sample_shade_comp_tiles(*ops, spec))
     assert [n for n in names if "sample_shade_comp" in n] and all(
         name in n for n in names if "sample_shade_comp" in n), names
+
+
+@pytest.mark.cuda
+def test_tf32_head_refusals(cuda_device):
+    """A tile whose samples do not fit the f32 block's shared memory raises
+    before the launch."""
+    spec = sampler.SamplerSpec(**SPECS["small"]["spec"])
+    _, _, _, _, _, weights = k2_operands(cuda_device, 64, spec, torch.float32)
+    planes = torch.zeros(3, 256, 128 * 16, dtype=torch.bfloat16, device=cuda_device)
+    big = sampler.SamplerSpec(resolution=128, channels=4, tile_w=32, tile_h=8, k=32, kg=2,
+                              wu=32, wv=16)
+    assert sampler.tf32_smem_bytes(big) > sampler.SMEM_LIMIT
+    t = 2
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler.sample_shade_comp_tiles(
+            planes, torch.zeros(t * 3 * (1 + 2 * big.kg), dtype=torch.int32, device=cuda_device),
+            torch.zeros(3 * t, big.kg, 2, big.sg, device=cuda_device),
+            torch.zeros(t, big.rays_per_tile, 64, device=cuda_device),
+            torch.zeros(t, big.rays_per_tile, 8, device=cuda_device), weights, big)
 
 
 @pytest.mark.cuda
