@@ -44,7 +44,15 @@ its seconds; any failure is fatal (exit code 1, no result line):
               writes every row of a gradient buffer filled with NaN (no
               zero fill), and its registers, spills and shared-memory
               atomics (ATOMS) in the SASS; a wrong dtype and a wrong shape
-              must raise.
+              must raise. K3's encode kernel (the corners hashed in the
+              kernel) against the plain version (plain corners, then the
+              plain lookup) at the training shape with its corner rows and
+              weights saved (equal to triplane_corners'), at a refresh
+              chunk, at an unbaked frame's 1,048,576 points and at a bound
+              of 1.5: within 1e-6 (0 expected), the limit failed by a
+              dropped corner and by an FMA-contracted pos; device times of
+              kernel, plain and the corner route against each case's bound;
+              registers and spills of both instantiations.
 3. model    — a full-width MuseModels (float32, TF32 off): generate with
               ATTN_IMPL "auto" (K1) against "plain" on the same inputs;
               faces within 1 LSB, UNet output within 1e-4 relative, and
@@ -70,8 +78,9 @@ its seconds; any failure is fatal (exit code 1, no result line):
               whose K2 rows are the f32 kernel's. Then the unbaked frame (NeRFReal's
               bake_planes=False step: the hash encode on K3, the bf16 head,
               65,536 active rays × 16 samples) against the same step with
-              K3's plain version: within 1 LSB, exactly one K3 forward launch
-              per frame (counts zeroed just before); frame times in turns.
+              K3's plain version: within 1 LSB, exactly one launch of K3's
+              encode kernel per frame and none of the corner route (counts
+              zeroed just before); frame times in turns with the plain step.
 6. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
               synthesized 512² dataset in a temporary directory, procedural
               TTS, loopback transport: start a session, talk, wait for 50
@@ -97,11 +106,17 @@ its seconds; any failure is fatal (exit code 1, no result line):
 9. nerf_train   — ER-NeRF head training at full width on a synthesized 512²,
               8-frame dataset in a temporary directory: one train step's loss,
               gradient norm and gradients with K3 against the plain encode
-              from the same state, batch and jitter noise; step and refresh
-              times with K3 and plain; one step under torch.profiler. Then the
-              training CLI (ernerf_cli.main) for 200 iterations with the
-              kernel counts zeroed just before: exactly 3 forward + 3
-              backward K3 launches a step and 32 forward a density refresh,
+              from the same state, batch and jitter noise (3 encode + 3
+              backward launches, no corner-route forward); one refresh's 32
+              encode launches; step and refresh times with K3 and plain in
+              turns; one step under torch.profiler with the encode, which
+              must call none of the corner hashing's own operations
+              (HASHING_OPS), and one plain, which must call them and launch
+              more device operations by at least three corner hashings'. Then
+              the training CLI (ernerf_cli.main) for 200 iterations with the
+              kernel counts zeroed just before: exactly 3 encode + 3
+              backward K3 launches a step and 32 encode a density refresh,
+              none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
 10. sampler_stages — the profiling entry points prof_r5m.main and
@@ -114,10 +129,18 @@ its seconds; any failure is fatal (exit code 1, no result line):
               its plain version (max error, kernel / plain times, the bound
               over the texels the samples weigh; S1 and win fail their limit
               on u moved by 1/512 texel, shade and full without the bf16
-              rounding of activations), S2 with float32 weights against its
-              plain version, S2 full launching K2 and no stage kernel, and
-              K2's split in turns: fetch (win), head at most K2 − win
-              (shade − win beside it, with shade's extra columns).
+              rounding of activations), S2 win and shade with float32
+              weights against their plain versions (times, bounds; the
+              limits failed by the nudged u and by single TF32 products),
+              S2 full launching K2 and no stage kernel, the stage kernels'
+              registers, spills and HGMMA/HMMA counts (S2 is K2's own
+              tensor-core kernels stopped early), and K2's split in turns:
+              fetch (win), head at most K2 − win (shade − win beside it,
+              with shade's extra columns); then K2, win and shade in turns
+              on the dense 512² job set of the kernels phase. The split is
+              read with bf16 weights only: with f32 weights shade's
+              16-column 3xTF32 products cost more than K2's two narrow
+              dots, so shade does not bound K2 f32's head.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -331,6 +354,39 @@ def profile_generate(fn, kernel: str = "attention_kernel") -> dict:
             "top": [[key[:80], ms] for key, ms in top]}
 
 
+# the plain corner hashing's own operations (hashgrid._corner_index: the
+# hash's xor and the row's modulo); no other operation of a train step
+# or an unbaked frame calls them
+HASHING_OPS = ("aten::remainder", "aten::bitwise_xor")
+
+
+def profile_launches(fn) -> dict:
+    """torch.profiler over one call of fn: its wall time, device time and
+    busy share, the device operations it launched (kernels, copies, fills),
+    the device time of K3's rows, the calls of the corner hashing's own
+    operations (HASHING_OPS) and the top 8 device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(ms for *_, ms in rows)
+    if device <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return {"wall_ms": wall_ms, "device_ms": device, "device_busy_share": device / wall_ms,
+            "device_launches": sum(n for _, n, _ in rows),
+            "k3_ms": sum(ms for key, _, ms in rows if "encode_fwd" in key or "lookup_" in key),
+            "hashing_ops": sum(e.count for e in prof.key_averages() if e.key in HASHING_OPS),
+            "top": [[key[:80], n, ms] for key, n, ms in sorted(rows, key=lambda r: -r[2])[:8]]}
+
+
 def phase_build(state: dict) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -414,6 +470,7 @@ def phase_kernels(state: dict) -> dict:
     state["k1_f32_numbers"] = out["float32"]
     out["K2"] = k2_check(state)
     out["K3"] = k3_check(state)
+    out["K3_encode"] = k3_encode_check(state)
     return out
 
 
@@ -654,21 +711,29 @@ def k2_check(state: dict) -> dict:
     return out
 
 
-def k3_operands(dev, n: int = TRAIN_N, spec=None, seed: int = 0):
-    """K3's operands at the training shape: n seeded points in [−1, 1]³
-    through the full-width triplane spec's corner rows and weights, tables
-    U(−1, 1), a seeded output gradient. Returns (spec, tables, idx, w, gout)."""
+def k3_inputs(dev, n: int = TRAIN_N, spec=None, seed: int = 0, spread: float = 1.0):
+    """K3's inputs at the training shape: n seeded points in [−spread,
+    spread]³, the full-width triplane spec, tables U(−1, 1), a seeded output
+    gradient. Returns (spec, tables, xyz, gout)."""
     import torch
 
     from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig
-    from mere_fusion_tpu_torch.ops.hash_lookup import triplane_corners
 
     spec = spec or NeRFNetConfig().plane_spec
     gen = torch.Generator(device="cpu").manual_seed(seed)
     tables = [(torch.rand(spec.total_params, spec.level_dim, generator=gen) * 2 - 1).to(dev)
               for _ in range(3)]
-    xyz = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    xyz = ((torch.rand(n, 3, generator=gen) * 2 - 1) * spread).to(dev)
     gout = torch.randn(n, 3 * spec.num_levels * spec.level_dim, generator=gen).to(dev)
+    return spec, tables, xyz, gout
+
+
+def k3_operands(dev, n: int = TRAIN_N, spec=None, seed: int = 0):
+    """K3's lookup operands: k3_inputs' points through the spec's corner rows
+    and weights. Returns (spec, tables, idx, w, gout)."""
+    from mere_fusion_tpu_torch.ops.hash_lookup import triplane_corners
+
+    spec, tables, xyz, gout = k3_inputs(dev, n, spec, seed)
     idx, w = triplane_corners(xyz, spec, 1.0)
     return spec, tables, idx, w, gout
 
@@ -788,6 +853,119 @@ def k3_check(state: dict) -> dict:
     del (tables, idx, w, gout, got, ref, dtables, dref, rows, psw, weight, lib_out, leaves,
          plain_out, fwd_calls, bwd_calls)
     torch.cuda.empty_cache()
+    return out
+
+
+K3_ENCODE_OPS = 44   # per (point, plane, level): x01, pos, floor, fractions, 4 rows, 4 weights, sum
+
+
+def k3_encode_bound_ms(n: int, spec, save: bool) -> tuple[float, str]:
+    """Least time for the encode kernel's work: xyz read once, out written
+    once, the three tables read once and, when saved for the backward, the
+    corner rows and weights written once, at 3.35 TB/s; against its
+    K3_ENCODE_OPS operations per (point, plane, level) at the card's f32
+    rate."""
+    levels = spec.num_levels
+    nbytes = 4 * n * 3 + 4 * n * 3 * levels + 4 * 3 * spec.total_params
+    if save:
+        nbytes += 2 * 4 * 3 * n * levels * 4
+    t_ops = K3_ENCODE_OPS * n * 3 * levels / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_fma_corners(xyz, spec, bound: float = 1.0):
+    """triplane_corners with pos = x01·scale + 0.5 rounded once, as an FMA
+    rounds it (a control: the kernel must round the product and the sum on
+    their own)."""
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.ops.hashgrid import _corner_index
+
+    coords = torch.stack((xyz[:, :2], xyz[:, 1:], xyz[:, ::2]))
+    x01 = (coords + bound) / torch.full((), 2.0 * bound, device=xyz.device)
+    idx, w = [], []
+    for scale, resolution, hsize, _ in spec.level_params():
+        # the f32 product is exact in f64, so one rounding to f32 is the FMA's
+        pos = (x01.double() * float(np.float32(scale)) + 0.5).float()
+        cell = torch.floor(pos)
+        frac = pos - cell
+        cell = torch.clamp(cell.to(torch.int64), 0, 0xFFFFFFFF)
+        rows, ws = [], []
+        for c0, c1 in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            pg = [(cell[..., 0] + c0) & 0xFFFFFFFF, (cell[..., 1] + c1) & 0xFFFFFFFF]
+            rows.append(_corner_index(pg, spec, resolution, hsize))
+            ws.append((frac[..., 0] if c0 else 1.0 - frac[..., 0])
+                      * (frac[..., 1] if c1 else 1.0 - frac[..., 1]))
+        idx.append(torch.stack(rows, -1))
+        w.append(torch.stack(ws, -1))
+    return torch.stack(idx, -2), torch.stack(w, -2)
+
+
+def k3_encode_check(state: dict) -> dict:
+    """The encode kernel (the corners hashed in the kernel) against the plain
+    version (triplane_corners, then lookup_plain) at the training shape with
+    its corner rows and weights saved, at a refresh chunk, at an unbaked
+    frame's 1,048,576 points and at a bound of 1.5: the largest error (0
+    expected) and whether it is bit-equal; the saved rows and weights equal
+    triplane_corners'; controls the limit must catch (a dropped corner, an
+    FMA-contracted pos); device times (torch.profiler) of the kernel, the
+    plain version and the corner route (plain corners, then lookup_fwd_kernel)
+    against each case's bound; registers and spills of both
+    instantiations."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops import hash_lookup
+
+    dev = torch.device("cuda", 0)
+    out = {"tol": K3_FWD_ATOL}
+    cases = {"training": dict(n=TRAIN_N, save=True, bound=1.0, spread=1.01),
+             "refresh": dict(n=TRAIN_N, save=False, bound=1.0, spread=1.0),
+             "unbaked": dict(n=16 * TRAIN_N, save=False, bound=1.0, spread=1.0),
+             "bound_1.5": dict(n=TRAIN_N, save=False, bound=1.5, spread=1.6)}
+    for name, c in cases.items():
+        spec, tables, xyz, _ = k3_inputs(dev, c["n"], seed=1, spread=c["spread"])
+        got, idx, w = hash_lookup.encode_cuda(tables, xyz, spec, c["bound"], save=c["save"])
+        torch.cuda.synchronize()
+        pidx, pw = hash_lookup.triplane_corners(xyz, spec, c["bound"])
+        ref = hash_lookup.lookup_plain(tables, pidx, pw, spec)
+        err = (got - ref).abs().max().item()
+        r = {"points": c["n"], "saved": c["save"], "bound": c["bound"], "max_abs_err": err,
+             "bit_equal": bool(torch.equal(got, ref))}
+        if not err <= K3_FWD_ATOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K3 encode {name}: {err} > {K3_FWD_ATOL}")
+        if c["save"]:
+            r["saved_equal_corners"] = bool(torch.equal(idx, pidx) and torch.equal(w, pw))
+            if not r["saved_equal_corners"]:
+                raise AssertionError("K3 encode saved rows or weights differ from triplane_corners'")
+            dropped = pw.clone()
+            dropped[..., 3] = 0
+            r["dropped_corner_err"] = (hash_lookup.lookup_plain(tables, pidx, dropped, spec)
+                                       - ref).abs().max().item()
+            fi, fw = k3_fma_corners(xyz, spec, c["bound"])
+            r["fma_pos_err"] = (hash_lookup.lookup_plain(tables, fi, fw, spec)
+                                - ref).abs().max().item()
+            if not r["dropped_corner_err"] > K3_FWD_ATOL or not r["fma_pos_err"] > K3_FWD_ATOL:
+                raise AssertionError(f"K3 encode limit {K3_FWD_ATOL} passes a control: {r}")
+            del dropped, fi, fw
+        bound, by = k3_encode_bound_ms(c["n"], spec, c["save"])
+        calls = {
+            "kernel": lambda: hash_lookup.encode_cuda(tables, xyz, spec, c["bound"], c["save"]),
+            "plain": lambda: hash_lookup.triplane_encode(*tables, xyz, spec, c["bound"],
+                                                         impl="plain"),
+            "corner_route": lambda: hash_lookup.lookup_fwd_cuda(
+                tables, *hash_lookup.triplane_corners(xyz, spec, c["bound"]), spec)}
+        r.update({"bound_ms": bound, "bound_by": by,
+                  **{f"{k}_ms": device_ms(fn, iters=10) for k, fn in calls.items()},
+                  "kernel_call_ms": time_ms(calls["kernel"])})
+        out[name] = r
+        del tables, xyz, got, idx, w, pidx, pw, ref, calls
+        torch.cuda.empty_cache()
+    for flag, key in (("1", "training"), ("0", "refresh")):
+        out[key]["build"] = kernel_build(hash_lookup.build(), f"encode_fwd_kernelILb{flag}E",
+                                         "LDG")
+    state["k3_encode_numbers"] = out
     return out
 
 
@@ -1153,8 +1331,9 @@ def f32_frame(cfg, ds, net, baked, inputs) -> dict:
 
 def unbaked_frame(cfg, ds, net, inputs) -> dict:
     """The nerf_model frame through the unbaked step (NeRFReal with
-    bake_planes=False) at the default budget, with K3 and with K3's plain
-    version (one step each: the audio-code EMA is per step)."""
+    bake_planes=False) at the default budget, with K3's encode kernel and
+    with K3's plain version (one step each: the audio-code EMA is per
+    step)."""
     import numpy as np
     import torch
 
@@ -1186,10 +1365,10 @@ def unbaked_frame(cfg, ds, net, inputs) -> dict:
         raise AssertionError(f"unbaked frame {frames['auto'].shape}, std {frames['auto'].std()}")
     if lsb > 1:
         raise AssertionError(f"unbaked frame with K3 differs from plain by {lsb} LSB")
-    if launches != {"plain": (0, 0), "auto": (1, 0)}:
-        raise AssertionError(f"unbaked frame: K3 (forward, backward) launches {launches}, "
-                             "want plain (0, 0), auto (1, 0)")
-    return {"frames_max_lsb": lsb, "k3_fwd_launches_per_frame": launches["auto"][0],
+    if launches != {"plain": (0, 0, 0), "auto": (1, 0, 0)}:
+        raise AssertionError(f"unbaked frame: K3 (encode, corner-route forward, backward) "
+                             f"launches {launches}, want plain (0, 0, 0), auto (1, 0, 0)")
+    return {"frames_max_lsb": lsb, "k3_encode_launches_per_frame": launches["auto"][0],
             "max_active_rays": cfg.nerf.max_active_rays, "samples_per_ray": cfg.nerf.max_steps,
             "unsaturated_share": float(((frames["auto"] > 0) & (frames["auto"] < 255)).mean()),
             **times}
@@ -1532,10 +1711,12 @@ async def _nerf_modes_session() -> dict:
             "max_active_rays": cfg.nerf.max_active_rays}
 
 
-def k3_counts() -> tuple[int, int]:
+def k3_counts() -> tuple[int, int, int]:
+    """K3's launches: the encode (corners hashed in the kernel), the corner
+    route's forward, the backward."""
     from mere_fusion_tpu_torch.ops import hash_lookup
 
-    return hash_lookup.fwd_launches, hash_lookup.bwd_launches
+    return hash_lookup.encode_launches, hash_lookup.fwd_launches, hash_lookup.bwd_launches
 
 
 def zero_kernel_counts() -> None:
@@ -1543,7 +1724,7 @@ def zero_kernel_counts() -> None:
 
     attention.launches = sampler.launches = 0
     sampler.shade_launches = sampler.rays_launches = sampler.sample_launches = 0
-    hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
+    hash_lookup.encode_launches = hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
     sampler_stages.m1_launches = sampler_stages.section_launches = 0
 
 
@@ -1576,14 +1757,16 @@ def phase_nerf_train(state: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _nerf_train(state: dict, dev, tmp: str) -> dict:
-    import json as _json
+def nerf_train_setup(dev, tmp: str) -> dict:
+    """The training phase's operands: a synthesized 8-frame 512² dataset
+    under tmp (root, ds), the CLI's config (tcfg), a network from seed 0
+    (net) and its train state (tstate), one batch of 4,096 rays (batch) and
+    its jitter noise (noise)."""
     import os
 
     import numpy as np
     import torch
 
-    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
     from mere_fusion_tpu_torch.data.provider import (
         NeRFTrainDataset,
         synthesize_nerf_train_data,
@@ -1593,15 +1776,7 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
         NeRFNetwork,
         init_ernerf_,
     )
-    from mere_fusion_tpu_torch.ops import attention, sampler
-    from mere_fusion_tpu_torch.train.ernerf_train import (
-        NeRFTrainConfig,
-        compute_grads,
-        init_nerf_train,
-        make_nerf_train_step,
-        refresh_density_grid,
-    )
-    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+    from mere_fusion_tpu_torch.train.ernerf_train import NeRFTrainConfig, init_nerf_train
 
     # poses authored for the loader's default scale (4), which the CLI uses:
     # the orbit then sits 1.5 from the origin and the box fills the frame
@@ -1610,10 +1785,33 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
     ds = NeRFTrainDataset.load(root, device=dev)      # the CLI's loading defaults
     tcfg = NeRFTrainConfig(iters=200)
     net = init_ernerf_(NeRFNetwork(NeRFNetConfig(num_train_frames=len(ds))).to(dev), 0)
-    tstate = init_nerf_train(net, tcfg)
     batch = ds.sample_rays(3, 4096, np.random.default_rng(0))
     noise = torch.rand(batch["rays_o"].shape, generator=torch.Generator(device=dev).manual_seed(0),
                        device=dev)
+    return {"root": root, "ds": ds, "tcfg": tcfg, "net": net,
+            "tstate": init_nerf_train(net, tcfg), "batch": batch, "noise": noise}
+
+
+def _nerf_train(state: dict, dev, tmp: str) -> dict:
+    import json as _json
+    import os
+
+    import numpy as np
+    import torch
+
+    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.train.ernerf_train import (
+        compute_grads,
+        make_nerf_train_step,
+        refresh_density_grid,
+    )
+    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+
+    setup = nerf_train_setup(dev, tmp)
+    root, ds, tcfg, net, tstate, batch, noise = (setup[k] for k in (
+        "root", "ds", "tcfg", "net", "tstate", "batch", "noise"))
+    del setup
 
     # 1. one step from the same state, batch and noise: K3 against the plain encode
     metrics, grads, launches = {}, {}, {}
@@ -1628,9 +1826,9 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
             grads[impl] = {n: p.grad.clone() for n, p in net.named_parameters()}
     finally:
         net_mod.ENCODE_IMPL = "auto"
-    if launches != {"plain": (0, 0), "auto": (3, 3)}:
-        raise AssertionError(f"K3 (forward, backward) launches per step {launches}, "
-                             "want plain (0, 0), auto (3, 3)")
+    if launches != {"plain": (0, 0, 0), "auto": (3, 0, 3)}:
+        raise AssertionError(f"K3 (encode, corner-route forward, backward) launches per step "
+                             f"{launches}, want plain (0, 0, 0), auto (3, 0, 3)")
     step_rel = {k: abs(metrics["auto"][k] - metrics["plain"][k]) / abs(metrics["plain"][k])
                 for k in ("loss", "grad_norm")}
     grad_rel = {n: ((grads["auto"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
@@ -1644,9 +1842,20 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
         raise AssertionError(f"train step metrics not finite: {metrics['auto']}")
     del grads
 
-    # 2. step and refresh times with K3 and plain, in turns; one step profiled
+    # 2. step and refresh times with K3's encode and plain, in turns; one
+    # refresh's launches; one step profiled with the encode and one plain,
+    # beside one corner hashing alone: the encode's step calls none of the
+    # hashing's own operations and launches fewer device operations by at
+    # least the three hashings' count
     step = make_nerf_train_step(tcfg)
     mean_auds = torch.from_numpy(ds.auds).to(dev)
+    before = k3_counts()
+    refresh_density_grid(tstate, mean_auds, tcfg)
+    torch.cuda.synchronize()
+    refresh_launches = tuple(a - b for a, b in zip(k3_counts(), before))
+    if refresh_launches != (32, 0, 0):
+        raise AssertionError(f"K3 launches per density refresh {refresh_launches}, want "
+                             "(32, 0, 0)")
     times = {}
     try:
         for impl in ("plain", "auto", "auto", "plain"):
@@ -1658,7 +1867,30 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
                         warmup=1))
     finally:
         net_mod.ENCODE_IMPL = "auto"
-    profile = profile_generate(lambda: step(tstate, batch, noise=noise), kernel="lookup")
+    profile = {}
+    try:
+        for impl in ("auto", "plain"):
+            net_mod.ENCODE_IMPL = impl
+            profile[impl] = profile_launches(lambda: step(tstate, batch, noise=noise))
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    from mere_fusion_tpu_torch.ops.hash_lookup import triplane_corners
+
+    xyz = batch["rays_o"] + batch["rays_d"]
+    profile["corner_hashing"] = profile_launches(
+        lambda: triplane_corners(xyz, net.cfg.plane_spec, net.cfg.bound))
+    hashing = profile["corner_hashing"]
+    if profile["auto"]["hashing_ops"] or not profile["plain"]["hashing_ops"] \
+            or not hashing["hashing_ops"]:
+        raise AssertionError(f"calls of the corner hashing's operations {HASHING_OPS}: step "
+                             f"with the encode kernel {profile['auto']['hashing_ops']} (want "
+                             f"0), plain step {profile['plain']['hashing_ops']}, one hashing "
+                             f"{hashing['hashing_ops']} (want > 0)")
+    gone = profile["plain"]["device_launches"] - profile["auto"]["device_launches"]
+    if gone < 3 * (hashing["device_launches"] - 1):
+        raise AssertionError(f"the step with the encode kernel launches {gone} fewer device "
+                             f"operations than the plain step; three corner hashings "
+                             f"launch {3 * hashing['device_launches']}")
     del tstate, net, step
     torch.cuda.empty_cache()
 
@@ -1668,11 +1900,12 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
     t0 = time.perf_counter()
     lines = run_cli([root, "--workspace", ws, "--iters", "200"])
     cli_s = time.perf_counter() - t0
-    fwd, bwd = k3_counts()                                  # ... and ends here
-    want = (200 * 3 + 13 * 32, 200 * 3)
-    if (fwd, bwd) != want or attention.launches or sampler.launches:
-        raise AssertionError(f"CLI run: K3 (forward, backward) launches {(fwd, bwd)}, want "
-                             f"{want}; K1 {attention.launches}, K2 {sampler.launches}")
+    counts = k3_counts()                                    # ... and ends here
+    want = (200 * 3 + 13 * 32, 0, 200 * 3)
+    if counts != want or attention.launches or sampler.launches:
+        raise AssertionError(f"CLI run: K3 (encode, corner-route forward, backward) launches "
+                             f"{counts}, want {want}; K1 {attention.launches}, K2 "
+                             f"{sampler.launches}")
     with open(os.path.join(ws, "scalars.jsonl")) as f:
         logged = {r["step"]: r for r in map(_json.loads, f)}
     if not logged[100]["loss"] < logged[0]["loss"]:
@@ -1680,17 +1913,18 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
                              f"it 100 {logged[100]['loss']}")
     if Checkpointer(ws).steps() != [200]:
         raise AssertionError(f"checkpoints after the CLI run: {Checkpointer(ws).steps()}")
-    state["k3_cli_launches"] = (fwd, bwd)
+    state["k3_cli_launches"] = counts
     zero_kernel_counts()
     resumed = run_cli([root, "--workspace", ws, "--iters", "216"])
     if "[train] resumed from step 200" not in resumed or Checkpointer(ws).latest_step != 216:
         raise AssertionError(f"the second CLI call did not resume: {resumed}")
-    if k3_counts() != (16 * 3 + 32, 16 * 3):
-        raise AssertionError(f"resumed run: K3 launches {k3_counts()}, want (80, 48)")
+    if k3_counts() != (16 * 3 + 32, 0, 16 * 3):
+        raise AssertionError(f"resumed run: K3 launches {k3_counts()}, want (80, 0, 48)")
     return {"step_loss": metrics["auto"]["loss"], "step_grad_norm": metrics["auto"]["grad_norm"],
             "step_rel_err": step_rel, "step_grad_rel_err_max": [worst, grad_rel[worst]],
-            "k3_launches_per_step": launches["auto"], "step_profile": profile, **times,
-            "cli_seconds_200_iters": cli_s, "cli_k3_launches": [fwd, bwd],
+            "k3_launches_per_step": launches["auto"], "k3_launches_per_refresh": refresh_launches,
+            "step_profile": profile, **times,
+            "cli_seconds_200_iters": cli_s, "cli_k3_launches": list(counts),
             "cli_lines": lines, "cli_resume_lines": resumed,
             "loss_it0": logged[0]["loss"], "loss_it100": logged[100]["loss"],
             "it_per_s_at_it100": logged[100]["it_per_s"]}
@@ -1712,9 +1946,10 @@ def stage_bound_ms(name: str, spec, ops, out) -> tuple[float, str]:
     every lane, so a sample counts all 48: S1's 4 f32 operations (two
     products and two sums) per output lane and (plane, group), and win's 9
     per feature of the sample plus its sum, at the card's f32 rate; shade
-    and full K2's head and sample over 48 features at the bf16 tensor rate,
-    shade with the other 15 columns of w_sigcol and 13 of w_rgb for its
-    returned rows."""
+    and full K2's head and sample over 48 features at the rate of the
+    weights' dtype (head_ops_ms: bf16 at the bf16 tensor rate, f32 the
+    lesser of the CUDA-core and three-TF32 bounds, as K2's), shade with the
+    other 15 columns of w_sigcol and 13 of w_rgb for its returned rows."""
     import dataclasses
 
     from mere_fusion_tpu_torch.ops.sampler import CP
@@ -1738,7 +1973,7 @@ def stage_bound_ms(name: str, spec, ops, out) -> tuple[float, str]:
         ops_ = samples * k2_ops_per_sample(dataclasses.replace(spec, channels=CP))
         if name == "shade":
             ops_ += tiles * spec.rays_per_tile * (2 * 64 * (15 + 13) + 16)
-        t_ops = ops_ / PEAK_BF16_FLOPS * 1e3
+        t_ops = head_ops_ms(ops_, weights)[0]
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1825,16 +2060,45 @@ def phase_sampler_stages(state: dict) -> dict:
     after = stage_counts()
     if {k: after[k] - before[k] for k in after} != {"S1": 0, "S2": 0, "K2": 1}:
         raise AssertionError(f"S2 full launched {before} -> {after}, want one K2 launch")
-    f32 = {}
+    f32, dp32 = {}, dproj.float()
     for mode in STAGE_KERNEL_MODES:
-        got = sampler_stages.sections(planes, jobs, uv, dproj.float(), dtv, unrounded, spec, mode)
-        ref = sampler_stages.sections_plain(planes, jobs, uv, dproj.float(), dtv, unrounded,
-                                            spec, mode)
-        f32[mode] = stage_err(mode, got, ref)
-        if not f32[mode] <= STAGE_TOL[mode]:
-            raise AssertionError(f"S2 {mode} with float32 weights against plain: {f32[mode]}")
-    out["float32_weights_err"] = f32
+        kernel = s2(mode, w=unrounded, dp=dp32)
+        plain = s2(mode, True, w=unrounded, dp=dp32)
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = stage_err(mode, got, ref)
+        if mode == "win":    # u moved by 1/512 texel
+            control = stage_err(mode, s2(mode, True, coords=nudged, w=unrounded, dp=dp32)(), ref)
+        else:                # single TF32 products (the plain version with TF32 matmuls)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = stage_err(mode, plain(), ref)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        if not err <= STAGE_TOL[mode] or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"S2 {mode} with float32 weights against plain: {err}")
+        if not control > STAGE_TOL[mode]:
+            raise AssertionError(f"S2 {mode} float32: the limit passes its control ({control})")
+        bound, by = stage_bound_ms(mode, spec, (planes, jobs, uv, dp32, dtv, unrounded), got)
+        f32[mode] = {"max_abs_err": (got - ref).abs().max().item(), "err": err,
+                     "tol": STAGE_TOL[mode], "control_err": control,
+                     "kernel_ms": time_ms(kernel, iters=10, warmup=2),
+                     "plain_ms": time_ms(plain, iters=3, warmup=1), "bound_ms": bound,
+                     "bound_by": by}
+        del got, ref
+    out["float32"] = f32
     out["full_is_k2"] = True
+    # the stages are K2's kernels stopped early: shade's head on the tensor
+    # cores (HGMMA with bf16 weights, HMMA with f32), win's fetch alone
+    builds = {}
+    for name, tag, instruction in (
+            ("win", "sample_shade_comp_wgmma_kernelILi0E", "LDG"),
+            ("shade", "sample_shade_comp_wgmma_kernelILi1E", "HGMMA"),
+            ("win_f32", "sample_shade_comp_tf32_kernelILi0E", "LDG"),
+            ("shade_f32", "sample_shade_comp_tf32_kernelILi1E", "HMMA")):
+        builds[name] = kernel_build(sampler_stages.build(), tag, instruction)
+    out["builds"] = builds
 
     # 4. K2's split, in turns: fetch (win); head at most K2 − win (shade − win
     # also counts shade's extra columns); the composite is below what they resolve
@@ -1848,8 +2112,26 @@ def phase_sampler_stages(state: dict) -> dict:
                        "shade_minus_win": mean["shade"] - mean["win"],
                        "k2_minus_shade": mean["K2"] - mean["shade"], "k2": mean["K2"]}
     state["stage_numbers"] = res
+    state["stage_f32_numbers"] = f32
+    state["stage_builds"] = builds
     state["stage_launches"] = launches
     del ops, planes, jobs, uv, dproj, dtv, weights, nudged, unrounded, checks, calls
+    torch.cuda.empty_cache()
+
+    # 5. the same split on K2's dense 512² job set (the kernels phase's
+    # operands, where K2 serves frames), in turns; bf16 weights only, as in
+    # 4: with f32 weights shade's 16-column 3xTF32 products cost more than
+    # K2's two narrow dots, so shade does not bound K2 f32's head
+    kspec = k2_spec()
+    kops = k2_operands(dev, NERF_HW, kspec, torch.bfloat16)
+    calls = {"K2": lambda: sampler.sample_shade_comp_tiles(*kops, kspec),
+             **{m: (lambda m=m: sampler_stages.sections(*kops, kspec, m))
+                for m in STAGE_KERNEL_MODES}}
+    turns = {}
+    for name in ("K2", "win", "shade", "shade", "win", "K2"):
+        turns.setdefault(name, []).append(time_ms(calls[name], iters=10, warmup=2))
+    out["dense_job_set_ms"] = {"bfloat16": turns}
+    del kops, calls
     torch.cuda.empty_cache()
     return out
 
@@ -1903,7 +2185,7 @@ def main() -> int:
               "card": gpu, **result})
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
     k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
-    fam, st = state["family_numbers"], state["stage_numbers"]
+    fam, st, k3e = state["family_numbers"], state["stage_numbers"], state["k3_encode_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -1967,7 +2249,8 @@ def main() -> int:
     } for kernel, fn, line in (("K2b", "sample_shade_tiles", 628),
                                ("K2c", "render_rays_tiles", 717),
                                ("K2d", "sample_tiles", 760))] + [{
-        "name": f"hash lookup {part} (K3)", "route": "cuda",
+        "name": {"forward": "hash lookup forward, corner route (K3)",
+                 "backward": "hash lookup backward (K3)"}[part], "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/hash_lookup.cu",
         "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",
         "launches": launches, "max_abs_err": k3[part]["max_abs_err"],
@@ -1982,7 +2265,29 @@ def main() -> int:
         **({"registers": k3[part]["build"]["registers"],
             "spill_bytes": k3[part]["build"]["spill_bytes"],
             "atoms": k3[part]["build"]["atoms"]} if "build" in k3[part] else {}),
-    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"])] + [{
+        # the corner route serves sample positions that need a gradient, which
+        # no path of the port's asks for: the CLI's encodes launch it no time
+        **({"note": "off the main path since the encode kernel"} if part == "forward" else {}),
+    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"][1:])] + [{
+        # the training CLI's encodes: the forward of every step and refresh
+        "name": "hash encode, corners hashed in the kernel (K3)", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/hash_lookup.cu",
+        "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",
+        "launches": state["k3_cli_launches"][0], "max_abs_err": k3e["training"]["max_abs_err"],
+        "ms": k3e["training"]["kernel_ms"], "plain_ms": k3e["training"]["plain_ms"],
+        "bound_ms": k3e["training"]["bound_ms"], "bound_by": k3e["training"]["bound_by"],
+        # no single PyTorch call hashes the corners (embedding_bag needs them made)
+        "library_ms": None, "ms_measure": "device time, torch.profiler",
+        "case": "training shape, corner rows and weights saved for the backward",
+        "corner_route_ms": k3e["training"]["corner_route_ms"],
+        "call_ms": k3e["training"]["kernel_call_ms"],
+        "cases": {c: {k: k3e[c][k] for k in ("points", "saved", "max_abs_err", "bit_equal",
+                                              "kernel_ms", "plain_ms", "corner_route_ms",
+                                              "bound_ms", "bound_by")}
+                  for c in ("training", "refresh", "unbaked", "bound_1.5")},
+        "registers": k3e["training"]["build"]["registers"],
+        "spill_bytes": k3e["training"]["build"]["spill_bytes"],
+    }] + [{
         "name": name, "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler_stages.cu",
         "replaces": f"scripts/prof_r5m.py:{line}",
@@ -1997,9 +2302,15 @@ def main() -> int:
         **extra,
     } for name, kernel, key, line, modes, extra in (
         ("m1_only (S1)", "S1", "S1", 40, ("S1", "S1_blockdiag"), {}),
-        # the headline is stage_kernel at "shade"; mode "full" launches K2 (its row)
-        ("sections (S2)", "S2", "shade", 197, STAGE_KERNEL_MODES,
-         {"full_mode": "sample_shade_comp_tiles (K2)"}))]})
+        # the headline is K2's bf16 kernel stopped after the head ("shade");
+        # mode "full" launches K2 (its row)
+        ("sections (S2)", "S2", "shade", 197, STAGE_KERNEL_MODES, {
+            "full_mode": "sample_shade_comp_tiles (K2)",
+            "float32_modes": {m: {k: state["stage_f32_numbers"][m][k] for k in (
+                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+                for m in STAGE_KERNEL_MODES},
+            "builds": {m: {k: b[k] for k in b if k != "ptxas"}
+                       for m, b in state["stage_builds"].items()}}))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

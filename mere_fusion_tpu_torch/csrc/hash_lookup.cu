@@ -13,22 +13,50 @@
 // tables ([T, 1] per grid, level l at row offset off_l) and writes the
 // gradient straight into that layout: no pad, no unpad.
 //
-// Bound at the ER-NeRF training shape (N = 65,536 points, 3 planes x 12
-// levels, C = 1, 163,584 rows a plane): the int32 corner indices are 37.7 MB
-// (every row is below the 2^14 table size, as the TPU kernel's f32 indices
-// are 4 bytes), the f32 corner weights 37.7 MB, the output 9.4 MB and the
-// tables 2 MB, so the forward moves ~87 MB, ~0.026 ms at 3.35 TB/s; its 8
-// operations per (point, plane, level) are 19 MFLOP, nothing beside the
-// bytes. The backward reads the same indices and weights and gout and
-// writes the 2 MB gradient: the same bytes. Bytes bound both.
+// The corner rows and weights are ops/hashgrid.py's corner_indices_weights
+// (the JAX package's mere_fusion_tpu/ops/hashgrid.py:106, _corner_index :82):
+// per level, x01 = (x + bound) / (2 bound) (a true division, as the JAX
+// package's eager arithmetic), pos = x01 scale + 0.5, the cell floor(pos)
+// (saturating to 0 below the box), the fractions, and the stride-or-hash row
+// of each corner modulo the level's table size.
+//
+// Bounds at the ER-NeRF training shape (N = 65,536 points, 3 planes x 12
+// levels, C = 1, 163,584 rows a plane), bytes at 3.35 TB/s; the ~44
+// operations per (point, plane, level) are 0.1 GOP, far below:
+//   - encode_fwd_kernel (the corners hashed in the kernel): xyz 0.8 MB read,
+//     out 9.4 MB written, the tables 2 MB read; with the tables' gradient
+//     needed it also writes the int32 corner rows and f32 weights for the
+//     backward, 75.5 MB: ~87.7 MB, 0.026 ms; without, ~12.2 MB, 0.0036 ms.
+//     An unbaked frame's 1,048,576 points: ~165.6 MB, 0.049 ms.
+//   - lookup_fwd_kernel (the corner route: rows and weights made by the
+//     plain version, read here): the same ~87 MB, 0.026 ms.
+//   - the backward reads the same rows, weights and gout and writes the 2 MB
+//     gradient: the same bytes.
 //
 // Design (simple and right first):
-//   - forward: one thread per (point, plane, level); its 4 indices arrive as
-//     one 16-byte load and its 4 weights as another, the 4 table rows are
-//     gathered through the read-only path (the 2 MB of tables stay in the
-//     50 MB L2), and the corner sum runs in the plain version's order with
-//     every product and sum rounded on its own (no contraction into FMAs),
-//     so kernel and plain version agree bit for bit;
+//   - encode_fwd_kernel: one thread per (point, plane, level) makes its two
+//     coordinates' x01, cell and fractions, the 4 corner rows and weights,
+//     and the corner sum, every operation rounded on its own (no FMA
+//     contraction; the plain version's operations are separate tensor
+//     operations), so kernel and plain version agree bit for bit. The
+//     per-level constants sit in the constant bank. It reads 12 bytes a
+//     point instead of the 1,152 of precomputed rows and weights, in one
+//     launch instead of the plain hashing's ~1,000 elementwise ones. The
+//     TPU kernel needed the corners beforehand because it selects rows with
+//     one-hot matmuls; Hopper gathers. Threads follow out's rows, or, when
+//     the rows and weights are saved for the backward, the saved layout
+//     (plane-major), so that the larger stores are the contiguous ones (a
+//     thread per (point, plane) looping over the levels, its records 192
+//     bytes apart, took 5x as long with them saved; 32-bit index math and a
+//     mask for the power-of-two modulo moved nothing). What holds it is its
+//     gathers, not its bytes: each corner's row is a 4-byte load of its own
+//     32-byte sector (random points share none), at about one sector per SM
+//     per clock, 144 a point (PERF.md);
+//   - lookup_fwd_kernel (used where the sample positions need a gradient,
+//     which the corner weights carry): one thread per (point, plane, level);
+//     its 4 indices arrive as one 16-byte load and its 4 weights as another,
+//     the 4 table rows are gathered through the read-only path (the 2 MB of
+//     tables stay in the 50 MB L2), and the corner sum runs as above;
 //   - backward: the rows of a plane's gradient are cut into tasks of at
 //     most BWD_ROWS rows (224 KB of f32): pairs of neighbouring levels where
 //     the pair fits, single levels where only one fits, equal slices of a
@@ -106,6 +134,88 @@ lookup_fwd_kernel(Tables tb, const int* idx, const float* w, Offsets off, int ng
   acc = __fadd_rn(acc, __fmul_rn(wv.z, __ldg(r + i.z)));
   acc = __fadd_rn(acc, __fmul_rn(wv.w, __ldg(r + i.w)));
   out[t] = acc;
+}
+
+// The per-level constants of the corner hashing (hashgrid.py's
+// corner_indices_weights and _corner_index): the f32 scale, the coefficient
+// of the second coordinate in a dense row (the level's side, or 0 where the
+// side alone exceeds the table), the table size, the first row, and whether
+// the level hashes (primes 1 and 2654435761) instead.
+struct Levels {
+  float scale[MAX_LEVELS];
+  uint32_t mul1[MAX_LEVELS];
+  uint32_t hsize[MAX_LEVELS];
+  int offset[MAX_LEVELS];
+  int hashed[MAX_LEVELS];
+};
+
+// One thread per (point, plane, level): the plane's two coordinates of xyz
+// (xy, yz, xz), their cell and fractions at the level, the 4 corner rows and
+// weights, and the corner sum, each operation rounded on its own as the plain
+// version's separate tensor operations round it (no contraction into FMAs).
+// out is [n, 3 * levels]. SAVE also writes idx and w [3, n, levels, 4] as
+// lookup_bwd_kernel reads them, and orders the threads plane-major so that
+// those 16-byte stores are contiguous; without it the threads follow out's
+// rows.
+template <bool SAVE>
+__global__ void __launch_bounds__(THREADS)
+encode_fwd_kernel(Tables tb, const float* __restrict__ xyz, const __grid_constant__ Levels lv,
+                  int levels, long long n, float bound, float span, float shift,
+                  float* __restrict__ out, int* __restrict__ idx, float* __restrict__ w) {
+  // a warp's lanes read different levels' constants: the constant bank
+  // serves one address at a time, shared memory a warp's at once
+  __shared__ Levels s_lv;
+  for (int e = threadIdx.x; e < (int)(sizeof(Levels) / 4); e += THREADS)
+    reinterpret_cast<uint32_t*>(&s_lv)[e] = reinterpret_cast<const uint32_t*>(&lv)[e];
+  __syncthreads();
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= n * MAX_GRIDS * levels) return;
+  long long s;
+  int q, l;
+  if (SAVE) {   // t = (q n + s) levels + l
+    const long long ql = t / levels;
+    l = (int)(t - ql * levels);
+    q = (int)(ql / n);
+    s = ql - q * n;
+  } else {      // t = (s 3 + q) levels + l
+    const int gl = MAX_GRIDS * levels;
+    s = t / gl;
+    const int r = (int)(t - s * gl);
+    q = r / levels;
+    l = r - q * levels;
+  }
+  // plane q's coordinates: xy, yz, xz
+  const float a = __ldg(xyz + 3 * s + (q == 1 ? 1 : 0));
+  const float b = __ldg(xyz + 3 * s + (q == 0 ? 1 : 2));
+  const float scale = s_lv.scale[l];
+  const float pa = __fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(a, bound), span), scale), shift);
+  const float pb = __fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(b, bound), span), scale), shift);
+  const float fa = floorf(pa), fb = floorf(pb);
+  const float ra = __fsub_rn(pa, fa), rb = __fsub_rn(pb, fb);
+  const float qa = __fsub_rn(1.f, ra), qb = __fsub_rn(1.f, rb);
+  // the float -> uint32 conversion saturates (below the box: cell 0), as XLA's
+  const uint32_t ia = __float2uint_rz(fa), ib = __float2uint_rz(fb);
+  const uint32_t hsize = s_lv.hsize[l], mul1 = s_lv.mul1[l];
+  const bool hashed = s_lv.hashed[l] != 0;
+  int row[CORNERS];
+  float wt[CORNERS];
+#pragma unroll
+  for (int k = 0; k < CORNERS; ++k) {   // corners (0, 0), (0, 1), (1, 0), (1, 1)
+    const uint32_t ga = ia + (uint32_t)(k >> 1), gb = ib + (uint32_t)(k & 1);
+    const uint32_t h = hashed ? ga ^ (gb * 2654435761u) : ga + gb * mul1;
+    row[k] = (int)(h % hsize);
+    wt[k] = __fmul_rn((k >> 1) ? ra : qa, (k & 1) ? rb : qb);
+  }
+  const float* r = pick(q, tb) + s_lv.offset[l];
+  float acc = __fmul_rn(wt[0], __ldg(r + row[0]));
+  acc = __fadd_rn(acc, __fmul_rn(wt[1], __ldg(r + row[1])));
+  acc = __fadd_rn(acc, __fmul_rn(wt[2], __ldg(r + row[2])));
+  acc = __fadd_rn(acc, __fmul_rn(wt[3], __ldg(r + row[3])));
+  out[(s * MAX_GRIDS + q) * levels + l] = acc;
+  if (SAVE) {
+    reinterpret_cast<int4*>(idx)[t] = make_int4(row[0], row[1], row[2], row[3]);
+    reinterpret_cast<float4*>(w)[t] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+  }
 }
 
 // A backward task: rows [r0, r1) of a plane's gradient, in levels [l0, l1).
@@ -259,6 +369,49 @@ extern "C" int mf_hash_lookup_fwd(int device, int ngrid, const void* t0, const v
                       static_cast<cudaStream_t>(stream)>>>(
       tb, static_cast<const int*>(idx), static_cast<const float*>(w), off, ngrid, levels, n,
       static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The three planes' tables t0..t2 [T, 1] f32; xyz [n, 3] f32; per level
+// (`levels` host values each) the f32 scale, mul1, table size, first row
+// and hashed flag (struct Levels); bound, span = 2 bound and shift
+// (0.5, or 0 with aligned corners) as f32; out [n, 3 * levels] f32; idx
+// int32 and w f32 [3, n, levels, 4], 16-byte aligned, or both null (not
+// saved). All contiguous on CUDA device `device`; `stream` belongs to it.
+// Returns the cudaError_t of the launch.
+extern "C" int mf_hash_encode(int device, const void* t0, const void* t1, const void* t2,
+                              const void* xyz, long long n, const float* scale,
+                              const unsigned* mul1, const unsigned* hsize, const int* offsets,
+                              const int* hashed, int levels, float bound, float span,
+                              float shift, void* out, void* idx, void* w, void* stream) {
+  Levels lv = {};
+  if (levels < 1 || levels > MAX_LEVELS || n < 1 ||
+      n * MAX_GRIDS * levels > (long long)THREADS * 0x7fffffffLL || (idx == nullptr) != (w == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < levels; ++l) {
+    if (hsize[l] == 0) return (int)cudaErrorInvalidValue;
+    lv.scale[l] = scale[l];
+    lv.mul1[l] = mul1[l];
+    lv.hsize[l] = hsize[l];
+    lv.offset[l] = offsets[l];
+    lv.hashed[l] = hashed[l];
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Tables tb = {{static_cast<const float*>(t0), static_cast<const float*>(t1),
+                      static_cast<const float*>(t2)}};
+  const auto* x = static_cast<const float*>(xyz);
+  auto* o = static_cast<float*>(out);
+  auto* i = static_cast<int*>(idx);
+  auto* wt = static_cast<float*>(w);
+  const int blocks = blocks_for(n * MAX_GRIDS * levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx != nullptr)
+    encode_fwd_kernel<true><<<blocks, THREADS, 0, s>>>(tb, x, lv, levels, n, bound, span, shift,
+                                                      o, i, wt);
+  else
+    encode_fwd_kernel<false><<<blocks, THREADS, 0, s>>>(tb, x, lv, levels, n, bound, span,
+                                                       shift, o, i, wt);
   return (int)cudaGetLastError();
 }
 

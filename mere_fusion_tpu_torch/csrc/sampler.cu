@@ -85,132 +85,16 @@
 //     transmittance needs no scan.
 //   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
 //     96 bytes out, neighbouring threads on neighbouring rows.
-// Next: K2b, K2c and S2's stage kernel on the tensor-core heads; K2's bf16
-// settle; the f32 head's B fragments split once per block rather than per
-// use; a cp.async window ring for the fetch.
+// Next: K2b and K2c on the tensor-core heads; a cp.async window ring for the
+// fetch.
 //
 // The device code the four kernels share, which S1 and S2 are also made of,
-// is in csrc/sampler_core.cuh.
+// is in csrc/sampler_core.cuh, with K2's two tensor-core kernels themselves
+// (templates that S2's stages stop early).
 
 #include "sampler_core.cuh"
 
 namespace {
-
-// K2 with bf16 weights and dproj: the head on the tensor cores. A grid of
-// resident blocks of two warpgroups, each block looping over tiles.
-__global__ void __launch_bounds__(HEAD_THREADS, 1)
-sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
-                               const int* __restrict__ jobs, const float* __restrict__ uv,
-                               const __nv_bfloat16* __restrict__ dproj,
-                               const float* __restrict__ dtv, Weights wp, float* __restrict__ out,
-                               int tiles, int rpt, int kg, int ks, int wu, int wv, int rows,
-                               int rv) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  auto* s_dp = reinterpret_cast<__nv_bfloat16*>(base + H_FIXED);   // [rpt][64]
-  auto* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);        // [kg * sg]
-  int* s_jobs = reinterpret_cast<int*>(s_res + ns);                 // [3][1 + 2kg]
-  const int n_jobs = 3 * (1 + 2 * kg);
-  const int tid = threadIdx.x, wg = tid / WG_SIZE, wt = tid % WG_SIZE;
-  uint8_t* x_wg = base + H_X + wg * X_TILE;   // this warpgroup's x tile
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-
-  stage_head_weights(base, wp);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const uint4* dp = reinterpret_cast<const uint4*>(dproj + (size_t)t * rpt * HID);
-    for (int e = tid; e < rpt * HID / 8; e += HEAD_THREADS) reinterpret_cast<uint4*>(s_dp)[e] = dp[e];
-    for (int e = tid; e < n_jobs; e += HEAD_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
-    __syncthreads();   // the weights (first tile), dp and jobs are staged; the last
-                       // tile's composite is done with s_res
-
-    // row blocks of 64 samples in turn; two threads a sample fetch half its
-    // channels each
-    for (int n0 = HEAD_ROWS * wg; n0 < ns; n0 += HEAD_ROWS * HEAD_WGS) {
-      const int n = n0 + wt % HEAD_ROWS, h = wt / HEAD_ROWS;
-      float x[24];
-      if (n < ns) {
-        const int g = n / sg;
-        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, x, h);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 24; ++k) x[k] = 0.f;
-      }
-      write_x_half(x_wg, wt % HEAD_ROWS, h, x);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // seen by wgmma
-      asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");
-      head_rows(base, x_wg, s_dp, s_res, n0, ns, sg, ks);
-      asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");  // x tile read
-    }
-    __syncthreads();
-
-    for (int r = tid; r < rpt; r += HEAD_THREADS)
-      composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
-                    out + ((size_t)t * rpt + r) * 16);
-  }
-}
-
-// K2 with f32 weights and dproj: the head on the tensor cores as three TF32
-// products a term (head_tf32). A grid of resident blocks of TF_WARPS warps,
-// each block looping over tiles; each warp takes TF_ROWS samples at a time.
-__global__ void __launch_bounds__(TF_THREADS, 1)
-sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
-                              const int* __restrict__ jobs, const float* __restrict__ uv,
-                              const float* __restrict__ dproj, const float* __restrict__ dtv,
-                              Weights wp, float* __restrict__ out, int tiles, int rpt, int kg,
-                              int ks, int wu, int wv, int rows, int rv) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  float4* s_res = reinterpret_cast<float4*>(sm + F_FIXED);   // [kg * sg]
-  int* s_jobs = reinterpret_cast<int*>(s_res + ns);          // [3][1 + 2kg]
-  const int n_jobs = 3 * (1 + 2 * kg);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-
-  stage_tf32_weights(sm, wp);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    for (int e = tid; e < n_jobs; e += TF_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
-    __syncthreads();   // the weights (first tile) and jobs are staged; the last
-                       // tile's composite is done with s_res
-
-    // row blocks of TF_ROWS samples a warp; 32 / TF_ROWS threads a sample
-    // fetch its features (all, or half of each plane's) into the x rows
-    constexpr int HALVES = TF_ROWS == 32 ? 2 : 1;
-    float* xs = sm + F_X + warp * TF_ROWS * TS48;
-    for (int n0 = TF_ROWS * warp; n0 < ns; n0 += TF_ROWS * TF_WARPS) {
-      const int r = lane % TF_ROWS, h = lane / TF_ROWS, n = n0 + r;
-      float x[24 * HALVES];
-      if (n < ns) {
-        const int gr = n / sg;
-        sample_uv<HALVES>(planes, s_jobs, uv, t, gr, n - gr * sg, kg, sg, umax, vmax, rows, rv, x,
-                          h);
-      } else {   // a last partial row block: zero rows, not stored
-#pragma unroll
-        for (int k = 0; k < 24 * HALVES; ++k) x[k] = 0.f;
-      }
-      __syncwarp();   // the last row block's products have read the x rows
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-#pragma unroll
-        for (int c = 0; c < 8 * HALVES; c += 4)
-          *reinterpret_cast<float4*>(xs + r * TS48 + CP * q + 8 * h + c) =
-              make_float4(x[8 * HALVES * q + c], x[8 * HALVES * q + c + 1],
-                          x[8 * HALVES * q + c + 2], x[8 * HALVES * q + c + 3]);
-      __syncwarp();
-      head_tf32<TF_MT>(sm, xs, dproj + (size_t)t * rpt * HID, s_res, n0, ns, sg, ks);
-    }
-    __syncthreads();
-
-    for (int r = tid; r < rpt; r += TF_THREADS)
-      composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
-                    out + ((size_t)t * rpt + r) * 16);
-  }
-}
 
 // K2b: K2 without the composite; each sample's activated sigma and rgb.
 template <typename WT>
@@ -338,26 +222,6 @@ sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restr
   }
 }
 
-// Launch a tile-looping kernel on a grid of its resident blocks (at most
-// one per tile) with `bytes` of dynamic shared memory; returns the launch's
-// error.
-template <typename Kernel, typename... Args>
-cudaError_t launch_resident(Kernel kernel, int threads, size_t bytes, int tiles, int device,
-                            cudaStream_t stream, Args... args) {
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
-  if (err != cudaSuccess) return err;
-  const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
-  kernel<<<tiles < resident ? tiles : resident, threads, bytes, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Common arguments: planes [3, rows, rv * 16] bf16; jobs int32, per tile 3
@@ -390,11 +254,11 @@ extern "C" int mf_sample_shade_comp(
   const auto* d = static_cast<const float*>(dtv);
   auto* o = static_cast<float*>(out);
   if (bf16)
-    return (int)launch_resident(sample_shade_comp_wgmma_kernel, HEAD_THREADS,
+    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_FULL>, HEAD_THREADS,
                                 head_smem(rpt, (size_t)kg * rpt * ks), tiles, device, s, p, j, u,
                                 static_cast<const __nv_bfloat16*>(dproj), d, wp, o, tiles, rpt,
                                 kg, ks, wu, wv, rows, rv);
-  return (int)launch_resident(sample_shade_comp_tf32_kernel, TF_THREADS,
+  return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_FULL>, TF_THREADS,
                               tf32_smem((size_t)kg * rpt * ks), tiles, device, s, p, j, u,
                               static_cast<const float*>(dproj), d, wp, o, tiles, rpt, kg, ks,
                               wu, wv, rows, rv);

@@ -9,14 +9,17 @@
 //   - stage_weights, stage_tile: a shading block's prologue (the head's
 //     weights, the tile's direction projections and job table into shared
 //     memory);
-//   - shade: step 2, the ER-NeRF head on one sample (optionally with every
-//     column of its last two products, for S2's "shade" stage);
+//   - shade: step 2, the ER-NeRF head on one sample on the CUDA cores (K2b,
+//     K2c);
 //   - composite_ray: step 3, one ray's composite in depth order;
 //   - launch_tiles, shade_smem, bad_geometry: host-side launch helpers;
 //   - stage_head_weights, write_x_half, head_rows, head_smem: step 2 with
 //     bf16 weights on the tensor cores, 64 samples at a time (K2's head);
 //   - stage_tf32_weights, head_tf32, tf32_smem: step 2 with f32 weights on
-//     the tensor cores as three TF32 products a term, 32 samples a warp.
+//     the tensor cores as three TF32 products a term, 32 samples a warp;
+//   - sample_shade_comp_wgmma_kernel, sample_shade_comp_tf32_kernel: K2
+//     with bf16 and with f32 weights, templates on how far they run (the
+//     whole of K2, or S2's win and shade stages), and launch_resident.
 // See csrc/sampler.cu for the functions, the bounds and the design.
 
 #pragma once
@@ -35,6 +38,10 @@ constexpr int THREADS = 256;
 constexpr int MAX_JOB_INTS = 64;
 constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory a block may use (sm_90)
 constexpr int N_WEIGHTS = 13;
+
+// How far a K2 kernel runs: all of it (full), or, as S2's stages
+// (csrc/sampler_stages.cu), stopped after the fetch (win) or the head (shade).
+enum Stage { STAGE_WIN, STAGE_SHADE, STAGE_FULL };
 
 // shared-memory layout, in floats
 constexpr int O_WX = 0;                            // [144][48] (wx_aud|wx_sig|wx_eye)^T
@@ -129,26 +136,11 @@ __device__ void stage_weights(float* s, const Weights& wp) {
   for (int e = tid; e < EYE; e += THREADS) s[O_EYE1 + e] = ld(W(W_EYE1), e * 8);
 }
 
-// What shade also computes beside its (sigma, rgb) logits: nothing (K2 and
-// its siblings), or, for S2's "shade" stage, every one of the 16 columns of
-// the head's last two products (sig_p = h2 w_sigcol, rgb_p = relu(ch)
-// w_rgb, whose K2 reads only columns 0 and 1:4) summed into out[16] when
-// out is not null, from the full weights staged in shared memory as f32.
-struct NoRow {
-  static constexpr bool active = false;
-};
-struct FullRow {
-  static constexpr bool active = true;
-  const float* sigcol;   // w_sigcol^T [16][64]
-  const float* rgb;      // w_rgb [64][16]
-  float* out;            // the sample's output row, or null
-};
-
 // The head chain of _shade_core on one sample's features x; dp is the ray's
 // direction projection row. Returns (sigma logit, r, g, b logits).
-template <bool RB, typename Row = NoRow>
+template <bool RB>
 __device__ __forceinline__ float4 shade(float (&x)[XD], const float* __restrict__ s,
-                                        const float* __restrict__ dp, const Row& row = Row()) {
+                                        const float* __restrict__ dp) {
 #pragma unroll
   for (int k = 0; k < XD; ++k) x[k] = act<RB>(x[k]);
   // audio channel attention: aud_ch = relu(x Wa0) Wa1, streamed over units
@@ -189,20 +181,11 @@ __device__ __forceinline__ float4 shade(float (&x)[XD], const float* __restrict_
 #pragma unroll
   for (int j = 0; j < HID; ++j) h2[j] = act<RB>(fmaxf(dot<HID>(h, s + O_SIG1 + j * HID), 0.f));
   const float sig = dot<HID>(h2, s + O_SIGCOL);
-  if constexpr (Row::active) {
-    if (row.out != nullptr) {   // sig_p, all columns, each summed in dot's order
-#pragma unroll
-      for (int c = 0; c < CP; ++c) row.out[c] = dot<HID>(h2, row.sigcol + c * HID);
-    }
-  }
   float geo[HID];
 #pragma unroll
   for (int j = 0; j < HID; ++j) geo[j] = act<RB>(dot<HID>(h2, s + O_GEO + j * HID));
   // colour net: relu(geo Wc0g + dproj + bias) Wc1, streamed over units
   float r0 = 0.f, r1 = 0.f, r2 = 0.f;
-  float racc[Row::active ? CP : 1];   // rgb_p, all columns (S2's shade stage)
-#pragma unroll
-  for (int c = 0; c < (Row::active ? CP : 1); ++c) racc[c] = 0.f;
 #pragma unroll 1
   for (int j = 0; j < HID; ++j) {
     const float c = __fadd_rn(__fadd_rn(dot<HID>(geo, s + O_COLG + j * HID), dp[j]),
@@ -212,24 +195,6 @@ __device__ __forceinline__ float4 shade(float (&x)[XD], const float* __restrict_
     r0 = fmaf(cr, w4.x, r0);
     r1 = fmaf(cr, w4.y, r1);
     r2 = fmaf(cr, w4.z, r2);
-    if constexpr (Row::active) {
-      if (row.out != nullptr) {
-#pragma unroll
-        for (int q = 0; q < CP; q += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(row.rgb + j * CP + q);
-          racc[q] = fmaf(cr, w.x, racc[q]);
-          racc[q + 1] = fmaf(cr, w.y, racc[q + 1]);
-          racc[q + 2] = fmaf(cr, w.z, racc[q + 2]);
-          racc[q + 3] = fmaf(cr, w.w, racc[q + 3]);
-        }
-      }
-    }
-  }
-  if constexpr (Row::active) {
-    if (row.out != nullptr) {
-#pragma unroll
-      for (int c = 0; c < CP; ++c) row.out[c] = __fadd_rn(row.out[c], racc[c]);
-    }
   }
   return make_float4(sig, r0, r1, r2);
 }
@@ -416,6 +381,10 @@ constexpr uint32_t X_TILE = HEAD_ROWS * ROW_BYTES;     // one row block's x
 constexpr uint32_t H_SCRATCH = H_X + HEAD_WGS * X_TILE;  // 16 rows a warp (settle)
 constexpr uint32_t SCRATCH_WARP = 16 * ROW_BYTES;
 constexpr uint32_t H_FIXED = H_SCRATCH + HEAD_WGS * 4 * SCRATCH_WARP;  // then dp, results, jobs
+// S2's shade stage only: w_sigcol^T and w_rgb^T [16][64] (every column of
+// the head's last two products), between the fixed part and dp
+constexpr uint32_t H_WIDE = H_FIXED;
+constexpr uint32_t H_WIDE_BYTES = 2 * CP * ROW_BYTES;
 static_assert(H_WXE % 1024 == 0 && H_X % 1024 == 0 && H_FIXED % 1024 == 0,
               "swizzled tiles start on 1024-byte boundaries");
 
@@ -441,8 +410,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The bf16 weights into the head's layout (sm: the 1024-aligned base), then
-// a proxy fence so that wgmma (the async proxy) sees them after a barrier.
+// The bf16 weights into the head's layout (sm: the 1024-aligned base; for
+// the shade stage also the wide tiles), then a proxy fence so that wgmma
+// (the async proxy) sees them after a barrier.
+template <int STAGE>
 __device__ void stage_head_weights(uint8_t* sm, const Weights& wp) {
   auto W = [&](int i) { return static_cast<const uint16_t*>(wp.p[i]); };
   // w [K][N] row-major -> the tile W^T [N][K], one 16-byte chunk (8 k of one n) a step
@@ -466,6 +437,10 @@ __device__ void stage_head_weights(uint8_t* sm, const Weights& wp) {
   tile(H_SIG1, W(W_SIG1), HID, HID);
   tile(H_GEO, W(W_GEO), HID, HID);
   tile(H_COLG, W(W_COL_G), HID, HID);
+  if constexpr (STAGE == STAGE_SHADE) {
+    tile(H_WIDE, W(W_SIGCOL), HID, CP);
+    tile(H_WIDE + CP * ROW_BYTES, W(W_RGB), HID, CP);
+  }
   float* vec = reinterpret_cast<float*>(sm + H_VEC);
   auto bf = [&](int i) { return static_cast<const __nv_bfloat16*>(wp.p[i]); };
   for (int e = threadIdx.x; e < HID; e += HEAD_THREADS) {
@@ -554,6 +529,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : MF_R8(0), MF_R8(8), MF_R8(16), MF_R8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " MF_D8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : MF_R8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
   asm volatile(
@@ -568,6 +552,12 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
+
+// a compile-time bool a generic lambda can take as an argument
+template <bool V>
+struct BoolC {
+  static constexpr bool value = V;
+};
 
 // a k16 step's index as a compile-time constant that device code can convert
 template <int V>
@@ -706,15 +696,45 @@ __device__ __forceinline__ void settle(float (&v)[N], Stash stash_inputs, Redo r
   __syncwarp();
 }
 
+// A shared-memory store that the compiler may not remove: S2's shade stage
+// keeps every sample's logits although nothing reads them back, so the head
+// of every sample is timed, as K2's composite reads each one.
+__device__ __forceinline__ void store_live(float* p, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(smem_addr(p)), "f"(v) : "memory");
+}
+
+// S2's shade stage: the accumulator d of one of the head's last products
+// over all 16 columns (m64n16 or a row tile's two m16n8 tiles: register i
+// holds row (i & 2 ? r + 8 : r), column 8 (i / 4) + 2 t + (i & 1)) summed
+// into rows n < rpt of the tile's output (the first product writes, the
+// second adds), and the logits among its columns 0-3 (sigma: column 0 of
+// the first; rgb: columns 1-3 of the second) kept in res with stores that
+// stay.
+template <bool SECOND>
+__device__ __forceinline__ void wide_out(const float (&d)[8], int na, int nb, int t, int ns,
+                                         int rpt, float* __restrict__ rows, float4* res) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = (i & 2) ? nb : na, c = 8 * (i / 4) + 2 * t + (i & 1);
+    if (n < rpt) rows[n * CP + c] = SECOND ? __fadd_rn(rows[n * CP + c], d[i]) : d[i];
+    if (n < ns && c < 4 && (SECOND ? c > 0 : c == 0))
+      store_live(reinterpret_cast<float*>(res + n) + c, d[i]);
+  }
+}
+
 // The head on the row block of samples n0 .. n0 + 63 of a tile whose x tile
 // is at xg: the (sigma, r, g, b) logits of each sample n < ns into res[n].
 // base: the head's shared memory; s_dp: the tile's dproj rows (bf16 [rpt]
 // [64]); samples are group-major, sample n of ray (n % sg) / ks. Every
-// thread of the warpgroup calls it.
+// thread of the warpgroup calls it. The shade stage takes the last two
+// products over all 16 columns (the wide tiles) and writes rows n < rpt of
+// their sum into rows ([rpt][16], the tile's output); the others ignore
+// rows and rpt.
+template <int STAGE>
 __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
                                           const __nv_bfloat16* __restrict__ s_dp,
                                           float4* __restrict__ res, int n0, int ns, int sg,
-                                          int ks) {
+                                          int ks, float* __restrict__ rows, int rpt) {
   const int wt = threadIdx.x % WG_SIZE, lane = wt % 32;
   const int r = 16 * (wt / 32) + lane / 4, t = lane % 4;
   const uint32_t b = smem_addr(base);
@@ -803,13 +823,27 @@ __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
   for (int i = 0; i < 32; ++i) acc[i] = fmaxf(acc[i], 0.f);
   settle(acc, [&] { stash(sc, a, lane); },
          [&](int i) { return fmaxf(dot_seq<HID>(sc, lrow(i), base + H_SIG1, col(i)), 0.f); });
+  const int na = n0 + r, nb = na + 8;
+  float wide[8];   // the shade stage's sig_p, then rgb_p
+  auto wide_product = [&](uint32_t off) {
+    chain<4>(wide, [&](auto& d, auto s, int accumulate) {
+      wgmma_rs(d, a[s], desc(off) + 2 * s, accumulate);
+    });
+    fence_regs(a);
+  };
   float s0 = 0.f, s1 = 0.f;
+  if constexpr (STAGE != STAGE_SHADE) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if (i & 2) s1 = fmaf(bf16r(acc[i]), vec[V_SIGCOL + col(i)], s1);
-    else s0 = fmaf(bf16r(acc[i]), vec[V_SIGCOL + col(i)], s0);
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) s1 = fmaf(bf16r(acc[i]), vec[V_SIGCOL + col(i)], s1);
+      else s0 = fmaf(bf16r(acc[i]), vec[V_SIGCOL + col(i)], s0);
+    }
   }
   to_a(acc, a);
+  if constexpr (STAGE == STAGE_SHADE) {
+    wide_product(H_WIDE);
+    wide_out<false>(wide, na, nb, t, ns, rpt, rows, res);
+  }
 
   // geo = h2 W_geo
   chain<4>(acc, [&](auto& d, auto s, int accumulate) {
@@ -825,7 +859,6 @@ __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
     wgmma_rs(d, a[s], desc(H_COLG) + 2 * s, accumulate);
   });
   fence_regs(a);
-  const int na = n0 + r, nb = na + 8;
   const int ray_a = (na - (na / sg) * sg) / ks, ray_b = (nb - (nb / sg) * sg) / ks;
   auto colour = [&](float v, int i) {
     const int j = col(i);
@@ -836,6 +869,12 @@ __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
   for (int i = 0; i < 32; ++i) acc[i] = colour(acc[i], i);
   settle(acc, [&] { stash(sc, a, lane); },
          [&](int i) { return colour(dot_seq<HID>(sc, lrow(i), base + H_COLG, col(i)), i); });
+  if constexpr (STAGE == STAGE_SHADE) {
+    to_a(acc, a);
+    wide_product(H_WIDE + CP * ROW_BYTES);
+    wide_out<true>(wide, na, nb, t, ns, rpt, rows, res);
+    return;
+  }
   float c0[2] = {0.f, 0.f}, c1[2] = {0.f, 0.f}, c2[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -898,7 +937,10 @@ constexpr int F_COLG = F_GEO + HID * TS64;     // [64][TS64] w_col_g^T
 constexpr int F_VEC = F_COLG + HID * TS64;     // V_* vectors as in the bf16 head
 constexpr int F_X = F_VEC + V_FLOATS;          // [TF_WARPS][TF_ROWS][TS48] x rows
 constexpr int F_FIXED = F_X + TF_WARPS * TF_ROWS * TS48;   // then the results, the jobs
-static_assert(F_X % 4 == 0 && F_FIXED % 4 == 0, "rows must stay 16-byte aligned");
+constexpr int F_WIDE = F_FIXED;               // S2's shade: [2][16][TS64] w_sigcol^T, w_rgb^T
+constexpr int F_WIDE_FLOATS = 2 * CP * TS64;
+static_assert(F_X % 4 == 0 && F_FIXED % 4 == 0 && F_WIDE_FLOATS % 4 == 0,
+              "rows must stay 16-byte aligned");
 
 // shared memory of a K2 block with the f32 tensor-core head: the fixed part,
 // the samples' float4 results and the job table
@@ -987,7 +1029,9 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
       for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
 }
 
-// The f32 weights into the f32 head's layout (s: the block's shared memory).
+// The f32 weights into the f32 head's layout (s: the block's shared memory;
+// for the shade stage also the wide rows).
+template <int STAGE>
 __device__ void stage_tf32_weights(float* s, const Weights& wp) {
   auto W = [&](int i) { return static_cast<const float*>(wp.p[i]); };
   // w [K][N] row-major -> W^T [N][stride]
@@ -1005,6 +1049,10 @@ __device__ void stage_tf32_weights(float* s, const Weights& wp) {
   tile(F_SIG1, W(W_SIG1), HID, HID, TS64);
   tile(F_GEO, W(W_GEO), HID, HID, TS64);
   tile(F_COLG, W(W_COL_G), HID, HID, TS64);
+  if constexpr (STAGE == STAGE_SHADE) {
+    tile(F_WIDE, W(W_SIGCOL), HID, CP, TS64);
+    tile(F_WIDE + CP * TS64, W(W_RGB), HID, CP, TS64);
+  }
   float* vec = s + F_VEC;
   for (int e = threadIdx.x; e < HID; e += TF_THREADS) {
     vec[V_SIGE + e] = W(W_SIG_E)[e];
@@ -1023,10 +1071,14 @@ __device__ void stage_tf32_weights(float* s, const Weights& wp) {
 // logits of each sample n < ns into res[n]. sm: the block's shared memory;
 // dp: the tile's dproj rows (f32 [rpt][64], read through L1 where the colour
 // layer adds them). Samples are group-major, sample n of ray (n % sg) / ks.
-template <int MT>
+// The shade stage takes the last two products over all 16 columns (the wide
+// rows at F_WIDE) and writes rows n < rpt of their sum into rows ([rpt]
+// [16], the tile's output), as head_rows does; the others ignore rows and rpt.
+template <int MT, int STAGE>
 __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const float* xs,
                                           const float* __restrict__ dp, float4* __restrict__ res,
-                                          int n0, int ns, int sg, int ks) {
+                                          int n0, int ns, int sg, int ks,
+                                          float* __restrict__ rows, int rpt) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const float* vec = sm + F_VEC;
   auto col = [&](int j, int i) { return 8 * j + 2 * t + (i & 1); };   // register i of n-tile j
@@ -1089,24 +1141,48 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
   float h2[MT][8][4];
   zero(h2);
   mma3_layer<MT, 8>(h2, from_acc(h), sm + F_SIG1, TS64);
+  float wide[MT][2][4];   // the shade stage's sig_p, then rgb_p
+  auto wide_out_tiles = [&](auto second) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float d[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = wide[m][i / 4][i % 4];
+      const int na = n0 + 16 * m + g;
+      wide_out<decltype(second)::value>(d, na, na + 8, t, ns, rpt, rows, res);
+    }
+  };
+  if constexpr (STAGE == STAGE_SHADE) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h2[m][j][i] = fmaxf(h2[m][j][i], 0.f);
+    zero(wide);
+    mma3_layer<MT, 8>(wide, from_acc(h2), sm + F_WIDE, TS64);
+    wide_out_tiles(BoolC<false>());
+  }
   // sigma into the samples' results now (lane 0 of each quad), rgb below
   float* out = reinterpret_cast<float*>(res);
+  if constexpr (STAGE != STAGE_SHADE) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    float sa = 0.f, sb = 0.f;   // rows g, g + 8
+    for (int m = 0; m < MT; ++m) {
+      float sa = 0.f, sb = 0.f;   // rows g, g + 8
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h2[m][j][i] = fmaxf(h2[m][j][i], 0.f);
-        if (i & 2) sb = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sb);
-        else sa = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sa);
-      }
-    sa = quad_sum(sa);
-    sb = quad_sum(sb);
-    const int n = n0 + 16 * m + g;
-    if (t == 0 && n < ns) out[4 * n] = sa;
-    if (t == 0 && n + 8 < ns) out[4 * (n + 8)] = sb;
+        for (int i = 0; i < 4; ++i) {
+          h2[m][j][i] = fmaxf(h2[m][j][i], 0.f);
+          if (i & 2) sb = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sb);
+          else sa = fmaf(h2[m][j][i], vec[V_SIGCOL + col(j, i)], sa);
+        }
+      sa = quad_sum(sa);
+      sb = quad_sum(sb);
+      const int n = n0 + 16 * m + g;
+      if (t == 0 && n < ns) out[4 * n] = sa;
+      if (t == 0 && n + 8 < ns) out[4 * (n + 8)] = sb;
+    }
   }
   // geo = h2 W_geo (into h)
   zero(h);
@@ -1114,6 +1190,23 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
   // colour: relu(geo W_col_g + dproj + bias) . w_rgb[:, 1:4] (into h2)
   zero(h2);
   mma3_layer<MT, 8>(h2, from_acc(h), sm + F_COLG, TS64);
+  if constexpr (STAGE == STAGE_SHADE) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = n0 + 16 * m + g + 8 * (i / 2), k = col(j, i);
+          const int ray = (n - (n / sg) * sg) / ks;
+          h2[m][j][i] = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray * HID + k)),
+                                        vec[V_CB + k]), 0.f);
+        }
+    zero(wide);
+    mma3_layer<MT, 8>(wide, from_acc(h2), sm + F_WIDE + CP * TS64, TS64);
+    wide_out_tiles(BoolC<true>());
+    return;
+  }
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     float c[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
@@ -1145,6 +1238,235 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K2's tensor-core kernels (csrc/sampler.cu launches them whole, STAGE_FULL;
+// csrc/sampler_stages.cu stopped after the fetch or the head, S2's win and
+// shade). The per-sample area after dp holds K2's kg sg results, or, in
+// the win stage, at least its sums: [HEAD_WGS][rpt][WIN_STRIDE] f32 (bf16
+// kernel, one per warpgroup; rows padded so that a warp's 32 rows fall in
+// 32 banks) or [TF_THREADS][16] (f32 kernel, one per thread).
+constexpr int WIN_STRIDE = CP + 1;
+__host__ __device__ inline int stage_rows(int stage, bool bf16, int ns, int rpt) {
+  const int need = stage != STAGE_WIN ? 0
+                   : bf16       ? (HEAD_WGS * rpt * WIN_STRIDE + 3) / 4
+                                : TF_THREADS * CP / 4;
+  return ns > need ? ns : need;
+}
+
+// shared memory of a block of either kernel at a stage: K2's (head_smem,
+// tf32_smem) with the stage's per-sample area and, for shade, the wide tiles
+size_t stage_smem(int stage, bool bf16, int rpt, int ns) {
+  const int rows = stage_rows(stage, bf16, ns, rpt);
+  if (bf16) return head_smem(rpt, rows) + (stage == STAGE_SHADE ? H_WIDE_BYTES : 0);
+  return tf32_smem(rows) + (stage == STAGE_SHADE ? sizeof(float) * F_WIDE_FLOATS : 0);
+}
+
+// K2 with bf16 weights and dproj: the head on the tensor cores. A grid of
+// resident blocks of three warpgroups, each block looping over tiles. The
+// win stage sums each sample's features into its warpgroup's [rpt][16]
+// as the fetch makes them (plane by plane, before the head's bf16
+// rounding) and writes the three warpgroups' sums; the shade stage writes
+// rows r < rpt of sig_p + rgb_p (head_rows).
+template <int STAGE>
+__global__ void __launch_bounds__(HEAD_THREADS, 1)
+sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
+                               const int* __restrict__ jobs, const float* __restrict__ uv,
+                               const __nv_bfloat16* __restrict__ dproj,
+                               const float* __restrict__ dtv, Weights wp, float* __restrict__ out,
+                               int tiles, int rpt, int kg, int ks, int wu, int wv, int rows,
+                               int rv) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  auto* s_dp = reinterpret_cast<__nv_bfloat16*>(
+      base + H_FIXED + (STAGE == STAGE_SHADE ? H_WIDE_BYTES : 0));   // [rpt][64]
+  auto* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);        // [kg * sg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, true, ns, rpt));  // [3][1 + 2kg]
+  float* s_win = reinterpret_cast<float*>(s_res);   // win: [HEAD_WGS][rpt][WIN_STRIDE]
+  const int n_jobs = 3 * (1 + 2 * kg);
+  const int tid = threadIdx.x, wg = tid / WG_SIZE, wt = tid % WG_SIZE;
+  uint8_t* x_wg = base + H_X + wg * X_TILE;   // this warpgroup's x tile
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+
+  stage_head_weights<STAGE>(base, wp);
+  if constexpr (STAGE == STAGE_WIN)
+    for (int e = tid; e < HEAD_WGS * rpt * WIN_STRIDE; e += HEAD_THREADS) s_win[e] = 0.f;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const uint4* dp = reinterpret_cast<const uint4*>(dproj + (size_t)t * rpt * HID);
+    for (int e = tid; e < rpt * HID / 8; e += HEAD_THREADS) reinterpret_cast<uint4*>(s_dp)[e] = dp[e];
+    for (int e = tid; e < n_jobs; e += HEAD_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+    __syncthreads();   // the weights (first tile), dp and jobs are staged; the last
+                       // tile's composite is done with s_res
+
+    // row blocks of 64 samples in turn; two threads a sample fetch half its
+    // channels each
+    for (int n0 = HEAD_ROWS * wg; n0 < ns; n0 += HEAD_ROWS * HEAD_WGS) {
+      const int n = n0 + wt % HEAD_ROWS, h = wt / HEAD_ROWS;
+      float x[24];
+      if (n < ns) {
+        const int g = n / sg;
+        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, x, h);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 24; ++k) x[k] = 0.f;
+      }
+      if constexpr (STAGE == STAGE_WIN) {
+        // channels 8h .. 8h + 7 into the sums of ray row n % rpt; the row
+        // block's samples that share a row (rpt < 64) add in turns
+        for (int j0 = 0; j0 < HEAD_ROWS; j0 += rpt) {
+          const int j = wt % HEAD_ROWS;
+          if (n < ns && j >= j0 && j < j0 + rpt) {
+            float* a = s_win + (wg * rpt + n % rpt) * WIN_STRIDE + 8 * h;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              a[c] = __fadd_rn(__fadd_rn(__fadd_rn(a[c], x[c]), x[8 + c]), x[16 + c]);
+          }
+          asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");
+        }
+      } else {
+        write_x_half(x_wg, wt % HEAD_ROWS, h, x);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // seen by wgmma
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");
+        head_rows<STAGE>(base, x_wg, s_dp, s_res, n0, ns, sg, ks, out + (size_t)t * rpt * CP, rpt);
+        asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_SIZE) : "memory");  // x tile read
+      }
+    }
+    __syncthreads();
+
+    if constexpr (STAGE == STAGE_FULL) {
+      for (int r = tid; r < rpt; r += HEAD_THREADS)
+        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                      out + ((size_t)t * rpt + r) * 16);
+    } else if constexpr (STAGE == STAGE_WIN) {
+      for (int e = tid; e < rpt * CP; e += HEAD_THREADS) {   // the warpgroups' sums, in order
+        const int i = (e / CP) * WIN_STRIDE + e % CP;
+        float v = s_win[i];
+        s_win[i] = 0.f;
+#pragma unroll
+        for (int w = 1; w < HEAD_WGS; ++w) {
+          v = __fadd_rn(v, s_win[w * rpt * WIN_STRIDE + i]);
+          s_win[w * rpt * WIN_STRIDE + i] = 0.f;
+        }
+        out[(size_t)t * rpt * CP + e] = v;
+      }
+    }
+  }
+}
+
+// K2 with f32 weights and dproj: the head on the tensor cores as three TF32
+// products a term (head_tf32). A grid of resident blocks of TF_WARPS warps,
+// each block looping over tiles; each warp takes TF_ROWS samples at a time.
+// The win stage sums each thread's samples' features in registers as the
+// fetch makes them (plane by plane; a thread's samples n = tid + 256 i share
+// the ray row n % rpt when 256 % rpt == 0), then the threads' sums of each
+// row in order; the shade stage writes rows r < rpt of sig_p + rgb_p.
+template <int STAGE>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
+                              const int* __restrict__ jobs, const float* __restrict__ uv,
+                              const float* __restrict__ dproj, const float* __restrict__ dtv,
+                              Weights wp, float* __restrict__ out, int tiles, int rpt, int kg,
+                              int ks, int wu, int wv, int rows, int rv) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int sg = rpt * ks;
+  const int ns = kg * sg;
+  float4* s_res = reinterpret_cast<float4*>(
+      sm + F_FIXED + (STAGE == STAGE_SHADE ? F_WIDE_FLOATS : 0));           // [kg * sg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, false, ns, rpt));  // [3][1 + 2kg]
+  const int n_jobs = 3 * (1 + 2 * kg);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float umax = (float)((double)wu - 1.001);
+  const float vmax = (float)((double)wv - 1.001);
+
+  stage_tf32_weights<STAGE>(sm, wp);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int e = tid; e < n_jobs; e += TF_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+    __syncthreads();   // the weights (first tile) and jobs are staged; the last
+                       // tile's composite is done with s_res
+
+    // row blocks of TF_ROWS samples a warp; 32 / TF_ROWS threads a sample
+    // fetch its features (all, or half of each plane's) into the x rows
+    constexpr int HALVES = TF_ROWS == 32 ? 2 : 1;
+    static_assert(STAGE != STAGE_WIN || HALVES == 2, "win sums whole samples a thread");
+    float acc[STAGE == STAGE_WIN ? CP : 1];   // win: this thread's sums
+#pragma unroll
+    for (int c = 0; c < (STAGE == STAGE_WIN ? CP : 1); ++c) acc[c] = 0.f;
+    float* xs = sm + F_X + warp * TF_ROWS * TS48;
+    for (int n0 = TF_ROWS * warp; n0 < ns; n0 += TF_ROWS * TF_WARPS) {
+      const int r = lane % TF_ROWS, h = lane / TF_ROWS, n = n0 + r;
+      float x[24 * HALVES];
+      if (n < ns) {
+        const int gr = n / sg;
+        sample_uv<HALVES>(planes, s_jobs, uv, t, gr, n - gr * sg, kg, sg, umax, vmax, rows, rv, x,
+                          h);
+      } else {   // a last partial row block: zero rows, not stored
+#pragma unroll
+        for (int k = 0; k < 24 * HALVES; ++k) x[k] = 0.f;
+      }
+      if constexpr (STAGE == STAGE_WIN) {
+#pragma unroll
+        for (int c = 0; c < CP; ++c)
+          acc[c] = __fadd_rn(__fadd_rn(__fadd_rn(acc[c], x[c]), x[CP + c]), x[2 * CP + c]);
+      } else {
+        __syncwarp();   // the last row block's products have read the x rows
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int c = 0; c < 8 * HALVES; c += 4)
+            *reinterpret_cast<float4*>(xs + r * TS48 + CP * q + 8 * h + c) =
+                make_float4(x[8 * HALVES * q + c], x[8 * HALVES * q + c + 1],
+                            x[8 * HALVES * q + c + 2], x[8 * HALVES * q + c + 3]);
+        __syncwarp();
+        head_tf32<TF_MT, STAGE>(sm, xs, dproj + (size_t)t * rpt * HID, s_res, n0, ns, sg, ks,
+                                out + (size_t)t * rpt * CP, rpt);
+      }
+    }
+    if constexpr (STAGE == STAGE_WIN) {
+      float* s_part = reinterpret_cast<float*>(s_res);   // [TF_THREADS][16]
+#pragma unroll
+      for (int c = 0; c < CP; ++c) s_part[tid * CP + c] = acc[c];
+    }
+    __syncthreads();
+
+    if constexpr (STAGE == STAGE_FULL) {
+      for (int r = tid; r < rpt; r += TF_THREADS)
+        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                      out + ((size_t)t * rpt + r) * 16);
+    } else if constexpr (STAGE == STAGE_WIN) {
+      const float* s_part = reinterpret_cast<const float*>(s_res);
+      for (int e = tid; e < rpt * CP; e += TF_THREADS) {   // row r's threads b rpt + r, in order
+        const int r = e / CP, c = e % CP;
+        float v = 0.f;
+        for (int b = 0; b < TF_THREADS / rpt; ++b) v = __fadd_rn(v, s_part[(b * rpt + r) * CP + c]);
+        out[(size_t)t * rpt * CP + e] = v;
+      }
+    }
+  }
+}
+
+// Launch a tile-looping kernel on a grid of its resident blocks (at most
+// one per tile) with `bytes` of dynamic shared memory; returns the launch's
+// error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_resident(Kernel kernel, int threads, size_t bytes, int tiles, int device,
+                            cudaStream_t stream, Args... args) {
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  if (err != cudaSuccess) return err;
+  const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  kernel<<<tiles < resident ? tiles : resident, threads, bytes, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -36,21 +36,27 @@
 //   output lane and (q, g) take 0.1 ms at the card's f32 rate.
 //   S2 win: bytes, uv (101 MB), the texels and 17 MB of output.
 //   S2 shade: operations, K2's head and sample over all 48 lanes (these
-//   inputs fill the padding): 47,568 per sample, 0.20 ms at 989 TFLOP/s.
+//   inputs fill the padding), 47,568 per sample: 0.20 ms at 989 TFLOP/s
+//   with bf16 weights; with f32 weights the lesser of three TF32 products
+//   at 495 TFLOP/s and f32 FMAs at 67 TFLOP/s (chip_smoke.py head_ops_ms).
 //
 // Design (simple and right first):
 //   - S1: one warp per output row; each lane owns 4 of the 128 lanes, so a
 //     warp reads each tent row as 256 contiguous bytes and writes its row
 //     as 512; the tent weights are K2's u_tent.
-//   - S2: win and shade are K2's kernel stopped after step 1 or 2
-//     (stage_kernel below), made of the same device functions with K2's
-//     prologue, shared memory and sample-to-thread map, so they run at K2's
-//     one block per SM and differ from K2 only in what they leave out. A
-//     sample whose result is not stored would be dead code:
-//     win sums every feature of every sample into the output, shade stores
-//     every sample's logits to shared memory with a store the compiler must
-//     keep. shade's 128 rows a tile multiply by the other 15 columns of
-//     w_sigcol and 13 of w_rgb, staged in shared memory as f32.
+//   - S2: win and shade are K2's own tensor-core kernels (bf16 weights:
+//     sample_shade_comp_wgmma_kernel; f32: sample_shade_comp_tf32_kernel, in
+//     csrc/sampler_core.cuh) instantiated to stop after step 1 or 2: the
+//     same resident-grid loop, block shape, weight staging and fetch, and
+//     for shade the same head, so they differ from K2 only in what they
+//     leave out. A sample whose result is not stored would be dead code:
+//     win sums every feature of every sample into the output as the fetch
+//     makes them (before the head's bf16 rounding), each warpgroup (bf16
+//     kernel) or thread (f32 kernel) into its own sums; shade takes the
+//     head's last two products over all 16 columns on the tensor cores
+//     (m64n16 wgmma, or two m16n8 tiles of three TF32 products), writes rows
+//     r < rpt of their sum and keeps every sample's logits with stores the
+//     compiler must keep.
 
 #include "sampler_core.cuh"
 
@@ -106,113 +112,6 @@ m1_only_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__
   reinterpret_cast<float4*>(out + wid * 128)[lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-// A shared-memory store that the compiler may not remove: the "shade" stage
-// keeps every sample's result although nothing reads it back, so the head
-// of every sample is timed, as K2's composite reads each one.
-__device__ __forceinline__ void store_live(float4* p, float4 v) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w));
-}
-
-enum Stage { STAGE_WIN, STAGE_SHADE };
-
-// float4s of a stage block's per-sample area: K2's kg sg results; for win at
-// least a [16] partial sum per thread, for shade one live slot per thread
-// and the full w_sigcol^T and w_rgb as f32
-__host__ __device__ __forceinline__ int stage_res_rows(int stage, int ns) {
-  const int need = stage == STAGE_WIN ? THREADS * CP / 4 : THREADS + 2 * HID * CP / 4;
-  return ns > need ? ns : need;
-}
-
-// S2's win and shade stages: K2 (csrc/sampler.cu) stopped after
-// step 1 or 2, with K2's prologue, shared memory (but the per-sample area's
-// minimum above) and sample-to-thread map. win writes out[r][c] = sum over
-// the row blocks b and planes q of x[b rpt + r][q CP + c] (needs THREADS %
-// rpt == 0: each thread's samples then share one r); shade keeps every
-// sample's (sigma, rgb) logits with a store that stays and writes rows r <
-// rpt of sig_p + rgb_p, all 16 lanes.
-template <typename WT, int STAGE>
-__global__ void __launch_bounds__(THREADS, 1)
-stage_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
-             const float* __restrict__ uv, const WT* __restrict__ dproj,
-             const float* __restrict__ dtv, Weights wp, float* __restrict__ out, int rpt, int kg,
-             int ks, int wu, int wv, int rows, int rv) {
-  extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
-  float4* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);  // per-sample area
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  int* s_jobs = reinterpret_cast<int*>(s_res + stage_res_rows(STAGE, ns));  // [3][1 + 2kg]
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  constexpr bool RB = sizeof(WT) == 2;
-  float* s_cols = reinterpret_cast<float*>(s_res + THREADS);   // shade: w_sigcol^T, w_rgb
-
-  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, HID, jobs, 3 * (1 + 2 * kg), t, rpt);
-  if constexpr (STAGE == STAGE_SHADE) {
-    for (int e = tid; e < HID * CP; e += THREADS) {
-      s_cols[(e % CP) * HID + e / CP] = ld(static_cast<const WT*>(wp.p[W_SIGCOL]), e);
-      s_cols[HID * CP + e] = ld(static_cast<const WT*>(wp.p[W_RGB]), e);
-    }
-  }
-  __syncthreads();
-
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-  if constexpr (STAGE == STAGE_WIN) {
-    float acc[CP];
-#pragma unroll
-    for (int c = 0; c < CP; ++c) acc[c] = 0.f;
-    for (int n = tid; n < ns; n += THREADS) {
-      const int g = n / sg;
-      float x[XD];
-      sample_uv(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, x);
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-#pragma unroll
-        for (int c = 0; c < CP; ++c) acc[c] = __fadd_rn(acc[c], x[q * CP + c]);
-    }
-    float* s_part = reinterpret_cast<float*>(s_res);           // [THREADS][16]
-#pragma unroll
-    for (int c = 0; c < CP; ++c) s_part[tid * CP + c] = acc[c];
-    __syncthreads();
-    for (int e = tid; e < rpt * CP; e += THREADS) {
-      const int r = e / CP, c = e % CP;
-      float v = 0.f;
-      for (int b = 0; b < THREADS / rpt; ++b) v = __fadd_rn(v, s_part[(b * rpt + r) * CP + c]);
-      out[(size_t)t * rpt * CP + e] = v;
-    }
-  } else {
-    for (int n = tid; n < ns; n += THREADS) {
-      const int g = n / sg;
-      const int lane = n - g * sg;
-      float x[XD];
-      sample_uv(planes, s_jobs, uv, t, g, lane, kg, sg, umax, vmax, rows, rv, x);
-      const FullRow row = {s_cols, s_cols + HID * CP,
-                           n < rpt ? out + ((size_t)t * rpt + n) * CP : nullptr};
-      store_live(s_res + tid, shade<RB>(x, s, s_dp + (lane / ks) * HID, row));
-    }
-  }
-}
-
-template <typename WT>
-cudaError_t launch_sections(int stage, size_t bytes, int tiles, cudaStream_t s,
-                            const __nv_bfloat16* p, const int* j, const float* u, const WT* d,
-                            const float* dt, const Weights& wp, float* o, int rpt, int kg,
-                            int ks, int wu, int wv, int rows, int rv) {
-  switch (stage) {
-    case STAGE_WIN:
-      return launch_tiles(stage_kernel<WT, STAGE_WIN>, bytes, tiles, s, p, j, u, d, dt, wp, o,
-                          rpt, kg, ks, wu, wv, rows, rv);
-    case STAGE_SHADE:
-      return launch_tiles(stage_kernel<WT, STAGE_SHADE>, bytes, tiles, s, p, j, u, d, dt, wp, o,
-                          rpt, kg, ks, wu, wv, rows, rv);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // Common arguments as csrc/sampler.cu's K2: planes [3, rows, rv * 16] bf16;
@@ -248,8 +147,9 @@ extern "C" int mf_m1_only(int device, int blockdiag, const void* planes, const v
 }
 
 // S2: stage 0 win, 1 shade; dproj [tiles, rpt, 64] and the 13 shade
-// weights in SHADE_WEIGHTS order, all f32 or all bf16 (bf16 != 0); dtv
-// [tiles, rpt, 8] f32; out [tiles, rpt, 16] f32. win needs 256 % rpt == 0.
+// weights in SHADE_WEIGHTS order, all f32 or all bf16 (bf16 != 0): K2's
+// kernel of that weight dtype stopped after the stage; dtv [tiles, rpt, 8]
+// f32 (unread); out [tiles, rpt, 16] f32. win needs 256 % rpt == 0.
 extern "C" int mf_sections(
     int device, int stage, int bf16, const void* planes, const void* jobs, const void* uv,
     const void* dproj, const void* dtv, const void* wx_aud, const void* w_aud1,
@@ -257,24 +157,35 @@ extern "C" int mf_sections(
     const void* w_sig_e, const void* w_sig1, const void* w_sigcol, const void* w_geo,
     const void* w_col_g, const void* w_rgb, const void* col_bias, void* out, int tiles,
     int rpt, int kg, int ks, int wu, int wv, int rows, int rv, void* stream) {
-  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2) || stage < STAGE_WIN ||
-      stage > STAGE_SHADE || (stage == STAGE_WIN && THREADS % rpt != 0))
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2) ||
+      (stage != STAGE_WIN && stage != STAGE_SHADE) || (stage == STAGE_WIN && THREADS % rpt != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  const size_t bytes = shade_smem(rpt, HID, stage_res_rows(stage, kg * rpt * ks));
+  const size_t bytes = stage_smem(stage, bf16 != 0, rpt, kg * rpt * ks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const __nv_bfloat16*>(planes);
   const auto* j = static_cast<const int*>(jobs);
   const auto* u = static_cast<const float*>(uv);
   const auto* d = static_cast<const float*>(dtv);
+  const auto* dpb = static_cast<const __nv_bfloat16*>(dproj);
+  const auto* dpf = static_cast<const float*>(dproj);
   auto* o = static_cast<float*>(out);
+  if (bf16 && stage == STAGE_WIN)
+    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_WIN>, HEAD_THREADS, bytes,
+                                tiles, device, s, p, j, u, dpb, d, wp, o, tiles, rpt, kg, ks, wu,
+                                wv, rows, rv);
   if (bf16)
-    return (int)launch_sections(stage, bytes, tiles, s, p, j, u,
-                                static_cast<const __nv_bfloat16*>(dproj), d, wp, o, rpt, kg, ks,
-                                wu, wv, rows, rv);
-  return (int)launch_sections(stage, bytes, tiles, s, p, j, u, static_cast<const float*>(dproj),
-                              d, wp, o, rpt, kg, ks, wu, wv, rows, rv);
+    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_SHADE>, HEAD_THREADS, bytes,
+                                tiles, device, s, p, j, u, dpb, d, wp, o, tiles, rpt, kg, ks, wu,
+                                wv, rows, rv);
+  if (stage == STAGE_WIN)
+    return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_WIN>, TF_THREADS, bytes,
+                                tiles, device, s, p, j, u, dpf, d, wp, o, tiles, rpt, kg, ks, wu,
+                                wv, rows, rv);
+  return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_SHADE>, TF_THREADS, bytes,
+                              tiles, device, s, p, j, u, dpf, d, wp, o, tiles, rpt, kg, ks, wu,
+                              wv, rows, rv);
 }

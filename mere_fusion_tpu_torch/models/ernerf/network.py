@@ -28,7 +28,8 @@ from mere_fusion_tpu_torch.ops.hashgrid import GridSpec
 # Hash-encode implementation of encode_x (mirrors the JAX package's switch to
 # its Pallas lookup):
 #   "auto"  — K3 (ops/hash_lookup.triplane_encode): the CUDA kernels on the
-#             card at every size, the plain version on the CPU
+#             card at every size (the encode kernel, which hashes the corners
+#             itself), the plain version on the CPU
 #   "plain" — the plain version on any device (the comparison path)
 ENCODE_IMPL = "auto"
 

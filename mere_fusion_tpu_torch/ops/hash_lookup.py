@@ -23,10 +23,21 @@ and scatter-add the gradient straight into their layout.
   sample positions depend on a parameter, is a plain gather (as in the JAX
   package). Its wrappers raise on anything the kernels do not take.
 - ``lookup``: CPU tensors take the plain version, CUDA tensors the kernels.
-- ``triplane_encode``: ``encode_x`` with all three planes in one launch.
+- ``encode_cuda``: the three planes' encode of xyz in one launch that hashes
+  the corners itself (``encode_fwd_kernel``), optionally saving the corner
+  rows and weights for the backward; ``Encode`` is it under autograd, with
+  the backward kernel for the tables' gradient.
+- ``encode``: CPU tensors take the plain version, CUDA tensors the encode
+  kernel.
+- ``triplane_encode``: ``encode_x``. Sample positions that need no gradient
+  (every encode of training, the density refresh and the unbaked frame)
+  take ``encode``; positions that need one take the corner route (the plain
+  corner rows and weights, then ``lookup``), whose weights carry that
+  gradient.
 
-``fwd_launches`` and ``bwd_launches`` count the kernels' launches in this
-process.
+``encode_launches``, ``fwd_launches`` and ``bwd_launches`` count the
+kernels' launches in this process (the encode, the corner route's forward,
+the backward).
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from mere_fusion_tpu_torch.ops.hashgrid import (
     corner_indices_weights,
     corner_sum,
     level_offsets,
+    row_rule,
 )
 
 CORNERS = 4
@@ -51,6 +63,7 @@ MAX_LEVELS = 32
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "hash_lookup.cu")
 
+encode_launches = 0
 fwd_launches = 0
 bwd_launches = 0
 _count_lock = threading.Lock()
@@ -91,6 +104,10 @@ def load():
             lib.mf_hash_lookup_bwd.argtypes = (
                 [i32, i32] + [ptr] * 2 + [ctypes.POINTER(i32), i32, i64, i64] + [ptr] * 3)
             lib.mf_hash_lookup_bwd.restype = i32
+            lib.mf_hash_encode.argtypes = (
+                [i32] + [ptr] * 4 + [i64] + [ptr] * 5 + [i32] + [ctypes.c_float] * 3
+                + [ptr] * 4)
+            lib.mf_hash_encode.restype = i32
             _lib = lib
     return _lib
 
@@ -232,15 +249,118 @@ def triplane_corners(xyz: torch.Tensor, spec: GridSpec, bound: float = 1.0):
     return corner_indices_weights(coords, spec, bound)
 
 
+@functools.lru_cache(maxsize=None)
+def _levels(spec: GridSpec):
+    """The encode kernel's per-level constants for ``spec`` (csrc/
+    hash_lookup.cu ``Levels``), as ctypes arrays: the f32 scale, the second
+    coordinate's stride in a dense row, the table size, the first row and
+    the hashed flag (``hashgrid.row_rule``)."""
+    scale, mul1, hsize, offset, hashed = [], [], [], [], []
+    for sc, resolution, size, off in spec.level_params():
+        strides, hashes = row_rule(spec, resolution, size)
+        scale.append(sc)
+        mul1.append(strides[1])
+        hsize.append(size)
+        offset.append(off)
+        hashed.append(int(hashes))
+    n = spec.num_levels
+    return ((ctypes.c_float * n)(*scale), (ctypes.c_uint * n)(*mul1),
+            (ctypes.c_uint * n)(*hsize), (ctypes.c_int * n)(*offset),
+            (ctypes.c_int * n)(*hashed))
+
+
+def encode_cuda(tables, xyz: torch.Tensor, spec: GridSpec, bound: float = 1.0,
+                save: bool = False):
+    """Launch the encode kernel on xyz's device and PyTorch's current stream
+    there: the three planes' (xy, yz, xz) features of xyz [N, 3] float32,
+    [N, 3·L] float32, the corners hashed in the kernel. With ``save`` it also
+    returns the corner rows and weights (idx int32, w float32, [3, N, L, 4],
+    equal to ``triplane_corners``') for the backward; else (out, None, None)."""
+    global encode_launches
+    if len(tables) != MAX_GRIDS:
+        raise ValueError(f"the encode takes the {MAX_GRIDS} planes' tables, got {len(tables)}")
+    if spec.input_dim != 2 or spec.level_dim != 1 or spec.num_levels > MAX_LEVELS:
+        raise ValueError(f"the encode takes 2-D planes of one channel and at most {MAX_LEVELS} "
+                         f"levels, got {spec.input_dim}-D, {spec.level_dim} channels, "
+                         f"{spec.num_levels} levels")
+    n = xyz.shape[0] if xyz.dim() == 2 else -1
+    for name, x, dtype, shape in (
+            *((f"table[{q}]", t, torch.float32, (spec.total_params, 1))
+              for q, t in enumerate(tables)),
+            ("xyz", xyz, torch.float32, (n, 3))):
+        if not x.is_cuda or x.device != xyz.device:
+            raise ValueError(f"the encode needs every operand on one CUDA device; {name} is "
+                             f"on {x.device}, xyz on {xyz.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"the encode takes {name} as {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"the encode takes {name} of shape {shape}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"the encode needs contiguous operands; {name} is not")
+    if n <= 0:
+        raise ValueError("the encode needs at least one point")
+    dev, levels = xyz.device, spec.num_levels
+    out = torch.empty(n, MAX_GRIDS * levels, dtype=torch.float32, device=dev)
+    idx = w = None
+    if save:
+        idx = torch.empty(MAX_GRIDS, n, levels, CORNERS, dtype=torch.int32, device=dev)
+        w = torch.empty(MAX_GRIDS, n, levels, CORNERS, dtype=torch.float32, device=dev)
+    err = load().mf_hash_encode(
+        dev.index, *_tables(tables), xyz.data_ptr(), n, *_levels(spec), levels, bound,
+        2.0 * bound, 0.0 if spec.align_corners else 0.5, out.data_ptr(),
+        idx.data_ptr() if save else None, w.data_ptr() if save else None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K3 encode launch failed with cudaError {err}")
+    with _count_lock:
+        encode_launches += 1
+    return out, idx, w
+
+
+class Encode(torch.autograd.Function):
+    """The encode kernel under autograd: ``Encode.apply(spec, bound, xyz,
+    *tables)``; the tables' gradient by the backward kernel from the corner
+    rows and weights the forward saved. xyz takes no gradient here."""
+
+    @staticmethod
+    def forward(ctx, spec: GridSpec, bound: float, xyz, *tables):
+        out, idx, w = encode_cuda(tables, xyz, spec, bound, save=True)
+        ctx.spec = spec
+        ctx.save_for_backward(idx, w, *tables)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        idx, w, *tables = ctx.saved_tensors
+        return (None, None, None, *lookup_bwd_cuda(idx, w, gout, ctx.spec, tables))
+
+
+def encode(tables, xyz: torch.Tensor, spec: GridSpec, bound: float = 1.0) -> torch.Tensor:
+    """The three planes' encode of xyz [N, 3] (positions that need no
+    gradient): CPU tensors take the plain version, CUDA tensors the encode
+    kernel, under autograd (``Encode``) when a table needs a gradient."""
+    if xyz.device.type == "cpu":
+        idx, w = triplane_corners(xyz, spec, bound)
+        return lookup_plain(tables, idx, w, spec)
+    xyz = xyz.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return Encode.apply(spec, bound, xyz, *tables)
+    return encode_cuda(tables, xyz, spec, bound)[0]
+
+
 def triplane_encode(plane_xy, plane_yz, plane_xz, xyz: torch.Tensor, spec: GridSpec,
                     bound: float = 1.0, impl: str = "auto") -> torch.Tensor:
     """ER-NeRF ``encode_x``: [N, 3] in [−bound, bound] → [N, 3·L·C] in
-    (xy, yz, xz) order, all three planes in one lookup. ``impl`` "auto" is
-    ``lookup``; "plain" takes the plain version on any device."""
-    idx, w = triplane_corners(xyz, spec, bound)
+    (xy, yz, xz) order. ``impl`` "auto": ``encode``, or, for an xyz that
+    requires a gradient (which the corner weights carry), the corner route:
+    the plain corner rows and weights, then ``lookup``. "plain" takes the
+    plain version on any device."""
     tables = (plane_xy, plane_yz, plane_xz)
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown hash lookup impl {impl!r}")
+    if impl == "auto" and not xyz.requires_grad:
+        return encode(tables, xyz, spec, bound)
+    idx, w = triplane_corners(xyz, spec, bound)
     if impl == "plain":
         return lookup_plain(tables, idx, w, spec)
-    if impl != "auto":
-        raise ValueError(f"unknown hash lookup impl {impl!r}")
     return lookup(tables, idx, w, spec)

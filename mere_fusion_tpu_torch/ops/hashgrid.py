@@ -65,21 +65,27 @@ class GridSpec:
         return off + n
 
 
+def row_rule(spec: GridSpec, resolution: int, hsize: int) -> tuple[list[int], bool]:
+    """A level's corner → row rule (get_grid_index): each coordinate's stride
+    in a dense row (0 for a coordinate past the table's size) and whether
+    the level hashes its corners instead."""
+    side = resolution if spec.align_corners else resolution + 1
+    strides, stride = [], 1
+    for _ in range(spec.input_dim):
+        strides.append(stride if stride <= hsize else 0)
+        if stride <= hsize:
+            stride *= side
+    return strides, spec.gridtype == "hash" and stride > hsize
+
+
 def _corner_index(pg: list, spec: GridSpec, resolution: int, hsize: int) -> torch.Tensor:
     """Grid corner → table row (get_grid_index); pg holds D int64 arrays of
     values < 2^32."""
-    side = resolution if spec.align_corners else resolution + 1
+    strides, hashed = row_rule(spec, resolution, hsize)
     index = torch.zeros_like(pg[0])
-    stride = 1
     for d in range(spec.input_dim):
-        if stride <= hsize:
-            index = (index + pg[d] * stride) & _U32
-            stride *= side
-    if spec.gridtype == "hash" and stride > hsize:
-        h = torch.zeros_like(pg[0])
-        for d in range(spec.input_dim):
-            h = h ^ ((pg[d] * _PRIMES[d]) & _U32)
-        index = h
+        index = index ^ ((pg[d] * _PRIMES[d]) & _U32) if hashed else \
+            (index + pg[d] * strides[d]) & _U32
     return (index % hsize).to(torch.int32)
 
 
@@ -89,7 +95,11 @@ def corner_indices_weights(x: torch.Tensor, spec: GridSpec, bound: float):
     Returns (idx [N, L, 2^D] int32 local to each level's table,
     w [N, L, 2^D] float32). Every row is below the level's table size, at
     most 2^log2_hashmap_size, so 4-byte indices hold it."""
-    x01 = (x + bound) / (2.0 * bound)
+    # a true division on every device, as the JAX package's eager arithmetic
+    # (PyTorch on CUDA divides by a Python scalar as a product by its f32
+    # reciprocal, which differs by an ulp where 2·bound is not a power of two;
+    # a 0-dim tensor on x's device takes the true division)
+    x01 = (x + bound) / torch.full((), 2.0 * bound, dtype=x.dtype, device=x.device)
     corners = list(itertools.product((0, 1), repeat=spec.input_dim))
     idx_levels, w_levels = [], []
     for scale, resolution, hsize, _offset in spec.level_params():

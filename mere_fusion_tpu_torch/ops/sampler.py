@@ -637,13 +637,12 @@ def tf32_smem_bytes(spec: SamplerSpec) -> int:
     return TF32_FIXED_BYTES + 16 * spec.kg * spec.sg + 4 * 64
 
 
-def smem_bytes(spec: SamplerSpec, kernel: str = "K2") -> int:
-    """Dynamic shared memory of one block with the CUDA-core head: K2b, K2c,
-    or "K2", the layout of S2's stage kernel (see csrc/sampler.cu,
-    csrc/sampler_stages.cu); K2d uses none."""
+def smem_bytes(spec: SamplerSpec, kernel: str) -> int:
+    """Dynamic shared memory of one block with the CUDA-core head, K2b or
+    K2c (see csrc/sampler.cu); K2d uses none."""
     weights = (3 * CP * (2 * HID + EYE_HID) + HID * AUD + AUD * HID + EYE_HID + HID
                + 3 * HID * HID + HID + 4 * HID + HID)
-    rows = {"K2": HID, "K2b": HID, "K2c": HID + 8}[kernel]
+    rows = {"K2b": HID, "K2c": HID + 8}[kernel]
     samples = 0 if kernel == "K2b" else spec.kg * spec.sg
     return 4 * (weights + spec.rays_per_tile * rows + 4 * samples) + 4 * 64
 
@@ -696,7 +695,7 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
         if operands["dproj"][0].data_ptr() % 16:
             raise ValueError("K2 with bfloat16 weights reads dproj in 16-byte rows; it must "
                              "be 16-byte aligned")
-    elif kernel in ("K2", "K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
+    elif kernel in ("K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
         raise ValueError(f"{kernel} tile of {spec.rays_per_tile} rays × {spec.k} samples "
                          f"needs {smem_bytes(spec, kernel)} B of shared memory > {SMEM_LIMIT}")
 

@@ -24,8 +24,9 @@ operands (``ops.sampler``'s layouts and ``SamplerSpec``):
 Each has ``<name>_plain`` (PyTorch, the CPU path and the yardstick),
 ``<name>_cuda`` (the hand-written CUDA C++ kernels of
 ``csrc/sampler_stages.cu``, built with nvcc for sm_90a on first use and
-bound with ctypes; S2's ``win`` and ``shade`` are K2's kernel cut short,
-made of the device code of ``csrc/sampler_core.cuh``) and the wrapper
+bound with ctypes; S2's ``win`` and ``shade`` are K2's own tensor-core
+kernels of the weights' dtype, from ``csrc/sampler_core.cuh``, stopped
+after the fetch or the head) and the wrapper
 ``<name>``: CPU tensors take the plain version, CUDA tensors the kernel,
 which raises on anything it does not take. ``m1_launches`` (S1) and
 ``section_launches`` (S2's ``win`` and ``shade``) count the kernels'
@@ -44,6 +45,7 @@ from mere_fusion_tpu_torch.ops import sampler
 from mere_fusion_tpu_torch.ops.sampler import CP, HID, SHADE_WEIGHTS, THREADS, SamplerSpec
 
 LANES = 128                                # the lanes S1 keeps of each window row
+HEAD_WGS = 3                               # warpgroups of K2's bf16 block (HEAD_WGS)
 SECTION_MODES = ("win", "shade", "full")   # S2's kernel takes the first two by number
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -161,15 +163,19 @@ def load():
     return _lib
 
 
-def smem_bytes(spec: SamplerSpec, mode: str) -> int:
-    """Dynamic shared memory of one S2 block: K2's (``ops.sampler.smem_bytes``)
-    but that its per-sample area of kg·sg float4 holds at least, in ``win``,
-    a [16] partial sum per thread and, in ``shade``, a float4 per thread and
-    the full w_sigcol and w_rgb as float32 (csrc/sampler_stages.cu,
-    ``stage_res_rows``)."""
-    ns = spec.kg * spec.sg
-    need = {"win": THREADS * CP // 4, "shade": THREADS + 2 * HID * CP // 4}[mode]
-    return sampler.smem_bytes(spec, "K2") + 16 * max(0, need - ns)
+def smem_bytes(spec: SamplerSpec, mode: str, bf16: bool) -> int:
+    """Dynamic shared memory of one S2 block: that of K2's kernel of the
+    weight dtype (``ops.sampler.head_smem_bytes``, ``tf32_smem_bytes``) but
+    that its per-sample area of kg·sg float4 holds at least, in ``win``, the
+    sums (bf16: [3][rpt][17] float32, one per warpgroup; f32: [256][16], one
+    per thread) and, in ``shade``, the wide tiles of w_sigcol and w_rgb
+    come first (csrc/sampler_core.cuh ``stage_smem``)."""
+    ns, rpt = spec.kg * spec.sg, spec.rays_per_tile
+    need = {"win": (HEAD_WGS * rpt * (CP + 1) + 3) // 4 if bf16 else THREADS * CP // 4,
+            "shade": 0}[mode]
+    k2 = sampler.head_smem_bytes(spec) if bf16 else sampler.tf32_smem_bytes(spec)
+    wide = {"win": 0, "shade": 2 * CP * (2 * HID if bf16 else 4 * (HID + 8))}[mode]
+    return k2 + 16 * max(0, need - ns) + wide
 
 
 def m1_only_cuda(planes_major, jobs, uv, spec: SamplerSpec, blockdiag: bool = False):
@@ -220,13 +226,18 @@ def sections_cuda(planes_major, jobs, uv, dproj, dtv, weights: dict, spec: Sampl
         "dtv": (dtv, torch.float32, (t, rpt, 8))}, weights)
     if mode == "win" and THREADS % rpt:
         raise ValueError(f"S2 win needs {THREADS} % rays per tile == 0 (rpt={rpt})")
-    if smem_bytes(spec, mode) > sampler.SMEM_LIMIT:
+    bf16 = dproj.dtype == torch.bfloat16
+    if bf16 and dproj.data_ptr() % 16:
+        raise ValueError("S2 with bfloat16 weights reads dproj in 16-byte rows, as K2; it must "
+                         "be 16-byte aligned")
+    if smem_bytes(spec, mode, bf16) > sampler.SMEM_LIMIT:
         raise ValueError(f"S2 {mode}: a tile of {rpt} rays × {spec.k} samples needs "
-                         f"{smem_bytes(spec, mode)} B of shared memory > {sampler.SMEM_LIMIT}")
+                         f"{smem_bytes(spec, mode, bf16)} B of shared memory > "
+                         f"{sampler.SMEM_LIMIT}")
     dev = planes_major.device
     out = torch.empty(t, rpt, 16, dtype=torch.float32, device=dev)
     err = load().mf_sections(
-        dev.index, SECTION_MODES.index(mode), int(dproj.dtype == torch.bfloat16),
+        dev.index, SECTION_MODES.index(mode), int(bf16),
         planes_major.data_ptr(), jobs.data_ptr(), uv.data_ptr(), dproj.data_ptr(),
         dtv.data_ptr(), *[weights[n].data_ptr() for n in SHADE_WEIGHTS], out.data_ptr(),
         *sampler._geometry(spec, t, planes_major), sampler._stream(dev))

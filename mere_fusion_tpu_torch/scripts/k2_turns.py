@@ -1,5 +1,5 @@
-"""K1 in float32, K2, K3's backward and the ER-NeRF frame of several
-checkouts, in turns, on one card.
+"""K1 in float32, K2, K3's backward, the ER-NeRF frames and the ER-NeRF
+train step of several checkouts, in turns, on one card.
 
     python -m mere_fusion_tpu_torch.scripts.k2_turns PARENT . . PARENT
 
@@ -24,6 +24,13 @@ this checkout's ``chip_smoke.py``:
   with bfloat16 and with float32 shade weights (``nerf.shade_dtype``): its
   ms by CUDA events and one frame under torch.profiler (device ms, busy
   share, K2's device ms);
+- the unbaked ER-NeRF frame (``make_unbaked_render_step`` on the same model:
+  the hash encode on K3): its ms by CUDA events and one frame under
+  torch.profiler (``chip_smoke.profile_launches``: device ms and launches,
+  K3's device ms, calls of the plain corner hashing's own operations);
+- the ER-NeRF train step and density refresh (``chip_smoke.
+  nerf_train_setup``: the CLI's config, 4,096 rays): ms by CUDA events and
+  one step under torch.profiler, as the frame;
 - an ER-NeRF loopback session (``chip_smoke._nerf_session``): nerf.render
   p50 and the other session numbers.
 
@@ -36,8 +43,10 @@ import asyncio
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SERVE_SHAPE = (16, 8, 1024, 40)
@@ -61,8 +70,13 @@ def measure(root: str) -> dict:
     import torch.nn.functional as F
 
     from mere_fusion_tpu_torch.engines.muse import MuseModels
+    from mere_fusion_tpu_torch.engines.nerf_baked import make_unbaked_render_step
     from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
     from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
+    from mere_fusion_tpu_torch.train.ernerf_train import (
+        make_nerf_train_step,
+        refresh_density_grid,
+    )
 
     if not torch.cuda.is_available():
         raise RuntimeError("k2_turns measures on a CUDA card; none is visible")
@@ -128,7 +142,34 @@ def measure(root: str) -> dict:
         out[key] = {"ms": cs.time_ms(frame, iters=5, warmup=1),
                     "profile": cs.profile_generate(frame, kernel="sample_shade_comp")}
         del step
-    del baked, net
+    ustep = make_unbaked_render_step(net, ds, cfg)
+
+    def unbaked():
+        return ustep(ds.poses[0], auds, eye, dens, bg)
+
+    out["unbaked_frame"] = {"ms": cs.time_ms(unbaked, iters=5, warmup=1),
+                            "profile": cs.profile_launches(unbaked)}
+    del ustep, baked, net
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="k2_turns_train_")
+    try:
+        t = cs.nerf_train_setup(dev, tmp)
+        train = make_nerf_train_step(t["tcfg"])
+        mean_auds = torch.from_numpy(t["ds"].auds).to(dev)
+
+        def step():
+            return train(t["tstate"], t["batch"], noise=t["noise"])
+
+        out["nerf_train"] = {
+            "step_ms": cs.time_ms(step, iters=20, warmup=3),
+            "refresh_ms": cs.time_ms(
+                lambda: refresh_density_grid(t["tstate"], mean_auds, t["tcfg"]),
+                iters=3, warmup=1),
+            "step_profile": cs.profile_launches(step)}
+        del t, train
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     out["nerf_session"] = asyncio.run(cs._nerf_session({}))
     return out
@@ -180,6 +221,22 @@ def main(argv: list[str] | None = None) -> int:
             ("frame_f32_k2_device_ms",
              lambda r: r["nerf_frame_f32"]["profile"].get("sample_shade_comp_ms")),
             ("k3_bwd_device_ms", lambda r: r["k3_bwd"]["device_ms"]),
+            ("unbaked_frame_ms", lambda r: r["unbaked_frame"]["ms"]),
+            ("unbaked_frame_device_ms", lambda r: r["unbaked_frame"]["profile"]["device_ms"]),
+            ("unbaked_frame_launches",
+             lambda r: r["unbaked_frame"]["profile"]["device_launches"]),
+            ("unbaked_frame_hashing_ops",
+             lambda r: r["unbaked_frame"]["profile"]["hashing_ops"]),
+            ("train_step_ms", lambda r: r["nerf_train"]["step_ms"]),
+            ("train_refresh_ms", lambda r: r["nerf_train"]["refresh_ms"]),
+            ("train_step_device_ms", lambda r: r["nerf_train"]["step_profile"]["device_ms"]),
+            ("train_step_busy_share",
+             lambda r: r["nerf_train"]["step_profile"]["device_busy_share"]),
+            ("train_step_launches",
+             lambda r: r["nerf_train"]["step_profile"]["device_launches"]),
+            ("train_step_k3_device_ms", lambda r: r["nerf_train"]["step_profile"]["k3_ms"]),
+            ("train_step_hashing_ops",
+             lambda r: r["nerf_train"]["step_profile"]["hashing_ops"]),
             ("render_p50_ms", lambda r: r["nerf_session"]["render_p50_ms"]),
             ("rendered_frames", lambda r: r["nerf_session"]["rendered_frames"])):
         summary[key] = [pick(r) for r in runs]

@@ -55,11 +55,12 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 # the composite of each tile's rays, in the tensor-core kernel
-COMPOSITE = """    for (int r = tid; r < rpt; r += HEAD_THREADS)
-      composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
-                    out + ((size_t)t * rpt + r) * 16);
+COMPOSITE = """      for (int r = tid; r < rpt; r += HEAD_THREADS)
+        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+                      out + ((size_t)t * rpt + r) * 16);
 """
-HEADS = "      head_rows(base, x_wg, s_dp, s_res, n0, ns, sg, ks);\n"
+HEADS = ("        head_rows<STAGE>(base, x_wg, s_dp, s_res, n0, ns, sg, ks, "
+         "out + (size_t)t * rpt * CP, rpt);\n")
 FETCH = ("        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, "
          "x, h);\n")
 SYNTH_X = """#pragma unroll
@@ -129,9 +130,8 @@ __device__ __forceinline__ void dump_acc(int tile, int n0, int ns, int r, int t,
 // The head on the row block""" % (DUMP_TILES, DUMP_WIDTH)
 DUMP_EDITS = [
     ("sampler_core.cuh", "// The head on the row block", DUMP_HELPERS),
-    ("sampler_core.cuh", """float4* __restrict__ res, int n0, int ns, int sg,
-                                          int ks) {""", """float4* __restrict__ res, int n0, int ns, int sg,
-                                          int ks, int tile) {"""),
+    ("sampler_core.cuh", "int ks, float* __restrict__ rows, int rpt) {",
+     "int ks, float* __restrict__ rows, int rpt, int tile) {"),
     ("sampler_core.cuh", "  uint32_t a[4][4];\n",
      "  dump_acc(tile, n0, ns, r, t, 0, acc, 32);\n  uint32_t a[4][4];\n"),
     ("sampler_core.cuh", "  const float eye0 = 1.f / (1.f + expf(-e0));\n", """  if (g_dump != nullptr && tile < DUMP_TILES && t == 0) {
@@ -157,7 +157,7 @@ DUMP_EDITS = [
     ("sampler_core.cuh", "  float c0[2] = {0.f, 0.f}, c1[2] = {0.f, 0.f}, c2[2] = {0.f, 0.f};\n",
      "  dump_acc(tile, n0, ns, r, t, 289, acc, 32);\n"
      "  float c0[2] = {0.f, 0.f}, c1[2] = {0.f, 0.f}, c2[2] = {0.f, 0.f};\n"),
-    ("sampler.cu", HEADS, HEADS.replace("sg, ks);", "sg, ks, t);")),
+    ("sampler_core.cuh", HEADS, HEADS.replace("rpt);", "rpt, t);")),
     ("sampler.cu", "// K2d: uv as K2's; out [tiles, kg, rpt * ks, 48] bf16.", """extern "C" int mf_probe_set_dump(void* p) {
   return (int)cudaMemcpyToSymbol(g_dump, &p, sizeof(p));
 }
@@ -167,9 +167,9 @@ DUMP_EDITS = [
 
 # probe name -> [(file, text in it, its replacement), ...]
 PROBES = {
-    "fetch_only": [("sampler.cu", HEADS, "")],
-    "head_only": [("sampler.cu", FETCH, SYNTH_X)],
-    "no_composite": [("sampler.cu", COMPOSITE, "")],
+    "fetch_only": [("sampler_core.cuh", HEADS, "")],
+    "head_only": [("sampler_core.cuh", FETCH, SYNTH_X)],
+    "no_composite": [("sampler_core.cuh", COMPOSITE, "")],
     "no_settle": [("sampler_core.cuh", SETTLE, "  const int most = 0;\n  return;\n")],
     "promoted": [("sampler_core.cuh", CHAIN, PROMOTED)],
     "tie_half": [("sampler_core.cuh", TIE, TIE.replace("4.76837158203125e-07f;   // 2^-21",

@@ -199,3 +199,144 @@ def test_network_encode_x_impls(monkeypatch):
         monkeypatch.setattr(pnetwork, "ENCODE_IMPL", "fused")
         with pytest.raises(ValueError, match="fused"):
             net.encode_x(xyz)
+
+
+
+# ---- the encode route: the corners hashed by the kernel ----------------------------
+# Levels that move between dense and hashed with the table size: sides 17,
+# 42, 102 and 257, so 2^12 rows keep levels 0 and 1 dense and 2^16 levels 0
+# to 2 (a dense level's size is side², padded to a multiple of 8, not a
+# power of two).
+MOVING_KW = dict(input_dim=2, num_levels=4, level_dim=1, base_resolution=16,
+                 desired_resolution=256)
+ENCODE_CASES = {
+    "outside_the_box": dict(kw=SPEC_KW, bound=1.0, spread=3.0),
+    "bound_1.5": dict(kw=SPEC_KW, bound=1.5, spread=2.0),
+    "hashmap_12": dict(kw=dict(MOVING_KW, log2_hashmap_size=12), bound=1.0, spread=1.2),
+    "hashmap_16": dict(kw=dict(MOVING_KW, log2_hashmap_size=16), bound=1.0, spread=1.2),
+}
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_matches_pallas(case, monkeypatch):
+    """``triplane_encode`` on the CPU (the encode route's plain version)
+    against the JAX package's Pallas encode. x01 = (x + bound) / (2·bound) is
+    a true division on every device, as JAX computes it op by op; at a bound
+    of 1.5 the product by the f32 reciprocal (PyTorch on CUDA for a Python
+    scalar divisor; XLA under jit) moves x01 by an ulp on ~2/3 of the points,
+    which the limit sees."""
+    cfg = ENCODE_CASES[case]
+    spec, jspec, bound = GridSpec(**cfg["kw"]), JGridSpec(**cfg["kw"]), cfg["bound"]
+    planes, _, _ = inputs(1, seed=7, spec=spec)
+    xyz = np.random.default_rng(8).uniform(-cfg["spread"], cfg["spread"], (1024, 3)) \
+        .astype(np.float32)
+    ref = np.asarray(hash_mxu.triplane_encode_mxu(*[jnp.asarray(p) for p in planes],
+                                                  jnp.asarray(xyz), jspec, bound,
+                                                  interpret=True))
+    routes = _record_routes(monkeypatch)
+    tables = [torch.from_numpy(p) for p in planes]
+    got = hl.triplane_encode(*tables, torch.from_numpy(xyz), spec, bound)
+    assert routes == ["encode"], "positions that need no gradient take the encode"
+    assert got.shape == ref.shape == (1024, 3 * spec.num_levels)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2.4e-7)
+    if case == "bound_1.5":
+        idx, w = _kernel_corners(torch.from_numpy(xyz), spec, bound, reciprocal=True)
+        assert np.abs(hl.lookup_plain(tables, idx, w, spec).numpy() - ref).max() > 2.4e-7
+
+
+def _record_routes(monkeypatch) -> list:
+    """Record, in order, which of ``encode`` and ``lookup`` triplane_encode
+    calls (each still runs)."""
+    routes = []
+    for name in ("encode", "lookup"):
+        fn = getattr(hl, name)
+        monkeypatch.setattr(hl, name, lambda *a, _fn=fn, _name=name: (
+            routes.append(_name), _fn(*a))[1])
+    return routes
+
+
+def test_xyz_requiring_grad_takes_the_corner_route(monkeypatch):
+    """Positions that need a gradient take the plain corners and ``lookup``
+    (the corner weights carry that gradient), which the JAX package's
+    gradient matches; the same positions without one take ``encode``."""
+    planes, xyz, _ = inputs(256, seed=9)
+
+    def jloss(x):
+        return (jax_encode([jnp.asarray(p) for p in planes], x) ** 2).sum()
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(xyz)))
+    routes = _record_routes(monkeypatch)
+    x = torch.from_numpy(xyz).requires_grad_()
+    tables = [torch.from_numpy(p) for p in planes]
+    (hl.triplane_encode(*tables, x, SPEC, BOUND) ** 2).sum().backward()
+    assert routes == ["lookup"]
+    np.testing.assert_allclose(x.grad.numpy(), ref, rtol=1e-5, atol=1e-6)
+    hl.triplane_encode(*tables, x.detach(), SPEC, BOUND)
+    assert routes == ["lookup", "encode"]
+
+
+def _kernel_corners(xyz: torch.Tensor, spec: GridSpec, bound: float, reciprocal=False):
+    """csrc/hash_lookup.cu encode_fwd_kernel's corner arithmetic, from the
+    per-level constants the wrapper hands it (``_levels``): float32 values
+    rounded after every operation (numpy float32 scalars), uint32 rows (int64
+    masked). Returns idx, w [3, N, L, 4] as the kernel saves them;
+    ``reciprocal`` makes x01 a product by the f32 reciprocal (a control)."""
+    scale, mul1, hsize, _, hashed = (list(a) for a in hl._levels(spec))
+    coords = torch.stack((xyz[:, :2], xyz[:, 1:], xyz[:, ::2]))   # [3, N, 2]
+    span = np.float32(2.0 * bound)
+    x01 = (coords + np.float32(bound)) * (np.float32(1.0) / span) if reciprocal else \
+        (coords + np.float32(bound)) / torch.tensor(span)
+    shift = np.float32(0.0 if spec.align_corners else 0.5)
+    idx, w = [], []
+    for l in range(spec.num_levels):
+        pos = x01 * np.float32(scale[l]) + shift
+        cell = torch.floor(pos)
+        frac = pos - cell
+        cell = torch.clamp(cell.to(torch.int64), 0, 0xFFFFFFFF)   # the saturating cast
+        rows, ws = [], []
+        for k in range(4):
+            ga = (cell[..., 0] + (k >> 1)) & 0xFFFFFFFF
+            gb = (cell[..., 1] + (k & 1)) & 0xFFFFFFFF
+            h = ga ^ ((gb * 2654435761) & 0xFFFFFFFF) if hashed[l] else \
+                (ga + gb * mul1[l]) & 0xFFFFFFFF
+            rows.append((h % hsize[l]).to(torch.int32))
+            ws.append((frac[..., 0] if k >> 1 else 1 - frac[..., 0])
+                      * (frac[..., 1] if k & 1 else 1 - frac[..., 1]))
+        idx.append(torch.stack(rows, -1))
+        w.append(torch.stack(ws, -1))
+    return torch.stack(idx, -2), torch.stack(w, -2)
+
+
+@pytest.mark.parametrize("kw,bound", [
+    (SPEC_KW, 1.0), (SPEC_KW, 1.5), (dict(MOVING_KW, log2_hashmap_size=12), 1.0),
+    (dict(MOVING_KW, log2_hashmap_size=16), 0.7), (dict(SPEC_KW, gridtype="tiled"), 1.0),
+    (dict(SPEC_KW, align_corners=True), 1.0),
+    (dict(MOVING_KW, base_resolution=64, desired_resolution=2048, log2_hashmap_size=12), 1.0),
+], ids=["default", "bound_1.5", "hashmap_12", "hashmap_16", "tiled", "aligned", "wide"])
+def test_encode_kernel_constants_give_the_plain_corners(kw, bound):
+    """The encode kernel's per-level constants and arithmetic, emulated on
+    the CPU, give ``triplane_corners``' rows and weights bit for bit (points
+    inside and outside the box; dense, hashed and tiled levels; a side
+    larger than the table, "wide", whose second coordinate a tiled grid
+    drops)."""
+    spec = GridSpec(**kw)
+    xyz = torch.from_numpy(np.random.default_rng(10).uniform(-2 * bound, 2 * bound, (4096, 3))
+                           .astype(np.float32))
+    ki, kw_ = _kernel_corners(xyz, spec, bound)
+    pi, pw = hl.triplane_corners(xyz, spec, bound)
+    assert torch.equal(ki, pi) and torch.equal(kw_, pw)
+
+
+@pytest.mark.parametrize("script", ["prof_k3", "prof_k3_encode"])
+def test_profiling_probes_find_their_text(script):
+    """Each probe of K3's profiling scripts is a text edit of
+    csrc/hash_lookup.cu: its text must be there as often as the probe says,
+    or the script refuses to build it on the card."""
+    import importlib
+
+    mod = importlib.import_module(f"mere_fusion_tpu_torch.scripts.{script}")
+    with open(hl._SRC) as f:
+        source = f.read()
+    for probe, edits in mod.probes(source).items():
+        for old, _new, *times in edits:
+            assert source.count(old) == (times[0] if times else 1), (probe, old[:60])

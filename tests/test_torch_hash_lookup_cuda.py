@@ -15,14 +15,24 @@ backward accumulates pieces of each plane's rows in the shared memory of a
 cluster of blocks and writes every row of the gradient: it is held at table
 sizes whose levels go in pairs, alone and in slices, with every point in one
 cell (the most adds a row can take), at point counts that split unevenly over
-a cluster, and into a buffer filled with NaN.
+a cluster, and into a buffer filled with NaN. The encode kernel (the corners
+hashed in the kernel) equals the plain version bit for bit (points inside
+and outside the box, dense and hashed levels, a bound of 1.5), and the rows
+and weights it saves equal triplane_corners'.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from chip_smoke import K3_BWD_RTOL, K3_FWD_ATOL, k3_operands, k3_plain_grad
+from chip_smoke import (
+    K3_BWD_RTOL,
+    K3_FWD_ATOL,
+    k3_fma_corners,
+    k3_inputs,
+    k3_operands,
+    k3_plain_grad,
+)
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork, init_ernerf_
 from mere_fusion_tpu_torch.ops import hash_lookup
 from mere_fusion_tpu_torch.ops.hashgrid import GridSpec
@@ -106,9 +116,9 @@ def test_encode_x_launches_the_kernel_at_any_size(cuda_device):
     net = init_ernerf_(NeRFNetwork(cfg).to(cuda_device), 0)
     for n in (1, 100, 5000):
         xyz = torch.rand(n, 3, device=cuda_device) * 2 - 1
-        before = hash_lookup.fwd_launches
+        before = hash_lookup.encode_launches
         enc = net.encode_x(xyz)
-        assert hash_lookup.fwd_launches == before + 1
+        assert hash_lookup.encode_launches == before + 1
         ref = hash_lookup.triplane_encode(net.plane_xy, net.plane_yz, net.plane_xz, xyz,
                                           cfg.plane_spec, cfg.bound, impl="plain")
         assert (enc - ref).abs().max().item() <= K3_FWD_ATOL
@@ -179,3 +189,85 @@ def test_backward_writes_every_row(cuda_device):
     assert_grads_close(got, dref)
     with pytest.raises(ValueError, match="out"):
         hash_lookup.lookup_bwd_cuda(idx, w, gout, spec, tables, out=out[:2])
+
+
+def plain_encode(tables, xyz, spec, bound=1.0):
+    idx, w = hash_lookup.triplane_corners(xyz, spec, bound)
+    return hash_lookup.lookup_plain(tables, idx, w, spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_hashmap_size", list(range(12, 20)))
+@pytest.mark.parametrize("n", [1, 255, 4096, 65536])
+def test_encode_matches_plain_bit_for_bit(cuda_device, n, log2_hashmap_size):
+    """Every table size from 2^12 (every level hashed) to 2^19 (the coarse
+    levels dense, their sizes not powers of two), points up to 1.2 outside
+    the box; with and without the saved rows and weights, which equal
+    triplane_corners'."""
+    spec = NeRFNetConfig(log2_hashmap_size=log2_hashmap_size).plane_spec
+    spec, tables, xyz, _ = k3_inputs(cuda_device, n, spec, seed=n, spread=1.2)
+    ref = plain_encode(tables, xyz, spec)
+    pidx, pw = hash_lookup.triplane_corners(xyz, spec, 1.0)
+    for save in (False, True):
+        out, idx, w = hash_lookup.encode_cuda(tables, xyz, spec, save=save)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        if save:
+            assert torch.equal(idx, pidx) and torch.equal(w, pw)
+
+
+@pytest.mark.cuda
+def test_encode_bound_and_controls(cuda_device):
+    """At a bound of 1.5 the kernel divides as the plain version does (a true
+    division, which PyTorch on CUDA takes only from a tensor divisor); an
+    FMA-contracted pos and a dropped corner are off the limit."""
+    spec, tables, xyz, _ = k3_inputs(cuda_device, 65536, seed=3, spread=1.6)
+    ref = plain_encode(tables, xyz, spec, 1.5)
+    assert torch.equal(hash_lookup.encode_cuda(tables, xyz, spec, 1.5)[0], ref)
+    ref1 = plain_encode(tables, xyz, spec)
+    fi, fw = k3_fma_corners(xyz, spec)
+    assert (hash_lookup.lookup_plain(tables, fi, fw, spec) - ref1).abs().max().item() > K3_FWD_ATOL
+    idx, w = hash_lookup.triplane_corners(xyz, spec, 1.0)
+    w[..., 3] = 0
+    assert (hash_lookup.lookup_plain(tables, idx, w, spec) - ref1).abs().max().item() > K3_FWD_ATOL
+
+
+@pytest.mark.cuda
+def test_encode_autograd_and_routes(cuda_device):
+    """triplane_encode's routes and their launches: tables that need a
+    gradient take Encode (rows and weights saved, the backward kernel);
+    positions that need a gradient, the corner route; both give the plain
+    version's output and the plain version's table gradients; no gradient,
+    the encode alone."""
+    spec, tables, xyz, gout = k3_inputs(cuda_device, 4096, seed=4, spread=1.1)
+    idx, w = hash_lookup.triplane_corners(xyz, spec, 1.0)
+    ref = hash_lookup.lookup_plain(tables, idx, w, spec)
+    ref_grads = k3_plain_grad(spec, tables, idx, w, gout)
+
+    def run(x):
+        t = [p.clone().requires_grad_() for p in tables]
+        before = (hash_lookup.encode_launches, hash_lookup.fwd_launches,
+                  hash_lookup.bwd_launches)
+        out = hash_lookup.triplane_encode(*t, x, spec)
+        (out * gout).sum().backward()
+        torch.cuda.synchronize()
+        after = (hash_lookup.encode_launches, hash_lookup.fwd_launches, hash_lookup.bwd_launches)
+        assert torch.equal(out, ref)
+        for g, c in zip((p.grad for p in t), ref_grads):
+            scale = c.abs().max().item()
+            assert scale > 0 and (g - c).abs().max().item() <= K3_BWD_RTOL * scale
+        return out, tuple(a - b for a, b in zip(after, before))
+
+    out, launches = run(xyz)
+    assert launches == (1, 0, 1)
+    x = xyz.clone().requires_grad_()
+    _, xlaunches = run(x)
+    assert xlaunches == (0, 1, 1) and x.grad is not None
+    with torch.no_grad():
+        before = hash_lookup.encode_launches
+        assert torch.equal(hash_lookup.triplane_encode(*tables, xyz, spec), out.detach())
+        assert hash_lookup.encode_launches == before + 1
+    with pytest.raises(TypeError, match="float32"):
+        hash_lookup.encode_cuda(tables, xyz.double(), spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_lookup.encode_cuda(tables, xyz.cpu(), spec)

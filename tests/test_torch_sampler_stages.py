@@ -198,3 +198,19 @@ def test_profiling_entry_points_need_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             prof_r5m.main()
+
+
+def test_prof_k2_probes_find_their_text():
+    """prof_k2's probes are text edits of csrc/sampler.cu and
+    csrc/sampler_core.cuh, where K2's kernels (and so S2's stages) live: each
+    edit's text must be in its file once, or the script refuses to build the
+    probe on the card."""
+    from mere_fusion_tpu_torch.scripts import prof_k2
+
+    texts = {}
+    for name, path in (("sampler.cu", psamp._SRC), ("sampler_core.cuh", psamp.CORE_HEADER)):
+        with open(path) as f:
+            texts[name] = f.read()
+    for probe, edits in prof_k2.PROBES.items():
+        for file, old, _new in edits:
+            assert texts[file].count(old) == 1, (probe, file, old[:60])

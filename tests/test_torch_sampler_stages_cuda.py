@@ -13,7 +13,10 @@ of its largest value (the same exact bf16 products summed in the same
 order: 0 expected); win 1e-5 of its largest value (f32 sums of the features
 in another order); shade 1e-5 relative above 1 and full 1e-5 (the head's
 f32 sums in another order, K2b's and K2's limits); S2 full against K2 on
-the same operands: equal (it launches K2, counted as K2).
+the same operands: equal (it launches K2, counted as K2). S2's win and shade
+are K2's own tensor-core kernels stopped after the fetch or the head: the
+shade instantiations hold HGMMA (bf16 weights) or HMMA (f32) in their SASS,
+and no instantiation spills.
 """
 from __future__ import annotations
 
@@ -120,3 +123,17 @@ def test_wrappers_raise(cuda_device, monkeypatch):
         sampler_stages.sections(planes, jobs, uv, dproj.float(), dtv, weights, spec, "shade")
     with pytest.raises(ValueError, match="mode"):
         sampler_stages.sections(planes, jobs, uv, dproj, dtv, weights, spec, "head")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,instruction", [
+    ("sample_shade_comp_wgmma_kernelILi0E", "LDG"),     # win, bf16 weights: the fetch alone
+    ("sample_shade_comp_wgmma_kernelILi1E", "HGMMA"),   # shade, bf16 weights
+    ("sample_shade_comp_tf32_kernelILi0E", "LDG"),      # win, f32 weights
+    ("sample_shade_comp_tf32_kernelILi1E", "HMMA"),     # shade, f32 weights
+])
+def test_stages_are_k2_tensor_core_kernels(cuda_device, kernel, instruction):
+    from chip_smoke import kernel_build
+
+    build = kernel_build(sampler_stages.build(), kernel, instruction)   # raises on a spill
+    assert build[instruction.lower()] > 0 and build["spill_bytes"] == 0
