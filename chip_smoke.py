@@ -96,7 +96,9 @@ its seconds; any failure is fatal (exit code 1, no result line):
               K2b, K2c, K2d against its plain version (max error, kernel /
               plain times, the bound), each limit failed by its control
               (K2d: no window clamp; K2b, K2c: no bf16 rounding of
-              activations); wrong shapes and dtypes must raise.
+              activations); K2b's and K2c's instances of K2's kernels for
+              their registers and spills (none allowed) and their HGMMA
+              (bf16) or HMMA (f32) count; wrong shapes and dtypes must raise.
 8. nerf_modes   — the nerf_model frame through the bilinear and nearest
               steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
               against the K2 frame with no sampler kernel launched; frame
@@ -695,7 +697,7 @@ def k2_check(state: dict) -> dict:
             "bound_ms": bound, "bound_by": by,
         }
     for name, instruction in (("bfloat16", "HGMMA"), ("float32", "HMMA")):
-        out[name]["build"] = kernel_build(sampler.build(), sampler.KERNEL_NAMES[name],
+        out[name]["build"] = kernel_build(sampler.build(), sampler.instance_tag("K2", name),
                                           instruction)
     planes, jobs, uv, dproj, dtv, weights = ops
     try:
@@ -1602,7 +1604,13 @@ def phase_sampler_family(state: dict) -> dict:
         del ops, fam, planes, jobs, uv, dproj, dtv, weights, k2, feats, per_sample, rays_out
         del checks, unrounded
         torch.cuda.empty_cache()
+    # K2b and K2c are instances of K2's kernels: on the tensor cores, no spills
+    for name, instruction in (("bfloat16", "HGMMA"), ("float32", "HMMA")):
+        for kernel in ("K2b", "K2c"):
+            out[name][kernel]["build"] = kernel_build(
+                sampler.build(), sampler.instance_tag(kernel, name), instruction)
     state["family_numbers"] = {k: out["bfloat16"][k] for k in ("K2b", "K2c", "K2d")}
+    state["family_f32_numbers"] = {k: out["float32"][k] for k in ("K2b", "K2c")}
     state["family_launches"] = out["bfloat16"]["launches"]
     return out
 
@@ -2186,6 +2194,7 @@ def main() -> int:
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
     k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
     fam, st, k3e = state["family_numbers"], state["stage_numbers"], state["k3_encode_numbers"]
+    fam32 = state["family_f32_numbers"]
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -2246,6 +2255,15 @@ def main() -> int:
         # no single PyTorch call computes these functions (window clamp, mips, bf16 tents)
         "bound_by": fam[kernel]["bound_by"], "library_ms": None,
         "ms_measure": "per call, CUDA events",
+        # K2b and K2c: instances of K2's kernels; the row's numbers are bf16
+        # weights', the f32 kernel's beside them
+        **({"dtype": "bfloat16 weights",
+            **{k: fam[kernel]["build"][k] for k in ("registers", "spill_bytes", "hgmma")},
+            "float32": {**{k: fam32[kernel][k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
+                                                         "bound_ms", "bound_by")},
+                        **{k: fam32[kernel]["build"][k] for k in ("registers", "spill_bytes",
+                                                                  "hmma")}}}
+           if kernel in fam32 else {}),
     } for kernel, fn, line in (("K2b", "sample_shade_tiles", 628),
                                ("K2c", "render_rays_tiles", 717),
                                ("K2d", "sample_tiles", 760))] + [{

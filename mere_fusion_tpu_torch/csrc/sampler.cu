@@ -15,7 +15,8 @@
 //   2. (K2, K2b, K2c) run the ER-NeRF head (audio channel attention, sigma
 //      net with the eye attention, colour net) on the 48 features, rounding
 //      the left operand of every product to bf16 when the weights are bf16,
-//      with f32 accumulation, as _shade_core's mm does (shade);
+//      with f32 accumulation, as _shade_core's mm does (head_rows,
+//      head_tf32);
 //   3. (K2, K2c) composite each ray's samples in depth order: sigma =
 //      exp(logit), alpha = 1 - exp(-sigma dt), T = exp(-sum of earlier
 //      sigma dt), weight = alpha T where T > 1e-4, rgb = sigmoid(logit)
@@ -39,12 +40,17 @@
 //   64 real lanes of its dproj; K2c 0.07 ms: 8 MB of rays instead of the
 //   uv). Bound by operations. With f32 weights the same operations as three
 //   TF32 products a term take 1.12 ms at 495 TFLOP/s (2.76 ms as f32 FMAs
-//   at 67 TFLOP/s on the CUDA cores): K2's f32 bound.
+//   at 67 TFLOP/s on the CUDA cores): their f32 bound.
 //   K2d: no head, 9 operations per real channel; uv, planes and its 403 MB
 //   bf16 output take 0.21 ms at 3.35 TB/s. Bound by bytes.
 //
 // Design:
-//   - K2 with bf16 weights (sample_shade_comp_wgmma_kernel): the head on the
+//   - K2, K2b and K2c are instances of two kernels, one per weight dtype,
+//     templates on what they run (Stage in csrc/sampler_core.cuh: STAGE_FULL,
+//     STAGE_ROWS, STAGE_RAYS; S2's stages are two more): one body, so the
+//     three cannot drift apart. They share everything below but where a
+//     sample's coordinates come from and what a tile writes.
+//   - With bf16 weights (sample_shade_comp_wgmma_kernel): the head on the
 //     tensor cores (head_rows in csrc/sampler_core.cuh). A grid of the
 //     resident blocks loops over the tiles; each block stages the bf16
 //     weights once (~54 KB of swizzled W^T tiles), then per tile the tile's
@@ -56,13 +62,13 @@
 //     zero rows, not stored). A hidden value that lies near a bf16 rounding
 //     tie is summed again on the CUDA cores in the plain version's
 //     sequential order, so that it rounds as the plain version rounds it
-//     (settle). The (sigma, rgb) logits go to shared memory and one thread
-//     per ray folds them (step 3).
-//   - K2 with f32 weights (sample_shade_comp_tf32_kernel): the head on the
+//     (settle). The (sigma, rgb) logits go to shared memory.
+//   - With f32 weights (sample_shade_comp_tf32_kernel): the head on the
 //     tensor cores as mma.sync m16n8k8 TF32 products, each f32 product
 //     taken as three (a_lo b_hi + a_hi b_lo + a_hi b_hi; a_hi rounded as
 //     cvt.rna.tf32 rounds, by two integer operations; f32 weights round
-//     nothing, so nothing needs settling) (head_tf32 in csrc/sampler_core.cuh). A grid of the resident blocks of eight warps
+//     nothing, so nothing needs settling) (head_tf32 in
+//     csrc/sampler_core.cuh). A grid of the resident blocks of eight warps
 //     loops over the tiles; each block stages the f32 weights once as W^T
 //     rows padded to a conflict-free stride (~106 KB); each warp takes 32
 //     samples of the tile at a time: one thread a sample fetches its 48
@@ -70,127 +76,29 @@
 //     warp runs the head as two m16 row tiles, each B fragment read and
 //     split once for both; a layer's accumulator is the next layer's A
 //     fragment in registers (the contraction permuted within each k8 step,
-//     no shuffle). The logits go to shared memory for step 3, as above.
-//   - K2b, K2c: one block of 256 threads per tile; the
-//     head's weights (~95 KB as f32, transposed so each output's weights are
-//     contiguous) and the tile's direction projections are staged into
-//     shared memory (stage_tile); each thread takes samples n = tid, tid +
-//     256, ... of the tile and runs steps 1-2 for it in registers (the head
-//     as f32 FMAs on the CUDA cores: exact products of bf16-rounded operands
-//     with bf16 weights); K2b writes its sample's row, the others put
-//     (sigma logit, 3 rgb logits) in shared memory for step 3.
+//     no shuffle). The logits go to shared memory.
+//   - After a tile's row blocks, K2 and K2c fold each ray's logits, one
+//     thread a ray, in depth order, so the transmittance needs no scan (step
+//     3; K2c's dt from its ray); K2b's threads write the tile's activated
+//     rows in 16-byte stores, neighbouring threads on neighbouring chunks.
+//   - K2c's fetching threads make their sample's coordinates from its ray,
+//     read through L1 (both threads of a sample in the bf16 kernel; a few
+//     dozen operations), so its block needs exactly K2's shared memory;
+//     K2b reads the first 64 lanes of its 128-wide dproj rows.
 //   - Step 1 gathers texels straight from global memory (a job's window is
 //     local, so L1/L2 serve the reuse that the TPU kernel got from its DMA'd
-//     windows); one thread per ray folds its k samples in order, so the
-//     transmittance needs no scan.
+//     windows).
 //   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
 //     96 bytes out, neighbouring threads on neighbouring rows.
-// Next: K2b and K2c on the tensor-core heads; a cp.async window ring for the
-// fetch.
+// Next: a cp.async window ring for the fetch of S1 (csrc/sampler_stages.cu)
+// and K2d.
 //
 // The device code the four kernels share, which S1 and S2 are also made of,
-// is in csrc/sampler_core.cuh, with K2's two tensor-core kernels themselves
-// (templates that S2's stages stop early).
+// is in csrc/sampler_core.cuh, with K2's two tensor-core kernels themselves.
 
 #include "sampler_core.cuh"
 
 namespace {
-
-// K2b: K2 without the composite; each sample's activated sigma and rgb.
-template <typename WT>
-__global__ void __launch_bounds__(THREADS, 1)
-sample_shade_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
-                    const float* __restrict__ uv, const WT* __restrict__ dproj, Weights wp,
-                    float* __restrict__ out, int rpt, int kg, int ks, int wu, int wv, int rows,
-                    int rv) {
-  extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
-  int* s_jobs = reinterpret_cast<int*>(s_dp + rpt * HID);      // [3][1 + 2kg]
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  const int t = blockIdx.x;
-  constexpr bool RB = sizeof(WT) == 2;
-
-  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, 2 * HID, jobs, 3 * (1 + 2 * kg), t, rpt);
-  __syncthreads();
-
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-  for (int n = threadIdx.x; n < ns; n += THREADS) {
-    const int g = n / sg;
-    const int lane = n - g * sg;
-    float x[XD];
-    sample_uv(planes, s_jobs, uv, t, g, lane, kg, sg, umax, vmax, rows, rv, x);
-    const float4 v = shade<RB>(x, s, s_dp + (lane / ks) * HID);
-    float4* o = reinterpret_cast<float4*>(out + ((size_t)t * ns + n) * 16);
-    o[0] = make_float4(expf(v.x), rgb_act(v.y), rgb_act(v.z), rgb_act(v.w));
-    o[1] = o[2] = o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// K2c: K2 with each sample's coordinates made from its ray (rays [T, rpt,
-// 8]: o, d, zmin, zmax) and the jobs' (ou, ov, lvl, mip_base) per group.
-template <typename WT>
-__global__ void __launch_bounds__(THREADS, 1)
-render_rays_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
-                   const float* __restrict__ rays, const WT* __restrict__ dproj, Weights wp,
-                   float* __restrict__ out, int rpt, int kg, int ks, int wu, int wv, int rows,
-                   int rv, float bound, float scale) {
-  extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  float* s_dp = s + W_FLOATS;                                  // [rpt][64]
-  float* s_rays = s_dp + rpt * HID;                            // [rpt][8]
-  float4* s_res = reinterpret_cast<float4*>(s_rays + rpt * 8);  // [kg * sg]
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  int* s_jobs = reinterpret_cast<int*>(s_res + ns);            // [3][1 + 4kg]
-  const int stride = 1 + 4 * kg;
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  constexpr bool RB = sizeof(WT) == 2;
-
-  stage_tile<WT>(s, s_dp, s_jobs, wp, dproj, HID, jobs, 3 * stride, t, rpt);
-  for (int e = tid; e < rpt * 8; e += THREADS) s_rays[e] = rays[(size_t)t * rpt * 8 + e];
-  __syncthreads();
-
-  const float umax = (float)((double)wu - 1.001);
-  const float vmax = (float)((double)wv - 1.001);
-  const float km1 = (float)(kg * ks - 1);
-  for (int n = tid; n < ns; n += THREADS) {
-    const int g = n / sg;
-    const int lane = n - g * sg;
-    const int r = lane / ks;
-    const float* ray = s_rays + r * 8;
-    const float kf = __fdiv_rn((float)(g * ks + lane - r * ks), km1);
-    const float z = __fadd_rn(ray[6], __fmul_rn(__fsub_rn(ray[7], ray[6]), kf));
-    float tex[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float xyz = fminf(fmaxf(__fadd_rn(ray[c], __fmul_rn(ray[3 + c], z)), -bound), bound);
-      tex[c] = __fsub_rn(__fmul_rn(__fadd_rn(xyz, bound), scale), 0.5f);
-    }
-    float x[XD];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {   // planes xy (x, y), yz (z, y), xz (z, x)
-      const int* job = s_jobs + q * stride + 4 * g;
-      const float inv = ldexpf(1.f, -job[3]);                  // 2^-lvl
-      const float cv = __fsub_rn(__fmul_rn(0.5f, inv), 0.5f);
-      const float cu = __fadd_rn(cv, (float)job[4]);
-      const float u = __fadd_rn(__fmul_rn(tex[q == 0 ? 0 : 2], inv), cu);
-      const float v = __fadd_rn(__fmul_rn(tex[q == 2 ? 0 : 1], inv), cv);
-      sample_plane(planes, s_jobs[q * stride], job[1], job[2], u, v, umax, vmax, rows, rv, x, q);
-    }
-    s_res[n] = shade<RB>(x, s, s_dp + r * HID);
-  }
-  __syncthreads();
-
-  for (int r = tid; r < rpt; r += THREADS) {
-    const float* ray = s_rays + r * 8;
-    composite_ray(s_res, r, kg, ks, sg, __fdiv_rn(__fsub_rn(ray[7], ray[6]), (float)(kg * ks)),
-                  out + ((size_t)t * rpt + r) * 16);
-  }
-}
 
 // K2d: one thread per sample; its 48 features as bf16.
 __global__ void __launch_bounds__(THREADS)
@@ -233,8 +141,9 @@ sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restr
 
 // K2: uv [3 tiles, kg, 2, rpt * ks] f32; dproj [tiles, rpt, 64]; dtv [tiles,
 // rpt, 8] f32; out [tiles, rpt, 16] f32. bf16 weights take the wgmma kernel,
-// f32 weights the 3xTF32 one; the block's shared memory (head_smem,
-// tf32_smem) must fit its 227 KB.
+// f32 weights the 3xTF32 one (launch_k2); the block's shared memory
+// (head_smem, tf32_smem) must fit its 227 KB, as must K2b's and K2c's, the
+// same.
 extern "C" int mf_sample_shade_comp(
     int device, int bf16, const void* planes, const void* jobs, const void* uv,
     const void* dproj, const void* dtv, const void* wx_aud, const void* w_aud1,
@@ -242,26 +151,10 @@ extern "C" int mf_sample_shade_comp(
     const void* w_sig_e, const void* w_sig1, const void* w_sigcol, const void* w_geo,
     const void* w_col_g, const void* w_rgb, const void* col_bias, void* out, int tiles,
     int rpt, int kg, int ks, int wu, int wv, int rows, int rv, void* stream) {
-  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const __nv_bfloat16*>(planes);
-  const auto* j = static_cast<const int*>(jobs);
-  const auto* u = static_cast<const float*>(uv);
-  const auto* d = static_cast<const float*>(dtv);
-  auto* o = static_cast<float*>(out);
-  if (bf16)
-    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_FULL>, HEAD_THREADS,
-                                head_smem(rpt, (size_t)kg * rpt * ks), tiles, device, s, p, j, u,
-                                static_cast<const __nv_bfloat16*>(dproj), d, wp, o, tiles, rpt,
-                                kg, ks, wu, wv, rows, rv);
-  return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_FULL>, TF_THREADS,
-                              tf32_smem((size_t)kg * rpt * ks), tiles, device, s, p, j, u,
-                              static_cast<const float*>(dproj), d, wp, o, tiles, rpt, kg, ks,
-                              wu, wv, rows, rv);
+  return launch_k2<STAGE_FULL>(device, bf16, planes, jobs, uv, dproj, dtv, wp, out, tiles, rpt,
+                               kg, ks, wu, wv, rows, rv, 0.f, 0.f, stream);
 }
 
 // K2b: uv as K2's; dproj [tiles, rpt, 128] (lanes 64: unused); out [tiles,
@@ -273,24 +166,10 @@ extern "C" int mf_sample_shade(
     const void* w_sig1, const void* w_sigcol, const void* w_geo, const void* w_col_g,
     const void* w_rgb, const void* col_bias, void* out, int tiles, int rpt, int kg, int ks,
     int wu, int wv, int rows, int rv, void* stream) {
-  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  const size_t bytes = shade_smem(rpt, HID, 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const __nv_bfloat16*>(planes);
-  const auto* j = static_cast<const int*>(jobs);
-  const auto* u = static_cast<const float*>(uv);
-  auto* o = static_cast<float*>(out);
-  if (bf16)
-    return (int)launch_tiles(sample_shade_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, u,
-                             static_cast<const __nv_bfloat16*>(dproj), wp, o, rpt, kg, ks, wu,
-                             wv, rows, rv);
-  return (int)launch_tiles(sample_shade_kernel<float>, bytes, tiles, s, p, j, u,
-                           static_cast<const float*>(dproj), wp, o, rpt, kg, ks, wu, wv, rows,
-                           rv);
+  return launch_k2<STAGE_ROWS>(device, bf16, planes, jobs, uv, dproj, nullptr, wp, out, tiles,
+                               rpt, kg, ks, wu, wv, rows, rv, 0.f, 0.f, stream);
 }
 
 // K2c: rays [tiles, rpt, 8] f32 (o, d, zmin, zmax); dproj [tiles, rpt, 64];
@@ -302,24 +181,10 @@ extern "C" int mf_render_rays(
     const void* w_sig1, const void* w_sigcol, const void* w_geo, const void* w_col_g,
     const void* w_rgb, const void* col_bias, void* out, int tiles, int rpt, int kg, int ks,
     int wu, int wv, int rows, int rv, float bound, float scale, void* stream) {
-  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 4)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  const size_t bytes = shade_smem(rpt, HID + 8, (size_t)kg * rpt * ks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const __nv_bfloat16*>(planes);
-  const auto* j = static_cast<const int*>(jobs);
-  const auto* r = static_cast<const float*>(rays);
-  auto* o = static_cast<float*>(out);
-  if (bf16)
-    return (int)launch_tiles(render_rays_kernel<__nv_bfloat16>, bytes, tiles, s, p, j, r,
-                             static_cast<const __nv_bfloat16*>(dproj), wp, o, rpt, kg, ks, wu,
-                             wv, rows, rv, bound, scale);
-  return (int)launch_tiles(render_rays_kernel<float>, bytes, tiles, s, p, j, r,
-                           static_cast<const float*>(dproj), wp, o, rpt, kg, ks, wu, wv, rows,
-                           rv, bound, scale);
+  return launch_k2<STAGE_RAYS>(device, bf16, planes, jobs, rays, dproj, nullptr, wp, out, tiles,
+                               rpt, kg, ks, wu, wv, rows, rv, bound, scale, stream);
 }
 
 // K2d: uv as K2's; out [tiles, kg, rpt * ks, 48] bf16.

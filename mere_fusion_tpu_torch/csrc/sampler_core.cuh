@@ -4,22 +4,21 @@
 // includes it compiles its own copy.
 //
 // What is here, in the order K2 runs it:
-//   - u_tent, sample_plane, sample_uv: step 1, the window-clamped bilinear
-//     fetch of one sample's three plane texels (u weights rounded to bf16);
-//   - stage_weights, stage_tile: a shading block's prologue (the head's
-//     weights, the tile's direction projections and job table into shared
-//     memory);
-//   - shade: step 2, the ER-NeRF head on one sample on the CUDA cores (K2b,
-//     K2c);
-//   - composite_ray: step 3, one ray's composite in depth order;
-//   - launch_tiles, shade_smem, bad_geometry: host-side launch helpers;
+//   - u_tent, sample_plane, sample_uv, sample_ray: step 1, the
+//     window-clamped bilinear fetch of one sample's three plane texels (u
+//     weights rounded to bf16), at explicit coordinates or (K2c) at
+//     coordinates made from the sample's ray;
+//   - rgb_act, composite_ray, write_rows: step 3, one ray's composite in
+//     depth order, or K2b's activated rows per sample;
+//   - bad_geometry: the launchers' check of a geometry;
 //   - stage_head_weights, write_x_half, head_rows, head_smem: step 2 with
 //     bf16 weights on the tensor cores, 64 samples at a time (K2's head);
 //   - stage_tf32_weights, head_tf32, tf32_smem: step 2 with f32 weights on
 //     the tensor cores as three TF32 products a term, 32 samples a warp;
 //   - sample_shade_comp_wgmma_kernel, sample_shade_comp_tf32_kernel: K2
-//     with bf16 and with f32 weights, templates on how far they run (the
-//     whole of K2, or S2's win and shade stages), and launch_resident.
+//     with bf16 and with f32 weights, templates on what they run (Stage:
+//     the whole of K2, S2's win and shade stages, K2b, K2c), and
+//     launch_resident, launch_k2.
 // See csrc/sampler.cu for the functions, the bounds and the design.
 
 #pragma once
@@ -39,26 +38,18 @@ constexpr int MAX_JOB_INTS = 64;
 constexpr size_t MAX_SMEM = 232448;   // dynamic shared memory a block may use (sm_90)
 constexpr int N_WEIGHTS = 13;
 
-// How far a K2 kernel runs: all of it (full), or, as S2's stages
-// (csrc/sampler_stages.cu), stopped after the fetch (win) or the head (shade).
-enum Stage { STAGE_WIN, STAGE_SHADE, STAGE_FULL };
+// What an instance of K2's kernels runs: all of K2 (full); K2 stopped after
+// the fetch (win) or the head (shade), S2's stages (csrc/sampler_stages.cu);
+// K2b, whose tile writes each sample's activated sigma and rgb in place of
+// the composite (rows); K2c, which makes each sample's coordinates from its
+// ray (rays). The value is the template argument in the instance's mangled
+// name (ops/sampler.py STAGES).
+enum Stage { STAGE_WIN, STAGE_SHADE, STAGE_FULL, STAGE_ROWS, STAGE_RAYS };
 
-// shared-memory layout, in floats
-constexpr int O_WX = 0;                            // [144][48] (wx_aud|wx_sig|wx_eye)^T
-constexpr int O_AUD1 = O_WX + (2 * HID + EYE) * XD;  // [64][32] w_aud1
-constexpr int O_AUDSIG = O_AUD1 + HID * AUD;       // [64][32] w_aud_sig^T
-constexpr int O_EYE1 = O_AUDSIG + HID * AUD;       // [16] w_eye1[:, 0]
-constexpr int O_SIGE = O_EYE1 + EYE;               // [64] w_sig_e[0]
-constexpr int O_SIG1 = O_SIGE + HID;               // [64][64] w_sig1^T
-constexpr int O_SIGCOL = O_SIG1 + HID * HID;       // [64] w_sigcol[:, 0]
-constexpr int O_GEO = O_SIGCOL + HID;              // [64][64] w_geo^T
-constexpr int O_COLG = O_GEO + HID * HID;          // [64][64] w_col_g^T
-constexpr int O_RGB = O_COLG + HID * HID;          // [64][4] w_rgb[:, 1:4], 0
-constexpr int O_CB = O_RGB + 4 * HID;              // [64] col_bias[0]
-constexpr int W_FLOATS = O_CB + HID;
-static_assert(O_AUD1 % 4 == 0 && O_AUDSIG % 4 == 0 && O_SIG1 % 4 == 0 &&
-              O_GEO % 4 == 0 && O_COLG % 4 == 0 && O_RGB % 4 == 0 && W_FLOATS % 4 == 0,
-              "float4 rows must stay 16-byte aligned");
+// dproj's row stride in values: K2b takes rows of 128 (lanes 64 and up unread)
+__host__ __device__ constexpr int dp_stride(int stage) {
+  return stage == STAGE_ROWS ? 2 * HID : HID;
+}
 
 struct Weights {
   const void* p[N_WEIGHTS];  // SHADE_WEIGHTS order
@@ -66,15 +57,12 @@ struct Weights {
 enum { WX_AUD, W_AUD1, WX_SIG, W_AUD_SIG, WX_EYE, W_EYE1, W_SIG_E, W_SIG1, W_SIGCOL,
        W_GEO, W_COL_G, W_RGB, COL_BIAS };
 
-__device__ __forceinline__ float ld(const float* p, int i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
 }
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-template <bool RB>
-__device__ __forceinline__ float act(float x) { return RB ? bf16r(x) : x; }
 
 // channel c of a texel held as uint4s of 8 bf16 each, as f32 (c is a
 // compile-time constant after unrolling, so this folds to one shift or mask)
@@ -84,119 +72,6 @@ __device__ __forceinline__ float channel(const uint4 (&t)[H], int c) {
   const int i = (c >> 1) & 3;
   const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
   return __uint_as_float((c & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-
-template <int K>
-__device__ __forceinline__ float dot(const float (&x)[K], const float* __restrict__ w) {
-  float acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; k += 4) {
-    const float4 w4 = *reinterpret_cast<const float4*>(w + k);
-    acc = fmaf(x[k], w4.x, acc);
-    acc = fmaf(x[k + 1], w4.y, acc);
-    acc = fmaf(x[k + 2], w4.z, acc);
-    acc = fmaf(x[k + 3], w4.w, acc);
-  }
-  return acc;
-}
-
-template <typename WT>
-__device__ void stage_weights(float* s, const Weights& wp) {
-  const int tid = threadIdx.x;
-  auto W = [&](int i) { return static_cast<const WT*>(wp.p[i]); };
-  for (int e = tid; e < XD * HID; e += THREADS) {  // [48][64] sources
-    const int k = e / HID, j = e % HID;
-    s[O_WX + j * XD + k] = ld(W(WX_AUD), e);
-    s[O_WX + (HID + j) * XD + k] = ld(W(WX_SIG), e);
-  }
-  for (int e = tid; e < XD * EYE; e += THREADS) {
-    const int k = e / EYE, j = e % EYE;
-    s[O_WX + (2 * HID + j) * XD + k] = ld(W(WX_EYE), e);
-  }
-  for (int e = tid; e < HID * AUD; e += THREADS) {
-    s[O_AUD1 + e] = ld(W(W_AUD1), e);
-    const int i = e / HID, j = e % HID;  // w_aud_sig is [32][64]
-    s[O_AUDSIG + j * AUD + i] = ld(W(W_AUD_SIG), e);
-  }
-  for (int e = tid; e < HID * HID; e += THREADS) {
-    const int k = e / HID, j = e % HID;
-    s[O_SIG1 + j * HID + k] = ld(W(W_SIG1), e);
-    s[O_GEO + j * HID + k] = ld(W(W_GEO), e);
-    s[O_COLG + j * HID + k] = ld(W(W_COL_G), e);
-  }
-  for (int e = tid; e < HID; e += THREADS) {
-    s[O_SIGE + e] = ld(W(W_SIG_E), e);
-    s[O_SIGCOL + e] = ld(W(W_SIGCOL), e * 16);
-    s[O_CB + e] = ld(W(COL_BIAS), e);
-    s[O_RGB + 4 * e + 0] = ld(W(W_RGB), e * 16 + 1);
-    s[O_RGB + 4 * e + 1] = ld(W(W_RGB), e * 16 + 2);
-    s[O_RGB + 4 * e + 2] = ld(W(W_RGB), e * 16 + 3);
-    s[O_RGB + 4 * e + 3] = 0.f;
-  }
-  for (int e = tid; e < EYE; e += THREADS) s[O_EYE1 + e] = ld(W(W_EYE1), e * 8);
-}
-
-// The head chain of _shade_core on one sample's features x; dp is the ray's
-// direction projection row. Returns (sigma logit, r, g, b logits).
-template <bool RB>
-__device__ __forceinline__ float4 shade(float (&x)[XD], const float* __restrict__ s,
-                                        const float* __restrict__ dp) {
-#pragma unroll
-  for (int k = 0; k < XD; ++k) x[k] = act<RB>(x[k]);
-  // audio channel attention: aud_ch = relu(x Wa0) Wa1, streamed over units
-  float ach[AUD];
-#pragma unroll
-  for (int i = 0; i < AUD; ++i) ach[i] = 0.f;
-#pragma unroll 1
-  for (int j = 0; j < HID; ++j) {
-    const float a = act<RB>(fmaxf(dot<XD>(x, s + O_WX + j * XD), 0.f));
-    const float* w = s + O_AUD1 + j * AUD;
-#pragma unroll
-    for (int i = 0; i < AUD; i += 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(w + i);
-      ach[i] = fmaf(a, w4.x, ach[i]);
-      ach[i + 1] = fmaf(a, w4.y, ach[i + 1]);
-      ach[i + 2] = fmaf(a, w4.z, ach[i + 2]);
-      ach[i + 3] = fmaf(a, w4.w, ach[i + 3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < AUD; ++i) ach[i] = act<RB>(ach[i]);
-  // eye attention scalar
-  float e = 0.f;
-#pragma unroll 1
-  for (int j = 0; j < EYE; ++j)
-    e = fmaf(act<RB>(fmaxf(dot<XD>(x, s + O_WX + (2 * HID + j) * XD), 0.f)),
-             s[O_EYE1 + j], e);
-  const float eye = 1.f / (1.f + expf(-e));
-  // sigma net layer 0: x Ws0 + aud_ch (diag(enc_a) Ws0a) + eye w_e, relu
-  float h[HID];
-#pragma unroll
-  for (int j = 0; j < HID; ++j) {
-    const float hv = __fadd_rn(dot<XD>(x, s + O_WX + (HID + j) * XD),
-                               dot<AUD>(ach, s + O_AUDSIG + j * AUD));
-    h[j] = act<RB>(fmaxf(__fadd_rn(hv, __fmul_rn(eye, s[O_SIGE + j])), 0.f));
-  }
-  float h2[HID];
-#pragma unroll
-  for (int j = 0; j < HID; ++j) h2[j] = act<RB>(fmaxf(dot<HID>(h, s + O_SIG1 + j * HID), 0.f));
-  const float sig = dot<HID>(h2, s + O_SIGCOL);
-  float geo[HID];
-#pragma unroll
-  for (int j = 0; j < HID; ++j) geo[j] = act<RB>(dot<HID>(h2, s + O_GEO + j * HID));
-  // colour net: relu(geo Wc0g + dproj + bias) Wc1, streamed over units
-  float r0 = 0.f, r1 = 0.f, r2 = 0.f;
-#pragma unroll 1
-  for (int j = 0; j < HID; ++j) {
-    const float c = __fadd_rn(__fadd_rn(dot<HID>(geo, s + O_COLG + j * HID), dp[j]),
-                              s[O_CB + j]);
-    const float cr = act<RB>(fmaxf(c, 0.f));
-    const float4 w4 = *reinterpret_cast<const float4*>(s + O_RGB + 4 * j);
-    r0 = fmaf(cr, w4.x, r0);
-    r1 = fmaf(cr, w4.y, r1);
-    r2 = fmaf(cr, w4.z, r2);
-  }
-  return make_float4(sig, r0, r1, r2);
 }
 
 // The tent weight max(0, 1 - |r - c|) of a window-clamped coordinate c at
@@ -266,6 +141,64 @@ __device__ __forceinline__ void sample_uv(const __nv_bfloat16* __restrict__ plan
   }
 }
 
+// Step 1 for the three planes of sample j of group g of one ray (its row
+// of rays [8]: o, d, zmin, zmax, read through L1) with K2c's job table
+// [3][1 + 4 kg] (plane, then (ou, ov, lvl, mip_base) per group). The
+// sample's coordinates are made as _render_rays_kernel makes them, each
+// operation rounded on its own as ops/sampler.py rays_uv rounds it: kf =
+// (g ks + j) / (k - 1), a true division; z = zmin + span kf; xyz = clip(o +
+// d z); texel (xyz + bound) scale - 0.5; at the job's mip level tex 2^-lvl +
+// 0.5 2^-lvl - 0.5, + mip_base for u. All channels, or (HALVES = 1) half h0
+// of each plane's.
+template <int HALVES = 2>
+__device__ __forceinline__ void sample_ray(const __nv_bfloat16* __restrict__ planes,
+                                           const int* jobs, const float* __restrict__ ray,
+                                           int g, int j, int kg, int ks, float bound,
+                                           float scale, float umax, float vmax, int rows,
+                                           int rv, float (&x)[3 * 8 * HALVES], int h0 = 0) {
+  const int stride = 1 + 4 * kg;
+  const float kf = __fdiv_rn((float)(g * ks + j), (float)(kg * ks - 1));
+  const float zmin = __ldg(ray + 6);
+  const float z = __fadd_rn(zmin, __fmul_rn(__fsub_rn(__ldg(ray + 7), zmin), kf));
+  float tex[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float xyz =
+        fminf(fmaxf(__fadd_rn(__ldg(ray + c), __fmul_rn(__ldg(ray + 3 + c), z)), -bound), bound);
+    tex[c] = __fsub_rn(__fmul_rn(__fadd_rn(xyz, bound), scale), 0.5f);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {   // planes xy (x, y), yz (z, y), xz (z, x)
+    const int* job = jobs + q * stride + 4 * g;
+    const float inv = ldexpf(1.f, -job[3]);                  // 2^-lvl
+    const float cv = __fsub_rn(__fmul_rn(0.5f, inv), 0.5f);
+    const float cu = __fadd_rn(cv, (float)job[4]);
+    const float u = __fadd_rn(__fmul_rn(tex[q == 0 ? 0 : 2], inv), cu);
+    const float v = __fadd_rn(__fmul_rn(tex[q == 2 ? 0 : 1], inv), cv);
+    sample_plane<HALVES>(planes, jobs[q * stride], job[1], job[2], u, v, umax, vmax, rows, rv, x,
+                         q, h0);
+  }
+}
+
+// Step 1 for sample n of tile t in an instance of K2's kernels: from uv [3
+// tiles, kg, 2, sg] (coords; every stage but rays) or from the sample's ray
+// in rays [tiles, rpt, 8] (coords; rays), with the tile's job table jobs.
+template <int STAGE, int HALVES>
+__device__ __forceinline__ void fetch(const __nv_bfloat16* __restrict__ planes, const int* jobs,
+                                      const float* __restrict__ coords, int t, int n, int rpt,
+                                      int kg, int ks, float bound, float scale, float umax,
+                                      float vmax, int rows, int rv, float (&x)[24 * HALVES],
+                                      int h) {
+  const int sg = rpt * ks, g = n / sg, lane = n - g * sg;
+  if constexpr (STAGE == STAGE_RAYS) {
+    const int r = lane / ks;
+    sample_ray<HALVES>(planes, jobs, coords + ((size_t)t * rpt + r) * 8, g, lane - r * ks, kg, ks,
+                       bound, scale, umax, vmax, rows, rv, x, h);
+  } else {
+    sample_uv<HALVES>(planes, jobs, coords, t, g, lane, kg, sg, umax, vmax, rows, rv, x, h);
+  }
+}
+
 __device__ __forceinline__ float rgb_act(float logit) {
   return __fsub_rn(__fmul_rn(1.f / (1.f + expf(-logit)), 1.002f), 0.001f);
 }
@@ -294,38 +227,32 @@ __device__ __forceinline__ void composite_ray(const float4* __restrict__ res, in
   o[1] = o[2] = o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// A shading block's prologue: the head's weights, the tile's direction
-// projections (the first 64 lanes of each dp_stride-wide row of dproj) and
-// its job table (n_jobs ints) into shared memory.
-template <typename WT>
-__device__ __forceinline__ void stage_tile(float* s, float* s_dp, int* s_jobs, const Weights& wp,
-                                           const WT* __restrict__ dproj, int dp_stride,
-                                           const int* __restrict__ jobs, int n_jobs, int t,
-                                           int rpt) {
-  const int tid = threadIdx.x;
-  stage_weights<WT>(s, wp);
-  const WT* dp = dproj + (size_t)t * rpt * dp_stride;
-  for (int e = tid; e < rpt * HID; e += THREADS) s_dp[e] = ld(dp, (e / HID) * dp_stride + e % HID);
-  for (int e = tid; e < n_jobs; e += THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
+// Ray `row` (tile t's ray r at t rpt + r)'s dt for the composite: lane 0 of
+// its dtv row (K2), or span / k of its ray (K2c, STAGE_RAYS; a true division)
+template <int STAGE>
+__device__ __forceinline__ float ray_dt(const float* __restrict__ dtv,
+                                        const float* __restrict__ rays, size_t row, int k) {
+  if constexpr (STAGE == STAGE_RAYS)
+    return __fdiv_rn(__fsub_rn(__ldg(rays + row * 8 + 7), __ldg(rays + row * 8 + 6)), (float)k);
+  else
+    return dtv[row * 8];
 }
 
-// Set a kernel's dynamic shared memory, launch one block per tile, and
-// return the launch's error.
-template <typename Kernel, typename... Args>
-cudaError_t launch_tiles(Kernel kernel, size_t bytes, int tiles, cudaStream_t stream,
-                         Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<tiles, THREADS, bytes, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// shared memory of a shading block: the weights, rows floats per ray, the
-// samples' float4 results (if any) and the job table
-size_t shade_smem(int rpt, int rows, size_t samples) {
-  return sizeof(float) * ((size_t)W_FLOATS + (size_t)rpt * rows + 4 * samples)
-         + sizeof(int) * MAX_JOB_INTS;
+// K2b's tile: each sample n's activated sigma = exp(logit) and rgb_act of
+// its rgb logits (res[n]), then 12 zero lanes, as rows [ns][16] f32 at out;
+// the block's NTHREADS threads store neighbouring 16-byte chunks.
+template <int NTHREADS>
+__device__ __forceinline__ void write_rows(const float4* __restrict__ res, int ns,
+                                           float* __restrict__ out) {
+  float4* o = reinterpret_cast<float4*>(out);
+  for (int e = threadIdx.x; e < 4 * ns; e += NTHREADS) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (e % 4 == 0) {
+      const float4 l = res[e / 4];
+      v = make_float4(expf(l.x), rgb_act(l.y), rgb_act(l.z), rgb_act(l.w));
+    }
+    o[e] = v;
+  }
 }
 
 bool bad_geometry(int tiles, int rpt, int kg, int ks, int wu, int wv, int rows, int rv,
@@ -334,14 +261,13 @@ bool bad_geometry(int tiles, int rpt, int kg, int ks, int wu, int wv, int rows, 
          3 * (1 + job_fields * kg) > MAX_JOB_INTS || wu < 2 || wv < 2 || rows < wu || rv < wv;
 }
 
-
 // ---------------------------------------------------------------------------
 // Step 2 with bf16 weights on the tensor cores: a warpgroup (128 threads)
 // runs the head on a row block of 64 samples as a chain of wgmma products,
 // M = 64 samples, K = 48 features or 64 (32) hidden units, N = a layer's
-// width. Every left operand is already rounded to bf16 (act<true>) and the
-// weights are bf16, so the products are exact and only the order of the f32
-// sums differs from shade<true>.
+// width. Every left operand is already rounded to bf16 and the weights are
+// bf16, so the products are exact and only the order of the f32 sums
+// differs from the plain version's sequential f32 FMAs.
 //   - The weights are staged once per block as W^T tiles [N][K] of 128-byte
 //     rows with the 128 B swizzle wgmma reads (K-major B operands); the
 //     fetch writes each sample's 48 features as bf16 into a swizzled row of
@@ -898,8 +824,8 @@ __device__ __forceinline__ void head_rows(uint8_t* base, const uint8_t* xg,
 // each f32 product taken as three TF32 products (a_lo b_hi + a_hi b_lo +
 // a_hi b_hi, operands split as a = a_hi + a_lo with a_hi rounded as
 // cvt.rna.tf32 rounds: split_tf32; the dropped a_lo b_lo is ~2^-21
-// relative), summed in the f32 accumulators. f32 weights round nothing
-// (act<false>), so no value needs settling.
+// relative), summed in the f32 accumulators. f32 weights round no
+// activation, so no value needs settling.
 //   - The f32 weights are staged once per block as W^T rows [N][K + 8]
 //     (TS48, TS64, TS32 floats: a stride of 8 mod 32 makes every fragment
 //     read below free of bank conflicts). B fragments are read as float2 and
@@ -1069,8 +995,9 @@ __device__ void stage_tf32_weights(float* s, const Weights& wp) {
 // The head on the warp's row tiles, whose features are the warp's x rows xs
 // ([TF_ROWS][TS48], rows n0 + r of the tile's samples); the (sigma, r, g, b)
 // logits of each sample n < ns into res[n]. sm: the block's shared memory;
-// dp: the tile's dproj rows (f32 [rpt][64], read through L1 where the colour
-// layer adds them). Samples are group-major, sample n of ray (n % sg) / ks.
+// dp: the tile's dproj rows (f32 [rpt][dp_stride(STAGE)], the first 64 of
+// each read through L1 where the colour layer adds them). Samples are
+// group-major, sample n of ray (n % sg) / ks.
 // The shade stage takes the last two products over all 16 columns (the wide
 // rows at F_WIDE) and writes rows n < rpt of their sum into rows ([rpt]
 // [16], the tile's output), as head_rows does; the others ignore rows and rpt.
@@ -1080,6 +1007,7 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
                                           int n0, int ns, int sg, int ks,
                                           float* __restrict__ rows, int rpt) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  constexpr int DP = dp_stride(STAGE);
   const float* vec = sm + F_VEC;
   auto col = [&](int j, int i) { return 8 * j + 2 * t + (i & 1); };   // register i of n-tile j
   auto x_at = [&](int m, int s) {   // rows g, g + 8 of row tile m, features 8s + 2t, + 1
@@ -1199,7 +1127,7 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
         for (int i = 0; i < 4; ++i) {
           const int n = n0 + 16 * m + g + 8 * (i / 2), k = col(j, i);
           const int ray = (n - (n / sg) * sg) / ks;
-          h2[m][j][i] = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray * HID + k)),
+          h2[m][j][i] = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray * DP + k)),
                                         vec[V_CB + k]), 0.f);
         }
     zero(wide);
@@ -1221,7 +1149,7 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int k = col(j, i), hf = i / 2;
-        const float cr = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray[hf] * HID + k)),
+        const float cr = fmaxf(__fadd_rn(__fadd_rn(h2[m][j][i], __ldg(dp + ray[hf] * DP + k)),
                                          vec[V_CB + k]), 0.f);
         c[hf][0] = fmaf(cr, vec[V_RGB + 4 * k], c[hf][0]);
         c[hf][1] = fmaf(cr, vec[V_RGB + 4 * k + 1], c[hf][1]);
@@ -1240,13 +1168,19 @@ __device__ __forceinline__ void head_tf32(const float* __restrict__ sm, const fl
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// K2's tensor-core kernels (csrc/sampler.cu launches them whole, STAGE_FULL;
-// csrc/sampler_stages.cu stopped after the fetch or the head, S2's win and
-// shade). The per-sample area after dp holds K2's kg sg results, or, in
-// the win stage, at least its sums: [HEAD_WGS][rpt][WIN_STRIDE] f32 (bf16
-// kernel, one per warpgroup; rows padded so that a warp's 32 rows fall in
-// 32 banks) or [TF_THREADS][16] (f32 kernel, one per thread).
+// K2's tensor-core kernels, one body per weight dtype and a template on what
+// it runs (Stage): csrc/sampler.cu launches K2 (full), K2b (rows) and K2c
+// (rays); csrc/sampler_stages.cu K2 stopped after the fetch or the head,
+// S2's win and shade. The variants share the resident grid, the block, the
+// weight staging, the fetch and the head, and differ only in where a
+// sample's coordinates come from (uv, or K2c's rays) and what a tile writes
+// (the composite, K2b's rows, or a stage's sums). The per-sample area after
+// dp holds the tile's kg sg results, or, in the win stage, at least its
+// sums: [HEAD_WGS][rpt][WIN_STRIDE] f32 (bf16 kernel, one per warpgroup;
+// rows padded so that a warp's 32 rows fall in 32 banks) or
+// [TF_THREADS][16] (f32 kernel, one per thread).
 constexpr int WIN_STRIDE = CP + 1;
 __host__ __device__ inline int stage_rows(int stage, bool bf16, int ns, int rpt) {
   const int need = stage != STAGE_WIN ? 0
@@ -1256,7 +1190,8 @@ __host__ __device__ inline int stage_rows(int stage, bool bf16, int ns, int rpt)
 }
 
 // shared memory of a block of either kernel at a stage: K2's (head_smem,
-// tf32_smem) with the stage's per-sample area and, for shade, the wide tiles
+// tf32_smem; K2b's and K2c's alike) with the stage's per-sample area and,
+// for shade, the wide tiles
 size_t stage_smem(int stage, bool bf16, int rpt, int ns) {
   const int rows = stage_rows(stage, bf16, ns, rpt);
   if (bf16) return head_smem(rpt, rows) + (stage == STAGE_SHADE ? H_WIDE_BYTES : 0);
@@ -1272,21 +1207,23 @@ size_t stage_smem(int stage, bool bf16, int rpt, int ns) {
 template <int STAGE>
 __global__ void __launch_bounds__(HEAD_THREADS, 1)
 sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
-                               const int* __restrict__ jobs, const float* __restrict__ uv,
+                               const int* __restrict__ jobs, const float* __restrict__ coords,
                                const __nv_bfloat16* __restrict__ dproj,
                                const float* __restrict__ dtv, Weights wp, float* __restrict__ out,
                                int tiles, int rpt, int kg, int ks, int wu, int wv, int rows,
-                               int rv) {
+                               int rv, float bound, float scale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
   const int sg = rpt * ks;
   const int ns = kg * sg;
+  constexpr int DP = dp_stride(STAGE);
   auto* s_dp = reinterpret_cast<__nv_bfloat16*>(
       base + H_FIXED + (STAGE == STAGE_SHADE ? H_WIDE_BYTES : 0));   // [rpt][64]
   auto* s_res = reinterpret_cast<float4*>(s_dp + rpt * HID);        // [kg * sg]
-  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, true, ns, rpt));  // [3][1 + 2kg]
+  // [3][1 + 2kg], K2c's [3][1 + 4kg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, true, ns, rpt));
   float* s_win = reinterpret_cast<float*>(s_res);   // win: [HEAD_WGS][rpt][WIN_STRIDE]
-  const int n_jobs = 3 * (1 + 2 * kg);
+  const int n_jobs = 3 * (1 + (STAGE == STAGE_RAYS ? 4 : 2) * kg);
   const int tid = threadIdx.x, wg = tid / WG_SIZE, wt = tid % WG_SIZE;
   uint8_t* x_wg = base + H_X + wg * X_TILE;   // this warpgroup's x tile
   const float umax = (float)((double)wu - 1.001);
@@ -1296,11 +1233,12 @@ sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
   if constexpr (STAGE == STAGE_WIN)
     for (int e = tid; e < HEAD_WGS * rpt * WIN_STRIDE; e += HEAD_THREADS) s_win[e] = 0.f;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const uint4* dp = reinterpret_cast<const uint4*>(dproj + (size_t)t * rpt * HID);
-    for (int e = tid; e < rpt * HID / 8; e += HEAD_THREADS) reinterpret_cast<uint4*>(s_dp)[e] = dp[e];
+    const uint4* dp = reinterpret_cast<const uint4*>(dproj + (size_t)t * rpt * DP);
+    for (int e = tid; e < rpt * HID / 8; e += HEAD_THREADS)   // the first 64 of each row
+      reinterpret_cast<uint4*>(s_dp)[e] = dp[(e / (HID / 8)) * (DP / 8) + e % (HID / 8)];
     for (int e = tid; e < n_jobs; e += HEAD_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
     __syncthreads();   // the weights (first tile), dp and jobs are staged; the last
-                       // tile's composite is done with s_res
+                       // tile's composite or rows are done with s_res
 
     // row blocks of 64 samples in turn; two threads a sample fetch half its
     // channels each
@@ -1308,8 +1246,8 @@ sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
       const int n = n0 + wt % HEAD_ROWS, h = wt / HEAD_ROWS;
       float x[24];
       if (n < ns) {
-        const int g = n / sg;
-        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, x, h);
+        fetch<STAGE, 1>(planes, s_jobs, coords, t, n, rpt, kg, ks, bound, scale, umax, vmax, rows,
+                        rv, x, h);
       } else {
 #pragma unroll
         for (int k = 0; k < 24; ++k) x[k] = 0.f;
@@ -1337,10 +1275,13 @@ sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
     }
     __syncthreads();
 
-    if constexpr (STAGE == STAGE_FULL) {
+    if constexpr (STAGE == STAGE_FULL || STAGE == STAGE_RAYS) {
       for (int r = tid; r < rpt; r += HEAD_THREADS)
-        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+        composite_ray(s_res, r, kg, ks, sg,
+                      ray_dt<STAGE>(dtv, coords, (size_t)t * rpt + r, kg * ks),
                       out + ((size_t)t * rpt + r) * 16);
+    } else if constexpr (STAGE == STAGE_ROWS) {
+      write_rows<HEAD_THREADS>(s_res, ns, out + (size_t)t * ns * CP);
     } else if constexpr (STAGE == STAGE_WIN) {
       for (int e = tid; e < rpt * CP; e += HEAD_THREADS) {   // the warpgroups' sums, in order
         const int i = (e / CP) * WIN_STRIDE + e % CP;
@@ -1367,18 +1308,20 @@ sample_shade_comp_wgmma_kernel(const __nv_bfloat16* __restrict__ planes,
 template <int STAGE>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
-                              const int* __restrict__ jobs, const float* __restrict__ uv,
+                              const int* __restrict__ jobs, const float* __restrict__ coords,
                               const float* __restrict__ dproj, const float* __restrict__ dtv,
                               Weights wp, float* __restrict__ out, int tiles, int rpt, int kg,
-                              int ks, int wu, int wv, int rows, int rv) {
+                              int ks, int wu, int wv, int rows, int rv, float bound,
+                              float scale) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int sg = rpt * ks;
   const int ns = kg * sg;
   float4* s_res = reinterpret_cast<float4*>(
       sm + F_FIXED + (STAGE == STAGE_SHADE ? F_WIDE_FLOATS : 0));           // [kg * sg]
-  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, false, ns, rpt));  // [3][1 + 2kg]
-  const int n_jobs = 3 * (1 + 2 * kg);
+  // [3][1 + 2kg], K2c's [3][1 + 4kg]
+  int* s_jobs = reinterpret_cast<int*>(s_res + stage_rows(STAGE, false, ns, rpt));
+  const int n_jobs = 3 * (1 + (STAGE == STAGE_RAYS ? 4 : 2) * kg);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float umax = (float)((double)wu - 1.001);
   const float vmax = (float)((double)wv - 1.001);
@@ -1387,7 +1330,7 @@ sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     for (int e = tid; e < n_jobs; e += TF_THREADS) s_jobs[e] = jobs[(size_t)t * n_jobs + e];
     __syncthreads();   // the weights (first tile) and jobs are staged; the last
-                       // tile's composite is done with s_res
+                       // tile's composite or rows are done with s_res
 
     // row blocks of TF_ROWS samples a warp; 32 / TF_ROWS threads a sample
     // fetch its features (all, or half of each plane's) into the x rows
@@ -1401,9 +1344,8 @@ sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
       const int r = lane % TF_ROWS, h = lane / TF_ROWS, n = n0 + r;
       float x[24 * HALVES];
       if (n < ns) {
-        const int gr = n / sg;
-        sample_uv<HALVES>(planes, s_jobs, uv, t, gr, n - gr * sg, kg, sg, umax, vmax, rows, rv, x,
-                          h);
+        fetch<STAGE, HALVES>(planes, s_jobs, coords, t, n, rpt, kg, ks, bound, scale, umax, vmax,
+                             rows, rv, x, h);
       } else {   // a last partial row block: zero rows, not stored
 #pragma unroll
         for (int k = 0; k < 24 * HALVES; ++k) x[k] = 0.f;
@@ -1422,8 +1364,8 @@ sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
                 make_float4(x[8 * HALVES * q + c], x[8 * HALVES * q + c + 1],
                             x[8 * HALVES * q + c + 2], x[8 * HALVES * q + c + 3]);
         __syncwarp();
-        head_tf32<TF_MT, STAGE>(sm, xs, dproj + (size_t)t * rpt * HID, s_res, n0, ns, sg, ks,
-                                out + (size_t)t * rpt * CP, rpt);
+        head_tf32<TF_MT, STAGE>(sm, xs, dproj + (size_t)t * rpt * dp_stride(STAGE), s_res, n0, ns,
+                                sg, ks, out + (size_t)t * rpt * CP, rpt);
       }
     }
     if constexpr (STAGE == STAGE_WIN) {
@@ -1433,10 +1375,13 @@ sample_shade_comp_tf32_kernel(const __nv_bfloat16* __restrict__ planes,
     }
     __syncthreads();
 
-    if constexpr (STAGE == STAGE_FULL) {
+    if constexpr (STAGE == STAGE_FULL || STAGE == STAGE_RAYS) {
       for (int r = tid; r < rpt; r += TF_THREADS)
-        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+        composite_ray(s_res, r, kg, ks, sg,
+                      ray_dt<STAGE>(dtv, coords, (size_t)t * rpt + r, kg * ks),
                       out + ((size_t)t * rpt + r) * 16);
+    } else if constexpr (STAGE == STAGE_ROWS) {
+      write_rows<TF_THREADS>(s_res, ns, out + (size_t)t * ns * CP);
     } else if constexpr (STAGE == STAGE_WIN) {
       const float* s_part = reinterpret_cast<const float*>(s_res);
       for (int e = tid; e < rpt * CP; e += TF_THREADS) {   // row r's threads b rpt + r, in order
@@ -1467,6 +1412,35 @@ cudaError_t launch_resident(Kernel kernel, int threads, size_t bytes, int tiles,
   const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
   kernel<<<tiles < resident ? tiles : resident, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Launch instance STAGE of K2's kernel for the weight dtype (bf16 != 0: the
+// wgmma kernel, else the 3xTF32 one) on `stream` of CUDA device `device`:
+// coords is uv (rays for STAGE_RAYS), dtv is read by STAGE_FULL only, bound
+// and scale by STAGE_RAYS only. Returns the cudaError_t of the launch.
+template <int STAGE>
+int launch_k2(int device, int bf16, const void* planes, const void* jobs, const void* coords,
+              const void* dproj, const void* dtv, const Weights& wp, void* out, int tiles,
+              int rpt, int kg, int ks, int wu, int wv, int rows, int rv, float bound, float scale,
+              void* stream) {
+  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, STAGE == STAGE_RAYS ? 4 : 2))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = stage_smem(STAGE, bf16 != 0, rpt, kg * rpt * ks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const __nv_bfloat16*>(planes);
+  const auto* j = static_cast<const int*>(jobs);
+  const auto* c = static_cast<const float*>(coords);
+  const auto* d = static_cast<const float*>(dtv);
+  auto* o = static_cast<float*>(out);
+  if (bf16)
+    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE>, HEAD_THREADS, bytes, tiles,
+                                device, s, p, j, c, static_cast<const __nv_bfloat16*>(dproj), d,
+                                wp, o, tiles, rpt, kg, ks, wu, wv, rows, rv, bound, scale);
+  return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE>, TF_THREADS, bytes, tiles,
+                              device, s, p, j, c, static_cast<const float*>(dproj), d, wp, o,
+                              tiles, rpt, kg, ks, wu, wv, rows, rv, bound, scale);
 }
 
 }  // namespace

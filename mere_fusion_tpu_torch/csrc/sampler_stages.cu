@@ -157,35 +157,14 @@ extern "C" int mf_sections(
     const void* w_sig_e, const void* w_sig1, const void* w_sigcol, const void* w_geo,
     const void* w_col_g, const void* w_rgb, const void* col_bias, void* out, int tiles,
     int rpt, int kg, int ks, int wu, int wv, int rows, int rv, void* stream) {
-  if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2) ||
-      (stage != STAGE_WIN && stage != STAGE_SHADE) || (stage == STAGE_WIN && THREADS % rpt != 0))
+  if ((stage != STAGE_WIN && stage != STAGE_SHADE) ||
+      (stage == STAGE_WIN && (rpt <= 0 || THREADS % rpt != 0)))   // launch_k2 checks the rest
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const Weights wp = {{wx_aud, w_aud1, wx_sig, w_aud_sig, wx_eye, w_eye1, w_sig_e, w_sig1,
                        w_sigcol, w_geo, w_col_g, w_rgb, col_bias}};
-  const size_t bytes = stage_smem(stage, bf16 != 0, rpt, kg * rpt * ks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const __nv_bfloat16*>(planes);
-  const auto* j = static_cast<const int*>(jobs);
-  const auto* u = static_cast<const float*>(uv);
-  const auto* d = static_cast<const float*>(dtv);
-  const auto* dpb = static_cast<const __nv_bfloat16*>(dproj);
-  const auto* dpf = static_cast<const float*>(dproj);
-  auto* o = static_cast<float*>(out);
-  if (bf16 && stage == STAGE_WIN)
-    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_WIN>, HEAD_THREADS, bytes,
-                                tiles, device, s, p, j, u, dpb, d, wp, o, tiles, rpt, kg, ks, wu,
-                                wv, rows, rv);
-  if (bf16)
-    return (int)launch_resident(sample_shade_comp_wgmma_kernel<STAGE_SHADE>, HEAD_THREADS, bytes,
-                                tiles, device, s, p, j, u, dpb, d, wp, o, tiles, rpt, kg, ks, wu,
-                                wv, rows, rv);
-  if (stage == STAGE_WIN)
-    return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_WIN>, TF_THREADS, bytes,
-                                tiles, device, s, p, j, u, dpf, d, wp, o, tiles, rpt, kg, ks, wu,
-                                wv, rows, rv);
-  return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE_SHADE>, TF_THREADS, bytes,
-                              tiles, device, s, p, j, u, dpf, d, wp, o, tiles, rpt, kg, ks, wu,
-                              wv, rows, rv);
+  return stage == STAGE_WIN
+             ? launch_k2<STAGE_WIN>(device, bf16, planes, jobs, uv, dproj, dtv, wp, out, tiles,
+                                    rpt, kg, ks, wu, wv, rows, rv, 0.f, 0.f, stream)
+             : launch_k2<STAGE_SHADE>(device, bf16, planes, jobs, uv, dproj, dtv, wp, out, tiles,
+                                      rpt, kg, ks, wu, wv, rows, rv, 0.f, 0.f, stream);
 }

@@ -13,8 +13,7 @@ group, and texel coordinates per sample), ``enc_selector`` and
   NeRF head + volume composite, per ray. The serving frame's kernel. Its
   head runs on the tensor cores: with bf16 weights as ``wgmma`` products
   over 64-sample row blocks, with f32 weights as ``mma.sync`` TF32 products
-  over 32-sample row blocks, three a term (f32 accuracy). K2b and K2c run
-  it on the CUDA cores.
+  over 32-sample row blocks, three a term (f32 accuracy).
 - **K2b** ``sample_shade_tiles`` (``_shade_kernel``): sample + head, the
   activated σ and rgb per sample (the unfused oracle of K2's composite).
 - **K2c** ``render_rays_tiles`` (``_render_rays_kernel``): K2 with each
@@ -22,6 +21,11 @@ group, and texel coordinates per sample), ``enc_selector`` and
   zmax) and the mip placement of ``plan_jobs_rays``.
 - **K2d** ``sample_tiles`` (``_sampler_kernel``): the windowed bilinear
   features alone, bf16.
+
+K2b and K2c are instances of K2's two kernels (templates on a ``Stage`` in
+csrc/sampler_core.cuh): the same grid, block, weight staging, fetch and
+head; they differ from K2 only in where a sample's coordinates come from and
+what a tile writes, and need K2's shared memory.
 
 The TPU kernels' two-hot tent matmuls and DMA window ring exist because the
 TPU has no fast gather; Hopper has one. What the port keeps is the function:
@@ -65,6 +69,15 @@ CORE_HEADER = os.path.join(_CSRC, "sampler_core.cuh")   # device code shared wit
 #: K2's kernel by the dtype of its shade weights, as named in profiler rows
 KERNEL_NAMES = {"bfloat16": "sample_shade_comp_wgmma_kernel",
                 "float32": "sample_shade_comp_tf32_kernel"}
+#: the Stage (csrc/sampler_core.cuh) each kernel instantiates K2's kernels at
+STAGES = {"K2": 2, "K2b": 3, "K2c": 4}
+
+
+def instance_tag(kernel: str, wdtype: str) -> str:
+    """What the mangled name of ``kernel``'s instance (K2, K2b or K2c) of
+    K2's kernel for shade weights of dtype ``wdtype`` holds, and no other
+    instance's (ptxas's log, cuobjdump's SASS)."""
+    return f"{KERNEL_NAMES[wdtype]}ILi{STAGES[kernel]}E"
 
 launches = 0          # K2
 shade_launches = 0    # K2b
@@ -637,14 +650,11 @@ def tf32_smem_bytes(spec: SamplerSpec) -> int:
     return TF32_FIXED_BYTES + 16 * spec.kg * spec.sg + 4 * 64
 
 
-def smem_bytes(spec: SamplerSpec, kernel: str) -> int:
-    """Dynamic shared memory of one block with the CUDA-core head, K2b or
-    K2c (see csrc/sampler.cu); K2d uses none."""
-    weights = (3 * CP * (2 * HID + EYE_HID) + HID * AUD + AUD * HID + EYE_HID + HID
-               + 3 * HID * HID + HID + 4 * HID + HID)
-    rows = {"K2b": HID, "K2c": HID + 8}[kernel]
-    samples = 0 if kernel == "K2b" else spec.kg * spec.sg
-    return 4 * (weights + spec.rays_per_tile * rows + 4 * samples) + 4 * 64
+def block_smem_bytes(spec: SamplerSpec, wdtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of K2, K2b or K2c (instances of
+    one kernel per weight dtype, with one layout) for shade weights of
+    ``wdtype``: ``head_smem_bytes`` for bfloat16, else ``tf32_smem_bytes``."""
+    return head_smem_bytes(spec) if wdtype == torch.bfloat16 else tf32_smem_bytes(spec)
 
 
 def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights=None,
@@ -682,22 +692,16 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
     if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > 64:
         raise ValueError(f"{kernel} needs k % kg == 0, k >= 2 and 3·(1 + {job_fields}·kg) "
                          f"<= 64 (k={spec.k}, kg={spec.kg})")
-    if kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.float32:
-        if tf32_smem_bytes(spec) > SMEM_LIMIT:
-            raise ValueError(f"K2 with float32 weights: a tile of {spec.rays_per_tile} rays × "
-                             f"{spec.k} samples needs {tf32_smem_bytes(spec)} B of shared "
-                             f"memory > {SMEM_LIMIT}")
-    elif kernel == "K2" and weights is not None and weights["wx_aud"].dtype == torch.bfloat16:
-        if head_smem_bytes(spec) > SMEM_LIMIT:
-            raise ValueError(f"K2 with bfloat16 weights: a tile of {spec.rays_per_tile} rays × "
-                             f"{spec.k} samples needs {head_smem_bytes(spec)} B of shared "
-                             f"memory > {SMEM_LIMIT}")
-        if operands["dproj"][0].data_ptr() % 16:
-            raise ValueError("K2 with bfloat16 weights reads dproj in 16-byte rows; it must "
-                             "be 16-byte aligned")
-    elif kernel in ("K2b", "K2c") and smem_bytes(spec, kernel) > SMEM_LIMIT:
-        raise ValueError(f"{kernel} tile of {spec.rays_per_tile} rays × {spec.k} samples "
-                         f"needs {smem_bytes(spec, kernel)} B of shared memory > {SMEM_LIMIT}")
+    if kernel in STAGES and weights is not None:
+        wdt = weights["wx_aud"].dtype
+        name = str(wdt).split(".")[1]
+        if block_smem_bytes(spec, wdt) > SMEM_LIMIT:
+            raise ValueError(f"{kernel} with {name} weights: a tile of {spec.rays_per_tile} "
+                             f"rays × {spec.k} samples needs {block_smem_bytes(spec, wdt)} B of "
+                             f"shared memory > {SMEM_LIMIT}")
+        if wdt == torch.bfloat16 and operands["dproj"][0].data_ptr() % 16:
+            raise ValueError(f"{kernel} with bfloat16 weights reads dproj in 16-byte rows; it "
+                             "must be 16-byte aligned")
 
 
 def _tiles(x, per_tile: int) -> int:

@@ -56,13 +56,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 # the composite of each tile's rays, in the tensor-core kernel
 COMPOSITE = """      for (int r = tid; r < rpt; r += HEAD_THREADS)
-        composite_ray(s_res, r, kg, ks, sg, dtv[((size_t)t * rpt + r) * 8],
+        composite_ray(s_res, r, kg, ks, sg,
+                      ray_dt<STAGE>(dtv, coords, (size_t)t * rpt + r, kg * ks),
                       out + ((size_t)t * rpt + r) * 16);
 """
 HEADS = ("        head_rows<STAGE>(base, x_wg, s_dp, s_res, n0, ns, sg, ks, "
          "out + (size_t)t * rpt * CP, rpt);\n")
-FETCH = ("        sample_uv<1>(planes, s_jobs, uv, t, g, n - g * sg, kg, sg, umax, vmax, rows, rv, "
-         "x, h);\n")
+FETCH = ("        fetch<STAGE, 1>(planes, s_jobs, coords, t, n, rpt, kg, ks, bound, scale, umax, "
+         "vmax, rows,\n                        rv, x, h);\n")
 SYNTH_X = """#pragma unroll
         for (int k = 0; k < 24; ++k) x[k] = 0.01f * (float)((k + n + 5 * h) % 13) - 0.06f;
 """

@@ -6,7 +6,9 @@ tiles, k = 8, kg = 2, wu = 32, wv = 16): the planners ``plan_jobs``,
 (``sample_shade_tiles``) and K2c (``render_rays_tiles``) against the Pallas
 kernels in interpret mode (as tests/test_pallas_sampler.py runs them); K2b
 through the grouped composite and K2c against K2; K2d against the bilinear
-``encode_x_baked``.
+``encode_x_baked``. K2b and K2c run on K2's tensor-core kernels: their
+block's shared memory at ``Config()``'s spec, and the Stage tags that pick
+their kernel instances apart.
 
 Inputs come from numpy seeds. Tolerances, with their reasons:
 - planner job tables: bit-equal against eager JAX (``jax.disable_jit``:
@@ -299,3 +301,47 @@ def test_family_cuda_paths_refuse_cpu_operands():
         psamp.render_rays_tiles_cuda(pl_, torch.zeros(t * 3 * (1 + 4 * PSPEC.kg),
                                                       dtype=torch.int32),
                                      rays, t_(proj).to(torch.bfloat16), pw, PSPEC, BOUND)
+
+
+def config_spec() -> psamp.SamplerSpec:
+    """The sampler spec of ``Config()``'s ER-NeRF frame (as chip_smoke's k2_spec)."""
+    from mere_fusion_tpu_torch.config import Config
+
+    nc = Config().nerf
+    return psamp.SamplerSpec(resolution=min(1024, 2 * nc.desired_resolution),
+                             channels=nc.num_levels * nc.level_dim, tile_w=nc.pallas_tile_w,
+                             tile_h=nc.pallas_tile_h, k=nc.max_steps,
+                             kg=nc.pallas_depth_groups, wu=nc.pallas_window_u,
+                             wv=nc.pallas_window_v)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_k2b_k2c_blocks_fit_shared_memory(wdtype):
+    """K2b and K2c run on K2's block (its tensor-core kernels' shared memory:
+    bf16 weights 156,928 B, f32 199,232 B at the default 16×8 tiles of 16
+    samples), which fits a block's 232,448 B; a tile of 256 rays × 32 samples
+    does not, and the wrappers refuse it before a launch."""
+    import dataclasses
+
+    spec = config_spec()
+    want = {torch.bfloat16: 156928, torch.float32: 199232}[wdtype]
+    assert psamp.block_smem_bytes(spec, wdtype) == want <= psamp.SMEM_LIMIT
+    big = dataclasses.replace(spec, tile_w=32, tile_h=8, k=32)
+    assert psamp.block_smem_bytes(big, wdtype) > psamp.SMEM_LIMIT
+
+
+def test_instance_tags_name_the_stages_of_the_kernels():
+    """K2, K2b and K2c's instances of K2's kernels are told apart by their
+    template argument, csrc/sampler_core.cuh's Stage, in the mangled name:
+    ops/sampler.py STAGES follows the enum's order."""
+    import re
+
+    with open(psamp.CORE_HEADER) as f:
+        enum = re.search(r"enum Stage \{([^}]*)\}", f.read()).group(1)
+    order = [v.strip() for v in enum.split(",")]
+    for kernel, stage in (("K2", "STAGE_FULL"), ("K2b", "STAGE_ROWS"), ("K2c", "STAGE_RAYS")):
+        assert psamp.STAGES[kernel] == order.index(stage)
+    assert psamp.instance_tag("K2b", "bfloat16") == "sample_shade_comp_wgmma_kernelILi3E"
+    assert psamp.instance_tag("K2c", "float32") == "sample_shade_comp_tf32_kernelILi4E"
+    assert len({psamp.instance_tag(k, d) for k in psamp.STAGES
+                for d in psamp.KERNEL_NAMES}) == 6

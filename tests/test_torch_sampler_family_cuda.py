@@ -15,8 +15,19 @@ limit K2 is held to, for K2b's per-sample σ = exp(logit) relative to values
 above 1; K2b followed by the grouped composite within 2e-5 of K2
 and K2c within 1e-4 of K2, the JAX package's own limits
 (tests/test_pallas_sampler.py).
+
+K2b and K2c are instances of K2's two tensor-core kernels (bf16 weights:
+``sample_shade_comp_wgmma_kernel``, 64-sample row blocks; f32 weights:
+``sample_shade_comp_tf32_kernel``, 32-sample row blocks a warp), so they are
+held at the geometries tests/test_torch_sampler_cuda.py holds K2 at: both
+tile shapes and every depth grouping of k 16 on a 256² frame (the resident
+grid's last round partly filled, a third of the tiles with half their rays
+empty), and tiles whose last row block is partly filled; a tile too large
+for the block's shared memory raises before the launch.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import pytest
 import torch
@@ -137,3 +148,80 @@ def test_family_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         sampler.render_rays_tiles_cuda(planes, fam["jobs_rays"], fam["rays"].cpu(), dproj,
                                        weights, spec, 1.0)
+
+
+def check_k2b_k2c(dev, spec, hw, wdtype, empty_rays=False):
+    """One launch each of K2b and K2c on a dense frame of hw² rays at spec,
+    against their plain versions: 1e-5, K2b's relative to values above 1.
+    empty_rays: a third of the tiles with half their rays empty (zmax ==
+    zmin, so K2c composites nothing there)."""
+    ops = k2_operands(dev, hw, spec, wdtype)
+    fam = family_operands(dev, hw, spec, ops)
+    planes, jobs, uv, dproj, _, weights = ops
+    rays, half = fam["rays"], spec.rays_per_tile // 2
+    if empty_rays:
+        rays[::3, :half, 7] = rays[::3, :half, 6]
+    before = (sampler.shade_launches, sampler.rays_launches)
+    rows = sampler.sample_shade_tiles(planes, jobs, uv, fam["dproj128"], weights, spec)
+    comp = sampler.render_rays_tiles(planes, fam["jobs_rays"], rays, dproj, weights, spec, 1.0)
+    torch.cuda.synchronize()
+    assert (sampler.shade_launches, sampler.rays_launches) == (before[0] + 1, before[1] + 1)
+    ref_rows = sampler.sample_shade_tiles_plain(planes, jobs, uv, fam["dproj128"], weights, spec)
+    ref_comp = sampler.render_rays_tiles_plain(planes, fam["jobs_rays"], rays, dproj, weights,
+                                               spec, 1.0)
+    assert bool(torch.isfinite(rows).all()) and bool(torch.isfinite(comp).all())
+    assert bool((rows[..., 4:] == 0).all()) and float(ref_comp[..., 0].max()) > 0.1
+    if empty_rays:
+        assert bool((comp[::3, :half] == 0).all())
+    err_rows = ((rows - ref_rows).abs() / ref_rows.abs().clamp_min(1.0)).max().item()
+    err_comp = (comp - ref_comp).abs().max().item()
+    print(f"K2b {err_rows:.3e}, K2c {err_comp:.3e} ({wdtype}, {spec})")
+    assert err_rows <= 1e-5 and err_comp <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kg", [1, 2, 4])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 8)])
+def test_k2b_k2c_geometries(cuda_device, tile, kg, wdtype):
+    """512 (16×8) or 256 (32×8) tiles of a 256² frame, k 16 in kg groups,
+    as tests/test_torch_sampler_cuda.py holds K2 with either weight dtype."""
+    spec = sampler.SamplerSpec(resolution=1024, channels=12, tile_w=tile[0], tile_h=tile[1],
+                               k=16, kg=kg, wu=64, wv=32)
+    check_k2b_k2c(cuda_device, spec, 256, wdtype, empty_rays=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,k,kg", [((4, 4), 5, 1), ((8, 4), 5, 1), ((8, 4), 6, 3)])
+def test_k2b_k2c_partial_row_block(cuda_device, tile, k, kg, wdtype):
+    """Tiles of 80, 160 and 192 samples: the bf16 kernel's 64-sample row
+    blocks (160: 64, 64 and a padded 32; 192: one for each warpgroup) and the
+    f32 kernel's 32-sample ones (80: a padded 16), as K2 is held."""
+    spec = sampler.SamplerSpec(resolution=128, channels=12, tile_w=tile[0], tile_h=tile[1],
+                               k=k, kg=kg, wu=32, wv=16)
+    check_k2b_k2c(cuda_device, spec, 64, wdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_k2b_k2c_refuse_a_tile_too_large_for_the_block(cuda_device, wdtype):
+    """K2b and K2c need K2's block: a tile of 256 rays × 32 samples does not
+    fit its shared memory with either weight dtype and raises before the
+    launch."""
+    spec = sampler.SamplerSpec(**SPECS["small"]["spec"])
+    weights = k2_operands(cuda_device, 64, spec, wdtype)[5]
+    big = dataclasses.replace(spec, tile_w=32, tile_h=8, k=32, kg=2)
+    assert sampler.block_smem_bytes(big, wdtype) > sampler.SMEM_LIMIT
+    t, rpt, dev = 2, big.rays_per_tile, cuda_device
+    planes = torch.zeros(3, 256, 128 * 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler.sample_shade_tiles(
+            planes, torch.zeros(t * 3 * (1 + 2 * big.kg), dtype=torch.int32, device=dev),
+            torch.zeros(3 * t, big.kg, 2, big.sg, device=dev),
+            torch.zeros(t, rpt, 128, dtype=wdtype, device=dev), weights, big)
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler.render_rays_tiles(
+            planes, torch.zeros(t * 3 * (1 + 4 * big.kg), dtype=torch.int32, device=dev),
+            torch.zeros(t, rpt, 8, device=dev), torch.zeros(t, rpt, 64, dtype=wdtype, device=dev),
+            weights, big, 1.0)
