@@ -98,7 +98,8 @@ its seconds; any failure is fatal (exit code 1, no result line):
               (K2d: no window clamp; K2b, K2c: no bf16 rounding of
               activations); K2b's and K2c's instances of K2's kernels for
               their registers and spills (none allowed) and their HGMMA
-              (bf16) or HMMA (f32) count; wrong shapes and dtypes must raise.
+              (bf16) or HMMA (f32) count, K2d's kernel for its registers and
+              spills (none allowed); wrong shapes and dtypes must raise.
 8. nerf_modes   — the nerf_model frame through the bilinear and nearest
               steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
               against the K2 frame with no sampler kernel launched; frame
@@ -135,8 +136,9 @@ its seconds; any failure is fatal (exit code 1, no result line):
               weights against their plain versions (times, bounds; the
               limits failed by the nudged u and by single TF32 products),
               S2 full launching K2 and no stage kernel, the stage kernels'
-              registers, spills and HGMMA/HMMA counts (S2 is K2's own
-              tensor-core kernels stopped early), and K2's split in turns:
+              registers and spills (S1's two modes; S2's with their
+              HGMMA/HMMA counts: S2 is K2's own tensor-core kernels stopped
+              early), and K2's split in turns:
               fetch (win), head at most K2 − win (shade − win beside it,
               with shade's extra columns); then K2, win and shade in turns
               on the dense 512² job set of the kernels phase. The split is
@@ -1609,6 +1611,8 @@ def phase_sampler_family(state: dict) -> dict:
         for kernel in ("K2b", "K2c"):
             out[name][kernel]["build"] = kernel_build(
                 sampler.build(), sampler.instance_tag(kernel, name), instruction)
+    # K2d: its registers, no spills, its stores (STG) in the SASS
+    out["bfloat16"]["K2d"]["build"] = kernel_build(sampler.build(), "sample_tiles_kernel", "STG")
     state["family_numbers"] = {k: out["bfloat16"][k] for k in ("K2b", "K2c", "K2d")}
     state["family_f32_numbers"] = {k: out["float32"][k] for k in ("K2b", "K2c")}
     state["family_launches"] = out["bfloat16"]["launches"]
@@ -2101,6 +2105,7 @@ def phase_sampler_stages(state: dict) -> dict:
     # cores (HGMMA with bf16 weights, HMMA with f32), win's fetch alone
     builds = {}
     for name, tag, instruction in (
+            ("S1", "m1_only_kernelILb0E", "STG"), ("S1_blockdiag", "m1_only_kernelILb1E", "STG"),
             ("win", "sample_shade_comp_wgmma_kernelILi0E", "LDG"),
             ("shade", "sample_shade_comp_wgmma_kernelILi1E", "HGMMA"),
             ("win_f32", "sample_shade_comp_tf32_kernelILi0E", "LDG"),
@@ -2263,7 +2268,8 @@ def main() -> int:
                                                          "bound_ms", "bound_by")},
                         **{k: fam32[kernel]["build"][k] for k in ("registers", "spill_bytes",
                                                                   "hmma")}}}
-           if kernel in fam32 else {}),
+           if kernel in fam32 else
+           {k: fam[kernel]["build"][k] for k in ("registers", "spill_bytes")}),
     } for kernel, fn, line in (("K2b", "sample_shade_tiles", 628),
                                ("K2c", "render_rays_tiles", 717),
                                ("K2d", "sample_tiles", 760))] + [{
@@ -2319,7 +2325,9 @@ def main() -> int:
                                             "bound_by")} for m in modes},
         **extra,
     } for name, kernel, key, line, modes, extra in (
-        ("m1_only (S1)", "S1", "S1", 40, ("S1", "S1_blockdiag"), {}),
+        ("m1_only (S1)", "S1", "S1", 40, ("S1", "S1_blockdiag"), {
+            "builds": {m: {k: state["stage_builds"][m][k] for k in ("registers", "spill_bytes")}
+                       for m in ("S1", "S1_blockdiag")}}),
         # the headline is K2's bf16 kernel stopped after the head ("shade");
         # mode "full" launches K2 (its row)
         ("sections (S2)", "S2", "shade", 197, STAGE_KERNEL_MODES, {
@@ -2328,7 +2336,7 @@ def main() -> int:
                 "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
                 for m in STAGE_KERNEL_MODES},
             "builds": {m: {k: b[k] for k in b if k != "ptxas"}
-                       for m, b in state["stage_builds"].items()}}))]})
+                       for m, b in state["stage_builds"].items() if not m.startswith("S1")}}))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

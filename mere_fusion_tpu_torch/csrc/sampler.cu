@@ -41,8 +41,10 @@
 //   uv). Bound by operations. With f32 weights the same operations as three
 //   TF32 products a term take 1.12 ms at 495 TFLOP/s (2.76 ms as f32 FMAs
 //   at 67 TFLOP/s on the CUDA cores): their f32 bound.
-//   K2d: no head, 9 operations per real channel; uv, planes and its 403 MB
-//   bf16 output take 0.21 ms at 3.35 TB/s. Bound by bytes.
+//   K2d: no head, 9 operations per real channel; uv (101 MB), the texels
+//   its samples weigh (1.3 MB) and its 403 MB bf16 output take 0.15 ms at
+//   3.35 TB/s (chip_smoke.py family_bound_ms). Bound by bytes; the card
+//   also gathers 1.61 GB of texels through L1 for it.
 //
 // Design:
 //   - K2, K2b and K2c are instances of two kernels, one per weight dtype,
@@ -88,10 +90,23 @@
 //   - Step 1 gathers texels straight from global memory (a job's window is
 //     local, so L1/L2 serve the reuse that the TPU kernel got from its DMA'd
 //     windows).
-//   - K2d: one thread per sample, no shared memory: 12 texel pairs in,
-//     96 bytes out, neighbouring threads on neighbouring rows.
-// Next: a cp.async window ring for the fetch of S1 (csrc/sampler_stages.cu)
-// and K2d.
+//   - K2d: a grid of resident blocks of 512 threads, two an SM, loops over
+//     (tile, depth group) units; the block copies the next unit's job table
+//     and uv rows into the other of two shared buffers with cp.async
+//     (25 KB a block at the dense set, so most of the SM's 256 KB stays L1
+//     for the gathers: each texel is read about 1,200 times). One thread
+//     makes one 16-byte chunk of the unit's [sg, 48] bf16 output at a time
+//     (sample, plane, half of its 16 channels: sample_plane's arithmetic in
+//     its order, bit-equal to the plain version) and writes it with an
+//     evict-first hint (__stcs); neighbouring threads write neighbouring
+//     chunks, so a warp's store is 512 contiguous bytes.
+//   - What scripts/prof_fetch.py measured (PERF.md, H100): the first design
+//     (one thread a sample, six 16-byte stores 96 bytes apart across a
+//     warp's threads) took 0.337 ms, 0.171 without its stores and 0.423
+//     without its gathers; this design takes 0.233 ms, 0.227 without its
+//     stores and 0.186 without its gathers, 0.238 with write-back stores:
+//     neither stream sets its pace alone. Three blocks an SM (40 registers)
+//     spill and read 0.240.
 //
 // The device code the four kernels share, which S1 and S2 are also made of,
 // is in csrc/sampler_core.cuh, with K2's two tensor-core kernels themselves.
@@ -100,33 +115,68 @@
 
 namespace {
 
-// K2d: one thread per sample; its 48 features as bf16.
-__global__ void __launch_bounds__(THREADS)
+// K2d's block: two buffers of a tile's job table (MAX_JOB_INTS ints) and one
+// depth group's uv rows ([3][2][staged_stride(sg)] f32: plane, u or v).
+__host__ __device__ constexpr size_t k2d_buffer_bytes(int sg) {
+  return sizeof(int) * MAX_JOB_INTS + sizeof(float) * 6 * staged_stride(sg);
+}
+size_t k2d_smem(int sg) { return 2 * k2d_buffer_bytes(sg); }
+
+// K2d: a resident block loops over (tile, depth group) units; one thread
+// makes one 16-byte chunk of the unit's [sg, 48] bf16 output at a time:
+// sample s, plane q, half h of its 16 channels.
+constexpr int K2D_THREADS = 512;
+constexpr int K2D_PER_SM = 2;
+
+__global__ void __launch_bounds__(K2D_THREADS, K2D_PER_SM)
 sample_tiles_kernel(const __nv_bfloat16* __restrict__ planes, const int* __restrict__ jobs,
                     const float* __restrict__ uv, __nv_bfloat16* __restrict__ out, int tiles,
                     int rpt, int kg, int ks, int wu, int wv, int rows, int rv) {
-  const int sg = rpt * ks;
-  const int ns = kg * sg;
-  const size_t id = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (id >= (size_t)tiles * ns) return;
-  const int t = (int)(id / ns);
-  const int n = (int)(id - (size_t)t * ns);
-  const int g = n / sg;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int sg = rpt * ks, sgp = staged_stride(sg), stride = 1 + 2 * kg, njob = 3 * stride;
+  const int units = tiles * kg, chunks = sg * XD / 8;
+  const size_t buf = k2d_buffer_bytes(sg);
   const float umax = (float)((double)wu - 1.001);
   const float vmax = (float)((double)wv - 1.001);
-  float x[XD];
-  sample_uv(planes, jobs + (size_t)t * 3 * (1 + 2 * kg), uv, t, g, n - g * sg, kg, sg, umax,
-            vmax, rows, rv, x);
-  uint4* o = reinterpret_cast<uint4*>(out + id * XD);
+  const bool vec = (sg & 3) == 0 && (reinterpret_cast<uintptr_t>(uv) & 15) == 0;
+  auto stage = [&](int unit, int b) {   // unit (t, g)'s jobs and uv rows into buffer b
+    const int t = unit / kg, g = unit - t * kg;
+    int* sj = reinterpret_cast<int*>(smem + b * buf);
+    for (int e = threadIdx.x; e < njob; e += K2D_THREADS)
+      cp_async4(sj + e, jobs + (size_t)t * njob + e);
+    stage_runs<K2D_THREADS>(  // run 2 q + h: plane q's u (h 0) or v (h 1)
+        reinterpret_cast<float*>(sj + MAX_JOB_INTS), sgp,
+        [&](int i) { return uv + ((((size_t)t * 3 + (i >> 1)) * kg + g) * 2 + (i & 1)) * sg; },
+        6, sg, vec);
+    cp_async_commit();
+  };
+  if ((int)blockIdx.x < units) stage(blockIdx.x, 0);
+  int b = 0;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x, b ^= 1) {
+    if (unit + (int)gridDim.x < units) stage(unit + gridDim.x, b ^ 1);
+    else cp_async_commit();                     // an empty group: the wait below stays right
+    cp_async_wait_prior();
+    __syncthreads();
+    const int* sj = reinterpret_cast<const int*>(smem + b * buf);
+    const float* su = reinterpret_cast<const float*>(sj + MAX_JOB_INTS);
+    const int g = unit % kg;
+    uint4* o = reinterpret_cast<uint4*>(out) + (size_t)unit * chunks;   // out[t][g]
+    for (int c = threadIdx.x; c < chunks; c += K2D_THREADS) {
+      const int s = c / 6, r = c - 6 * s, q = r >> 1, h = r & 1;
+      const int* job = sj + q * stride;
+      const float* uvq = su + 2 * q * sgp;
+      float x[24];
+      sample_plane<1>(planes, job[0], job[1 + 2 * g], job[2 + 2 * g], uvq[s], uvq[sgp + s], umax,
+                      vmax, rows, rv, x, 0, h);
+      uint32_t w[4];
 #pragma unroll
-  for (int i = 0; i < XD / 8; ++i) {
-    uint32_t w[4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(x[8 * i + 2 * h], x[8 * i + 2 * h + 1]);
-      w[h] = *reinterpret_cast<const uint32_t*>(&pair);
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+        w[k] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      __stcs(o + c, make_uint4(w[0], w[1], w[2], w[3]));
     }
-    o[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    __syncthreads();                            // buffer b is free for the unit after next
   }
 }
 
@@ -194,12 +244,11 @@ extern "C" int mf_sample_tiles(int device, const void* planes, const void* jobs,
   if (bad_geometry(tiles, rpt, kg, ks, wu, wv, rows, rv, 2)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)tiles * kg * rpt * ks;
-  const size_t blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
-  sample_tiles_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(planes), static_cast<const int*>(jobs),
-      static_cast<const float*>(uv), static_cast<__nv_bfloat16*>(out), tiles, rpt, kg, ks, wu,
-      wv, rows, rv);
-  return (int)cudaGetLastError();
+  if ((long long)tiles * kg > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  return (int)launch_fetch(sample_tiles_kernel, K2D_THREADS, k2d_smem(rpt * ks), K2D_PER_SM,
+                           tiles * kg, device, static_cast<cudaStream_t>(stream),
+                           static_cast<const __nv_bfloat16*>(planes),
+                           static_cast<const int*>(jobs), static_cast<const float*>(uv),
+                           static_cast<__nv_bfloat16*>(out), tiles, rpt, kg, ks, wu, wv, rows,
+                           rv);
 }

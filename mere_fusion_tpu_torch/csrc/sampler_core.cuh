@@ -18,7 +18,10 @@
 //   - sample_shade_comp_wgmma_kernel, sample_shade_comp_tf32_kernel: K2
 //     with bf16 and with f32 weights, templates on what they run (Stage:
 //     the whole of K2, S2's win and shade stages, K2b, K2c), and
-//     launch_resident, launch_k2.
+//     launch_resident, launch_k2;
+//   - staged_stride, stage_runs, launch_fetch: the cp.async staging and the
+//     launch of the fetch-only kernels, S1 (csrc/sampler_stages.cu) and K2d
+//     (csrc/sampler.cu).
 // See csrc/sampler.cu for the functions, the bounds and the design.
 
 #pragma once
@@ -1441,6 +1444,71 @@ int launch_k2(int device, int bf16, const void* planes, const void* jobs, const 
   return (int)launch_resident(sample_shade_comp_tf32_kernel<STAGE>, TF_THREADS, bytes, tiles,
                               device, s, p, j, c, static_cast<const float*>(dproj), d, wp, o,
                               tiles, rpt, kg, ks, wu, wv, rows, rv, bound, scale);
+}
+
+// ---------------------------------------------------------------------------
+// The fetch-only kernels, S1 (csrc/sampler_stages.cu) and K2d
+// (csrc/sampler.cu): a grid of resident blocks loops over work units (S1 a
+// tile, K2d a tile's depth group); each block copies the next unit's job
+// table and coordinates into one of two shared buffers with cp.async while
+// it works on the other, and gathers texels from global memory through L1.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait for every group but the last committed (the next unit's copies)
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// the row stride, in floats, of staged rows of n coordinates: a multiple of
+// 4 (16-byte copies), padded by 4 so that the rows of a power-of-two n do
+// not all start in one bank
+__host__ __device__ constexpr int staged_stride(int n) { return (n + 3) / 4 * 4 + 4; }
+
+// Copy `runs` runs of n 4-byte words, run i from src(i) to dst + i stride
+// (dst 16-byte aligned, stride a multiple of 4), with the block's NT
+// threads: 16-byte copies when every run starts on a 16-byte boundary and n
+// is a multiple of 4 (vec), else 4-byte copies. Commits nothing.
+template <int NT, typename Src>
+__device__ __forceinline__ void stage_runs(float* dst, int stride, Src src, int runs, int n,
+                                           bool vec) {
+  if (vec) {
+    const int n4 = n >> 2;
+    for (int e = threadIdx.x; e < runs * n4; e += NT) {
+      const int i = e / n4, c = e - i * n4;
+      cp_async16(dst + i * stride + 4 * c, src(i) + 4 * c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < runs * n; e += NT) {
+      const int i = e / n, c = e - i * n;
+      cp_async4(dst + i * stride + c, src(i) + c);
+    }
+  }
+}
+
+// Launch a fetch-only kernel on a grid of its resident blocks of `threads`
+// (at most one per unit) with `bytes` of dynamic shared memory, asking for
+// no more of the SM's shared memory than `per_sm` such blocks take (each
+// also holds 1 KB the system reserves): the rest stays L1, through which the
+// kernel's texel gathers go. Returns the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch_fetch(Kernel kernel, int threads, size_t bytes, int per_sm, int units,
+                         int device, cudaStream_t stream, Args... args) {
+  const size_t sm_bytes = (size_t)per_sm * (bytes + 1024), sm_max = MAX_SMEM + 1024;
+  const int carveout = (int)((100 * sm_bytes + sm_max - 1) / sm_max);   // percent
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         carveout < 100 ? carveout : 100);
+  if (err != cudaSuccess) return err;
+  return launch_resident(kernel, threads, bytes, units, device, stream, args...);   // checks bytes
 }
 
 }  // namespace

@@ -58,6 +58,7 @@ import torch
 
 CP = 16               # padded channels per plane texel
 THREADS = 256         # threads per block of the kernel
+MAX_JOB_INTS = 64     # ints of a tile's job table the kernels take
 SMEM_LIMIT = 232448   # bytes of shared memory a block may use on sm_90
 # fixed widths of the ER-NeRF head the kernel is written for
 HID, AUD, EYE_HID = 64, 32, 16
@@ -657,6 +658,28 @@ def block_smem_bytes(spec: SamplerSpec, wdtype: torch.dtype) -> int:
     return head_smem_bytes(spec) if wdtype == torch.bfloat16 else tf32_smem_bytes(spec)
 
 
+def staged_stride(n: int) -> int:
+    """The row stride, in floats, of n coordinates staged in a fetch-only
+    kernel's shared memory (``staged_stride`` in csrc/sampler_core.cuh): a
+    multiple of 4, padded by 4."""
+    return (n + 3) // 4 * 4 + 4
+
+
+def k2d_smem_bytes(spec: SamplerSpec) -> int:
+    """Dynamic shared memory of one K2d block (``k2d_smem`` in
+    csrc/sampler.cu): two buffers, each a tile's job table (64 ints) and one
+    depth group's uv rows, [3][2][staged_stride(sg)] float32."""
+    return 2 * (4 * MAX_JOB_INTS + 4 * 6 * staged_stride(spec.sg))
+
+
+def _check_smem(kernel: str, spec: SamplerSpec, nbytes: int) -> None:
+    """Raise, before anything is launched, if a block of ``nbytes`` of
+    shared memory does not fit."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{kernel}: a tile of {spec.rays_per_tile} rays × {spec.k} samples in "
+                         f"{spec.kg} groups needs {nbytes} B of shared memory > {SMEM_LIMIT}")
+
+
 def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights=None,
            job_fields: int = 2) -> None:
     """Raise on anything ``kernel`` does not take. operands: name → (tensor,
@@ -689,9 +712,9 @@ def _check(kernel: str, spec: SamplerSpec, planes_major, operands: dict, weights
             or planes_major.shape[1] < spec.wu):
         raise ValueError(f"{kernel} takes planes_major [3, rows >= wu, R·{CP}], got "
                          f"{tuple(planes_major.shape)}")
-    if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > 64:
+    if spec.k % spec.kg or spec.k < 2 or 3 * (1 + job_fields * spec.kg) > MAX_JOB_INTS:
         raise ValueError(f"{kernel} needs k % kg == 0, k >= 2 and 3·(1 + {job_fields}·kg) "
-                         f"<= 64 (k={spec.k}, kg={spec.kg})")
+                         f"<= {MAX_JOB_INTS} (k={spec.k}, kg={spec.kg})")
     if kernel in STAGES and weights is not None:
         wdt = weights["wx_aud"].dtype
         name = str(wdt).split(".")[1]
@@ -839,6 +862,7 @@ def render_rays_tiles(planes_major, jobs, rays, dproj, weights: dict, spec: Samp
 
 def sample_tiles_cuda(planes_major, jobs, uv, spec: SamplerSpec) -> torch.Tensor:
     """Launch K2d on the operands' device and PyTorch's current stream there."""
+    _check_smem("K2d", spec, k2d_smem_bytes(spec))
     t, kg = _tiles(uv, 3), spec.kg
     _check("K2d", spec, planes_major, {
         "jobs": (jobs, torch.int32, (t * 3 * (1 + 2 * kg),)),

@@ -45,6 +45,7 @@ from mere_fusion_tpu_torch.ops import sampler
 from mere_fusion_tpu_torch.ops.sampler import CP, HID, SHADE_WEIGHTS, THREADS, SamplerSpec
 
 LANES = 128                                # the lanes S1 keeps of each window row
+S1_THREADS = 1024                          # threads of an S1 block (csrc/sampler_stages.cu)
 HEAD_WGS = 3                               # warpgroups of K2's bf16 block (HEAD_WGS)
 SECTION_MODES = ("win", "shade", "full")   # S2's kernel takes the first two by number
 
@@ -74,7 +75,7 @@ def m1_only_plain(planes_major, jobs, uv, spec: SamplerSpec, blockdiag: bool = F
                       device=uv.device)
     for s in range(0, t, chunk):
         e = min(t, s + chunk)
-        p = jobs[s:e, :, 0].long()[..., None, None]               # [Tc, 3, 1, 1]
+        p = jobs[s:e, :, 0].long().clamp(0, 2)[..., None, None]   # [Tc, 3, 1, 1]
         ou = jobs[s:e, :, 1::2].long()                             # [Tc, 3, kg]
         ov = jobs[s:e, :, 2::2].long()
         uc = torch.clamp(uv[s:e, :, :, 0] - ou[..., None].float(), 0.0, wu - 1.001)
@@ -83,8 +84,9 @@ def m1_only_plain(planes_major, jobs, uv, spec: SamplerSpec, blockdiag: bool = F
         fi = torch.floor(uc)
         w0 = torch.clamp(1.0 - (fi - uc).abs(), min=0.0).to(torch.bfloat16).float()
         w1 = torch.clamp(1.0 - (fi + 1.0 - uc).abs(), min=0.0).to(torch.bfloat16).float()
-        row = p * m + ou[..., None] + fi.long() - shift[:, None]   # [Tc, 3, kg, sg]
-        col = (ov * CP)[..., None, None] + lanes                   # [Tc, 3, kg, 1, 128]
+        # the kernel's clamps, which keep a window that leaves the planes inside them
+        row = p * m + torch.clamp(ou[..., None] + fi.long() - shift[:, None], 0, m - 2)
+        col = (torch.clamp(ov, 0, width // CP - LANES // CP) * CP)[..., None, None] + lanes
         m1 = (w0[..., None] * flat[row[..., None], col].float()
               + w1[..., None] * flat[row[..., None] + 1, col].float())   # [Tc, 3, kg, sg, 128]
         if blockdiag:
@@ -178,8 +180,18 @@ def smem_bytes(spec: SamplerSpec, mode: str, bf16: bool) -> int:
     return k2 + 16 * max(0, need - ns) + wide
 
 
+def m1_smem_bytes(spec: SamplerSpec) -> int:
+    """Dynamic shared memory of one S1 block (``s1_smem`` in
+    csrc/sampler_stages.cu), either mode: each warp's 32 step records (8
+    bytes), then two buffers, each a tile's job table (64 ints) and its u
+    rows, [3·kg][staged_stride(sg)] float32."""
+    return (8 * S1_THREADS
+            + 2 * (4 * sampler.MAX_JOB_INTS + 4 * 3 * spec.kg * sampler.staged_stride(spec.sg)))
+
+
 def m1_only_cuda(planes_major, jobs, uv, spec: SamplerSpec, blockdiag: bool = False):
     """Launch S1 on the operands' device and PyTorch's current stream there."""
+    sampler._check_smem("S1", spec, m1_smem_bytes(spec))
     t, kg = sampler._tiles(uv, 3), spec.kg
     sampler._check("S1", spec, planes_major, {
         "jobs": (jobs, torch.int32, (t * 3 * (1 + 2 * kg),)),

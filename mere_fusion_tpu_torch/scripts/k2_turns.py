@@ -17,6 +17,10 @@ this checkout's ``chip_smoke.py``:
 - K2 on the dense 512² job set (``chip_smoke.k2_operands``) with bfloat16
   and float32 shade weights: kernel ms by CUDA events and the largest error
   against the plain version;
+- K2d on the same job set and S1 in both modes on the profiling operands
+  (``prof_r5k.make_inputs``: 2048 tiles of 16×8 rays, k 16, kg 4, wu 64,
+  wv 32, as ``chip_smoke``'s ``sampler_stages``): kernel ms by CUDA events
+  and the largest error against the plain version;
 - K3's backward at the training shape (``chip_smoke.k3_operands``): its
   device ms (torch.profiler, as ``chip_smoke`` times it; a zero fill that a
   checkout's wrapper launches before the kernel is counted with it);
@@ -72,7 +76,9 @@ def measure(root: str) -> dict:
     from mere_fusion_tpu_torch.engines.muse import MuseModels
     from mere_fusion_tpu_torch.engines.nerf_baked import make_unbaked_render_step
     from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
-    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler, sampler_stages
+    from mere_fusion_tpu_torch.ops.sampler import SamplerSpec
+    from mere_fusion_tpu_torch.scripts import prof_r5k
     from mere_fusion_tpu_torch.train.ernerf_train import (
         make_nerf_train_step,
         refresh_density_grid,
@@ -123,6 +129,31 @@ def measure(root: str) -> dict:
                                     iters=10, warmup=2)}
         del ops, got, ref
         torch.cuda.empty_cache()
+
+    ops = cs.k2_operands(dev, cs.NERF_HW, spec, torch.bfloat16)
+    planes, jobs, uv = ops[:3]
+    err = (sampler.sample_tiles(planes, jobs, uv, spec).float()
+           - sampler.sample_tiles_plain(planes, jobs, uv, spec).float()).abs().max().item()
+    out["k2d"] = {"max_abs_err": err, "kernel_ms": cs.time_ms(
+        lambda: sampler.sample_tiles(planes, jobs, uv, spec), iters=10, warmup=2)}
+    del ops, planes, jobs, uv
+    torch.cuda.empty_cache()
+
+    pspec = SamplerSpec(resolution=prof_r5k.R, channels=prof_r5k.C, tile_w=16, tile_h=8, k=16,
+                        kg=4, wu=64, wv=32)
+    t = prof_r5k.N_RAYS // pspec.rays_per_tile
+    jobs, uv, _, _, _, planes = prof_r5k.make_inputs(
+        pspec, t, torch.Generator(device=dev).manual_seed(0), dev)
+    uv = uv.reshape(3 * t, pspec.kg, 2, pspec.sg)
+    for key, blockdiag in (("s1", False), ("s1_blockdiag", True)):
+        got = sampler_stages.m1_only(planes, jobs, uv, pspec, blockdiag)
+        err = (got - sampler_stages.m1_only_plain(planes, jobs, uv, pspec, blockdiag)).abs()
+        out[key] = {"max_abs_err": err.max().item(), "kernel_ms": cs.time_ms(
+            lambda: sampler_stages.m1_only(planes, jobs, uv, pspec, blockdiag), iters=10,
+            warmup=2)}
+        del got, err
+    del jobs, uv, planes
+    torch.cuda.empty_cache()
 
     spec3, tables, idx, w, gout = cs.k3_operands(dev)
     out["k3_bwd"] = {"device_ms": cs.device_ms(
@@ -220,6 +251,12 @@ def main(argv: list[str] | None = None) -> int:
             ("frame_f32_device_ms", lambda r: r["nerf_frame_f32"]["profile"].get("device_ms")),
             ("frame_f32_k2_device_ms",
              lambda r: r["nerf_frame_f32"]["profile"].get("sample_shade_comp_ms")),
+            ("k2d_ms", lambda r: r["k2d"]["kernel_ms"]),
+            ("k2d_max_abs_err", lambda r: r["k2d"]["max_abs_err"]),
+            ("s1_ms", lambda r: r["s1"]["kernel_ms"]),
+            ("s1_max_abs_err", lambda r: r["s1"]["max_abs_err"]),
+            ("s1_blockdiag_ms", lambda r: r["s1_blockdiag"]["kernel_ms"]),
+            ("s1_blockdiag_max_abs_err", lambda r: r["s1_blockdiag"]["max_abs_err"]),
             ("k3_bwd_device_ms", lambda r: r["k3_bwd"]["device_ms"]),
             ("unbaked_frame_ms", lambda r: r["unbaked_frame"]["ms"]),
             ("unbaked_frame_device_ms", lambda r: r["unbaked_frame"]["profile"]["device_ms"]),

@@ -330,6 +330,27 @@ def test_k2b_k2c_blocks_fit_shared_memory(wdtype):
     assert psamp.block_smem_bytes(big, wdtype) > psamp.SMEM_LIMIT
 
 
+def test_k2d_block_fits_shared_memory():
+    """K2d's block (csrc/sampler.cu k2d_smem: two buffers of a tile's job
+    table and one depth group's uv rows) takes 25,280 B at the default 16×8
+    tiles of 16 samples in 4 groups, so two blocks and most of L1 share an
+    SM; 512 rays × 32 samples in 2 groups do not fit a block's 232,448 B,
+    and the wrapper refuses them before a launch, before it even looks at
+    the operands."""
+    import dataclasses
+
+    spec = config_spec()
+    assert psamp.k2d_smem_bytes(spec) == 25280 <= psamp.SMEM_LIMIT
+    big = dataclasses.replace(spec, tile_w=32, tile_h=16, k=32, kg=2)
+    assert psamp.k2d_smem_bytes(big) > psamp.SMEM_LIMIT
+    jobs, uv = random_jobs(np.random.default_rng(5), 2)
+    planes = t_(shade_inputs(5, 2)[0]).to(torch.bfloat16)
+    before = psamp.sample_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        psamp.sample_tiles_cuda(planes, t_(jobs), t_(uv), big)
+    assert psamp.sample_launches == before
+
+
 def test_instance_tags_name_the_stages_of_the_kernels():
     """K2, K2b and K2c's instances of K2's kernels are told apart by their
     template argument, csrc/sampler_core.cuh's Stage, in the mangled name:

@@ -24,6 +24,12 @@ tile shapes and every depth grouping of k 16 on a 256² frame (the resident
 grid's last round partly filled, a third of the tiles with half their rays
 empty), and tiles whose last row block is partly filled; a tile too large
 for the block's shared memory raises before the launch.
+
+K2d's resident-grid kernel is held bit-equal to its plain version at the
+fetch-only kernels' geometries (``test_torch_sampler_stages_cuda.
+FETCH_GEOMETRIES``: kg 1, 2, 4 and 8, partial tiles, sg not a multiple of 4)
+on job tables whose windows cross the planes' edges, and a tile whose block
+does not fit the shared memory raises before the launch.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from chip_smoke import family_operands, k2_operands
 from mere_fusion_tpu_torch.engines.nerf_step import composite_grouped
 from mere_fusion_tpu_torch.ops import sampler
+from tests.test_torch_sampler_stages_cuda import FETCH_GEOMETRIES, fetch_operands, fetch_spec
 
 
 @pytest.fixture()
@@ -225,3 +232,33 @@ def test_k2b_k2c_refuse_a_tile_too_large_for_the_block(cuda_device, wdtype):
             planes, torch.zeros(t * 3 * (1 + 4 * big.kg), dtype=torch.int32, device=dev),
             torch.zeros(t, rpt, 8, device=dev), torch.zeros(t, rpt, 64, dtype=wdtype, device=dev),
             weights, big, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", FETCH_GEOMETRIES)
+def test_k2d_geometries_and_clamps(cuda_device, geometry):
+    """300 tiles (more than one round of the resident grid) at each geometry,
+    bit-equal to the plain version with the windows' clamps taken."""
+    spec = fetch_spec(*geometry)
+    planes, jobs, uv = fetch_operands(cuda_device, spec, 300)
+    before = sampler.sample_launches
+    out = sampler.sample_tiles(planes, jobs, uv, spec)
+    torch.cuda.synchronize()
+    assert sampler.sample_launches == before + 1
+    ref = sampler.sample_tiles_plain(planes, jobs, uv, spec)
+    assert out.shape == ref.shape and float(ref.float().abs().max()) > 1.0
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_k2d_refuses_a_block_that_does_not_fit(cuda_device):
+    """512 rays × 32 samples in 2 groups: a group's uv rows of 8,196 floats,
+    6 of them twice over, more than a block's shared memory; raises before
+    the launch."""
+    spec = fetch_spec(32, 16, 32, 2)
+    assert sampler.k2d_smem_bytes(spec) > sampler.SMEM_LIMIT
+    planes, jobs, uv = fetch_operands(cuda_device, spec, 2)
+    before = sampler.sample_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler.sample_tiles(planes, jobs, uv, spec)
+    assert sampler.sample_launches == before

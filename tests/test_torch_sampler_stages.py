@@ -214,3 +214,86 @@ def test_prof_k2_probes_find_their_text():
     for probe, edits in prof_k2.PROBES.items():
         for file, old, _new in edits:
             assert texts[file].count(old) == 1, (probe, file, old[:60])
+
+
+def test_m1_only_plain_clamps_windows_that_leave_the_planes(inputs):
+    """S1's plain version takes the kernel's clamps (csrc/sampler_stages.cu:
+    the plane into [0, 2], the window row into [0, rows − 2], the first
+    lane's texel into [0, rv − 8]): on jobs whose windows cross the planes'
+    last row and column, or start above and left of them, it equals a
+    per-row float32 loop with those clamps, in both modes."""
+    scal, uv, _, _, _, planes = inputs
+    kg, sg, wu = PSPEC.kg, PSPEC.sg, PSPEC.wu
+    rows, rv = planes.shape[1], planes.shape[2] // 16
+    table, uv = scal.reshape(3 * TILES, 1 + 2 * kg).copy(), uv.copy()
+    rng = np.random.default_rng(3)
+    for first, (p, ou, ov) in ((0, (2, rows - wu // 2, rv - 3)), (1, (5, -(wu // 2), -5))):
+        table[first::3, 0], table[first::3, 1::2], table[first::3, 2::2] = p, ou, ov
+        uv[first::3, :, 0] = ou + rng.uniform(0, wu - 1.01, uv[first::3, :, 0].shape)
+    table = table.reshape(TILES, 3, 1 + 2 * kg)
+    uvt = uv.reshape(TILES, 3, kg, 2, sg)
+    f32 = np.float32
+    for blockdiag in (False, True):
+        got = sampler_stages.m1_only_plain(torch.from_numpy(planes).to(torch.bfloat16),
+                                           torch.from_numpy(table.reshape(-1)),
+                                           torch.from_numpy(uv), PSPEC, blockdiag).numpy()
+        want = np.zeros_like(got)
+        for t in range(TILES):
+            for row in range(got.shape[1]):
+                g0, s = (row // sg, row % sg) if blockdiag else (0, row)
+                for q in range(3):
+                    p = min(max(int(table[t, q, 0]), 0), 2)
+                    for g in ((g0,) if blockdiag else range(kg)):
+                        ou, ov = int(table[t, q, 1 + 2 * g]), int(table[t, q, 2 + 2 * g])
+                        uc = min(max(f32(uvt[t, q, g, 0, s] - f32(ou)), f32(0)), f32(wu - 1.001))
+                        if blockdiag:
+                            uc = f32(uc + f32(g * wu))
+                        fi = np.floor(uc)
+                        w0, w1 = (bf16(max(f32(1) - abs(f32(r - uc)), f32(0)))
+                                  for r in (fi, f32(fi + 1)))
+                        r0 = min(max(ou + int(fi) - (g * wu if blockdiag else 0), 0), rows - 2)
+                        c0 = min(max(ov, 0), rv - 8) * 16
+                        a0 = planes[p, r0, c0:c0 + 128]
+                        a1 = planes[p, r0 + 1, c0:c0 + 128]
+                        want[t, row] = want[t, row] + ((w0 * a0).astype(f32)
+                                                       + (w1 * a1).astype(f32))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_s1_block_fits_shared_memory(inputs):
+    """S1's block (csrc/sampler_stages.cu s1_smem: each warp's 32 step
+    records, then two buffers of a tile's job table and u rows) takes 58,240
+    B at prof_r5m's spec (16×8 tiles, k 16, kg 4), which fits a block's
+    232,448 B; 256 rays × 64 samples in 8 groups do not, and the wrapper
+    refuses them before a launch, before it even looks at the operands."""
+    import dataclasses
+
+    spec = psamp.SamplerSpec(resolution=prof_r5k.R, channels=prof_r5k.C, tile_w=16, tile_h=8,
+                             k=16, kg=4, wu=64, wv=32)
+    assert sampler_stages.m1_smem_bytes(spec) == 58240 <= psamp.SMEM_LIMIT
+    big = dataclasses.replace(spec, tile_w=32, k=64, kg=8)
+    assert sampler_stages.m1_smem_bytes(big) > psamp.SMEM_LIMIT
+    scal, uv, _, _, _, planes = inputs
+    before = sampler_stages.m1_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler_stages.m1_only_cuda(torch.from_numpy(planes).to(torch.bfloat16),
+                                    torch.from_numpy(scal), torch.from_numpy(uv), big)
+    assert sampler_stages.m1_launches == before
+
+
+@pytest.mark.parametrize("kernel,source", [("S1", "sampler_stages.cu"), ("K2d", "sampler.cu")])
+def test_prof_fetch_probes_find_their_text(kernel, source):
+    """prof_fetch's probes are text edits of csrc/sampler_stages.cu,
+    csrc/sampler.cu and csrc/sampler_core.cuh: each edit's text must be in
+    its file as often as the probe says, or the script refuses to build the
+    probe on the card. This tree holds the resident-grid design."""
+    from mere_fusion_tpu_torch.scripts import prof_fetch
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(psamp.__file__))))
+    texts = prof_fetch.read_csrc(root)
+    found = prof_fetch.probes(kernel, texts)
+    assert {"kernel", "no_stores", "wb_stores",
+            "no_texels" if kernel == "S1" else "no_gathers"} <= set(found)
+    for edits in found.values():
+        text = prof_fetch.edited(texts, source, edits)[source]    # raises if a text is missing
+        assert "mf_sections" not in text and "mf_sample_shade_comp" not in text

@@ -17,6 +17,13 @@ the same operands: equal (it launches K2, counted as K2). S2's win and shade
 are K2's own tensor-core kernels stopped after the fetch or the head: the
 shade instantiations hold HGMMA (bf16 weights) or HMMA (f32) in their SASS,
 and no instantiation spills.
+
+S1's resident-grid kernel (both modes) is also held bit-equal to its plain
+version at every geometry of ``FETCH_GEOMETRIES`` (kg 1, 2, 4 and 8; the
+family's partial tiles; sg not a multiple of 4, whose coordinates the
+kernel stages with 4-byte copies) on job tables whose windows cross the
+planes' edges (``fetch_operands``), and a tile whose block does not fit the
+shared memory raises before the launch.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import pytest
 import torch
 
 from mere_fusion_tpu_torch.ops import sampler, sampler_stages
+from mere_fusion_tpu_torch.ops.sampler import CP, SamplerSpec
 from mere_fusion_tpu_torch.scripts import prof_r5k
 
 SIZES = {
@@ -137,3 +145,67 @@ def test_stages_are_k2_tensor_core_kernels(cuda_device, kernel, instruction):
 
     build = kernel_build(sampler_stages.build(), kernel, instruction)   # raises on a spill
     assert build[instruction.lower()] > 0 and build["spill_bytes"] == 0
+
+
+# (tile_w, tile_h, k, kg) of the fetch-only kernels' checks: kg 1, 2, 4 and 8
+# (sg 2048 … 256), the family's partial tiles (sg 80, 160, 64) and sg 45, 27
+FETCH_GEOMETRIES = [(16, 8, 16, 1), (16, 8, 16, 2), (16, 8, 16, 4), (16, 8, 16, 8),
+                    (4, 4, 5, 1), (8, 4, 5, 1), (8, 4, 6, 3), (5, 3, 3, 1), (3, 3, 6, 2)]
+
+
+def fetch_spec(tile_w, tile_h, k, kg) -> SamplerSpec:
+    return SamplerSpec(resolution=128, channels=12, tile_w=tile_w, tile_h=tile_h, k=k, kg=kg,
+                       wu=32, wv=16)
+
+
+def fetch_operands(dev, spec: SamplerSpec, tiles: int, seed: int = 0):
+    """planes, jobs and uv of ``tiles`` tiles at ``spec`` with
+    prof_r5k.make_inputs' distributions on planes of ``spec.resolution``,
+    where every third job's windows cross the planes' last row and column
+    and every third from the next one starts above and left of the planes,
+    so that the kernels' row and column clamps are taken."""
+    saved, prof_r5k.R = prof_r5k.R, spec.resolution
+    try:
+        jobs, uv, _, _, _, planes = prof_r5k.make_inputs(
+            spec, tiles, torch.Generator(device=dev).manual_seed(seed), dev)
+    finally:
+        prof_r5k.R = saved
+    rows, rv = planes.shape[1], planes.shape[2] // CP
+    table, u = jobs.view(3 * tiles, 1 + 2 * spec.kg), uv[:, :, 0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for first, (ou, ov) in ((0, (rows - spec.wu // 2, rv - 3)), (1, (-(spec.wu // 2), -5))):
+        table[first::3, 1::2] = ou
+        table[first::3, 2::2] = ov
+        u[first::3] = ou + torch.rand(u[first::3].shape, generator=gen,
+                                      device=dev) * (spec.wu - 1.01)
+    return planes, jobs, uv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blockdiag", [False, True])
+@pytest.mark.parametrize("geometry", FETCH_GEOMETRIES)
+def test_m1_only_geometries_and_clamps(cuda_device, geometry, blockdiag):
+    """300 tiles (more than one round of the resident grid) at each geometry,
+    bit-equal to the plain version with the windows' clamps taken."""
+    spec = fetch_spec(*geometry)
+    planes, jobs, uv = fetch_operands(cuda_device, spec, 300)
+    before = sampler_stages.m1_launches
+    out = sampler_stages.m1_only(planes, jobs, uv, spec, blockdiag)
+    torch.cuda.synchronize()
+    assert sampler_stages.m1_launches == before + 1
+    ref = sampler_stages.m1_only_plain(planes, jobs, uv, spec, blockdiag)
+    assert out.shape == ref.shape and ref.abs().max().item() > 1.0
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_m1_only_refuses_a_block_that_does_not_fit(cuda_device):
+    """256 rays × 64 samples in 8 groups: 3·8 u rows of 2,052 floats twice
+    over, more than a block's shared memory; raises before the launch."""
+    spec = fetch_spec(32, 8, 64, 8)
+    assert sampler_stages.m1_smem_bytes(spec) > sampler.SMEM_LIMIT
+    planes, jobs, uv = fetch_operands(cuda_device, spec, 2)
+    before = sampler_stages.m1_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        sampler_stages.m1_only(planes, jobs, uv, spec)
+    assert sampler_stages.m1_launches == before
