@@ -209,7 +209,9 @@ class NeRFConfig:
     fix_eye: float = -1.0             # >=0 forces a constant blink area
     fullbody_imgs: str = ""           # dir of full-body frames to paste into
     fullbody_offset: tuple = (0, 0)   # (x, y) of the head crop in the body
-    ckpt: str = ""                    # orbax checkpoint dir with variables
+    ckpt: str = ""                    # trained avatar: a reference .pth (ngp_kf.pth) or
+                                      # an ernerf_cli workspace of ckpt-<step>.pt (its
+                                      # EMA weights); empty = seeded random weights
 
 
 @dataclass(frozen=True)

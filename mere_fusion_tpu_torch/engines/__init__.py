@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 
 import torch
 
@@ -146,10 +147,6 @@ def make_engine(cfg: Config, **kw):
 
         nc = cfg.nerf
         kw["device"] = resolve_device(kw.get("device"))
-        if nc.ckpt:
-            raise NotImplementedError(
-                "ER-NeRF checkpoint loading (load_nerf_checkpoint) is not ported "
-                "to the PyTorch package yet (ROADMAP: 'ER-NeRF checkpoints')")
         if nc.fullbody_imgs:
             raise NotImplementedError(
                 "the ER-NeRF fullbody paste is not ported to the PyTorch package "
@@ -162,5 +159,14 @@ def make_engine(cfg: Config, **kw):
                 data_range=tuple(nc.data_range))
         if nc.fix_eye >= 0:
             kw["dataset"].eye_area[:] = nc.fix_eye
+        if nc.ckpt and "state" not in kw:
+            from mere_fusion_tpu_torch.engines.nerf import load_nerf_checkpoint
+            from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+            t0 = time.perf_counter()
+            kw["state"], density = load_nerf_checkpoint(cfg)
+            metrics.latency("nerf.build.load").observe(time.perf_counter() - t0)
+            if density is not None:
+                kw["density"] = density
         return NeRFReal(cfg, **kw)
     raise ValueError(f"unknown avatar kind {kind!r}")

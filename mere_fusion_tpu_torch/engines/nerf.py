@@ -12,13 +12,18 @@ device-resident feature ring, the audio-code EMA (in the frame steps) and
 ``NeRFReal`` with ``nerf.sample_mode`` "pallas" (the K2 step) or
 "nearest"/"bilinear" (the baked-texture step, engines/nerf_baked.py), or
 with ``bake_planes=False`` the unbaked per-frame hash-encode step
-(engines/nerf_baked.py, kernel K3), on random weights from a fixed seed.
-Not yet ported, each raising and naming its ROADMAP item: the DeepSpeech
-and wav2vec featurizers (and with them device-side featurizer flushes), the
-torso net, the orbit camera, the fullbody paste and checkpoint loading.
+(engines/nerf_baked.py, kernel K3), on random weights from a fixed seed or
+on a trained avatar that ``load_nerf_checkpoint`` reads (``nerf.ckpt``: a
+reference ``.pth`` or the port's training workspace), with the torso net
+when ``nerf.torso`` is set. Not yet ported, each raising and naming its
+ROADMAP item: the DeepSpeech and wav2vec featurizers (and with them
+device-side featurizer flushes), the orbit camera, the fullbody paste and
+the JAX package's orbax checkpoints.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from mere_fusion_tpu_torch.config import Config
+from mere_fusion_tpu_torch.convert import ernerf_from_flax
 from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
 from mere_fusion_tpu_torch.device import resolve_device
 from mere_fusion_tpu_torch.engines.base import BaseReal, track_put
@@ -45,6 +51,13 @@ from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.ops.triplane_bake import bake_triplanes
 from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.transport.frames import AudioChunk, VideoImage
+from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+from mere_fusion_tpu_torch.utils.torch_convert import (
+    convert_ernerf,
+    density_from_ernerf,
+    load_torch_checkpoint,
+    strip_prefix,
+)
 
 
 def fake_logits_fn(audio_dim: int) -> Callable[[np.ndarray], np.ndarray]:
@@ -155,28 +168,119 @@ class NerfASR(BaseASR):
             self.run_step()
 
 
-def net_config(cfg: Config) -> NeRFNetConfig:
+def net_config(cfg: Config, state: dict | None = None) -> NeRFNetConfig:
+    """The network of ``cfg.nerf``; given a loaded state (parameter name →
+    tensor), its individual-code tables size the codes (none when absent)."""
     nc = cfg.nerf
-    return NeRFNetConfig(
+    net = NeRFNetConfig(
         bound=nc.bound, audio_in_dim=nc.audio_in_dim, audio_dim=nc.audio_dim,
         exp_eye=nc.exp_eye, num_levels=nc.num_levels, base_resolution=nc.base_resolution,
         log2_hashmap_size=nc.log2_hashmap_size, desired_resolution=nc.desired_resolution,
         torso=nc.torso, level_dim=nc.level_dim)
+    if state is None:
+        return net
+    head, torso = state.get("individual_codes"), state.get("individual_codes_torso")
+    rows = next((t.shape[0] for t in (head, torso) if t is not None), 1)
+    return dataclasses.replace(
+        net, num_train_frames=rows,
+        individual_dim=head.shape[1] if head is not None else 0,
+        individual_dim_torso=torso.shape[1] if torso is not None else 0)
+
+
+# the torso's parameters; a checkpoint of the torso stage has every one but
+# the codes, which appear only when trained
+TORSO_KEYS = ("anchor_points", "torso_grid", "torso_deform_net.", "torso_net.")
+
+
+def _is_torso(name: str) -> bool:
+    return name.startswith(TORSO_KEYS) or name == "individual_codes_torso"
+
+
+def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
+    """The serving weights named by ``cfg.nerf.ckpt``, on the CPU.
+
+    ``*.pth``: a reference Trainer checkpoint (``ngp_kf.pth``): its ``model``
+    state dict (``state_dict``-wrapped or ``module.``-prefixed keys too)
+    through ``convert_ernerf`` and ``convert.ernerf_from_flax``, and its
+    Morton-order density grid with the top-level ``mean_density``. A
+    directory of the port's ``ckpt-<step>.pt`` (``ernerf_cli``'s workspace;
+    the newest step) or one such file: its EMA parameters and its density
+    grid, as the JAX package serves a training state's EMA. Anything else,
+    such as the JAX package's orbax directories, raises.
+
+    Returns (the port's network state dict, DensityGrid or None). Raises
+    ValueError when the hash tables, ``audio_in_dim`` or the density grid do
+    not fit the ``nerf.*`` fields, or when ``nerf.torso`` is set and the
+    checkpoint has no torso; with ``nerf.torso`` unset a torso checkpoint
+    serves its head."""
+    nc = cfg.nerf
+    path = nc.ckpt
+    if path.endswith(".pth"):
+        top = load_torch_checkpoint(path)
+        model = top.get("model", top)
+        model = strip_prefix(model.get("state_dict", model))
+        tree = convert_ernerf(model)
+        params = tree["params"]
+        conv = dataclasses.replace(net_config(cfg, params), torso="anchor_points" in params)
+        state = ernerf_from_flax(tree, conv)
+        density = (density_from_ernerf(model, nc.grid_size, nc.density_thresh,
+                                       mean_density=top.get("mean_density"))
+                   if "density_grid" in model else None)
+    else:
+        if os.path.isdir(path) and Checkpointer(path).steps():
+            raw = Checkpointer(path).restore(map_location="cpu")
+        elif os.path.isfile(path) and os.path.basename(path).startswith("ckpt-"):
+            raw = torch.load(path, map_location="cpu", weights_only=True)["state"]
+        else:
+            raise NotImplementedError(
+                f"nerf.ckpt {path!r} is neither a reference .pth nor a workspace of the "
+                "port's ckpt-<step>.pt; the JAX package's orbax checkpoints are not "
+                "ported (ROADMAP: 'Checkpoints')")
+        state = {k: v.float() for k, v in raw["ema"].items()}
+        density = DensityGrid(**raw["density"])
+
+    spec = net_config(cfg).plane_spec
+    got = tuple(state["plane_xy"].shape)
+    want = (spec.total_params, nc.level_dim)
+    if got != want:
+        raise ValueError(
+            f"checkpoint hash tables are {got} but the serving config expects {want}: "
+            "pass the training run's --num_levels/--base_resolution/--desired_resolution/"
+            "--log2_hashmap_size via the matching nerf.* fields")
+    aud_in = state["audio_net.conv_0.weight"].shape[1]
+    if aud_in != nc.audio_in_dim:
+        raise ValueError(f"checkpoint audio_in_dim {aud_in} != nerf.audio_in_dim "
+                         f"{nc.audio_in_dim}")
+    if density is not None and density.grid.numel() != nc.grid_size ** 3:
+        raise ValueError(f"checkpoint density grid has {density.grid.numel()} cells but "
+                         f"nerf.grid_size={nc.grid_size} expects {nc.grid_size ** 3}")
+    if nc.torso:
+        missing = [k for k in TORSO_KEYS if not any(n.startswith(k) for n in state)]
+        if missing:
+            raise ValueError(f"nerf.torso is set but checkpoint {path!r} has no torso "
+                             f"parameters {missing}: pass a workspace of the torso stage "
+                             "(ernerf_cli --torso) or unset nerf.torso")
+    else:
+        state = {k: v for k, v in state.items() if not _is_torso(k)}
+    return state, density
 
 
 class NeRFReal(BaseReal):
-    """The ER-NeRF engine: network with seeded random weights (seed 0),
-    fully occupied density grid, planes baked at 2× the finest hash level
-    (at most 1024²), and the frame step of ``nerf.sample_mode``: K2's
-    (engines/nerf_step.py) for "pallas", the baked-texture step
-    (engines/nerf_baked.py) for "nearest" and "bilinear". With
-    ``bake_planes=False`` nothing is baked and every mode renders through
-    the unbaked step (engines/nerf_baked.py), which hash-encodes each
-    frame's samples."""
+    """The ER-NeRF engine: the network with the given weights (``state``,
+    a state dict as ``load_nerf_checkpoint`` returns it) or seeded random
+    ones (seed 0), the given density grid or a fully occupied one, planes
+    baked at 2× the finest hash level (at most 1024²), and the frame step of
+    ``nerf.sample_mode``: K2's (engines/nerf_step.py) for "pallas", the
+    baked-texture step (engines/nerf_baked.py) for "nearest" and
+    "bilinear". With ``bake_planes=False`` nothing is baked and every mode
+    renders through the unbaked step (engines/nerf_baked.py), which
+    hash-encodes each frame's samples. The build's seconds go to the
+    latency meters ``nerf.build.bake`` and ``nerf.build.prefill``."""
 
     def __init__(self, cfg: Config, dataset: NeRFTestDataset,
                  custom_opts: list[dict] | None = None, device=None,
-                 bake_planes: bool = True):
+                 bake_planes: bool = True, state: dict | None = None,
+                 density: DensityGrid | None = None):
         nc = cfg.nerf
         if nc.sample_mode not in ("pallas", "nearest", "bilinear"):
             raise ValueError(f"nerf.sample_mode {nc.sample_mode!r} is not 'pallas', "
@@ -188,13 +292,23 @@ class NeRFReal(BaseReal):
         super().__init__(cfg, custom_opts, device=resolve_device(device))
         dev = self.device
         with self.device_scope():
-            self.network = init_ernerf_(NeRFNetwork(net_config(cfg)).to(dev), 0).eval()
+            if state is None:
+                self.network = init_ernerf_(NeRFNetwork(net_config(cfg)).to(dev), 0)
+            else:
+                self.network = NeRFNetwork(net_config(cfg, state)).to(dev)
+                self.network.load_state_dict(state, strict=True)
+            self.network.eval()
             self.dataset = dataset
             self.loader = iter(dataset)
             # the background is static per dataset: uploaded once
             self._bg_dev = torch.from_numpy(
                 np.asarray(dataset.bg_img, np.float32).reshape(-1, 3)).to(dev)
-            self.density = DensityGrid.create(nc.grid_size, device=dev)
+            # made once: the K2 step's span cache keys on this grid's occupancy
+            self.density = (DensityGrid.create(nc.grid_size, device=dev) if density is None
+                            else DensityGrid(grid=density.grid.to(dev),
+                                             occupancy=density.occupancy.to(dev),
+                                             mean_density=density.mean_density.to(dev)))
+            t0 = self._clock()
             if bake_planes:
                 tables = {n: getattr(self.network, n).detach()
                           for n in ("plane_xy", "plane_yz", "plane_xz")}
@@ -207,16 +321,25 @@ class NeRFReal(BaseReal):
                 self._render_step = make_step(self.network, dataset, cfg, baked)
             else:
                 self._render_step = make_unbaked_render_step(self.network, dataset, cfg)
+            t1 = self._clock()
             if dev.type == "cuda":
-                # K2's step prefills the span cache for the pose track and
-                # builds K2 now, the unbaked step builds K3, so the live loop
-                # never waits on a probe readback or nvcc (the baked step has
-                # nothing to prefill)
-                self._render_step.warmup(self.density)
+                # K2's step prefills the span and torso caches for the pose
+                # track and builds K2 now, the unbaked step builds K3, so the
+                # live loop never waits on a probe readback, a torso pass or
+                # nvcc (the baked step has nothing to prefill)
+                self._render_step.warmup(self.density, self._bg_dev)
+            metrics.latency("nerf.build.bake").observe(t1 - t0)
+            metrics.latency("nerf.build.prefill").observe(self._clock() - t1)
             self.asr = NerfASR(cfg, self, fake_logits_fn(nc.audio_in_dim), device=dev)
             self.asr.warm_up()
         # frames until the next active/overflow gauge readback (see test_step)
         self._telemetry_countdown = 0
+
+    def _clock(self) -> float:
+        """Host seconds once the device's queued work is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
 
     def set_orbit_camera(self, enable: bool = True):
         raise NotImplementedError(

@@ -7,10 +7,15 @@ pyramid over 16 CTC frames), AudioAttNet (attention over 8 windows),
 channel-attention MLPs for audio and eye, an exp-activated sigma MLP, an
 SH-direction colour MLP and an uncertainty head.
 
+With ``torso=True`` the network also carries the torso: a 2-D
+deformation field over the frequency-encoded pixel and the head pose's
+anchor points, and a colour/alpha net over a tiled 2-D grid (``torso_grid``,
+16 levels × 2 channels, encoded by the plain ``ops/hashgrid.grid_encode``:
+the JAX package encodes it with XLA too, not a Pallas kernel).
+
 Parameter names follow the JAX tree (``plane_xy``, ``audio_net.conv_0``,
-``sigma_net.net_1`` ...) so ``convert.ernerf_from_flax`` is a rename plus
-layout transposes. Only the head is ported: the torso net (``torso=True``)
-raises.
+``sigma_net.net_1``, ``torso_net.net_0`` ...) so ``convert.ernerf_from_flax``
+is a rename plus layout transposes.
 """
 from __future__ import annotations
 
@@ -22,8 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mere_fusion_tpu_torch.ops import hash_lookup
-from mere_fusion_tpu_torch.ops.encoders import sh_encode
-from mere_fusion_tpu_torch.ops.hashgrid import GridSpec
+from mere_fusion_tpu_torch.ops.encoders import freq_encode, sh_encode
+from mere_fusion_tpu_torch.ops.hashgrid import GridSpec, grid_encode
 
 # Hash-encode implementation of encode_x (mirrors the JAX package's switch to
 # its Pallas lookup):
@@ -66,6 +71,19 @@ class NeRFNetConfig:
     @property
     def in_dim(self) -> int:
         return 3 * self.num_levels * self.level_dim  # triplane concat
+
+    @property
+    def torso_in_dim(self) -> int:
+        """The torso's shared input: freq_encode(x, 8), freq_encode(the
+        three anchors' xy, 3) and the torso individual code."""
+        return 2 * 17 + 6 * 7 + self.individual_dim_torso
+
+
+# the torso's tiled 2-D grid at its published widths (network.py:152-160)
+TORSO_SPEC = GridSpec(input_dim=2, num_levels=16, level_dim=2, base_resolution=16,
+                      log2_hashmap_size=16, desired_resolution=2048, gridtype="tiled")
+# the anchor points' initial values (homogeneous, one per row)
+ANCHOR_INIT = ((0.01, 0.01, 0.1, 1.0), (-0.1, -0.1, 0.1, 1.0), (0.1, -0.1, 0.1, 1.0))
 
 
 class MLP(nn.Module):
@@ -136,10 +154,6 @@ class AudioAttNet(nn.Module):
 class NeRFNetwork(nn.Module):
     def __init__(self, cfg: NeRFNetConfig = NeRFNetConfig()):
         super().__init__()
-        if cfg.torso:
-            raise NotImplementedError(
-                "the ER-NeRF torso net is not ported to the PyTorch package "
-                "yet (ROADMAP: 'ER-NeRF torso')")
         self.cfg = cfg
         n = cfg.plane_spec.total_params
         self.plane_xy = nn.Parameter(torch.zeros(n, cfg.level_dim))
@@ -158,6 +172,18 @@ class NeRFNetwork(nn.Module):
         if cfg.individual_dim > 0:
             self.individual_codes = nn.Parameter(
                 torch.zeros(cfg.num_train_frames, cfg.individual_dim))
+        if cfg.torso:
+            # registered after the head, so the head's seeded draws do not
+            # depend on whether the torso is there
+            self.anchor_points = nn.Parameter(torch.tensor(ANCHOR_INIT))
+            self.torso_grid = nn.Parameter(torch.zeros(TORSO_SPEC.total_params,
+                                                       TORSO_SPEC.level_dim))
+            self.torso_deform_net = MLP(cfg.torso_in_dim, 2, 32, 3)
+            self.torso_net = MLP(TORSO_SPEC.num_levels * TORSO_SPEC.level_dim
+                                 + cfg.torso_in_dim, 4, 32, 3)
+            if cfg.individual_dim_torso > 0:
+                self.individual_codes_torso = nn.Parameter(
+                    torch.zeros(cfg.num_train_frames, cfg.individual_dim_torso))
 
     # ---- encoders -------------------------------------------------------------
     def encode_x(self, xyz):
@@ -219,18 +245,48 @@ class NeRFNetwork(nn.Module):
         unc = torch.log1p(torch.exp(unc))
         return dens["sigma"], color, dens["ambient_aud"], dens["ambient_eye"], unc
 
+    # ---- torso ------------------------------------------------------------------
+    def forward_torso(self, x, pose, c=None):
+        """x [N, 2] in [−1, 1]; pose [4, 4] head pose; c [1, ind_dim_torso].
+
+        Returns (alpha [N, 1], color [N, 3], dx [N, 2])."""
+        x = x * self.cfg.torso_shrink
+        wrapped = self.anchor_points @ torch.linalg.inv(pose.T)      # [3, 4]
+        # two true divisions in this order, as the JAX package divides
+        wrapped = (wrapped[:, :2] / wrapped[:, 3:4] / wrapped[:, 2:3]).reshape(1, -1)
+        n = x.shape[0]
+        parts = [freq_encode(x, 8), freq_encode(wrapped, 3).expand(n, -1)]
+        if c is not None:
+            parts.append(c.expand(n, c.shape[-1]))
+        h = torch.cat(parts, dim=-1)
+        dx = self.torso_deform_net(h)
+        xd = torch.clamp(x + dx, -1.0, 1.0)
+        feat = grid_encode(self.torso_grid, xd, TORSO_SPEC, 1.0)
+        h2 = self.torso_net(torch.cat([feat, h], dim=-1))
+        alpha = torch.sigmoid(h2[..., :1]) * (1 + 2 * 0.001) - 0.001
+        color = torch.sigmoid(h2[..., 1:]) * (1 + 2 * 0.001) - 0.001
+        return alpha, color, dx
+
+    def torso_code(self):
+        """The torso individual code served at inference: frame 0's (the
+        reference pins it at test time), or None without codes."""
+        return self.individual_codes_torso[:1] if self.cfg.individual_dim_torso > 0 else None
+
 
 @torch.no_grad()
 def init_ernerf_(net: NeRFNetwork, seed: int) -> NeRFNetwork:
     """Seeded random weights on the network's device, as the JAX init draws
-    them: hash tables U(−1e-4, 1e-4), dense and conv kernels N(0, 1/fan_in),
-    biases 0, individual codes N(0, 0.1)."""
+    them: hash tables (the planes, the torso grid) U(−1e-4, 1e-4), dense and
+    conv kernels N(0, 1/fan_in), biases 0, individual codes N(0, 0.1), the
+    anchor points at their fixed initial values."""
     gen = torch.Generator(device=net.plane_xy.device).manual_seed(seed)
     for name, p in net.named_parameters():
-        if name.startswith("plane_"):
+        if name.startswith("plane_") or name == "torso_grid":
             p.uniform_(-1e-4, 1e-4, generator=gen)
-        elif name == "individual_codes":
+        elif name in ("individual_codes", "individual_codes_torso"):
             p.normal_(0.0, 0.1, generator=gen)
+        elif name == "anchor_points":
+            p.copy_(torch.tensor(ANCHOR_INIT))
         elif p.ndim == 1:
             p.zero_()
         else:

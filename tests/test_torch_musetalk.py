@@ -254,8 +254,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     assert resolve_device("cpu") == CPU
 
 
-# ernerf serves since the ER-NeRF slice; its checkpoint loader is unported
-UNPORTED_PARTS = {"wav2lip": {}, "ernerf": {"nerf.ckpt": "ernerf_ckpt/"}}
+# ernerf serves since the ER-NeRF slice; its fullbody paste is unported
+UNPORTED_PARTS = {"wav2lip": {}, "ernerf": {"nerf.fullbody_imgs": "body/"}}
 
 
 @pytest.mark.parametrize("kind", ["wav2lip", "ernerf"])

@@ -194,7 +194,7 @@ def test_warmup_prefills_the_span_cache_up_to_the_cap(datasets):
     cfg = Config().override(**OVERRIDES, **{"nerf.span_cache_poses": 3})
     engine = NeRFReal(cfg, dataset=pds, device=CPU)
     step = engine._render_step
-    step.warmup(engine.density)
+    step.warmup(engine.density, engine._bg_dev)
     assert set(step.span_cache) == {0, 1, 2}
     img, n_act, _ = step(pds.poses[3], torch.zeros(8, 44, 16), pds.collate(3)["eye"],
                          engine.density, engine._bg_dev, pose_key=3)
@@ -227,8 +227,7 @@ def test_unported_options_raise(datasets, data_dir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NeRFReal(Config().override(**OVERRIDES, **{"nerf.asr_model": "x.pb"}), dataset=pds,
                  device=CPU)
-    for key, value in (("nerf.torso", True), ("nerf.ckpt", "ckpt/"),
-                       ("nerf.fullbody_imgs", "body/")):
+    for key, value in (("nerf.fullbody_imgs", "body/"),):
         cfg = Config().override(**OVERRIDES, **{key: value,
                                                 "nerf.pose_path": f"{data_dir}/transforms.json",
                                                 "nerf.au_path": f"{data_dir}/au.csv"})
