@@ -13,8 +13,10 @@ order (``models.ernerf.renderer.plan_rays``) → every sample's features:
 texture samples (``ops.triplane_bake.encode_x_baked``, nearest or
 bilinear), or the network's hash encode (``NeRFNetwork.encode_x``, kernel
 K3 on CUDA, in float32 as the JAX package's) → the NeRF head → composite,
-scattered back over the background (the background colour: no torso) →
-uint8 RGB, the clipped image times 255 truncated.
+scattered back over the background → uint8 RGB, the clipped image times 255
+truncated. With the torso net the background is the torso pass blended onto
+the background colour (``nerf_step.torso_composite``), computed every frame
+in float32 and not cached, as the JAX package's non-Pallas step does.
 
 The head runs in ``nerf.shade_dtype``. In bfloat16 it rounds where the JAX
 package's ``NeRFNetwork(dtype=bfloat16)`` rounds as XLA compiles it: each
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from mere_fusion_tpu_torch.config import Config
-from mere_fusion_tpu_torch.engines.nerf_step import smooth_enc_a_fn
+from mere_fusion_tpu_torch.engines.nerf_step import smooth_enc_a_fn, torso_composite
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid, get_rays, plan_rays, shade
 from mere_fusion_tpu_torch.ops import hash_lookup
@@ -101,7 +103,7 @@ def make_baked_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: di
     def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
         return render(pose, auds, eye, density, bg), None, None
 
-    step.warmup = lambda density: None
+    step.warmup = lambda density, bg: None
     return step
 
 
@@ -116,7 +118,7 @@ def make_unbaked_render_step(network: NeRFNetwork, dataset, cfg: Config):
     def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
         return render(pose, auds, eye, density, bg), None, None
 
-    def warmup(density):
+    def warmup(density, bg):
         if network.plane_xy.device.type == "cuda":
             hash_lookup.load()
 
@@ -147,7 +149,10 @@ def _frame_renderer(network: NeRFNetwork, dataset, cfg: Config, encode):
 
     @torch.no_grad()
     def render(pose, auds, eye, density: DensityGrid, bg):
-        rays_o, rays_d = get_rays(as_dev(pose), intrinsics, H, W)
+        pose, bg = as_dev(pose), as_dev(bg)
+        if network.cfg.torso:
+            bg = torso_composite(network, H, W, pose, bg)
+        rays_o, rays_d = get_rays(pose, intrinsics, H, W)
         plan = plan_rays(rays_o, rays_d, density, **plan_kw)
         enc_x = encode(plan["xyz"].reshape(-1, 3))
         enc_a = network.encode_audio(as_dev(auds))
@@ -163,7 +168,7 @@ def _frame_renderer(network: NeRFNetwork, dataset, cfg: Config, encode):
                 return forward_with_enc_bf16(network, enc, dirs, enc_a, ind, eye)
             return network.forward_with_enc(enc, dirs, enc_a, ind, eye, training)
 
-        out = shade(apply_fn, plan, as_dev(bg), enc_x=enc_x, n_rays=H * W)
+        out = shade(apply_fn, plan, bg, enc_x=enc_x, n_rays=H * W)
         img = torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
         return (img * 255).to(torch.uint8)
 

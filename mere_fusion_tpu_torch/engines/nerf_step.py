@@ -23,6 +23,14 @@ untile → uint8 RGB.
   background either way. A later CUDA-graph step would bring fixed rungs
   back. A frame with no active tile is the background and launches no K2.
 - **Audio code EMA** (``nerf.smooth_lips``) runs in the step, as in JAX.
+- **Pose-keyed torso cache.** With the torso net (``network.cfg.torso``) the
+  head composites over the torso pass blended onto the background
+  (``torso_composite``), which at inference depends only on the pose and the
+  background: it is computed once per pose, stored as bf16 [H·W, 3] (the
+  JAX step's rounding), capped like the span cache, prefilled by
+  ``step.warmup`` and dropped when another ``bg`` object is passed; a
+  ``pose_key=None`` or over-cap pose computes it live. Without the torso
+  the step does no torso work.
 
 ``impl="plain"`` renders through K2's plain version on any device (the
 yardstick the kernel is held against); ``"auto"`` lets the wrapper decide by
@@ -39,6 +47,7 @@ from mere_fusion_tpu_torch.models.ernerf.renderer import (
     DensityGrid,
     get_rays,
     intersect_aabb,
+    render_torso_background,
     select_occupied_depths,
 )
 from mere_fusion_tpu_torch.ops import sampler
@@ -58,6 +67,17 @@ ENC_A_EMA = 0.35
 def smooth_enc_a_fn(prev, enc_a):
     """One EMA step of the audio code."""
     return ENC_A_EMA * prev + (1.0 - ENC_A_EMA) * enc_a
+
+
+def torso_composite(network: NeRFNetwork, H: int, W: int, pose, bg) -> torch.Tensor:
+    """The torso pass over the H×W pixel grid, conditioned on the head pose
+    and the torso code of frame 0, alpha-blended onto bg: the float32
+    [H·W, 3] background the head composites over (the JAX package's
+    ``background``)."""
+    c = network.torso_code()
+    bg2, _ = render_torso_background(
+        lambda x, p: network.forward_torso(x, p, c), H, W, pose, bg)
+    return bg2
 
 
 def _expand_enc_rows(w: torch.Tensor, spec: SamplerSpec, dtype) -> torch.Tensor:
@@ -234,6 +254,28 @@ def make_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: dict,
     span_cache: dict = {}
     cache_state: dict = {"occ": None}
     cache_cap = nc.span_cache_poses if nc.span_cache_poses > 0 else None
+    torso_cache: dict = {}
+    torso_state: dict = {"bg": None}
+
+    def torso_bg(pose, bg) -> torch.Tensor:
+        return torso_composite(network, H, W, pose, as_dev(bg)).to(torch.bfloat16)
+
+    def effective_bg(pose, bg, pose_key):
+        """The background the head composites over: bg itself, or with the
+        torso net the (cached) bf16 torso composite."""
+        if not network.cfg.torso:
+            return bg
+        if bg is not torso_state["bg"]:
+            torso_cache.clear()
+            torso_state["bg"] = bg
+        if pose_key is None:
+            return torso_bg(pose, bg)
+        hit = torso_cache.get(pose_key)
+        if hit is None:
+            hit = torso_bg(pose, bg)
+            if cache_cap is None or len(torso_cache) < cache_cap:
+                torso_cache[pose_key] = hit
+        return hit
 
     @torch.no_grad()
     def step(pose, auds, eye, density: DensityGrid, bg, pose_key=None):
@@ -258,27 +300,35 @@ def make_render_step(network: NeRFNetwork, dataset, cfg: Config, baked: dict,
         b = t if active_host is None else active_host
         img, enc_a, n_active, n_overflow = frame(
             pose, sp, va, b, torch.as_tensor(auds, device=dev).float(), as_dev(eye),
-            torch.as_tensor(bg, device=dev))
+            torch.as_tensor(effective_bg(pose, bg, pose_key), device=dev))
         if smooth_enabled:
             smooth_state["enc_a"] = enc_a
         img = torch.clamp(img.reshape(H, W, 3), 0.0, 1.0)
         return (img * 255).to(torch.uint8), n_active, n_overflow
 
     @torch.no_grad()
-    def warmup(density: DensityGrid):
+    def warmup(density: DensityGrid, bg):
         """Prefill the span cache for the dataset's pose track (up to the
-        cap) with one batched count readback, and build K2 when it will
-        run, so the live loop never waits on a probe readback or nvcc."""
+        cap) with one batched count readback, and with the torso net the
+        torso cache for background ``bg``; build K2 when it will run, so
+        the live loop never waits on a probe readback, a torso pass or
+        nvcc."""
         span_cache.clear()
+        torso_cache.clear()
         track = dataset.poses if cache_cap is None else dataset.poses[:cache_cap]
         outs = [span_fn(as_dev(p), density) for p in track]
         counts = torch.stack([o[2] for o in outs]).cpu().tolist()
         for i, (sp, va, _) in enumerate(outs):
             span_cache[i] = (sp, va, int(counts[i]))
         cache_state["occ"] = density.occupancy
+        if network.cfg.torso:
+            torso_state["bg"] = bg
+            for i, p in enumerate(track):
+                torso_cache[i] = torso_bg(as_dev(p), bg)
         if impl == "auto" and dev.type == "cuda":
             sampler.load()
 
     step.warmup = warmup
     step.span_cache = span_cache
+    step.torso_cache = torso_cache
     return step

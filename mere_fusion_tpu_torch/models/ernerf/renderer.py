@@ -1,14 +1,15 @@
 """Volume rendering for ER-NeRF serving and training.
 
-Port of mere_fusion_tpu/models/ernerf/renderer.py without the torso pass:
-the density grid, the ray/box slab test, voxel lookup, the occupancy probe
-that places each ray's sample span, camera rays from a pose, the
-front-to-back composite (the K2 serving step composites inside the kernel),
-the block-shared probe (``select_depths_blocked``), and ``plan_rays`` /
-``shade`` / ``render_rays`` with the static ray compaction
-(``max_active_rays``) and its scatter back onto the frame: the training path
-and the ``nearest``/``bilinear`` serving step. The density-grid refresh is
-``update_density_grid``.
+Port of mere_fusion_tpu/models/ernerf/renderer.py: the density grid, the
+ray/box slab test, voxel lookup, the occupancy probe that places each ray's
+sample span, camera rays from a pose, the front-to-back composite (the K2
+serving step composites inside the kernel), the block-shared probe
+(``select_depths_blocked``), and ``plan_rays`` / ``shade`` /
+``render_rays`` with the static ray compaction (``max_active_rays``) and
+its scatter back onto the frame: the training path and the
+``nearest``/``bilinear`` serving step. The density-grid refresh is
+``update_density_grid``, and the torso pass over the pixel grid is
+``render_torso_background``.
 """
 from __future__ import annotations
 
@@ -244,6 +245,20 @@ def update_density_grid(density_fn: Callable, density: DensityGrid, bound: float
     mean_density = torch.clamp(new, min=0).mean()
     thresh = torch.clamp(mean_density, max=density_thresh)
     return DensityGrid(grid=new, occupancy=new > thresh, mean_density=mean_density)
+
+
+def render_torso_background(torso_fn: Callable, H: int, W: int, pose, bg_color):
+    """The 2-D torso pass composited over the static background: evaluate
+    torso_fn(x [N, 2], pose) → (alpha [N, 1], color [N, 3], dx) on the
+    pixel-centre grid in [−1, 1]² (x along the width, raster order) and
+    alpha-blend it onto bg_color ([3] or [H·W, 3]). Returns (the [H·W, 3]
+    background the head composites over, alpha)."""
+    f32 = dict(dtype=torch.float32, device=pose.device)
+    ys = (torch.arange(H, **f32) + 0.5) / H * 2 - 1
+    xs = (torch.arange(W, **f32) + 0.5) / W * 2 - 1
+    grid = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), dim=-1).reshape(-1, 2)
+    alpha, color, _dx = torso_fn(grid, pose)
+    return color * alpha + bg_color * (1 - alpha), alpha
 
 
 def get_rays(pose: torch.Tensor, intrinsics, H: int, W: int):
