@@ -5,9 +5,10 @@ Port of mere_fusion_tpu/data/provider.py (the twin of the reference's
 NeRFDataset and NeRFDataset_Test): transforms.json poses converted to NGP
 coordinates, optional camera-path smoothing, AU45 blink areas from
 OpenFace's au.csv (read with ``csv``: no pandas), infinite mirrored looping
-for live streaming, the training set's preload tiers 0/1/2, and the
-procedural datasets the tests and ``chip_smoke.py`` train on. The lips and
-torso batches and patch sampling are not ported.
+for live streaming, the training set's preload tiers 0/1/2 and its torso
+images and batches (``torso_imgs/``), and the procedural datasets the tests
+and ``chip_smoke.py`` train on (without torso images: the callers write
+them). The lips batches and patch sampling are not ported.
 """
 from __future__ import annotations
 
@@ -209,6 +210,7 @@ class NeRFTrainDataset:
     images_dev: torch.Tensor | None = None   # preload=2: [N, H·W, 3] uint8
     masks_dev: torch.Tensor | None = None    # preload=2: [N, H·W] bool
     bg_dev: torch.Tensor | None = None       # preload=2: [H·W, 3] float32
+    torso_imgs: np.ndarray | None = None     # [N, H, W, 4] float32 RGBA (torso_imgs/)
 
     def __len__(self) -> int:
         return len(self.poses)
@@ -218,10 +220,27 @@ class NeRFTrainDataset:
             "lips fine-tuning batches are not ported to the PyTorch package yet "
             "(ROADMAP: 'ER-NeRF LPIPS fine-tuning')")
 
-    def sample_torso_rays(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            "torso batches are not ported to the PyTorch package yet "
-            "(ROADMAP: 'ER-NeRF torso')")
+    def sample_torso_rays(self, index: int, num_rays: int, rng: np.random.Generator) -> dict:
+        """One torso-stage batch of num_rays random pixels of frame
+        ``index``, drawn with the same generator calls as the JAX package:
+        pixel centres in [−1, 1]² (coords), the torso image alpha-blended
+        onto the background (bg_torso_color, the target), the background
+        (bg_color), the head pose and the index. Tensors on ``self.device``."""
+        if self.torso_imgs is None:
+            raise ValueError("the dataset has no torso_imgs/ directory")
+        sel = rng.integers(0, self.H * self.W, size=num_rays)
+        ys, xs = sel // self.W, sel % self.W
+        coords = np.stack([(xs + 0.5) / self.W * 2 - 1, (ys + 0.5) / self.H * 2 - 1],
+                          -1).astype(np.float32)
+        torso = self.torso_imgs[index].reshape(-1, 4)[sel]
+        bg = self.bg_img.reshape(-1, 3)[sel]
+        gt = torso[:, :3] * torso[:, 3:] + bg * (1 - torso[:, 3:])
+        dev = self.device
+        return {"coords": torch.from_numpy(coords).to(dev),
+                "bg_torso_color": torch.from_numpy(gt.astype(np.float32)).to(dev),
+                "bg_color": torch.from_numpy(bg.astype(np.float32)).to(dev),
+                "pose": torch.from_numpy(self.poses[index]).to(dev),
+                "index": int(index)}
 
     def sample_rays(self, index: int, num_rays: int, rng: np.random.Generator,
                     att_window: int = 8, patch_size: int | None = None) -> dict:
@@ -265,8 +284,9 @@ class NeRFTrainDataset:
         """Load an ER-NeRF-format data dir: transforms.json (frames with
         img_id/aud_id), gt_imgs/{img_id}.jpg|png, aud.npy [N, 16, A] or
         [N, A, 16] features, au.csv blink areas, optional
-        parsing/{img_id}.png face masks (else the centre half of the frame).
-        ``device`` None means the current CUDA device."""
+        parsing/{img_id}.png face masks (else the centre half of the frame),
+        optional torso_imgs/{img_id}.png BGRA torso images (read at every
+        preload tier). ``device`` None means the current CUDA device."""
         if preload not in (0, 1, 2):
             raise ValueError(f"preload is 0, 1 or 2, got {preload}")
         device = resolve_device(device)
@@ -308,6 +328,14 @@ class NeRFTrainDataset:
             bg = np.ones((H, W, 3), np.float32)
         else:
             bg = cv2.cvtColor(cv2.imread(bg_img), cv2.COLOR_BGR2RGB).astype(np.float32) / 255
+        torso = None
+        torso_dir = os.path.join(root, "torso_imgs")
+        if os.path.isdir(torso_dir):
+            torso = np.stack([
+                cv2.cvtColor(cv2.imread(os.path.join(torso_dir, f"{fr['img_id']}.png"),
+                                        cv2.IMREAD_UNCHANGED),
+                             cv2.COLOR_BGRA2RGBA).astype(np.float32) / 255
+                for fr in transform["frames"]])
         image_store = LazyFrames(img_paths) if preload == 0 else np.stack(images)
         face_masks = np.stack(masks)
         images_dev = masks_dev = bg_dev = None
@@ -322,7 +350,8 @@ class NeRFTrainDataset:
                    auds=np.stack(auds).astype(np.float32),
                    eye_area=np.asarray(eyes, np.float32), face_masks=face_masks, bg_img=bg,
                    intrinsics=(fl, fl, transform["cx"], transform["cy"]), H=H, W=W,
-                   device=device, images_dev=images_dev, masks_dev=masks_dev, bg_dev=bg_dev)
+                   device=device, images_dev=images_dev, masks_dev=masks_dev, bg_dev=bg_dev,
+                   torso_imgs=torso)
 
 
 def synthesize_nerf_train_data(dirpath: str, n_frames: int = 4, hw: int = 64,

@@ -15,7 +15,11 @@ reproduce the optax ``multi_transform``: Adam for the hash tables, AdamW
 (weight decay 1e-4, optax's default) for the MLPs, and AdamW at 5× the rate
 for the audio attention net. The jitter noise comes from an explicit
 ``torch.Generator``, or from the caller (the tests hand over the JAX draw).
-The LPIPS patch and lips terms and the torso stage are not ported.
+
+The torso stage (``init_torso_train``, ``make_torso_train_step``) trains
+only the torso's parameters with Adam against torso-over-background
+targets, every head parameter loaded from the head's checkpoint and frozen.
+The LPIPS patch and lips terms are not ported.
 """
 from __future__ import annotations
 
@@ -79,7 +83,7 @@ class NeRFTrainState:
 def param_group(name: str) -> str:
     """The optax label of a parameter: 'grid', 'att' or 'net'."""
     top = name.split(".")[0]
-    if top.startswith("plane_"):
+    if top.startswith("plane_") or top == "torso_grid":
         return "grid"
     return "att" if top == "audio_att_net" else "net"
 
@@ -194,16 +198,22 @@ def make_nerf_train_step(tcfg: NeRFTrainConfig):
             noise = torch.rand(batch["rays_o"].shape, generator=generator,
                                device=batch["rays_o"].device)
         metrics = compute_grads(state, batch, tcfg, noise)
-        state.optimizer.step()
-        with torch.no_grad():
-            names, params = zip(*state.network.named_parameters())
-            ema = [state.ema[n] for n in names]
-            torch._foreach_mul_(ema, EMA_DECAY)
-            torch._foreach_add_(ema, [p.detach() for p in params], alpha=1 - EMA_DECAY)
-        state.step += 1
+        apply_update(state)
         return metrics
 
     return train_step
+
+
+@torch.no_grad()
+def apply_update(state: NeRFTrainState) -> None:
+    """The optimiser's step on the gradients in each ``.grad``, the EMA of
+    every parameter (frozen ones included) and the step count."""
+    state.optimizer.step()
+    names, params = zip(*state.network.named_parameters())
+    ema = [state.ema[n] for n in names]
+    torch._foreach_mul_(ema, EMA_DECAY)
+    torch._foreach_add_(ema, [p.detach() for p in params], alpha=1 - EMA_DECAY)
+    state.step += 1
 
 
 @torch.no_grad()
@@ -222,11 +232,68 @@ def refresh_density_grid(state: NeRFTrainState, mean_auds: torch.Tensor,
     return state
 
 
-def init_torso_train(*args, **kwargs):
-    raise NotImplementedError("the ER-NeRF torso stage is not ported to the PyTorch "
-                              "package yet (ROADMAP: 'ER-NeRF torso')")
+# the torso stage's trained parameters (top-level names); the rest is frozen
+TORSO_PARAMS = frozenset({"torso_grid", "torso_deform_net", "torso_net",
+                          "individual_codes_torso", "anchor_points"})
 
 
-def make_torso_train_step(*args, **kwargs):
-    raise NotImplementedError("the ER-NeRF torso stage is not ported to the PyTorch "
-                              "package yet (ROADMAP: 'ER-NeRF torso')")
+def is_torso_param(name: str) -> bool:
+    return name.split(".")[0] in TORSO_PARAMS
+
+
+def init_torso_train(network: NeRFNetwork, tcfg: NeRFTrainConfig,
+                     head_params: dict | None = None) -> NeRFTrainState:
+    """State of the torso stage. ``head_params`` (a state dict of the trained
+    head stage's raw parameters) merges in non-strictly: every entry the
+    network has, but the torso's. Every parameter but the torso's is then
+    frozen (no gradient, no moments, no update: optax's set_to_zero), and the
+    torso's train with Adam at lr, betas (0.9, 0.99), eps 1e-15. The EMA
+    starts from the merged parameters."""
+    if head_params is not None:
+        with torch.no_grad():
+            for name, p in network.named_parameters():
+                if name in head_params and not is_torso_param(name):
+                    p.copy_(head_params[name])
+    torso = []
+    for name, p in network.named_parameters():
+        p.requires_grad_(is_torso_param(name))
+        if is_torso_param(name):
+            torso.append(p)
+    optimizer = torch.optim.Adam(torso, lr=tcfg.lr, betas=(0.9, 0.99), eps=1e-15)
+    return NeRFTrainState(
+        network=network, optimizer=optimizer,
+        ema={n: p.detach().clone() for n, p in network.named_parameters()},
+        density=DensityGrid.create(tcfg.grid_size, device=network.plane_xy.device))
+
+
+def compute_torso_grads(state: NeRFTrainState, batch: dict) -> dict:
+    """The torso loss of one batch and its gradients, left in the torso's
+    parameters' ``.grad``: the MSE of the torso composite against
+    bg_torso_color, plus the anchor term (1 − the anchors' w)² and 1e-4 ×
+    the alpha entropy in bits. Returns the metrics, detached."""
+    network = state.network
+    state.optimizer.zero_grad(set_to_none=True)
+    c = (network.individual_codes_torso[batch["index"]][None]
+         if network.cfg.individual_dim_torso > 0 else None)
+    alpha, color, _dx = network.forward_torso(batch["coords"], batch["pose"], c)
+    pred = color * alpha + batch["bg_color"] * (1 - alpha)
+    mse = ((pred - batch["bg_torso_color"]) ** 2).mean()
+    loss = mse + ((1 - network.anchor_points[:, 3]) ** 2).mean()
+    a = torch.clamp(alpha, 1e-5, 1 - 1e-5)
+    entropy = -(a * torch.log2(a) + (1 - a) * torch.log2(1 - a))
+    loss = loss + 1e-4 * entropy.mean()
+    loss.backward()
+    return {"loss": loss.detach(), "mse": mse.detach(), "torso_alpha": alpha.mean().detach()}
+
+
+def make_torso_train_step(tcfg: NeRFTrainConfig):
+    """step(state, batch) → metrics, updating the state in place: the torso
+    loss's gradients, one Adam update of the torso's parameters, the EMA of
+    every parameter (the frozen ones unchanged), the step count."""
+
+    def train_step(state: NeRFTrainState, batch: dict) -> dict:
+        metrics = compute_torso_grads(state, batch)
+        apply_update(state)
+        return metrics
+
+    return train_step

@@ -227,10 +227,6 @@ def test_unported_batches_raise(scene):
         dp.sample_rays(0, 16, rng, patch_size=4)
     with pytest.raises(NotImplementedError, match="ER-NeRF LPIPS fine-tuning"):
         dp.sample_lips_rays(0, rng)
-    with pytest.raises(NotImplementedError, match="ER-NeRF torso"):
-        dp.sample_torso_rays(0, 16, rng)
-    with pytest.raises(NotImplementedError, match="ER-NeRF torso"):
-        ptrain.init_torso_train()
 
 
 def test_optimizer_groups_match_optax(nets):
@@ -341,7 +337,7 @@ def test_cli_trains_checkpoints_and_resumes(scene, tmp_path, capsys):
     assert Checkpointer(ws).restore()["step"] == 5
 
 
-@pytest.mark.parametrize("flag", [["--test"], ["--torso"], ["--patch_size", "16"],
+@pytest.mark.parametrize("flag", [["--test"], ["--patch_size", "16"],
                                   ["--finetune_lips"], ["--viewer_port", "0"]],
                          ids=lambda f: f[0])
 def test_cli_unported_flags_raise(scene, tmp_path, flag):
