@@ -122,7 +122,27 @@ its seconds; any failure is fatal (exit code 1, no result line):
               none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
-10. sampler_stages — the profiling entry points prof_r5m.main and
+10. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
+              full width with the torso (Config() defaults, nerf.torso, 512²):
+              the training CLI's --torso --head_ckpt stage for TORSO_ITERS
+              iterations on nerf_train's head workspace and dataset (RGBA
+              torso images written here), kernel counts zeroed just before
+              (none of the repo's kernels launch; the loss falls; [torso]
+              it/s), and the torso step's ms (CUDA events) and device rows;
+              make_engine with nerf.ckpt on that workspace and the K2 step:
+              the session build's seconds (load and convert, bake, span and
+              torso prefill), the torso cache's bytes a pose, 8 frames with
+              the counts zeroed just before (exactly one K2 launch each; K2
+              on the last one's operands within K2_ATOL of its plain
+              version), the first frame bit-equal to a NeRFReal's given the
+              workspace's EMA weights and density directly; the frame with
+              the cached torso and the same checkpoint served as a head
+              (nerf.torso unset) in turns; one live torso pass (a cache
+              miss) by CUDA events and under torch.profiler; then a
+              full-width reference-layout .pth written from seeded weights
+              (Morton-order density_grid, mean_density beside 'model')
+              served for one frame, its grid loaded as the raster written.
+11. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -155,6 +175,7 @@ from __future__ import annotations
 import asyncio
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -214,6 +235,7 @@ STAGE_KERNEL_MODES = ("win", "shade")   # S2's own kernel; its "full" mode is K2
 MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
+TORSO_ITERS = 300                 # the torso stage's iterations in nerf_avatar
 
 
 def emit(obj: dict) -> None:
@@ -1754,7 +1776,6 @@ def run_cli(argv: list) -> list[str]:
 
 
 def phase_nerf_train(state: dict) -> dict:
-    import shutil
     import tempfile
 
     import torch
@@ -1763,10 +1784,10 @@ def phase_nerf_train(state: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        return _nerf_train(state, dev, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # its dataset and head workspace feed nerf_avatar; main removes the directory
+    state.setdefault("tmp_dirs", []).append(tmp)
+    state["nerf_train_dir"] = tmp
+    return _nerf_train(state, dev, tmp)
 
 
 def nerf_train_setup(dev, tmp: str) -> dict:
@@ -1940,6 +1961,217 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
             "cli_lines": lines, "cli_resume_lines": resumed,
             "loss_it0": logged[0]["loss"], "loss_it100": logged[100]["loss"],
             "it_per_s_at_it100": logged[100]["it_per_s"]}
+
+
+def write_torso_imgs(root: str, n: int, hw: int) -> None:
+    """BGRA torso images for the synthesized dataset under root: shoulders
+    (an opaque trapezoid under the head with a soft top edge), their colour
+    and width by frame."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "torso_imgs"), exist_ok=True)
+    ys, xs = np.mgrid[0:hw, 0:hw] / hw
+    for i in range(n):
+        half = 0.22 + 0.3 * np.clip((ys - 0.62) / 0.38, 0, 1) + 0.005 * i
+        alpha = np.clip((ys - 0.62) * 40, 0, 1) * (np.abs(xs - 0.5) < half)
+        img = np.zeros((hw, hw, 4), np.uint8)
+        img[..., :3] = (60 + 10 * i, 110, 170)               # BGR
+        img[..., 3] = np.rint(alpha * 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, "torso_imgs", f"{i}.png"), img)
+
+
+def reference_pth(path: str, cfg, n_frames: int) -> "DensityGrid":
+    """A reference-layout ER-NeRF checkpoint (ngp_kf.pth) at cfg's full
+    width with the torso: seeded weights (tables U(−1, 1)) under the
+    reference's names, a density grid of a ball of radius 0.8 in Morton
+    order ([1, G³]) and mean_density beside 'model'. Returns the raster
+    DensityGrid that the loader must make of it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.engines.nerf import net_config
+    from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork, init_ernerf_
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+    from mere_fusion_tpu_torch.utils.torch_convert import _morton3d, ernerf_to_reference
+
+    net = init_ernerf_(NeRFNetwork(dataclasses.replace(
+        net_config(cfg), torso=True, num_train_frames=n_frames)), 3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.startswith("plane_") or name == "torso_grid":
+                p.uniform_(-1, 1, generator=gen)
+    g = cfg.nerf.grid_size
+    idx = np.arange(g ** 3)
+    ijk = np.stack([idx // (g * g), (idx // g) % g, idx % g], -1)
+    centre = (ijk + 0.5) / g * 2 - 1
+    raster = np.where(np.linalg.norm(centre, axis=-1) < 0.8, 20.0, 0.0).astype(np.float32)
+    morton = np.zeros_like(raster)
+    morton[_morton3d(ijk[:, 0], ijk[:, 1], ijk[:, 2])] = raster
+    mean = float(raster.mean())
+    model = {f"module.{k}": v for k, v in ernerf_to_reference(net.state_dict()).items()}
+    model["module.density_grid"] = torch.from_numpy(morton[None])
+    torch.save({"model": model, "mean_density": mean, "epoch": 1}, path)
+    thresh = min(mean, cfg.nerf.density_thresh)
+    return DensityGrid(grid=torch.from_numpy(raster),
+                       occupancy=torch.from_numpy(raster > thresh),
+                       mean_density=torch.tensor(mean))
+
+
+def phase_nerf_avatar(state: dict) -> dict:
+    import os
+
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.data.provider import NeRFTrainDataset
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.engines.nerf import NeRFReal
+    from mere_fusion_tpu_torch.engines.nerf_step import torso_composite
+    from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.train.ernerf_train import (
+        NeRFTrainConfig,
+        init_torso_train,
+        make_torso_train_step,
+    )
+    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = state["nerf_train_dir"]
+    root, head_ws = os.path.join(tmp, "data"), os.path.join(tmp, "workspace")
+    torso_ws = os.path.join(tmp, "torso_workspace")
+    n_frames = 8
+    write_torso_imgs(root, n_frames, NERF_HW)
+    out = {}
+
+    # 1. the torso stage on nerf_train's head, through the CLI, counts zeroed
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    lines = run_cli([root, "--workspace", torso_ws, "--iters", str(TORSO_ITERS), "--torso",
+                     "--head_ckpt", head_ws])
+    out["torso_cli_s"] = time.perf_counter() - t0
+    counts = {**family_counts(), "K1": attention.launches, "K3": k3_counts()}
+    if any(counts["K3"]) or any(v for k, v in counts.items() if k != "K3"):
+        raise AssertionError(f"the torso stage launched a kernel of the repo: {counts}")
+    logged = [ln for ln in lines if ln.startswith("[torso] it ")]
+    if Checkpointer(torso_ws).steps() != [TORSO_ITERS] or "[torso] done" not in lines:
+        raise AssertionError(f"torso stage: {lines}")
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in logged]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"torso loss did not fall: {logged}")
+    out.update({"torso_lines": lines, "torso_it_per_s": float(logged[-1].split()[-2]),
+                "torso_loss_first_last": [losses[0], losses[-1]]})
+    # the torso step alone (CUDA events, and its device rows under torch.profiler)
+    ds = NeRFTrainDataset.load(root, device=dev)
+    head = Checkpointer(head_ws).restore(map_location=dev)
+    net = NeRFNetwork(NeRFNetConfig(num_train_frames=n_frames, torso=True)).to(dev)
+    tcfg = NeRFTrainConfig()                    # the CLI's defaults
+    tstate = init_torso_train(net, tcfg, head_params=head["network"])
+    tstep = make_torso_train_step()
+    batch = ds.sample_torso_rays(2, 4096, np.random.default_rng(0))
+    out["torso_step_ms"] = time_ms(lambda: tstep(tstate, batch), iters=20, warmup=3)
+    out["torso_step_profile"] = profile_launches(lambda: tstep(tstate, batch))
+    del ds, head, net, tstate, batch
+    torch.cuda.empty_cache()
+
+    # 2. serve the workspace: K2 operands recorded on the main path
+    cfg = nerf_config(os.path.join(root, "transforms.json"), os.path.join(root, "au.csv"))
+    cfg = cfg.override(**{"nerf.scale": 4.0, "nerf.torso": True, "nerf.ckpt": torso_ws})
+    recorded = []
+    kernel = sampler.sample_shade_comp_tiles
+
+    def recording(*args):
+        result = kernel(*args)
+        recorded[:] = [(args, result)]
+        return result
+
+    sampler.sample_shade_comp_tiles = recording
+    try:
+        t0 = time.perf_counter()
+        engine = make_engine(cfg, device=dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        sampler.sample_shade_comp_tiles = kernel
+    out["session_build"] = {"total_s": build_s, **{
+        part: metrics.latency(f"nerf.build.{part}").last for part in ("load", "bake", "prefill")}}
+    step = engine._render_step
+    if set(step.torso_cache) != set(range(n_frames)):
+        raise AssertionError(f"torso cache after warmup: {sorted(step.torso_cache)}")
+    hit = step.torso_cache[0]
+    out["torso_cache_bytes_per_pose"] = hit.numel() * hit.element_size()
+    auds = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, cfg.nerf.audio_in_dim, 16)).astype(np.float32)).to(dev)
+
+    def frame(e, i=0, key=0):
+        d = e.dataset.collate(i)
+        return e._render_step(d["pose"], auds, d["eye"], e.density, e._bg_dev, pose_key=key)[0]
+
+    zero_kernel_counts()                        # the avatar's frames start here ...
+    frames = [frame(engine, i, i).cpu().numpy() for i in range(n_frames)]
+    launches = sampler.launches                 # ... and end here
+    if launches != n_frames:
+        raise AssertionError(f"K2 launched {launches} times for {n_frames} frames")
+    (args, got), = recorded
+    ref = sampler.sample_shade_comp_tiles_plain(*args)
+    k2_err = (got - ref).abs().max().item()
+    if not k2_err <= K2_ATOL["bfloat16"]:
+        raise AssertionError(f"K2 on the avatar's frame: {k2_err} > {K2_ATOL['bfloat16']}")
+    if frames[0].shape != (NERF_HW, NERF_HW, 3) or float(frames[0].std()) <= 2:
+        raise AssertionError(f"avatar frame {frames[0].shape}, std {frames[0].std()}")
+    raw = Checkpointer(torso_ws).restore(map_location=dev)
+    direct = NeRFReal(cfg.override(**{"nerf.ckpt": ""}), engine.dataset, device=dev,
+                      state=raw["ema"], density=DensityGrid(**raw["density"]))
+    # each step's first frame (the audio code's EMA starts there)
+    if not np.array_equal(frame(direct).cpu().numpy(), frames[0]):
+        raise AssertionError("the loaded avatar's frame differs from NeRFReal's on its EMA "
+                             "weights")
+    del direct, raw
+    # the same checkpoint served as a head (nerf.torso unset); frame times in turns
+    head_engine = make_engine(cfg.override(**{"nerf.torso": False}), device=dev)
+    times = {}
+    for name in ("torso", "head", "head", "torso"):
+        e = engine if name == "torso" else head_engine
+        times.setdefault(f"frame_{name}_ms", []).append(
+            time_ms(lambda: frame(e), iters=10, warmup=2))
+    out.update(times)
+    # one live torso pass (a cache miss)
+    pose = torch.from_numpy(engine.dataset.poses[0]).to(dev)
+
+    def live():
+        with torch.no_grad():
+            return torso_composite(engine.network, NERF_HW, NERF_HW, pose, engine._bg_dev)
+
+    out["torso_pass_ms"] = time_ms(live, iters=5, warmup=1)
+    out["torso_pass_profile"] = profile_launches(live)
+    del engine, head_engine
+    torch.cuda.empty_cache()
+
+    # 3. a reference-layout .pth at full width, with the torso
+    pth = os.path.join(tmp, "ngp_kf.pth")
+    want = reference_pth(pth, cfg, n_frames)
+    engine = make_engine(cfg.override(**{"nerf.ckpt": pth}), device=dev)
+    if not torch.equal(engine.density.occupancy.cpu(), want.occupancy):
+        raise AssertionError("the .pth's Morton density grid did not load as its raster grid")
+    zero_kernel_counts()
+    img = frame(engine).cpu().numpy()
+    if sampler.launches != 1 or img.shape != (NERF_HW, NERF_HW, 3) or float(img.std()) <= 2:
+        raise AssertionError(f"the .pth frame: K2 {sampler.launches}, std {img.std()}")
+    out["pth_session_build_s"] = {part: metrics.latency(f"nerf.build.{part}").last
+                                  for part in ("load", "bake", "prefill")}
+    state["avatar_k2_launches"] = launches
+    del engine
+    torch.cuda.empty_cache()
+    return {**out, "k2_launches": launches, "k2_max_abs_err": k2_err,
+            "k2_tol": K2_ATOL["bfloat16"], "occupied_cells": int(want.occupancy.sum())}
 
 
 def stage_counts() -> dict:
@@ -2165,7 +2397,7 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("session", phase_session), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
-          ("sampler_stages", phase_sampler_stages))
+          ("nerf_avatar", phase_nerf_avatar), ("sampler_stages", phase_sampler_stages))
 
 
 def main() -> int:
@@ -2186,16 +2418,20 @@ def main() -> int:
     torch.cuda.set_device(0)
     gpu = card()
     state: dict = {}
-    for name, fn in PHASES:
-        t0 = time.perf_counter()
-        try:
-            result = fn(state)
-        except Exception:
-            traceback.print_exc()
-            emit({"phase": name, "ok": False, "seconds": time.perf_counter() - t0})
-            return 1
-        emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
-              "card": gpu, **result})
+    try:
+        for name, fn in PHASES:
+            t0 = time.perf_counter()
+            try:
+                result = fn(state)
+            except Exception:
+                traceback.print_exc()
+                emit({"phase": name, "ok": False, "seconds": time.perf_counter() - t0})
+                return 1
+            emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
+                  "card": gpu, **result})
+    finally:
+        for tmp in state.get("tmp_dirs", []):
+            shutil.rmtree(tmp, ignore_errors=True)
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
     k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
     fam, st, k3e = state["family_numbers"], state["stage_numbers"], state["k3_encode_numbers"]
@@ -2234,6 +2470,8 @@ def main() -> int:
         "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         # no single PyTorch call computes K2's function
         "bound_by": k2["bound_by"], "library_ms": None,
+        # the avatar served from its checkpoint with the torso (nerf_avatar)
+        "avatar_launches": state["avatar_k2_launches"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],

@@ -83,14 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 VAE decode tier: not ported, auto serves float")
     p.add_argument("--whisper_ckpt", default="",
                    help="whisper-tiny weights for MuseASR features (OpenAI .pt)")
-    # ER-NeRF serving flags; --torso, --nerf_ckpt and --asr_model name parts
-    # that are not ported yet and raise
+    # ER-NeRF serving flags; --asr_model names a part that is not ported yet
+    # and raises
     p.add_argument("--pose", default="data/transforms.json")
     p.add_argument("--au", default="data/au.csv")
     p.add_argument("--bg_img", default="white")
     p.add_argument("--fix_eye", type=float, default=-1.0)
-    p.add_argument("--torso", action="store_true")
-    p.add_argument("--nerf_ckpt", default="")
+    p.add_argument("--torso", action="store_true",
+                   help="serve the ER-NeRF torso (the checkpoint must hold one)")
+    p.add_argument("--nerf_ckpt", default="",
+                   help="trained ER-NeRF avatar: a reference .pth (ngp_kf.pth) or an "
+                        "ernerf_cli workspace")
     p.add_argument("--asr_model", default="",
                    help="ER-NeRF live featurizer; only the built-in fake (empty) "
                         "is ported")

@@ -43,9 +43,11 @@ from mere_fusion_tpu_torch.engines.nerf_baked import (
 )
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf.network import (
+    TORSO_PARAMS,
     NeRFNetConfig,
     NeRFNetwork,
     init_ernerf_,
+    is_torso_param,
 )
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.ops.triplane_bake import bake_triplanes
@@ -187,15 +189,6 @@ def net_config(cfg: Config, state: dict | None = None) -> NeRFNetConfig:
         individual_dim_torso=torso.shape[1] if torso is not None else 0)
 
 
-# the torso's parameters; a checkpoint of the torso stage has every one but
-# the codes, which appear only when trained
-TORSO_KEYS = ("anchor_points", "torso_grid", "torso_deform_net.", "torso_net.")
-
-
-def _is_torso(name: str) -> bool:
-    return name.startswith(TORSO_KEYS) or name == "individual_codes_torso"
-
-
 def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     """The serving weights named by ``cfg.nerf.ckpt``, on the CPU.
 
@@ -227,8 +220,9 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
                                        mean_density=top.get("mean_density"))
                    if "density_grid" in model else None)
     else:
-        if os.path.isdir(path) and Checkpointer(path).steps():
-            raw = Checkpointer(path).restore(map_location="cpu")
+        workspace = Checkpointer(path) if os.path.isdir(path) else None
+        if workspace is not None and workspace.steps():
+            raw = workspace.restore(map_location="cpu")
         elif os.path.isfile(path) and os.path.basename(path).startswith("ckpt-"):
             raw = torch.load(path, map_location="cpu", weights_only=True)["state"]
         else:
@@ -255,13 +249,15 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
         raise ValueError(f"checkpoint density grid has {density.grid.numel()} cells but "
                          f"nerf.grid_size={nc.grid_size} expects {nc.grid_size ** 3}")
     if nc.torso:
-        missing = [k for k in TORSO_KEYS if not any(n.startswith(k) for n in state)]
+        # every torso parameter but its codes, which appear only when trained
+        found = {n.split(".")[0] for n in state}
+        missing = sorted(TORSO_PARAMS - {"individual_codes_torso"} - found)
         if missing:
             raise ValueError(f"nerf.torso is set but checkpoint {path!r} has no torso "
                              f"parameters {missing}: pass a workspace of the torso stage "
                              "(ernerf_cli --torso) or unset nerf.torso")
     else:
-        state = {k: v for k, v in state.items() if not _is_torso(k)}
+        state = {k: v for k, v in state.items() if not is_torso_param(k)}
     return state, density
 
 

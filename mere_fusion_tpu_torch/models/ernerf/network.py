@@ -84,6 +84,13 @@ TORSO_SPEC = GridSpec(input_dim=2, num_levels=16, level_dim=2, base_resolution=1
                       log2_hashmap_size=16, desired_resolution=2048, gridtype="tiled")
 # the anchor points' initial values (homogeneous, one per row)
 ANCHOR_INIT = ((0.01, 0.01, 0.1, 1.0), (-0.1, -0.1, 0.1, 1.0), (0.1, -0.1, 0.1, 1.0))
+# the torso's parameters (top-level names): the torso stage trains these alone
+TORSO_PARAMS = frozenset({"anchor_points", "torso_grid", "torso_deform_net", "torso_net",
+                          "individual_codes_torso"})
+
+
+def is_torso_param(name: str) -> bool:
+    return name.split(".")[0] in TORSO_PARAMS
 
 
 class MLP(nn.Module):

@@ -176,7 +176,7 @@ def _train_torso(args, dataset, network, tcfg, device) -> None:
     if head is not None:
         # the head's trained grid rides along (a model buffer in the reference)
         state.density = DensityGrid(**head["density"])
-    step = make_torso_train_step(tcfg)
+    step = make_torso_train_step()
     ckpt = Checkpointer(args.workspace)
     slog = ScalarLogger(args.workspace)
     stop = StopFlag.install()

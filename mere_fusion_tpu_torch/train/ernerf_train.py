@@ -28,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork
+from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork, is_torso_param
 from mere_fusion_tpu_torch.models.ernerf.renderer import (
     DensityGrid,
     render_rays,
@@ -232,15 +232,6 @@ def refresh_density_grid(state: NeRFTrainState, mean_auds: torch.Tensor,
     return state
 
 
-# the torso stage's trained parameters (top-level names); the rest is frozen
-TORSO_PARAMS = frozenset({"torso_grid", "torso_deform_net", "torso_net",
-                          "individual_codes_torso", "anchor_points"})
-
-
-def is_torso_param(name: str) -> bool:
-    return name.split(".")[0] in TORSO_PARAMS
-
-
 def init_torso_train(network: NeRFNetwork, tcfg: NeRFTrainConfig,
                      head_params: dict | None = None) -> NeRFTrainState:
     """State of the torso stage. ``head_params`` (a state dict of the trained
@@ -286,7 +277,7 @@ def compute_torso_grads(state: NeRFTrainState, batch: dict) -> dict:
     return {"loss": loss.detach(), "mse": mse.detach(), "torso_alpha": alpha.mean().detach()}
 
 
-def make_torso_train_step(tcfg: NeRFTrainConfig):
+def make_torso_train_step():
     """step(state, batch) → metrics, updating the state in place: the torso
     loss's gradients, one Adam update of the torso's parameters, the EMA of
     every parameter (the frozen ones unchanged), the step count."""

@@ -1,1 +1,2 @@
-"""Small utilities of the port: checkpointing."""
+"""Small utilities of the port: checkpoints of its training state and the
+reference ER-NeRF checkpoint converter."""

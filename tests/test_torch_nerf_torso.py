@@ -51,10 +51,12 @@ from mere_fusion_tpu_torch.engines.nerf_baked import make_baked_render_step
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf import renderer as prend
 from mere_fusion_tpu_torch.models.ernerf.network import (
+    TORSO_PARAMS,
     TORSO_SPEC,
     NeRFNetConfig,
     NeRFNetwork,
     init_ernerf_,
+    is_torso_param,
 )
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.ops import hashgrid as pgrid
@@ -344,13 +346,13 @@ def test_torso_train_steps_match_jax(nets, datasets):
             np.testing.assert_allclose(float(m_p[key]), float(m_rec[key]), rtol=1e-6,
                                        err_msg=key)
         for name, p in probe.network.named_parameters():
-            if ptrain.is_torso_param(name):
+            if is_torso_param(name):
                 assert_close(p.grad.numpy(), grads[name].numpy(), 2e-5, f"{i} {name}")
             else:
                 assert p.grad is None, name
         state_j, _ = jstep(state_j, jb, jax.random.key(i))
         for name, p in state_p.network.named_parameters():
-            if ptrain.is_torso_param(name):
+            if is_torso_param(name):
                 p.grad = grads[name].clone()
         ptrain.apply_update(state_p)
         want = ernerf_from_flax({"params": state_j.params}, cfg)
@@ -362,9 +364,9 @@ def test_torso_train_steps_match_jax(nets, datasets):
     assert state_p.step == 3
     moved = {n.split(".")[0] for n, p in state_p.network.named_parameters()
              if not torch.equal(p.detach(), before[n])}
-    assert moved == set(ptrain.TORSO_PARAMS), "the torso trains, the head stays"
+    assert moved == set(TORSO_PARAMS), "the torso trains, the head stays"
     # moments only for the torso's parameters
-    assert len(state_p.optimizer.state) == sum(ptrain.is_torso_param(n) for n in before)
+    assert len(state_p.optimizer.state) == sum(is_torso_param(n) for n in before)
 
 
 TOY_FLAGS = ["--device", "cpu", "--num_levels", "4", "--base_resolution", "16",
@@ -384,7 +386,7 @@ def test_cli_torso_stage_trains_freezes_and_serves(scene, tmp_path, capsys):
     assert torso["step"] == 3
     seeded = init_ernerf_(NeRFNetwork(NeRFNetConfig(**NET)), 0).state_dict()
     for name, v in torso["network"].items():
-        if ptrain.is_torso_param(name):
+        if is_torso_param(name):
             assert not torch.equal(v, seeded[name]), f"{name} did not train"
         else:
             assert torch.equal(v, head["network"][name]), f"{name} is not the frozen head"
