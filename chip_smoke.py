@@ -138,7 +138,10 @@ its seconds; any failure is fatal (exit code 1, no result line):
               workspace's EMA weights and density directly; the frame with
               the cached torso and the same checkpoint served as a head
               (nerf.torso unset) in turns; one live torso pass (a cache
-              miss) by CUDA events and under torch.profiler; then a
+              miss) by CUDA events and under torch.profiler; warmup on a
+              pose track at the cap (nerf.span_cache_poses, the 8 poses
+              tiled): its seconds, and the span and torso caches' bytes
+              beside the device memory they took; then a
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
@@ -1964,9 +1967,10 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
 
 
 def write_torso_imgs(root: str, n: int, hw: int) -> None:
-    """BGRA torso images for the synthesized dataset under root: shoulders
-    (an opaque trapezoid under the head with a soft top edge), their colour
-    and width by frame."""
+    """BGRA torso images for a synthesized dataset under root
+    (torso_imgs/<i>.png, as the reference's data layout): shoulders (an
+    opaque trapezoid under the head with a soft top edge, opaque at the
+    bottom centre), their colour and width by frame."""
     import os
 
     import cv2
@@ -1983,12 +1987,50 @@ def write_torso_imgs(root: str, n: int, hw: int) -> None:
         cv2.imwrite(os.path.join(root, "torso_imgs", f"{i}.png"), img)
 
 
+def ernerf_to_reference(state) -> dict:
+    """The port's NeRFNetwork state dict under the reference's key names
+    (ernerf/nerf_triplane/network.py): the inverse of the package's
+    ``utils.torch_convert.convert_ernerf`` then ``convert.ernerf_from_flax``.
+    Both store torch layouts, so this is a rename."""
+    rules = [(r"^plane_(xy|yz|xz)$", r"encoder_\1.embeddings"),
+             (r"^torso_grid$", "torso_encoder.embeddings"),
+             (r"^audio_net\.fc_0\.", "audio_net.encoder_fc1.0."),
+             (r"^audio_net\.fc_1\.", "audio_net.encoder_fc1.2."),
+             (r"^audio_att_net\.att\.", "audio_att_net.attentionNet.0."),
+             (r"\.net_(\d)\.", r".net.\1.")]
+    out = {}
+    for name, value in state.items():
+        for pattern, repl in rules:
+            name = re.sub(pattern, repl, name)
+        conv = re.match(r"^(audio_net|audio_att_net)\.conv_(\d)\.(.*)$", name)
+        if conv:
+            seq = "encoder_conv" if conv[1] == "audio_net" else "attentionConvNet"
+            name = f"{conv[1]}.{seq}.{2 * int(conv[2])}.{conv[3]}"
+        out[name] = value
+    return out
+
+
+def write_reference_pth(path: str, state, density_grid, mean_density: float,
+                        prefix: str = "module.", wrap: bool = False, **extra) -> str:
+    """A reference Trainer checkpoint (ngp_kf.pth) of the port's state dict:
+    the weights under the reference's names in 'model' (each key prefixed,
+    the whole optionally in a 'state_dict' wrapper), density_grid ([CAS, G³]
+    in Morton order, numpy) beside them, mean_density at the top level
+    beside 'model', and extra top-level entries (epoch, stats)."""
+    import torch
+
+    model = {prefix + k: v for k, v in ernerf_to_reference(state).items()}
+    model[prefix + "density_grid"] = torch.from_numpy(density_grid)
+    model = {"state_dict": model} if wrap else model
+    torch.save({"model": model, "mean_density": mean_density, **extra}, path)
+    return path
+
+
 def reference_pth(path: str, cfg, n_frames: int) -> "DensityGrid":
-    """A reference-layout ER-NeRF checkpoint (ngp_kf.pth) at cfg's full
-    width with the torso: seeded weights (tables U(−1, 1)) under the
-    reference's names, a density grid of a ball of radius 0.8 in Morton
-    order ([1, G³]) and mean_density beside 'model'. Returns the raster
-    DensityGrid that the loader must make of it."""
+    """A reference-layout ER-NeRF checkpoint at cfg's full width with the
+    torso: seeded weights (tables U(−1, 1)), a density grid of a ball of
+    radius 0.8 in Morton order ([1, G³]). Returns the raster DensityGrid
+    that the loader must make of it."""
     import dataclasses
 
     import numpy as np
@@ -1997,7 +2039,7 @@ def reference_pth(path: str, cfg, n_frames: int) -> "DensityGrid":
     from mere_fusion_tpu_torch.engines.nerf import net_config
     from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork, init_ernerf_
     from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
-    from mere_fusion_tpu_torch.utils.torch_convert import _morton3d, ernerf_to_reference
+    from mere_fusion_tpu_torch.utils.torch_convert import _morton3d
 
     net = init_ernerf_(NeRFNetwork(dataclasses.replace(
         net_config(cfg), torso=True, num_train_frames=n_frames)), 3)
@@ -2014,9 +2056,7 @@ def reference_pth(path: str, cfg, n_frames: int) -> "DensityGrid":
     morton = np.zeros_like(raster)
     morton[_morton3d(ijk[:, 0], ijk[:, 1], ijk[:, 2])] = raster
     mean = float(raster.mean())
-    model = {f"module.{k}": v for k, v in ernerf_to_reference(net.state_dict()).items()}
-    model["module.density_grid"] = torch.from_numpy(morton[None])
-    torch.save({"model": model, "mean_density": mean, "epoch": 1}, path)
+    write_reference_pth(path, net.state_dict(), morton[None], mean, epoch=1)
     thresh = min(mean, cfg.nerf.density_thresh)
     return DensityGrid(grid=torch.from_numpy(raster),
                        occupancy=torch.from_numpy(raster > thresh),
@@ -2152,6 +2192,31 @@ def phase_nerf_avatar(state: dict) -> dict:
 
     out["torso_pass_ms"] = time_ms(live, iters=5, warmup=1)
     out["torso_pass_profile"] = profile_launches(live)
+    # warmup on a pose track at the cap (the 8 poses tiled to
+    # nerf.span_cache_poses): one span probe and one torso pass a pose
+    cap = cfg.nerf.span_cache_poses
+    track = engine.dataset.poses
+    engine.dataset.poses = np.resize(track, (cap, *track.shape[1:]))
+    step.span_cache.clear()
+    step.torso_cache.clear()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step.warmup(engine.density, engine._bg_dev)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    engine.dataset.poses = track
+    if len(step.span_cache) != cap or len(step.torso_cache) != cap:
+        raise AssertionError(f"prefill at the cap: {len(step.span_cache)} spans, "
+                             f"{len(step.torso_cache)} torso composites for {cap} poses")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    out["prefill_at_cap"] = {
+        "poses": cap, "s": prefill_s, "ms_per_pose": prefill_s / cap * 1e3,
+        "span_bytes": nbytes(t for sp, va, _ in step.span_cache.values() for t in (sp, va)),
+        "torso_bytes": nbytes(step.torso_cache.values()),
+        "allocated_bytes": torch.cuda.memory_allocated() - mem0}
+    step.span_cache.clear()
+    step.torso_cache.clear()
     del engine, head_engine
     torch.cuda.empty_cache()
 

@@ -159,7 +159,7 @@ def make_engine(cfg: Config, **kw):
                 data_range=tuple(nc.data_range))
         if nc.fix_eye >= 0:
             kw["dataset"].eye_area[:] = nc.fix_eye
-        if nc.ckpt and "state" not in kw:
+        if nc.ckpt:
             from mere_fusion_tpu_torch.engines.nerf import load_nerf_checkpoint
             from mere_fusion_tpu_torch.runtime.metrics import metrics
 

@@ -11,7 +11,6 @@ Morton-order density grid into the port's raster-order ``DensityGrid``.
 """
 from __future__ import annotations
 
-import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -98,29 +97,6 @@ def convert_ernerf(state_dict: Mapping[str, Any]) -> dict:
         if "individual_codes_torso" in sd:
             params["individual_codes_torso"] = _np(sd["individual_codes_torso"])
     return {"params": params}
-
-
-def ernerf_to_reference(state: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse of ``convert_ernerf`` then ``convert.ernerf_from_flax``:
-    the port's NeRFNetwork state dict under the reference's key names (both
-    store torch layouts, so this is a rename). Tests and ``chip_smoke.py``
-    write reference-layout checkpoints from seeded weights with it."""
-    rules = [(r"^plane_(xy|yz|xz)$", r"encoder_\1.embeddings"),
-             (r"^torso_grid$", "torso_encoder.embeddings"),
-             (r"^audio_net\.fc_0\.", "audio_net.encoder_fc1.0."),
-             (r"^audio_net\.fc_1\.", "audio_net.encoder_fc1.2."),
-             (r"^audio_att_net\.att\.", "audio_att_net.attentionNet.0."),
-             (r"\.net_(\d)\.", r".net.\1.")]
-    out = {}
-    for name, value in state.items():
-        for pattern, repl in rules:
-            name = re.sub(pattern, repl, name)
-        conv = re.match(r"^(audio_net|audio_att_net)\.conv_(\d)\.(.*)$", name)
-        if conv:
-            seq = "encoder_conv" if conv[1] == "audio_net" else "attentionConvNet"
-            name = f"{conv[1]}.{seq}.{2 * int(conv[2])}.{conv[3]}"
-        out[name] = value
-    return out
 
 
 def _morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import write_reference_pth
 from mere_fusion_tpu.utils import torch_convert as jconv
 from mere_fusion_tpu_torch.config import Config
 from mere_fusion_tpu_torch.convert import ernerf_from_flax
@@ -54,15 +55,10 @@ def morton_grid(seed: int = 2) -> np.ndarray:
 
 
 def write_pth(path: str, state: dict, prefix: str = "module.", wrap: bool = False) -> str:
-    """A reference Trainer checkpoint: the model under 'model' (optionally
-    'module.'-prefixed or 'state_dict'-wrapped), mean_density beside it,
-    training stats with a numpy scalar."""
-    model = {prefix + k: v for k, v in pconv.ernerf_to_reference(state).items()}
-    model[prefix + "density_grid"] = torch.from_numpy(morton_grid())
-    model = {"state_dict": model} if wrap else model
-    torch.save({"model": model, "mean_density": 7.5, "epoch": 3,
-                "stats": {"loss": [np.float64(0.25)]}}, path)
-    return path
+    """A reference Trainer checkpoint of state with mean_density 7.5 and
+    training stats holding a numpy scalar."""
+    return write_reference_pth(path, state, morton_grid(), 7.5, prefix=prefix, wrap=wrap,
+                               epoch=3, stats={"loss": [np.float64(0.25)]})
 
 
 @pytest.fixture(scope="module")
