@@ -145,7 +145,30 @@ its seconds; any failure is fatal (exit code 1, no result line):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-11. sampler_stages — the profiling entry points prof_r5m.main and
+11. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+              featurizer: a full-width graph (init_params(default_rng(11),
+              scale=0.1), written by write_graphdef) with its bytes and the
+              seconds to write, read and upload it; one 8,960-sample window
+              of the test signal in bf16 (the live form) and float32 against
+              float32 on the CPU (bf16 within SPEECH_BF16_REL of the largest
+              logit with SPEECH_BF16_ARGMAX argmax agreement, f32 within
+              SPEECH_F32_REL), p50 ms of 20 by CUDA events of the window and of
+              the network alone, launches and busy share (torch.profiler), the
+              bound (weights read once, the recurrent block again each step);
+              make_engine at Config() defaults with nerf.asr_model on the
+              graph and nerf.audio_in_dim 29 over an 8-pose 512² track, fed
+              SPEECH_SECONDS of speech in one burst and driven by render()'s
+              loop body with the counts zeroed just before: K2 once a
+              rendered frame, nerf.render p50 of frames that ran a
+              featurizer window and of frames that did not, the build's
+              seconds (featurizer, bake, prefill), the device ring holding
+              the last window's logits and the host ring stale; eight orbit
+              frames after orbit(2000, 0) head only and with the torso (K2
+              once each); one fullbody frame (the head region equal to the
+              rendered frame, the body around it untouched); then
+              tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
+              seconds, the real-time factor.
+12. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -239,6 +262,13 @@ MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
 TORSO_ITERS = 300                 # the torso stage's iterations in nerf_avatar
+# the DeepSpeech featurizer on the card (nerf_speech): bf16 products against the
+# f32 logits on the CPU, the JAX package's own bound (tests/test_deepspeech.py);
+# the card's f32 against the CPU's f32 (sums in another order), of the largest logit
+SPEECH_BF16_REL = 0.05
+SPEECH_BF16_ARGMAX = 0.95
+SPEECH_F32_REL = 1e-4
+SPEECH_SECONDS = 4                # speech fed to the live session and the tool
 
 
 def emit(obj: dict) -> None:
@@ -265,6 +295,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def p50_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """The median ms of iters calls of fn, each between two CUDA events
+    (host work inside fn counts: the device waits for it)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[iters // 2]
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -2239,6 +2288,300 @@ def phase_nerf_avatar(state: dict) -> dict:
             "k2_tol": K2_ATOL["bfloat16"], "occupied_cells": int(want.occupancy.sum())}
 
 
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b7, v = v & 0x7F, v >> 7
+        if not v:
+            out.append(b7)
+            return bytes(out)
+        out.append(b7 | 0x80)
+
+
+def _field(number: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint((number << 3) | 2) + _varint(len(payload)) + payload
+
+
+def write_graphdef(path: str, consts: dict) -> int:
+    """A frozen TensorFlow GraphDef (.pb) holding one Const node a float32
+    array of ``consts`` (name → array) and an input Placeholder, written in
+    the protobuf wire format a field at a time, so that no tensor is
+    copied into a larger message. Returns the file's bytes."""
+    import numpy as np
+
+    with open(path, "wb") as f:
+        f.write(_field(1, _field(1, b"input_node") + _field(2, b"Placeholder")))
+        for name, arr in consts.items():
+            arr = np.ascontiguousarray(arr, "<f4")
+            dims = b"".join(_field(2, _varint(1 << 3) + _varint(d)) for d in arr.shape)
+            # TensorProto: dtype DT_FLOAT, tensor_shape, tensor_content
+            tensor_head = (_varint(1 << 3) + _varint(1) + _field(2, dims)
+                           + _varint((4 << 3) | 2) + _varint(arr.nbytes))
+            tensor_len = len(tensor_head) + arr.nbytes
+            value_head = _varint((8 << 3) | 2) + _varint(tensor_len)   # AttrValue.tensor
+            entry_head = (_field(1, b"value") + _varint((2 << 3) | 2)
+                          + _varint(len(value_head) + tensor_len))     # attr map entry
+            entry_len = len(entry_head) + len(value_head) + tensor_len
+            node_head = (_field(1, name.encode()) + _field(2, b"Const")
+                         + _varint((5 << 3) | 2) + _varint(entry_len))
+            f.write(_varint((1 << 3) | 2) + _varint(len(node_head) + entry_len))
+            for part in (node_head, entry_head, value_head, tensor_head):
+                f.write(part)
+            f.write(memoryview(arr).cast("B"))
+        return f.tell()
+
+
+def deepspeech_graph_names(params: dict) -> dict:
+    """DeepSpeech v0.1.0's frozen-graph node names for the parameters
+    (audio/deepspeech.py's names): h1…b6 as they are, the LSTM's under
+    bidirectional_rnn/{fw,bw}/basic_lstm_cell/."""
+    out = {}
+    for key, value in params.items():
+        if key.startswith("lstm_"):
+            _, direction, leaf = key.split("_")
+            key = f"bidirectional_rnn/{direction}/basic_lstm_cell/{leaf}"
+        out[key] = value
+    return out
+
+
+def speech_pcm(n: int = 8960, seed: int = 11):
+    """A speech-like test signal at 16 kHz (tests/test_deepspeech.py): three
+    harmonics of a rising pitch and amplitude-modulated noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 0.56 * (n / 8960), n)
+    f0 = 110 * (1 + 0.8 * t)
+    pcm = sum(0.15 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3))
+    pcm += (0.05 * np.sin(2 * np.pi * 4.0 * t) + 0.05) * rng.standard_normal(t.shape)
+    return pcm.astype(np.float32)
+
+
+def deepspeech_bound_ms(weights: dict, rows: int) -> dict:
+    """Least time for one DeepSpeech window of ``rows`` steps on weights in
+    their serving dtypes: every weight read once and, as the eager loop
+    must, the recurrent block Wh of each direction again at every step
+    (its bytes); beside it the products at the card's bf16 tensor rate
+    and the bytes with every weight read just once."""
+    total = sum(t.numel() * t.element_size() for t in weights.values())
+    macs = 0
+    wh_bytes = 0
+    for name, t in weights.items():
+        if t.ndim != 2:
+            continue
+        macs += rows * t.shape[0] * t.shape[1]
+        if name.startswith("lstm_"):
+            units = t.shape[1] // 4
+            wh_bytes += units * t.shape[1] * t.element_size()
+    stepped = total + (rows - 1) * wh_bytes
+    return {"bound_ms": stepped / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "bytes": stepped, "once_ms": total / PEAK_BYTES * 1e3,
+            "operations_ms": 2.0 * macs / PEAK_BF16_FLOPS * 1e3}
+
+
+def phase_nerf_speech(state: dict) -> dict:
+    import os
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from mere_fusion_tpu_torch.audio import deepspeech as ds
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.ops import sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.tools import nerf_asr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_speech_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    out = {}
+
+    # 1. a full-width graph from seeded weights: written, read, uploaded
+    pb = os.path.join(tmp, "deepspeech.pb")
+    params = ds.init_params(np.random.default_rng(11), scale=0.1)
+    t0 = time.perf_counter()
+    out["graph_bytes"] = write_graphdef(pb, deepspeech_graph_names(params))
+    out["graph_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ds.params_from_graph(ds.read_graph_constants(pb))
+    out["graph_read_s"] = time.perf_counter() - t0
+    if any(not np.array_equal(host[k], params[k]) for k in params):
+        raise AssertionError("the graph read back differs from the weights written")
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w16 = ds.serving_weights(host, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    out["graph_upload_s"] = time.perf_counter() - t0
+    w32 = ds.serving_weights(host, dev, None)
+
+    # 2. one window on the test signal: bf16 (the live form) and f32
+    pcm = speech_pcm()
+    vec = ds.input_vector(np.clip(pcm * 32768.0, -32768, 32767).astype(np.int16))
+    rows = vec.shape[0]
+    x = torch.from_numpy(vec.astype(np.float32))
+    with torch.no_grad():
+        ref = ds.deepspeech_apply({k: torch.from_numpy(v) for k, v in host.items()}, x).numpy()
+    live = ds.deepspeech_logits_fn(params=w16, device=dev, return_device=True)
+    full = ds.deepspeech_logits_fn(params=w32, device=dev, return_device=True,
+                                   compute_dtype="float32")
+    bf16 = live(pcm).cpu().numpy()
+    f32 = full(pcm).cpu().numpy()
+    scale = float(np.abs(ref).max())
+    errs = {"bf16_max_abs_err": float(np.abs(bf16 - ref).max()),
+            "bf16_argmax_agreement": float((bf16.argmax(-1) == ref.argmax(-1)).mean()),
+            "f32_max_abs_err": float(np.abs(f32 - ref).max()), "ref_max_abs": scale}
+    if not (errs["bf16_max_abs_err"] <= SPEECH_BF16_REL * scale
+            and errs["bf16_argmax_agreement"] >= SPEECH_BF16_ARGMAX
+            and errs["f32_max_abs_err"] <= SPEECH_F32_REL * scale):
+        raise AssertionError(f"DeepSpeech on the card against f32 on the CPU: {errs}")
+    xd = x.to(dev)
+    with torch.no_grad():
+        net16 = lambda: ds.deepspeech_apply(w16, xd, torch.bfloat16)
+        net32 = lambda: ds.deepspeech_apply(w32, xd)
+        out["window"] = {
+            "samples": len(pcm), "rows": rows, **errs,
+            "limits": {"bf16_rel": SPEECH_BF16_REL, "bf16_argmax": SPEECH_BF16_ARGMAX,
+                       "f32_rel": SPEECH_F32_REL},
+            "bf16_window_ms": p50_ms(lambda: live(pcm)), "f32_window_ms": p50_ms(lambda: full(pcm)),
+            "bf16_net_ms": p50_ms(net16), "f32_net_ms": p50_ms(net32),
+            "bf16_profile": profile_launches(net16), "f32_profile": profile_launches(net32),
+            "bf16_bound": deepspeech_bound_ms(w16, rows),
+            "f32_bound": deepspeech_bound_ms(w32, rows)}
+    del w32, xd, live, full
+    torch.cuda.empty_cache()
+
+    # 3. a live session at Config() defaults on the 8-pose track with the graph
+    pose_path, au_path = nerf_dataset(8)
+    cfg = nerf_config(pose_path, au_path).override(**{
+        "nerf.asr_model": pb, "nerf.audio_in_dim": 29})
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=dev)
+    out["session_build"] = {"total_s": time.perf_counter() - t0, **{
+        part: metrics.latency(f"nerf.build.{part}").last
+        for part in ("featurizer", "bake", "prefill")}}
+    asr = engine.asr
+    flushed_logits = []
+    device_fn = asr.device_logits_fn
+    asr.device_logits_fn = lambda audio: flushed_logits.append(device_fn(audio)) or \
+        flushed_logits[-1]
+    speech = speech_pcm(16000 * SPEECH_SECONDS)
+    for c in range(len(speech) // 320):           # one TTS burst
+        asr.put_audio_frame(speech[c * 320:(c + 1) * 320])
+    render = metrics.latency("nerf.render")
+    times = {True: [], False: []}                  # nerf.render ms by window
+    loop_ms = {True: [], False: []}                # the loop body's host ms by window
+    zero_kernel_counts()                           # the session's frames start here ...
+    rendered = 0
+    for _ in range(len(speech) // 640 + 20):       # render()'s loop body
+        idx = asr.feat_buffer_idx
+        t0 = time.perf_counter()
+        for _ in range(2):
+            asr.run_step()
+        seen = render.count
+        engine.test_step()                         # ends in the frame's readback
+        if render.count > seen:
+            rendered += 1
+            window = asr.feat_buffer_idx != idx
+            times[window].append(render.last * 1e3)
+            loop_ms[window].append((time.perf_counter() - t0) * 1e3)
+    launches = sampler.launches                    # ... and end here
+    if launches != rendered or rendered < 60 or not times[True] or not times[False]:
+        raise AssertionError(f"K2 launched {launches} times for {rendered} rendered frames "
+                             f"({len(times[True])} with a featurizer window)")
+    left, ctx = asr.stride_left_size, asr.context_size
+    start = (asr.feat_buffer_idx - 1) % asr.feat_buffer_size * ctx
+    last = flushed_logits[-1][left:left + ctx].float()
+    if not torch.equal(asr._ring_dev[start:start + ctx], last):
+        raise AssertionError("the device ring does not hold the last window's logits")
+    try:
+        asr.get_next_feat()
+        raise AssertionError("the host ring must be stale after device flushes")
+    except RuntimeError:
+        pass
+    p50 = lambda v: sorted(v)[len(v) // 2]
+    out["session"] = {
+        "frames": rendered, "k2_launches": launches, "featurizer_windows": len(flushed_logits),
+        "render_ms_p50_with_window": p50(times[True]),
+        "render_ms_p50_without_window": p50(times[False]),
+        "loop_ms_p50_with_window": p50(loop_ms[True]),
+        "loop_ms_p50_without_window": p50(loop_ms[False]),
+        "frames_with_window": len(times[True]), "ring_max_abs": asr._ring_dev.abs().max().item(),
+        "frame_std": float(engine.latest_frame.image.std())}
+    state["speech_k2_launches"] = launches
+
+    def orbit_frames(e, n: int = 8) -> dict:
+        """n frames of e after orbit(2000, 0): K2 once each, render ms."""
+        cam = e.set_orbit_camera(True)
+        cam.orbit(2000.0, 0.0)
+        zero_kernel_counts()
+        ms = []
+        for _ in range(n):
+            for _ in range(2):
+                e.asr.run_step()
+            seen = render.count
+            e.test_step()
+            if render.count > seen:
+                ms.append(render.last * 1e3)
+        if sampler.launches != len(ms) or len(ms) != n:
+            raise AssertionError(f"orbit: K2 {sampler.launches} for {len(ms)} of {n} frames")
+        e.set_orbit_camera(False)
+        return {"frames": len(ms), "render_ms": ms, "render_ms_p50": p50(ms),
+                "k2_launches": sampler.launches, "frame_std": float(e.latest_frame.image.std())}
+
+    # 4. orbit frames, head only; then with the torso, pasted into body frames
+    out["orbit_head"] = orbit_frames(engine)
+    del engine
+    torch.cuda.empty_cache()
+    body_dir = os.path.join(tmp, "body")
+    os.makedirs(body_dir)
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        cv2.imwrite(os.path.join(body_dir, f"{i}.png"),
+                    rng.integers(0, 256, (NERF_HW + 208, NERF_HW + 128, 3), np.uint8))
+    offset = (64, 128)
+    engine = make_engine(cfg.override(**{"nerf.torso": True, "nerf.fullbody_imgs": body_dir,
+                                         "nerf.fullbody_offset": offset}), device=dev)
+    step, heads = engine._render_step, []
+    engine._render_step = lambda *a, **k: heads.append(step(*a, **k)) or heads[-1]
+    for _ in range(2):
+        engine.asr.run_step()
+    if not engine.test_step():
+        raise AssertionError("the fullbody frame was dropped")
+    image = engine.latest_frame.image
+    head = cv2.cvtColor(heads[-1][0].cpu().numpy(), cv2.COLOR_RGB2BGR)
+    bodies = [cv2.imread(os.path.join(body_dir, f"{i}.png")) for i in range(2)]
+    ox, oy = offset
+    inside = image[oy:oy + NERF_HW, ox:ox + NERF_HW]
+    outside = np.ones(image.shape[:2], bool)
+    outside[oy:oy + NERF_HW, ox:ox + NERF_HW] = False
+    if (image.shape != bodies[0].shape or not np.array_equal(inside, head)
+            or not any(np.array_equal(image[outside], b[outside]) for b in bodies)):
+        raise AssertionError(f"fullbody frame {image.shape}: head region or body differs")
+    out["fullbody"] = {"shape": list(image.shape), "offset": list(offset),
+                       "head_equal": True, "head_std": float(head.std())}
+    engine._render_step = step
+    out["orbit_torso"] = orbit_frames(engine)
+    del engine, heads
+    torch.cuda.empty_cache()
+
+    # 5. the standalone featurizer on a 4 s wav with the graph (on the card)
+    wav = os.path.join(tmp, "speech.wav")
+    wavfile.write(wav, 16000, (speech * 32767).astype(np.int16))
+    info = nerf_asr.main([wav, "--asr_model", pb, "--audio_dim", "29",
+                          "--save_feats", os.path.join(tmp, "aud.npy")])
+    feats = np.load(os.path.join(tmp, "aud.npy"))
+    if feats.shape != (info["frames"], 16, 29) or not np.isfinite(feats).all():
+        raise AssertionError(f"nerf_asr features {feats.shape}")
+    out["nerf_asr"] = {**info, "real_time_factor": info["seconds"] / SPEECH_SECONDS}
+    return out
+
+
 def stage_counts() -> dict:
     from mere_fusion_tpu_torch.ops import sampler, sampler_stages
 
@@ -2462,7 +2805,8 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("session", phase_session), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
-          ("nerf_avatar", phase_nerf_avatar), ("sampler_stages", phase_sampler_stages))
+          ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
+          ("sampler_stages", phase_sampler_stages))
 
 
 def main() -> int:
@@ -2537,6 +2881,8 @@ def main() -> int:
         "bound_by": k2["bound_by"], "library_ms": None,
         # the avatar served from its checkpoint with the torso (nerf_avatar)
         "avatar_launches": state["avatar_k2_launches"],
+        # a session fed speech through the DeepSpeech featurizer (nerf_speech)
+        "speech_launches": state["speech_k2_launches"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],

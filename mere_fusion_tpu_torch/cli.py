@@ -46,6 +46,8 @@ _FLAG_TO_KEY = {
     "torso": "nerf.torso",
     "nerf_ckpt": "nerf.ckpt",
     "asr_model": "nerf.asr_model",
+    "audio_in_dim": "nerf.audio_in_dim",
+    "fullbody_img": "nerf.fullbody_imgs",
     "sample_mode": "nerf.sample_mode",
 }
 
@@ -83,8 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 VAE decode tier: not ported, auto serves float")
     p.add_argument("--whisper_ckpt", default="",
                    help="whisper-tiny weights for MuseASR features (OpenAI .pt)")
-    # ER-NeRF serving flags; --asr_model names a part that is not ported yet
-    # and raises
+    # ER-NeRF serving flags
     p.add_argument("--pose", default="data/transforms.json")
     p.add_argument("--au", default="data/au.csv")
     p.add_argument("--bg_img", default="white")
@@ -95,8 +96,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trained ER-NeRF avatar: a reference .pth (ngp_kf.pth) or an "
                         "ernerf_cli workspace")
     p.add_argument("--asr_model", default="",
-                   help="ER-NeRF live featurizer; only the built-in fake (empty) "
-                        "is ported")
+                   help="ER-NeRF live featurizer: a DeepSpeech frozen graph (.pb), a "
+                        "local directory of a transformers CTC model, or empty for the "
+                        "fake")
+    p.add_argument("--audio_in_dim", type=int, default=None,
+                   help="the featurizer's logit width the avatar was trained on "
+                        "(29 for a DeepSpeech .pb; default 44)")
+    p.add_argument("--fullbody_img", default="",
+                   help="directory of full-body frames (<index>.jpg/png) to paste "
+                        "the rendered head into")
+    p.add_argument("--fullbody_offset_x", type=int, default=0)
+    p.add_argument("--fullbody_offset_y", type=int, default=0)
     p.add_argument("--sample_mode", default="pallas", choices=["pallas", "nearest", "bilinear"],
                    help="ER-NeRF texture sampling: the K2 kernel (pallas) or the baked "
                         "textures' nearest/bilinear gathers")
@@ -109,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> Config:
     overrides = {key: getattr(args, flag) for flag, key in _FLAG_TO_KEY.items()
                  if getattr(args, flag, None) is not None}
+    if getattr(args, "fullbody_img", ""):
+        overrides["nerf.fullbody_offset"] = (args.fullbody_offset_x, args.fullbody_offset_y)
     return Config().override(**overrides)
 
 

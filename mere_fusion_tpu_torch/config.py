@@ -151,8 +151,8 @@ class NeRFConfig:
     audio_in_dim: int = 44            # esperanto CTC logits (29 for deepspeech)
     # live audio featurizer (reference --asr_model, app.py:596/nerfasr.py:39):
     # "" = deterministic fake (demo/silence); a *.pb path = our DeepSpeech
-    # (29-dim, audio/deepspeech.py); anything else = a transformers CTC model
-    # name (wav2vec2/hubert) run via FlaxWav2Vec2ForCTC on device
+    # (29-dim, audio/deepspeech.py); anything else = a local directory of a
+    # transformers CTC model (wav2vec2/hubert), run by its torch model
     asr_model: str = ""
     audio_dim: int = 32
     eye_dim: int = 1                  # AU45 blink scalar

@@ -4,7 +4,8 @@ Each engine owns a TTS adapter feeding 20 ms PCM chunks, an ASR feeder that
 featurizes audio for its model, and device work launched on the engine's
 GPU. Port of mere_fusion_tpu/engines: the MuseTalk engine (an inference
 thread and a frame-assembly thread) and the ER-NeRF engine (one render
-loop over kernel K2) are ported; Wav2Lip is not yet.
+loop over kernel K2, with its live featurizer) are ported; Wav2Lip is not
+yet.
 """
 from __future__ import annotations
 
@@ -54,16 +55,18 @@ def _native_state(family: str, raw) -> tuple[dict, dict]:
     return sd, {}
 
 
-def load_serving_tree(family: str, path: str):
+def load_serving_tree(family: str, path: str, loader=None):
     """(host state dict, metadata) for serving: a torch checkpoint
-    (.pth/.pt/.bin) whose keys the port's modules carry natively. Cached
-    per path."""
+    (.pth/.pt/.bin) whose keys the port's modules carry natively, or what
+    a custom ``loader(path)`` returns. Cached per path."""
     key = (family, os.path.abspath(path))
     with _TREE_LOCK:
         hit = _HOST_TREES.get(key)
         if hit is not None:
             return hit
-        if os.path.isdir(path):
+        if loader is not None:
+            tree, meta = loader(path), {}
+        elif os.path.isdir(path):
             raise NotImplementedError(
                 f"{path!r} is an orbax directory; the PyTorch package loads "
                 "torch checkpoints only (ROADMAP: 'Checkpoints' — "
@@ -78,21 +81,64 @@ def load_serving_tree(family: str, path: str):
         return tree, meta
 
 
-def shared_device_tree(family: str, path: str, device=None, dtype=None):
+def shared_device_tree(family: str, path: str, device=None, dtype=None, loader=None,
+                       cast=None):
     """State dict on ``device`` (float32 entries cast to ``dtype`` when
-    given), shared by every session placed on that device."""
+    given, only those for which ``cast(tensor)`` holds when that is given),
+    shared by every session placed on that device. ``loader`` as in
+    load_serving_tree; its arrays may be numpy."""
     key = (family, os.path.abspath(path), str(device), str(dtype))
     with _TREE_LOCK:
         tree = _DEVICE_TREES.get(key)
         if tree is not None:
             return tree
-        tree, _ = load_serving_tree(family, path)
-        tree = {k: v.to(device=device,
-                        dtype=dtype if dtype is not None and v.dtype == torch.float32
-                        else v.dtype)
-                for k, v in tree.items()}
-        _DEVICE_TREES[key] = tree
-        return tree
+        tree, _ = load_serving_tree(family, path, loader)
+        out = {}
+        for k, v in tree.items():
+            v = torch.as_tensor(v)
+            to = (dtype if dtype is not None and v.dtype == torch.float32
+                  and (cast is None or cast(v)) else v.dtype)
+            out[k] = v.to(device=device, dtype=to)
+        _DEVICE_TREES[key] = out
+        return out
+
+
+def make_nerf_featurizer(asr_model: str, device=None, audio_in_dim: int | None = None):
+    """(logits_fn, device_logits_fn or None) for the ER-NeRF live featurizer
+    named by ``asr_model`` (reference --asr_model, app.py:596): a DeepSpeech
+    frozen graph (.pb), or a local directory of a transformers CTC model,
+    which runs on ``device`` and returns host logits (no device form).
+
+    A graph's weights live on ``device`` once per (graph, device), the 2-D
+    ones in bf16, shared by both forms and every session there: both live
+    forms run bf16 products (float32 sums and gate math), so the feature
+    ring never mixes precisions. Offline training features
+    (``deepspeech_logits_fn`` with its defaults) stay float32. Raises
+    ValueError when the logits are not ``audio_in_dim`` wide."""
+    from mere_fusion_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    if asr_model.endswith(".pb"):
+        from mere_fusion_tpu_torch.audio import deepspeech
+
+        params = shared_device_tree(
+            "deepspeech", asr_model, device, dtype=torch.bfloat16,
+            loader=lambda p: deepspeech.params_from_graph(deepspeech.read_graph_constants(p)),
+            cast=lambda t: t.ndim == 2)
+        fns = (deepspeech.deepspeech_logits_fn(params=params, device=device,
+                                               compute_dtype="bfloat16"),
+               deepspeech.deepspeech_logits_fn(params=params, device=device,
+                                               return_device=True))
+    else:
+        from mere_fusion_tpu_torch.engines.nerf import wav2vec_logits_fn
+
+        fns = (wav2vec_logits_fn(asr_model, device), None)
+    width = fns[0].width
+    if audio_in_dim is not None and width != audio_in_dim:
+        raise ValueError(f"nerf.asr_model {asr_model!r} gives {width}-wide logits but "
+                         f"nerf.audio_in_dim is {audio_in_dim}: set nerf.audio_in_dim="
+                         f"{width} (the avatar's audio net must be trained on them)")
+    return fns
 
 
 def make_engine(cfg: Config, **kw):
@@ -147,10 +193,13 @@ def make_engine(cfg: Config, **kw):
 
         nc = cfg.nerf
         kw["device"] = resolve_device(kw.get("device"))
-        if nc.fullbody_imgs:
-            raise NotImplementedError(
-                "the ER-NeRF fullbody paste is not ported to the PyTorch package "
-                "yet (ROADMAP: 'ER-NeRF fullbody')")
+        if "logits_fn" not in kw and nc.asr_model:
+            from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+            t0 = time.perf_counter()
+            kw["logits_fn"], kw["device_logits_fn"] = make_nerf_featurizer(
+                nc.asr_model, kw["device"], nc.audio_in_dim)
+            metrics.latency("nerf.build.featurizer").observe(time.perf_counter() - t0)
         if "dataset" not in kw:
             kw["dataset"] = NeRFTestDataset.load(
                 nc.pose_path, nc.au_path, bg_img=nc.bg_img, scale=nc.scale,
@@ -168,5 +217,13 @@ def make_engine(cfg: Config, **kw):
             metrics.latency("nerf.build.load").observe(time.perf_counter() - t0)
             if density is not None:
                 kw["density"] = density
+        if nc.fullbody_imgs and "fullbody_frames" not in kw:
+            from mere_fusion_tpu_torch.engines.base import _sorted_imgs, read_imgs
+
+            frames = read_imgs(_sorted_imgs(nc.fullbody_imgs))
+            if not frames:
+                raise ValueError(f"nerf.fullbody_imgs {nc.fullbody_imgs!r} holds no images")
+            kw["fullbody_frames"] = frames
+            kw["fullbody_offset"] = tuple(nc.fullbody_offset)
         return NeRFReal(cfg, **kw)
     raise ValueError(f"unknown avatar kind {kind!r}")

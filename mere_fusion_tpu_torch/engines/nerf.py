@@ -7,17 +7,19 @@ live audio features through a circular feature ring with an 8-window
 attention context, and renders the talking head through the K2 frame step
 (engines/nerf_step.py) from triplanes baked at construction.
 
-Ported: the fake featurizer (``nerf.asr_model = ""``), ``NerfASR`` with its
-device-resident feature ring, the audio-code EMA (in the frame steps) and
-``NeRFReal`` with ``nerf.sample_mode`` "pallas" (the K2 step) or
-"nearest"/"bilinear" (the baked-texture step, engines/nerf_baked.py), or
-with ``bake_planes=False`` the unbaked per-frame hash-encode step
-(engines/nerf_baked.py, kernel K3), on random weights from a fixed seed or
-on a trained avatar that ``load_nerf_checkpoint`` reads (``nerf.ckpt``: a
-reference ``.pth`` or the port's training workspace), with the torso net
-when ``nerf.torso`` is set. Not yet ported, each raising and naming its
-ROADMAP item: the DeepSpeech and wav2vec featurizers (and with them
-device-side featurizer flushes), the orbit camera, the fullbody paste and
+The featurizer is the deterministic fake (``nerf.asr_model = ""``), the
+DeepSpeech net of a frozen graph (a ``.pb``, audio/deepspeech.py; its bf16
+device form flushes its logits straight into the device feature ring) or a
+local transformers CTC model (``wav2vec_logits_fn``); ``make_engine``
+builds it. ``NeRFReal`` renders with ``nerf.sample_mode`` "pallas" (the K2
+step) or "nearest"/"bilinear" (the baked-texture step,
+engines/nerf_baked.py), or with ``bake_planes=False`` the unbaked per-frame
+hash-encode step (engines/nerf_baked.py, kernel K3), on random weights from
+a fixed seed or on a trained avatar that ``load_nerf_checkpoint`` reads
+(``nerf.ckpt``: a reference ``.pth`` or the port's training workspace),
+with the torso net when ``nerf.torso`` is set, from the dataset's camera
+path or a free orbit camera (engines/orbit.py), pasted into full-body
+frames when given. Not yet ported, raising and naming its ROADMAP item:
 the JAX package's orbax checkpoints.
 """
 from __future__ import annotations
@@ -74,20 +76,53 @@ def fake_logits_fn(audio_dim: int) -> Callable[[np.ndarray], np.ndarray]:
     return fn
 
 
+def wav2vec_logits_fn(model_dir: str, device=None) -> Callable[[np.ndarray], np.ndarray]:
+    """A transformers CTC model (wav2vec2, HuBERT) as the featurizer
+    (reference nerfasr.py:39-45, 128-143): fn(pcm_float32_16k) → [T,
+    vocab] logits on the host. The model and its processor load from a
+    local directory only; the model runs on ``device`` (None: the current
+    CUDA device). ``fn.width`` is the logit width."""
+    try:
+        from transformers import AutoModelForCTC, AutoProcessor
+    except ImportError as e:
+        raise ImportError(f"nerf.asr_model={model_dir!r} names a transformers CTC model, "
+                          "and the 'transformers' package is not installed") from e
+    dev = resolve_device(device)
+    processor = AutoProcessor.from_pretrained(model_dir, local_files_only=True)
+    model = AutoModelForCTC.from_pretrained(model_dir, local_files_only=True).to(dev).eval()
+
+    @torch.no_grad()
+    def fn(audio: np.ndarray) -> np.ndarray:
+        inputs = processor(audio, sampling_rate=16000, return_tensors="pt", padding=True)
+        return model(inputs.input_values.to(dev)).logits[0].float().cpu().numpy()
+
+    fn.width = model.config.vocab_size
+    return fn
+
+
 class NerfASR(BaseASR):
     """Sliding-window CTC featurizer with a circular feature ring.
 
     Feature ring: [4 × context] rows of [audio_dim]; per step one 20 ms frame
     is consumed and, once l+m+r frames accumulate, the middle m logit rows
     are written to the ring. get_next_feat returns an [8, audio_dim, 16]
-    attention stack advancing 2 rows (one video frame) per call.
+    attention stack (att > 0) or one [1, audio_dim, 16] window (att = 0),
+    advancing 2 rows (one video frame) per call.
+
+    device_logits_fn: logits_fn's twin returning a tensor on ``device``.
+    Once the device ring is live (the first get_next_feat_device), each
+    flush writes its rows straight into the device ring with no host
+    readback, and the host ring goes stale.
     """
 
-    def __init__(self, cfg: Config, parent, logits_fn: Callable, device=None):
+    def __init__(self, cfg: Config, parent, logits_fn: Callable, att: int = 2,
+                 device_logits_fn: Optional[Callable] = None, device=None):
         super().__init__(cfg, parent)
         self.audio_dim = cfg.nerf.audio_in_dim
         self.context_size = cfg.stride.mid
         self.logits_fn = logits_fn
+        self.device_logits_fn = device_logits_fn
+        self.att = att
         self.device = device if device is not None else torch.device("cpu")
         self.frames.extend([np.zeros(self.chunk, np.float32)] * self.stride_left_size)
         self.feat_buffer_size = 4
@@ -104,6 +139,7 @@ class NerfASR(BaseASR):
         # [8, dim, 16] window per frame
         self._ring_dev: Optional[torch.Tensor] = None
         self._att_dev: Optional[list] = None
+        self._host_ring_stale = False
 
     # non-blocking pull: NerfASR runs inside the render loop and must
     # synthesize silence at once rather than wait
@@ -120,9 +156,15 @@ class NerfASR(BaseASR):
         self.frames = self.frames[-(self.stride_left_size + self.stride_right_size):]
         start = self.feat_buffer_idx * self.context_size
         self.feat_buffer_idx = (self.feat_buffer_idx + 1) % self.feat_buffer_size
-        ctx = self.context_size
+        ctx, left = self.context_size, self.stride_left_size
+        if self._ring_dev is not None and self.device_logits_fn is not None:
+            # the logits stay on the device and slide into the ring there
+            feats = self.device_logits_fn(audio)[left:left + ctx]
+            self._ring_dev[start:start + feats.shape[0]] = feats.float()
+            self._host_ring_stale = True
+            return
         logits = self.logits_fn(audio)  # [T, audio_dim]
-        feats = logits[self.stride_left_size:self.stride_left_size + ctx]
+        feats = logits[left:left + ctx]
         self.feat_ring[start:start + feats.shape[0]] = feats
         if self._ring_dev is not None:
             # the ring length is a multiple of context: the block never wraps
@@ -142,8 +184,15 @@ class NerfASR(BaseASR):
         return idx
 
     def get_next_feat(self) -> np.ndarray:
-        """[8, audio_dim, 16] attention stack, on the host. Each window is a
-        copy: a later ring write must not change a window already taken."""
+        """[8, audio_dim, 16] attention stack (att > 0) or [1, audio_dim, 16]
+        (att = 0), on the host. Each window is a copy: a later ring write
+        must not change a window already taken."""
+        if self._host_ring_stale:
+            raise RuntimeError(
+                "host feature ring is stale: this NerfASR flushes features "
+                "device-side (device_logits_fn); use get_next_feat_device()")
+        if self.att == 0:
+            return self.feat_ring[self._ring_indices()].T[None]
         while len(self.att_feats) < 8:
             self.att_feats.append(self.feat_ring[self._ring_indices()].T)
         out = np.stack(self.att_feats)
@@ -271,20 +320,28 @@ class NeRFReal(BaseReal):
     "bilinear". With ``bake_planes=False`` nothing is baked and every mode
     renders through the unbaked step (engines/nerf_baked.py), which
     hash-encodes each frame's samples. The build's seconds go to the
-    latency meters ``nerf.build.bake`` and ``nerf.build.prefill``."""
+    latency meters ``nerf.build.bake`` and ``nerf.build.prefill``.
+
+    logits_fn, device_logits_fn: the featurizer and its device form (see
+    NerfASR; ``make_nerf_featurizer`` builds them for ``nerf.asr_model``),
+    the fake when ``nerf.asr_model`` is empty. fullbody_frames: BGR frames
+    the rendered head is pasted into at fullbody_offset (x, y), one a
+    frame in the pose track's order."""
 
     def __init__(self, cfg: Config, dataset: NeRFTestDataset,
                  custom_opts: list[dict] | None = None, device=None,
                  bake_planes: bool = True, state: dict | None = None,
-                 density: DensityGrid | None = None):
+                 density: DensityGrid | None = None,
+                 logits_fn: Callable | None = None,
+                 device_logits_fn: Callable | None = None,
+                 fullbody_frames: list | None = None, fullbody_offset=(0, 0)):
         nc = cfg.nerf
         if nc.sample_mode not in ("pallas", "nearest", "bilinear"):
             raise ValueError(f"nerf.sample_mode {nc.sample_mode!r} is not 'pallas', "
                              "'nearest' or 'bilinear'")
-        if nc.asr_model:
-            raise NotImplementedError(
-                f"nerf.asr_model={nc.asr_model!r}: the DeepSpeech and wav2vec "
-                "featurizers are not ported yet (ROADMAP: 'ER-NeRF featurizers')")
+        if logits_fn is None and nc.asr_model:
+            raise ValueError(f"nerf.asr_model={nc.asr_model!r} needs its featurizer: pass "
+                             "logits_fn from make_nerf_featurizer (make_engine does)")
         super().__init__(cfg, custom_opts, device=resolve_device(device))
         dev = self.device
         with self.device_scope():
@@ -326,8 +383,13 @@ class NeRFReal(BaseReal):
                 self._render_step.warmup(self.density, self._bg_dev)
             metrics.latency("nerf.build.bake").observe(t1 - t0)
             metrics.latency("nerf.build.prefill").observe(self._clock() - t1)
-            self.asr = NerfASR(cfg, self, fake_logits_fn(nc.audio_in_dim), device=dev)
+            self.asr = NerfASR(cfg, self, logits_fn or fake_logits_fn(nc.audio_in_dim),
+                               device_logits_fn=device_logits_fn, device=dev)
             self.asr.warm_up()
+        self.fullbody_frames = fullbody_frames
+        self.fullbody_offset = tuple(fullbody_offset)
+        # the free camera (engines/orbit.py); None follows the dataset's path
+        self.orbit = None
         # frames until the next active/overflow gauge readback (see test_step)
         self._telemetry_countdown = 0
 
@@ -338,12 +400,28 @@ class NeRFReal(BaseReal):
         return time.perf_counter()
 
     def set_orbit_camera(self, enable: bool = True):
-        raise NotImplementedError(
-            "the orbit camera is not ported to the PyTorch package yet "
-            "(ROADMAP: 'ER-NeRF orbit camera')")
+        """Toggle the free orbit camera. Returns the OrbitCamera (None when
+        disabled); move it with orbit/scale/pan between frames. It adopts
+        the dataset's first pose as the JAX package's does: that rotation,
+        at the pose's position mirrored through the origin (ROADMAP §3)."""
+        if not enable:
+            self.orbit = None
+            return None
+        if self.orbit is None:
+            from mere_fusion_tpu_torch.engines.orbit import OrbitCamera
+
+            cam = OrbitCamera(self.dataset.W, self.dataset.H)
+            cam.update_pose(np.asarray(self.dataset.poses[0]))
+            self.orbit = cam
+        return self.orbit
 
     def test_step(self, loop=None, audio_track=None, video_track=None) -> bool:
         data = next(self.loader)
+        # the dataset's pose is a key of the step's span and torso caches;
+        # an orbit pose is planned, and its torso drawn, live
+        pose, pose_key = data["pose"], data["index"]
+        if self.orbit is not None:
+            pose, pose_key = self.orbit.pose, None
         auds = self.asr.get_next_feat_device()
         audio_frames = [self.asr.get_audio_out() for _ in range(2)]
         if self.asr.is_stale_silence(audio_frames):
@@ -369,8 +447,7 @@ class NeRFReal(BaseReal):
                 self.asr.speech_start_ts = None
             t0 = time.perf_counter()
             rgb, n_active, n_overflow = self._render_step(
-                data["pose"], auds, data["eye"], self.density, self._bg_dev,
-                pose_key=data["index"])
+                pose, auds, data["eye"], self.density, self._bg_dev, pose_key=pose_key)
             rgb = rgb.cpu().numpy()
             # 1 Hz gauges of K2's tiles (the baked step has none): each int()
             # is a device → host sync
@@ -384,6 +461,11 @@ class NeRFReal(BaseReal):
             metrics.latency("nerf.render").observe(time.perf_counter() - t0)
             metrics.rate("nerf.render_fps").tick()
             image = cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)
+            if self.fullbody_frames is not None:
+                full = self.fullbody_frames[data["index"] % len(self.fullbody_frames)].copy()
+                ox, oy = self.fullbody_offset
+                full[oy:oy + image.shape[0], ox:ox + image.shape[1]] = image
+                image = full
         vf = VideoImage(image=image)
         track_put(loop, video_track, vf)
         self.record_video_frame(vf)

@@ -7,6 +7,7 @@ POST /interrupt       {session_id}                   → {code}
 POST /talk            {session_id, type: echo|chat, text, interrupt?}
 POST /set_audio_type  {session_id, audio_type, reinit}
 POST /record          {session_id, type: start_record|end_record}
+POST /camera          {session_id, enable?, orbit?, scale?, pan?, reset?}
 GET  /metrics, /health, /preview, /profile
 
 Port of mere_fusion_tpu/server/app.py; /profile uses torch.profiler.
@@ -146,6 +147,31 @@ def create_app(cfg: Config, engine_factory, llm=None, devices=None) -> web.Appli
             pass
         return resp
 
+    async def camera(request: web.Request) -> web.Response:
+        """The free camera of an ER-NeRF session; with /preview it stands in
+        for the reference's dearpygui orbit viewer (gui.py mouse handlers).
+        JSON body: {"session_id": ..., "enable": bool (default true),
+        "orbit": [dx, dy], "scale": delta, "pan": [dx, dy(, dz)],
+        "reset": bool}, with gui.py:56-69's semantics."""
+        params = await request.json()
+        session = require_session(params)
+        model = session.model
+        if not hasattr(model, "set_orbit_camera"):
+            return json_err("session model has no interactive camera")
+        if not params.get("enable", True):
+            model.set_orbit_camera(False)
+            return json_ok(data="camera disabled")
+        cam = model.set_orbit_camera(True)
+        if params.get("reset"):
+            cam.reset()
+        if "orbit" in params:
+            cam.orbit(*params["orbit"])
+        if "scale" in params:
+            cam.scale(params["scale"])
+        if "pan" in params:
+            cam.pan(*params["pan"])
+        return json_ok(data={"radius": float(cam.radius), "pose": cam.pose.tolist()})
+
     async def get_metrics(request: web.Request) -> web.Response:
         return web.json_response(metrics.snapshot())
 
@@ -188,6 +214,7 @@ def create_app(cfg: Config, engine_factory, llm=None, devices=None) -> web.Appli
     app.router.add_post("/set_audio_type", set_audio_type)
     app.router.add_post("/record", record)
     app.router.add_get("/preview", preview)
+    app.router.add_post("/camera", camera)
     app.router.add_get("/metrics", get_metrics)
     app.router.add_get("/health", health)
     app.router.add_get("/profile", profile)

@@ -254,15 +254,33 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     assert resolve_device("cpu") == CPU
 
 
-# ernerf serves since the ER-NeRF slice; its fullbody paste is unported
-UNPORTED_PARTS = {"wav2lip": {}, "ernerf": {"nerf.fullbody_imgs": "body/"}}
-
-
 @pytest.mark.parametrize("kind", ["wav2lip", "ernerf"])
-def test_unported_engines_raise(kind):
-    cfg = Config().override(**{"avatar.kind": kind, **UNPORTED_PARTS[kind]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(cfg, device=CPU)
+def test_unported_engines_raise(kind, tmp_path):
+    """wav2lip raises naming its ROADMAP item. ernerf serves since the
+    ER-NeRF slice and its fullbody paste since the featurizer slice: a
+    make_engine with nerf.fullbody_imgs builds and pastes its head."""
+    if kind == "wav2lip":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_engine(Config().override(**{"avatar.kind": kind}), device=CPU)
+        return
+    import cv2
+
+    from mere_fusion_tpu_torch.data.provider import synthesize_nerf_dataset
+
+    d = synthesize_nerf_dataset(str(tmp_path / "data"), hw=64)
+    (tmp_path / "body").mkdir()
+    cv2.imwrite(str(tmp_path / "body" / "0.jpg"), np.zeros((72, 80, 3), np.uint8))
+    engine = make_engine(Config().override(**{
+        "avatar.kind": kind, "tts.backend": "procedural", "nerf.pose_path": f"{d}/transforms.json",
+        "nerf.au_path": f"{d}/au.csv", "nerf.scale": 1.0, "nerf.fullbody_imgs": str(tmp_path / "body"),
+        "nerf.fullbody_offset": (16, 8), "nerf.grid_size": 16, "nerf.num_levels": 4,
+        "nerf.base_resolution": 16, "nerf.desired_resolution": 64,
+        "nerf.log2_hashmap_size": 10, "nerf.max_steps": 8}), device=CPU)
+    engine.asr.run_step()
+    engine.asr.run_step()
+    assert engine.test_step()
+    image = engine.latest_frame.image
+    assert image.shape == (72, 80, 3) and image[:8].max() == 0 and image[8:, 16:].std() > 0
 
 
 def _engine_cfg() -> Config:

@@ -222,17 +222,41 @@ def test_feature_ring_matches_jax_and_device_window():
     assert np.abs(host).sum() > 0, "speech features must reach the window"
 
 
-def test_unported_options_raise(datasets, data_dir):
-    _, pds = datasets
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeRFReal(Config().override(**OVERRIDES, **{"nerf.asr_model": "x.pb"}), dataset=pds,
-                 device=CPU)
-    for key, value in (("nerf.fullbody_imgs", "body/"),):
-        cfg = Config().override(**OVERRIDES, **{key: value,
-                                                "nerf.pose_path": f"{data_dir}/transforms.json",
-                                                "nerf.au_path": f"{data_dir}/au.csv"})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_engine(cfg, device=CPU)
+def test_unported_options_raise(datasets, data_dir, tmp_path, monkeypatch):
+    """The options that raised until the featurizer, orbit and fullbody
+    slice now build: a DeepSpeech ``nerf.asr_model`` (a graph at hidden
+    width 4, with its bf16 device form), the orbit camera and
+    ``nerf.fullbody_imgs``. What stays unported still raises naming its
+    ROADMAP item: an orbax ``nerf.ckpt``."""
+    import cv2
+
+    from chip_smoke import deepspeech_graph_names, write_graphdef
+    from mere_fusion_tpu_torch.audio import deepspeech
+
+    paths = {"nerf.pose_path": f"{data_dir}/transforms.json",
+             "nerf.au_path": f"{data_dir}/au.csv", "nerf.scale": 1.0}
+    monkeypatch.setattr(deepspeech, "PARAM_SHAPES", {
+        "h1": (494, 4), "b1": (4,), "h2": (4, 4), "b2": (4,), "h3": (4, 8), "b3": (8,),
+        "lstm_fw_kernel": (12, 16), "lstm_fw_bias": (16,), "lstm_bw_kernel": (12, 16),
+        "lstm_bw_bias": (16,), "h5": (8, 4), "b5": (4,), "h6": (4, 29), "b6": (29,)})
+    pb = str(tmp_path / "ds.pb")
+    write_graphdef(pb, deepspeech_graph_names(deepspeech.init_params()))
+    engine = make_engine(Config().override(**OVERRIDES, **paths, **{
+        "nerf.asr_model": pb, "nerf.audio_in_dim": 29}), device=CPU)
+    assert engine.asr.device_logits_fn is not None and engine.asr.audio_dim == 29
+    assert engine.set_orbit_camera(True) is engine.orbit is not None
+    body = tmp_path / "body"
+    body.mkdir()
+    for i in range(3):
+        cv2.imwrite(str(body / f"{i}.png"), np.full((80, 96, 3), 40 * i, np.uint8))
+    engine = make_engine(Config().override(**OVERRIDES, **paths, **{
+        "nerf.fullbody_imgs": str(body), "nerf.fullbody_offset": (4, 8)}), device=CPU)
+    assert len(engine.fullbody_frames) == 3 and engine.fullbody_offset == (4, 8)
+    assert (engine.fullbody_frames[2] == 80).all()
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(NotImplementedError, match="ROADMAP: 'Checkpoints'"):
+        make_engine(Config().override(**OVERRIDES, **paths,
+                                      **{"nerf.ckpt": str(tmp_path / "orbax")}), device=CPU)
 
 
 @pytest.mark.parametrize("shade_dtype", ["bfloat16", "float32"])
