@@ -2,13 +2,17 @@
 
 Inverse of the JAX package's ``utils/diffusers_convert.py::convert_vae`` /
 ``convert_musetalk_unet`` and ``utils/torch_convert.py::convert_whisper``,
-plus the ER-NeRF head (``ernerf_from_flax``, whose names already match):
+plus the ER-NeRF head (``ernerf_from_flax``, whose names already match)
+and the Wav2Lip family (``wav2lip_from_flax``, ``wav2lip_disc_from_flax``,
+``syncnet_from_flax``: ``{"params", "batch_stats"}`` onto the reference's
+names, running statistics included):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder) key names, which the
 port's modules load with ``load_state_dict(strict=True)``. Layouts:
 
 - Conv ``[kh, kw, in, out]`` → ``[out, in, kh, kw]`` (Conv1d ``[k, in, out]``
-  → ``[out, in, k]``); Dense ``[in, out]`` → Linear ``[out, in]``;
+  → ``[out, in, k]``); Dense ``[in, out]`` → Linear ``[out, in]``; a
+  Wav2Lip transposed conv keeps its ``(cin, cout, k, k)``;
 - norm ``scale`` → ``weight``;
 - ``down_{i}_res_{j}`` → ``down_blocks.i.resnets.j`` and the like,
   ``time_linear_k`` → ``time_embedding.linear_k``, ``geglu_proj`` →
@@ -29,6 +33,8 @@ from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwo
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
+from mere_fusion_tpu_torch.models.syncnet import SyncNet
+from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip, Wav2LipDisc
 from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims, sinusoids
 
 _BLOCK_RULES = [
@@ -172,3 +178,73 @@ def density_from_flax(density, device=None) -> DensityGrid:
         grid=torch.from_numpy(np.array(density.grid, dtype=np.float32)).to(device),
         occupancy=torch.from_numpy(np.array(density.occupancy, dtype=bool)).to(device),
         mean_density=torch.tensor(float(np.asarray(density.mean_density)), device=device))
+
+
+# flax module names of the Wav2Lip family → the reference's
+_CONV_BN_NAMES = [
+    (r"^ae_(\d+)$", r"audio_encoder.\1"),
+    (r"^fe_(\d+)_(\d+)$", r"face_encoder_blocks.\1.\2"),
+    (r"^fd_(\d+)_(\d+)$", r"face_decoder_blocks.\1.\2"),
+    (r"^de_(\d+)_(\d+)$", r"face_encoder_blocks.\1.\2"),
+    (r"^out_(\d)$", r"output_block.\1"),
+    (r"^pred$", "binary_pred.0"),
+]
+_SYNCNET_NAMES = [(r"^ae_(\d+)$", r"audio_encoder.\1"), (r"^fe_(\d+)$", r"face_encoder.\1")]
+
+
+def _conv_bn_from_flax(tree: Mapping, names, build) -> dict[str, torch.Tensor]:
+    """A flax tree of ConvBNRelu / ConvTransposeBNRelu / ConvLeaky blocks
+    and plain convs → the reference-named state dict of ``build()``. Inside
+    a block: ``conv`` → ``conv_block.0`` (a transposed conv's own
+    ``kernel``/``bias`` too, its ``(cin, cout, k, k)`` kept), ``bn`` →
+    ``conv_block.1`` with ``mean``/``var`` → ``running_mean``/``running_var``;
+    a plain conv (``out_1``, ``pred``) keeps its name. ``num_batches_tracked``
+    is 0."""
+    params, stats = tree["params"], tree.get("batch_stats", {})
+    sd = {}
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+    for name, node in params.items():
+        base = name
+        for pattern, repl in names:
+            base = re.sub(pattern, repl, base)
+        if "bn" in node or "conv" in node:
+            conv = node.get("conv", node)
+            kernel = np.asarray(conv["kernel"], np.float32)
+            put(f"{base}.conv_block.0.weight",
+                kernel.transpose(3, 2, 0, 1) if "conv" in node else kernel)
+            put(f"{base}.conv_block.0.bias", conv["bias"])
+            if "bn" in node:
+                bn = f"{base}.conv_block.1"
+                put(f"{bn}.weight", node["bn"]["scale"])
+                put(f"{bn}.bias", node["bn"]["bias"])
+                put(f"{bn}.running_mean", stats[name]["bn"]["mean"])
+                put(f"{bn}.running_var", stats[name]["bn"]["var"])
+                sd[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+        else:
+            put(f"{base}.weight", np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
+            put(f"{base}.bias", node["bias"])
+    expected = _expected_keys(build)
+    missing, extra = expected - set(sd), set(sd) - expected
+    if missing or extra:
+        raise KeyError(f"tree does not match the module: missing "
+                       f"{sorted(missing)[:8]} extra {sorted(extra)[:8]}")
+    return sd
+
+
+def wav2lip_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX Wav2Lip variables ``{"params", "batch_stats"}`` → the port's
+    Wav2Lip state dict (the reference's names)."""
+    return _conv_bn_from_flax(tree, _CONV_BN_NAMES, Wav2Lip)
+
+
+def wav2lip_disc_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX Wav2LipDisc variables → the port's Wav2LipDisc state dict."""
+    return _conv_bn_from_flax(tree, _CONV_BN_NAMES, Wav2LipDisc)
+
+
+def syncnet_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX SyncNet variables → the port's SyncNet state dict."""
+    return _conv_bn_from_flax(tree, _SYNCNET_NAMES, SyncNet)

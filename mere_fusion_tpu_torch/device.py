@@ -40,7 +40,8 @@ def parse_dtype(name: str) -> torch.dtype:
 def random_init_(module: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from a seeded torch.Generator on the module's
     device: weights N(0, 1/fan_in) (flax's lecun_normal), biases 0, norm
-    scales 1. Works on modules materialised with ``to_empty``."""
+    scales 1; BatchNorm's running statistics mean 0, variance 1 and its
+    batch count 0. Works on modules materialised with ``to_empty``."""
     params = list(module.parameters())
     if not params:
         return module
@@ -51,10 +52,14 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
         else:
             fan_in = p[0].numel()
             p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats:
+            m.reset_running_stats()
     return module
 
 
 def _is_norm_scale(root: nn.Module, name: str) -> bool:
     owner = root.get_submodule(name.rsplit(".", 1)[0]) if "." in name else root
     return (name.endswith("weight")
-            and isinstance(owner, (nn.GroupNorm, nn.LayerNorm)))
+            and isinstance(owner, (nn.GroupNorm, nn.LayerNorm,
+                                   nn.modules.batchnorm._BatchNorm)))

@@ -1,6 +1,12 @@
-"""Reference ER-NeRF checkpoints → the JAX package's nested parameter tree.
+"""Reference checkpoints → what the port's modules load.
 
-Port of the ER-NeRF part of mere_fusion_tpu/utils/torch_convert.py. A
+Port of mere_fusion_tpu/utils/torch_convert.py. The Wav2Lip family's
+modules (the generator, its discriminator, SyncNet) carry the reference's
+names, so ``convert_wav2lip``, ``convert_wav2lip_disc`` and
+``convert_syncnet`` only strip the ``module.`` prefix and check the key set
+and shapes against the port's module.
+
+ER-NeRF: a
 trained reference checkpoint (``ngp_kf.pth``, the Trainer's
 ``ckpt['model']`` state dict, ernerf/nerf_triplane/network.py) maps onto the
 nested numpy tree the JAX converter produces (flax names and layouts: Dense
@@ -11,7 +17,7 @@ Morton-order density grid into the port's raster-order ``DensityGrid``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -156,3 +162,51 @@ def load_torch_checkpoint(path: str) -> dict:
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     return ckpt
+
+
+def reference_state(state_dict: Mapping[str, Any], build: Callable) -> dict:
+    """A reference state dict (``module.`` prefix allowed) as the state dict
+    of the module ``build()`` makes, float entries in float32. BatchNorm's
+    ``num_batches_tracked``, which old checkpoints lack, defaults to 0; any
+    other key missing or extra, or a shape that differs, raises KeyError."""
+    sd = strip_prefix(state_dict)
+    with torch.device("meta"):
+        expected = build().state_dict()
+    out, missing, bad = {}, [], []
+    for key, ref in expected.items():
+        if key not in sd:
+            if key.endswith("num_batches_tracked"):
+                out[key] = torch.zeros((), dtype=torch.int64)
+            else:
+                missing.append(key)
+            continue
+        v = torch.as_tensor(sd[key])
+        if tuple(v.shape) != tuple(ref.shape):
+            bad.append((key, tuple(v.shape), tuple(ref.shape)))
+        out[key] = v.to(ref.dtype)
+    extra = sorted(set(sd) - set(expected))
+    if missing or extra or bad:
+        raise KeyError(f"checkpoint does not match the module: missing {missing[:8]} "
+                       f"extra {extra[:8]} shapes {bad[:4]}")
+    return out
+
+
+def convert_wav2lip(state_dict: Mapping[str, Any]) -> dict:
+    """A reference ``wav2lip.pth`` state dict → the port's Wav2Lip state dict."""
+    from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip
+
+    return reference_state(state_dict, Wav2Lip)
+
+
+def convert_wav2lip_disc(state_dict: Mapping[str, Any]) -> dict:
+    """A reference Wav2Lip_disc_qual state dict → the port's Wav2LipDisc's."""
+    from mere_fusion_tpu_torch.models.wav2lip import Wav2LipDisc
+
+    return reference_state(state_dict, Wav2LipDisc)
+
+
+def convert_syncnet(state_dict: Mapping[str, Any]) -> dict:
+    """A reference SyncNet_color state dict → the port's SyncNet's."""
+    from mere_fusion_tpu_torch.models.syncnet import SyncNet
+
+    return reference_state(state_dict, SyncNet)
