@@ -2,6 +2,8 @@
 
 Port of mere_fusion_tpu/cli.py for the slices the PyTorch package carries:
 
+    python -m mere_fusion_tpu_torch.cli --avatar_ckpt models/wav2lip.pth \\
+        --tts procedural --transport loopback
     python -m mere_fusion_tpu_torch.cli --model musetalk --tts procedural \\
         --transport loopback
     python -m mere_fusion_tpu_torch.cli --model ernerf --pose data/transforms.json \\
@@ -39,6 +41,7 @@ _FLAG_TO_KEY = {
     "unet_config": "avatar.unet_config",
     "vae_int8": "avatar.vae_int8",
     "whisper_ckpt": "avatar.whisper_ckpt",
+    "avatar_ckpt": "avatar.ckpt",
     "pose": "nerf.pose_path",
     "au": "nerf.au_path",
     "bg_img": "nerf.bg_img",
@@ -58,9 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", type=int, default=10, help="left stride (20 ms frames)")
     p.add_argument("-m", type=int, default=8, help="context size")
     p.add_argument("-r", type=int, default=10, help="right stride")
-    p.add_argument("--model", default="musetalk",
-                   choices=["wav2lip", "musetalk", "ernerf"],
-                   help="avatar engine; musetalk and ernerf are ported so far")
+    p.add_argument("--model", default="wav2lip",
+                   choices=["wav2lip", "musetalk", "ernerf"])
     p.add_argument("--avatar_id", default="avator_1")
     p.add_argument("--avatar_dir", default="./data/avatars")
     p.add_argument("--batch_size", type=int, default=16)
@@ -76,6 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_session", type=int, default=10)
     p.add_argument("--listenport", type=int, default=8010)
     p.add_argument("--customopt", default="", help="path to custom idle-track json")
+    p.add_argument("--avatar_ckpt", default="",
+                   help="wav2lip generator weights (reference wav2lip.pth)")
     p.add_argument("--vae_ckpt", default="",
                    help="musetalk sd-vae weights (diffusers .bin/.pth)")
     p.add_argument("--unet_ckpt", default="",

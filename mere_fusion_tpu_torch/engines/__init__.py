@@ -2,10 +2,9 @@
 
 Each engine owns a TTS adapter feeding 20 ms PCM chunks, an ASR feeder that
 featurizes audio for its model, and device work launched on the engine's
-GPU. Port of mere_fusion_tpu/engines: the MuseTalk engine (an inference
-thread and a frame-assembly thread) and the ER-NeRF engine (one render
-loop over kernel K2, with its live featurizer) are ported; Wav2Lip is not
-yet.
+GPU. Port of mere_fusion_tpu/engines: the Wav2Lip and MuseTalk engines
+(an inference thread and a frame-assembly thread each) and the ER-NeRF
+engine (one render loop over kernel K2, with its live featurizer).
 """
 from __future__ import annotations
 
@@ -43,6 +42,10 @@ def _native_state(family: str, raw) -> tuple[dict, dict]:
         enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
         return enc, {"dims": raw.get("dims")}
     sd = raw.get("state_dict", raw)
+    if family == "wav2lip":
+        from mere_fusion_tpu_torch.utils.torch_convert import convert_wav2lip
+
+        return convert_wav2lip(sd), {}
     sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
     if family == "vae":
         renamed = {}
@@ -183,9 +186,19 @@ def make_engine(cfg: Config, **kw):
                 device=device)
         return MuseReal(cfg, **kw)
     if kind == "wav2lip":
-        raise NotImplementedError(
-            "the wav2lip engine is not ported to the PyTorch package yet "
-            "(ROADMAP: 'Wav2Lip session')")
+        from mere_fusion_tpu_torch.device import parse_dtype, resolve_device
+        from mere_fusion_tpu_torch.engines.lip import LipReal
+
+        device = resolve_device(kw.get("device"))
+        kw["device"] = device
+        if ac.ckpt and "state" not in kw:
+            # the convs' kernels in the serving dtype, shared by the sessions
+            # on this device; BatchNorm and the biases stay float32
+            dtype = parse_dtype(ac.dtype)
+            kw["state"] = shared_device_tree(
+                "wav2lip", ac.ckpt, device, dtype if dtype != torch.float32 else None,
+                cast=lambda t: t.ndim == 4)
+        return LipReal(cfg, **kw)
     if kind == "ernerf":
         from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
         from mere_fusion_tpu_torch.device import resolve_device

@@ -13,6 +13,7 @@ import asyncio
 import dataclasses
 import functools
 import threading
+import time
 from types import SimpleNamespace
 
 import jax
@@ -256,12 +257,34 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["wav2lip", "ernerf"])
 def test_unported_engines_raise(kind, tmp_path):
-    """wav2lip raises naming its ROADMAP item. ernerf serves since the
-    ER-NeRF slice and its fullbody paste since the featurizer slice: a
-    make_engine with nerf.fullbody_imgs builds and pastes its head."""
+    """Both engines that once raised now serve. wav2lip, the default
+    engine: make_engine(Config()) builds a LipReal with seeded weights that
+    serves idle frames of its avatar. ernerf serves since the ER-NeRF slice
+    and its fullbody paste since the featurizer slice: a make_engine with
+    nerf.fullbody_imgs builds and pastes its head."""
     if kind == "wav2lip":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_engine(Config().override(**{"avatar.kind": kind}), device=CPU)
+        from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+        from mere_fusion_tpu_torch.engines.lip import LipReal
+
+        avatar = synthesize_avatar(str(tmp_path / "avatars" / "avator_1"), n_frames=4)
+        engine = make_engine(Config().override(**{"avatar.avatar_dir": str(tmp_path / "avatars")}),
+                             device=CPU)
+        assert isinstance(engine, LipReal) and Config().avatar.kind == kind
+        quit_event = threading.Event()
+        threading.Thread(target=engine.process_frames, args=(quit_event,), daemon=True).start()
+        threading.Thread(target=engine._inference_loop, args=(quit_event,), daemon=True).start()
+        engine.render_event.set()
+        try:
+            cycle = [f.tobytes() for f in avatar.frame_cycle]
+            for _ in range(2):
+                engine.asr.run_step()
+            for _ in range(300):
+                if engine.latest_frame is not None:
+                    break
+                time.sleep(0.01)
+            assert engine.latest_frame.image.tobytes() in cycle
+        finally:
+            quit_event.set()
         return
     import cv2
 
