@@ -204,7 +204,7 @@ def _conv_bn_from_flax(tree: Mapping, names, build) -> dict[str, torch.Tensor]:
     sd = {}
 
     def put(key, value):
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
 
     for name, node in params.items():
         base = name

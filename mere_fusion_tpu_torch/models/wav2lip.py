@@ -98,11 +98,11 @@ def conv(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor, training: bool,
                momentum: float = BN_MOMENTUM) -> torch.Tensor:
-    """flax BatchNorm over NCHW y: float32 statistics and normalisation, the
-    result in y's dtype. In training the batch's mean and biased variance
+    """flax BatchNorm over NCHW y: statistics and normalisation in at least
+    float32, the result in y's dtype. In training the batch's mean and biased variance
     (E[y²] − E[y]², clipped at 0) normalise, and the running statistics move
     to momentum · running + (1 − momentum) · batch."""
-    yf = y.float()
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
     if training:
         mean = yf.mean((0, 2, 3))
         var = torch.clamp_min((yf * yf).mean((0, 2, 3)) - mean * mean, 0.0)
