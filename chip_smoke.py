@@ -66,7 +66,32 @@ its seconds; any failure is fatal (exit code 1, no result line):
               loopback transport, bf16, batch 16: start a session, talk,
               wait for 32 generated frames, stop. Kernel counts are zeroed
               just before and read just after; K1 must have launched.
-5. nerf_model   — one full-width ER-NeRF frame (12 hash levels, 1024² bf16
+5. lip      — the Wav2Lip avatar, the default engine (no kernel of the repo
+              on its path: its convolutions are cuDNN's): a full-width
+              generator (seeded kernels, BatchNorm statistics randomised:
+              lip_reference_state) written as a reference-layout .pth and
+              loaded by make_engine from avatar.ckpt in float32 and in
+              bfloat16 (one device tree each); on the same mel windows and
+              face crops (batch 16) the card's f32 faces (TF32 off) within
+              1 LSB of the CPU's, with the largest difference before
+              quantisation, and the bf16 faces within LIP_BF16_LSB and
+              LIP_BF16_ATOL of the f32 ones; generate ms by CUDA events (p50
+              of 20) in bf16, f32 and f32 with TF32 convolutions (the serving
+              default); one bf16 generate under torch.profiler (launches, busy
+              share, top rows) beside its bound from the convolutions'
+              operations and the bytes. Then the port's aiohttp app
+              in-process at Config() defaults (wav2lip, batch 16, 96 px, bf16)
+              with procedural TTS, loopback transport, a synthesized bundle
+              and the .pth: start, talk, wait for LIP_SESSION_FRAMES
+              generated frames, stop, with the kernel counts zeroed just
+              before and read just after (none of the repo's launch);
+              lip.infer_batch, lip.first_frame and lip.featurize, the build
+              seconds, the frames whose face box changed (the rest of the
+              frame an idle frame's); a second session must reuse the first
+              one's weight tree. Then the GAN step with a frozen SyncNet at
+              hparams batch 16 in f32 for LIP_TRAIN_STEPS steps on one fixed
+              batch: L1 falls, step ms and it/s.
+6. nerf_model   — one full-width ER-NeRF frame (12 hash levels, 1024² bf16
               baked planes, 512² frame, dense 128³ grid, seeded random
               weights) through make_render_step with K2 against the plain
               step on the same inputs: frames within 1 LSB, exactly one K2
@@ -81,13 +106,13 @@ its seconds; any failure is fatal (exit code 1, no result line):
               K3's plain version: within 1 LSB, exactly one launch of K3's
               encode kernel per frame and none of the corner route (counts
               zeroed just before); frame times in turns with the plain step.
-6. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
+7. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
               synthesized 512² dataset in a temporary directory, procedural
               TTS, loopback transport: start a session, talk, wait for 50
               rendered frames, stop. Kernel counts are zeroed just before
               and read just after; K2 launches must equal the nerf.render
               observations.
-7. sampler_family — the dense 512² job set of the K2 check through each
+8. sampler_family — the dense 512² job set of the K2 check through each
               member of the sampler family, with bf16 and float32 shade
               weights, kernel counts zeroed just before and read just after
               (one launch each of K2, K2b, K2c, K2d): K2b's per-sample σ/rgb
@@ -100,13 +125,13 @@ its seconds; any failure is fatal (exit code 1, no result line):
               their registers and spills (none allowed) and their HGMMA
               (bf16) or HMMA (f32) count, K2d's kernel for its registers and
               spills (none allowed); wrong shapes and dtypes must raise.
-8. nerf_modes   — the nerf_model frame through the bilinear and nearest
+9. nerf_modes   — the nerf_model frame through the bilinear and nearest
               steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
               against the K2 frame with no sampler kernel launched; frame
               times in turns; one bilinear frame under torch.profiler. Then a
               loopback session with nerf.sample_mode = "bilinear" at the
               default config: at least 20 rendered frames, no sampler launch.
-9. nerf_train   — ER-NeRF head training at full width on a synthesized 512²,
+10. nerf_train  — ER-NeRF head training at full width on a synthesized 512²,
               8-frame dataset in a temporary directory: one train step's loss,
               gradient norm and gradients with K3 against the plain encode
               from the same state, batch and jitter noise (3 encode + 3
@@ -122,7 +147,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
-10. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
+11. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
               full width with the torso (Config() defaults, nerf.torso, 512²):
               the training CLI's --torso --head_ckpt stage for TORSO_ITERS
               iterations on nerf_train's head workspace and dataset (RGBA
@@ -145,7 +170,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-11. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+12. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
               scale=0.1), written by write_graphdef) with its bytes and the
               seconds to write, read and upload it; one 8,960-sample window
@@ -168,7 +193,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frame, the body around it untouched); then
               tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
               seconds, the real-time factor.
-12. sampler_stages — the profiling entry points prof_r5m.main and
+13. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -1240,6 +1265,321 @@ async def _session(state: dict) -> dict:
 
 def phase_session(state: dict) -> dict:
     return asyncio.run(_session(state))
+
+
+# the Wav2Lip avatar (phase "lip"): the bf16 generate against the f32 one on
+# the same card, weights and inputs. On the CPU (this script's weights and
+# inputs, batch 16) bf16 reads at most 1 LSB and 0.0036 before quantisation
+# from f32 (the JAX package's own bf16 frame reads the same against its f32
+# one); cuDNN picks other algorithms and sums in other orders, so the limits
+# are three times that: 3 LSB and 0.011. A fault (a layer rounded twice, a
+# statistic lost) moves faces by tens of LSB.
+LIP_BF16_LSB = 3
+LIP_BF16_ATOL = 0.011
+LIP_TRAIN_STEPS = 50              # GAN steps on one fixed batch (hparams batch 16, f32)
+LIP_SESSION_FRAMES = 32
+
+
+def lip_reference_state(seed: int = 31) -> dict:
+    """A full-width Wav2Lip state dict on the CPU under the reference's names:
+    seeded kernels (random_init_), conv biases N(0, 0.1), BatchNorm scales
+    U(0.8, 1.2), biases N(0, 0.1), running means N(0, 0.2) and variances
+    U(0.5, 2) (the CPU tests' distributions: faces off the sigmoid's tails)."""
+    import torch
+    from torch import nn
+
+    from mere_fusion_tpu_torch.device import random_init_
+    from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip
+
+    model = random_init_(Wav2Lip(), seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.8, 1.2, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model.state_dict()
+
+
+def write_lip_pth(path: str, state: dict) -> str:
+    """``state`` as the reference saves wav2lip.pth: under ``state_dict``,
+    each key ``module.``-prefixed (a DataParallel model)."""
+    import torch
+
+    torch.save({"state_dict": {f"module.{k}": v for k, v in state.items()},
+                "global_step": 0}, path)
+    return path
+
+
+def lip_generator_inputs(faces_u8):
+    """The device step's generator input: [masked, faces] in [0, 1]."""
+    import torch
+
+    faces = faces_u8.float() * (1.0 / 255.0)
+    masked = faces.clone()
+    masked[:, faces.shape[1] // 2:] = 0.0
+    return torch.cat([masked, faces], dim=-1)
+
+
+def lip_bound_ms(model, mel, x, dtype) -> dict:
+    """Least time for one generate: the convolutions' operations (2 per
+    multiply-add, torch.utils.flop_counter on this call's shapes) at the
+    card's peak for the dtype (bf16 on the tensor cores, f32 outside them:
+    TF32 is off), against the bytes moved once (the parameters and
+    statistics as stored, mel and faces in, uint8 faces out)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(mel, x)
+    flops = float(counter.get_total_flops())
+    nbytes = sum(t.numel() * t.element_size() for t in list(model.parameters())
+                 + list(model.buffers()))
+    nbytes += mel.numel() * 4 + x.shape[0] * x.shape[1] * x.shape[2] * 3 * 2
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"gflop": flops / 1e9, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_lip(state: dict) -> dict:
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import _DEVICE_TREES, make_engine
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+    from mere_fusion_tpu_torch.engines.lip import (
+        load_wav2lip,
+        make_lip_device_step,
+        make_lip_feature_fn,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lip_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    ref_state = lip_reference_state()
+    pth = write_lip_pth(os.path.join(tmp, "wav2lip.pth"), ref_state)
+    avatar_dir = os.path.join(tmp, "avatars")
+    avatar = synthesize_avatar(os.path.join(avatar_dir, "avator_1"), n_frames=16)
+    base = {"tts.backend": "procedural", "transport.mode": "loopback",
+            "avatar.ckpt": pth, "avatar.avatar_dir": avatar_dir}
+    out: dict = {"pth_bytes": os.path.getsize(pth)}
+
+    # ---- the generator, loaded from the reference-layout .pth -------------
+    n_trees = len(_DEVICE_TREES)
+    engines, build_s = {}, {}
+    for name in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        engines[name] = make_engine(Config().override(**base, **{"avatar.dtype": name}),
+                                    avatar=avatar, device=dev)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+    if len(_DEVICE_TREES) != n_trees + 2:
+        raise AssertionError("each serving dtype must hold one device tree")
+    cfg = engines["float32"].cfg
+    features, n_chunks = make_lip_feature_fn(cfg, dev)
+    mel = features(speech_pcm(n_chunks * cfg.audio.chunk))
+    idx = [engines["float32"].mirror_index(len(avatar), i) for i in range(cfg.avatar.batch_size)]
+    faces = engines["float32"]._faces_dev[torch.tensor(idx, device=dev)]
+    x = lip_generator_inputs(faces)
+    with torch.no_grad():
+        pred = {k: e.model(mel, x).float().cpu().numpy() for k, e in engines.items()}
+    u8 = {k: e._device_step(mel, faces).cpu().numpy().astype(int) for k, e in engines.items()}
+    cpu = load_wav2lip(ref_state, torch.float32, "cpu")
+    with torch.no_grad():
+        pred_cpu = cpu(mel.cpu(), x.cpu()).numpy()
+    u8_cpu = make_lip_device_step(cpu)(mel.cpu(), faces.cpu()).numpy().astype(int)
+    if not (np.isfinite(pred["float32"]).all() and u8["float32"].shape == (16, 96, 96, 3)):
+        raise AssertionError("the generator's faces are not finite [16, 96, 96, 3]")
+    f32 = {"max_abs_err": float(np.abs(pred["float32"] - pred_cpu).max()),
+           "max_lsb": int(np.abs(u8["float32"] - u8_cpu).max()), "lsb_limit": 1}
+    bf16 = {"max_abs_err": float(np.abs(pred["bfloat16"] - pred["float32"]).max()),
+            "max_lsb": int(np.abs(u8["bfloat16"] - u8["float32"]).max()),
+            "share_over_1_lsb": float((np.abs(u8["bfloat16"] - u8["float32"]) > 1).mean()),
+            "lsb_limit": LIP_BF16_LSB, "atol": LIP_BF16_ATOL}
+    if f32["max_lsb"] > 1:
+        raise AssertionError(f"f32 generate on the card vs the CPU: {f32}")
+    if bf16["max_lsb"] > LIP_BF16_LSB or bf16["max_abs_err"] > LIP_BF16_ATOL:
+        raise AssertionError(f"bf16 generate vs f32: {bf16}")
+    p = pred["float32"]
+    out["generator"] = {
+        "batch": 16, "f32_vs_cpu": f32, "bf16_vs_f32": bf16,
+        "unsaturated_share": float(((p > 0.02) & (p < 0.98)).mean()),
+        "build_s": build_s,
+        "generate_bf16_ms": p50_ms(lambda: engines["bfloat16"]._device_step(mel, faces)),
+        "generate_f32_ms": p50_ms(lambda: engines["float32"]._device_step(mel, faces)),
+        "bf16_profile": profile_launches(lambda: engines["bfloat16"]._device_step(mel, faces)),
+        "bf16_bound": lip_bound_ms(engines["bfloat16"].model, mel, x, torch.bfloat16),
+        "f32_bound": lip_bound_ms(engines["float32"].model, mel, x, torch.float32)}
+    # f32 serving runs with PyTorch's default, TF32 convolutions
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["generator"]["generate_f32_tf32_ms"] = p50_ms(
+            lambda: engines["float32"]._device_step(mel, faces))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    for k in ("k3_ms", "hashing_ops"):
+        out["generator"]["bf16_profile"].pop(k)
+    del engines, cpu
+    torch.cuda.empty_cache()
+
+    out["session"] = asyncio.run(_lip_session(state, base, avatar))
+    out["train"] = lip_train(dev, mel, x, faces)
+    return out
+
+
+async def _lip_session(state: dict, base: dict, avatar) -> dict:
+    import numpy as np
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import _DEVICE_TREES, make_engine
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.app import create_app
+
+    cfg = Config().override(**base)
+    if (cfg.avatar.kind, cfg.avatar.batch_size, cfg.avatar.img_size, cfg.avatar.dtype) != (
+            "wav2lip", 16, 96, "bfloat16"):
+        raise AssertionError("Config() no longer defaults to the bf16 batch-16 Wav2Lip")
+    idle = {f.tobytes() for f in avatar.frame_cycle}
+    y1, y2, x1, x2 = avatar.coords[0]
+    outside = np.ones(avatar.frame_cycle[0].shape[:2], bool)
+    outside[y1:y2, x1:x2] = False
+    idle_outside = {f[outside].tobytes() for f in avatar.frame_cycle}
+    engines, seen = [], {"frames": 0, "box_changed": 0, "outside_kept": True}
+
+    def factory(c, **kw):
+        engine = make_engine(c, avatar=avatar, **kw)
+        record = engine.record_video_frame
+
+        def tap(frame):
+            img = frame.image
+            seen["frames"] += 1
+            if img.tobytes() not in idle:
+                seen["box_changed"] += 1
+                seen["outside_kept"] &= img[outside].tobytes() in idle_outside
+            record(frame)
+
+        engine.record_video_frame = tap
+        engines.append(engine)
+        return engine
+
+    def counter(name: str) -> float:
+        return metrics.snapshot()["counters"].get(name, 0.0)
+
+    client = TestClient(TestServer(create_app(cfg, factory)))
+    await client.start_server()
+    n_trees = len(_DEVICE_TREES)
+    zero_kernel_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    try:
+        r = await client.post("/start_session", json={})
+        body = await r.json()
+        if body.get("code") != 0:
+            raise AssertionError(f"/start_session: {body}")
+        sid = body["session_id"]
+        t_started = time.perf_counter()
+        start_frames = counter("lip.generated_frames")
+        for text in ("hello there, this is the wav2lip port speaking",
+                     "on an nvidia card with its convolutions in bfloat16",
+                     "and this third sentence keeps the mouth moving a while"):
+            r = await client.post("/talk", json={"session_id": sid, "type": "echo",
+                                                 "text": text})
+            if (await r.json()).get("code") != 0:
+                raise AssertionError("/talk failed")
+        deadline = time.perf_counter() + 180
+        while counter("lip.generated_frames") < start_frames + LIP_SESSION_FRAMES:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"only {counter('lip.generated_frames') - start_frames} "
+                                     "generated frames in 180 s")
+            await asyncio.sleep(0.05)
+        t_frames = time.perf_counter()
+        r = await client.post("/stop_session", json={"session_id": sid})
+        if (await r.json()).get("code") != 0:
+            raise AssertionError("/stop_session failed")
+        # a second session on the card reuses the first one's weight tree
+        t1 = time.perf_counter()
+        r = await client.post("/start_session", json={})
+        body = await r.json()
+        if body.get("code") != 0:
+            raise AssertionError(f"second /start_session: {body}")
+        second_build = time.perf_counter() - t1
+        await client.post("/stop_session", json={"session_id": body["session_id"]})
+    finally:
+        await client.close()
+    counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
+    if any(counts.values()):                   # ... and ends here
+        raise AssertionError(f"a kernel of the repo launched in the Wav2Lip session: {counts}")
+    kernel = [e.model.face_encoder_blocks[1][0].conv_block[0].weight for e in engines]
+    if len(engines) != 2 or len(_DEVICE_TREES) != n_trees or kernel[0].data_ptr() != kernel[1].data_ptr():
+        raise AssertionError("the second session did not share the first one's weights")
+    if seen["box_changed"] < LIP_SESSION_FRAMES or not seen["outside_kept"]:
+        raise AssertionError(f"session frames: {seen}")
+    frame = engines[0].latest_frame
+    if frame is None or frame.image.shape != avatar.frame_cycle[0].shape:
+        raise AssertionError("no emitted frame of the avatar's shape")
+    lat = {k: metrics.latency(k) for k in ("lip.infer_batch", "lip.featurize", "lip.first_frame")}
+    infer_p50 = lat["lip.infer_batch"].quantile(0.5)
+    return {
+        "generated_frames": counter("lip.generated_frames"), "emitted_frames": seen["frames"],
+        "box_changed_frames": seen["box_changed"], "kernel_launches": counts,
+        "session_build_s": t_started - t0, "second_session_build_s": second_build,
+        "talk_to_32_frames_s": t_frames - t_started,
+        "infer_batch_p50_ms": infer_p50 * 1e3, "infer_batch_n": lat["lip.infer_batch"].count,
+        "featurize_p50_ms": lat["lip.featurize"].quantile(0.5) * 1e3,
+        "first_frame_ms": lat["lip.first_frame"].quantile(0.5) * 1e3,
+        "generated_fps_at_p50": 16 / infer_p50 if infer_p50 else None,
+        "batch": 16, "dtype": "bfloat16", "shared_tree": True,
+    }
+
+
+def lip_train(dev, mel, x, faces) -> dict:
+    """The GAN step with a frozen SyncNet at hparams batch 16 in float32
+    (TF32 off), LIP_TRAIN_STEPS steps on one fixed batch (the session's mel
+    windows and face pairs, the crops as targets): the loss, step ms (CUDA
+    events, p50 of 10) and it/s."""
+    import math
+
+    import torch
+
+    from mere_fusion_tpu_torch.device import random_init_
+    from mere_fusion_tpu_torch.models.syncnet import SyncNet
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.train import wav2lip_train as train
+
+    gan = train.init_gan_state(seed=0, device=dev)
+    syncnet = random_init_(SyncNet().to(dev), 7)
+    _, step = train.make_gan_train_step(syncnet=syncnet)
+    batch = {"mel": mel, "faces": x, "target": faces.float() * (1.0 / 255.0)}
+    zero_kernel_counts()
+    metrics = [{k: float(v) for k, v in step(gan, batch, 0.03).items()}
+               for _ in range(LIP_TRAIN_STEPS)]
+    if any(not math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("a GAN step's metrics are not finite")
+    if not metrics[-1]["l1"] < metrics[0]["l1"]:
+        raise AssertionError(f"L1 did not fall over {LIP_TRAIN_STEPS} steps: "
+                             f"{metrics[0]['l1']} → {metrics[-1]['l1']}")
+    step_ms = p50_ms(lambda: step(gan, batch, 0.03), iters=10, warmup=1)
+    counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
+    if any(counts.values()):
+        raise AssertionError(f"a kernel of the repo launched in the GAN step: {counts}")
+    return {"steps": LIP_TRAIN_STEPS, "batch": 16, "dtype": "float32",
+            "first": metrics[0], "last": metrics[-1],
+            "loss_every_10": [m["loss"] for m in metrics[::10]],
+            "step_ms": step_ms, "it_per_s": 1e3 / step_ms}
 
 
 def nerf_dataset(n_frames: int = 8):
@@ -2802,7 +3142,7 @@ def stage_err(name: str, got, ref) -> float:
 
 
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
-          ("session", phase_session), ("nerf_model", phase_nerf_model),
+          ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
           ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
