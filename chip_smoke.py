@@ -90,7 +90,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               frame an idle frame's); a second session must reuse the first
               one's weight tree. Then the GAN step with a frozen SyncNet at
               hparams batch 16 in f32 for LIP_TRAIN_STEPS steps on one fixed
-              batch: L1 falls, step ms and it/s.
+              batch: L1 falls, step ms and it/s, one step under torch.profiler.
 6. nerf_model   — one full-width ER-NeRF frame (12 hash levels, 1024² bf16
               baked planes, 512² frame, dense 128³ grid, seeded random
               weights) through make_render_step with K2 against the plain
@@ -1550,7 +1550,7 @@ def lip_train(dev, mel, x, faces) -> dict:
     """The GAN step with a frozen SyncNet at hparams batch 16 in float32
     (TF32 off), LIP_TRAIN_STEPS steps on one fixed batch (the session's mel
     windows and face pairs, the crops as targets): the loss, step ms (CUDA
-    events, p50 of 10) and it/s."""
+    events, p50 of 10), it/s and one step under torch.profiler."""
     import math
 
     import torch
@@ -1573,13 +1573,16 @@ def lip_train(dev, mel, x, faces) -> dict:
         raise AssertionError(f"L1 did not fall over {LIP_TRAIN_STEPS} steps: "
                              f"{metrics[0]['l1']} → {metrics[-1]['l1']}")
     step_ms = p50_ms(lambda: step(gan, batch, 0.03), iters=10, warmup=1)
+    profile = profile_launches(lambda: step(gan, batch, 0.03))
+    for k in ("k3_ms", "hashing_ops"):
+        profile.pop(k)
     counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
     if any(counts.values()):
         raise AssertionError(f"a kernel of the repo launched in the GAN step: {counts}")
     return {"steps": LIP_TRAIN_STEPS, "batch": 16, "dtype": "float32",
             "first": metrics[0], "last": metrics[-1],
             "loss_every_10": [m["loss"] for m in metrics[::10]],
-            "step_ms": step_ms, "it_per_s": 1e3 / step_ms}
+            "step_ms": step_ms, "it_per_s": 1e3 / step_ms, "step_profile": profile}
 
 
 def nerf_dataset(n_frames: int = 8):

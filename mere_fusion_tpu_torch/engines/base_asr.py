@@ -121,3 +121,19 @@ class BaseASR:
 
     def get_next_feat(self, block: bool = True, timeout: float | None = None):
         return self.feat_queue.get(block, timeout)
+
+    # the render loop's quit event, set by the engine's render(): the
+    # inference thread that drains feat_queue stops with it
+    quit_event = None
+
+    def put_feat(self, feats) -> bool:
+        """Queue one step's features, waiting while feat_queue is full; False
+        (dropped) once quit_event is set, so a stopped session's render loop
+        ends instead of blocking for good on a queue nothing drains."""
+        while True:
+            try:
+                self.feat_queue.put(feats, timeout=0.1)
+                return True
+            except queue.Full:
+                if self.quit_event is not None and self.quit_event.is_set():
+                    return False

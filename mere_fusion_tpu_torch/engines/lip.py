@@ -118,10 +118,6 @@ class LipASR(BaseASR):
     def __init__(self, cfg: Config, parent=None, device=None):
         super().__init__(cfg, parent)
         self._features, self._n_chunks = make_lip_feature_fn(cfg, device)
-        # the render loop's quit event: a step blocked on a full feature
-        # queue gives up once it is set (the inference thread that drains
-        # the queue has stopped), so a stopped session's loop ends
-        self.quit_event: Event | None = None
 
     def run_step(self) -> None:
         for _ in range(self.batch_size * 2):
@@ -133,13 +129,8 @@ class LipASR(BaseASR):
         t0 = time.perf_counter()
         feats = self._features(np.concatenate(self.frames).astype(np.float32))
         metrics.latency("lip.featurize").observe(time.perf_counter() - t0)
-        while True:
-            try:
-                self.feat_queue.put(feats, timeout=0.1)
-                break
-            except queue.Full:
-                if self.quit_event is not None and self.quit_event.is_set():
-                    return
+        if not self.put_feat(feats):
+            return
         self.frames = self.frames[-(self.stride_left_size + self.stride_right_size):]
 
 

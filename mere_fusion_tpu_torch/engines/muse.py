@@ -241,7 +241,8 @@ class MuseASR(BaseASR):
             start=self.stride_left_size / 2,
         )
         metrics.latency("muse.featurize").observe(time.perf_counter() - t0)
-        self.feat_queue.put(chunks)
+        if not self.put_feat(chunks):
+            return
         self.frames = self.frames[-(self.stride_left_size + self.stride_right_size):]
 
 
@@ -414,6 +415,7 @@ class MuseReal(BaseReal):
     def render(self, quit_event, loop=None, audio_track=None, video_track=None):
         self.tts.render(quit_event)
         self.init_customindex()
+        self.asr.quit_event = quit_event
         Thread(target=self.process_frames,
                args=(quit_event, loop, audio_track, video_track), daemon=True).start()
         Thread(target=self._inference_loop, args=(quit_event,), daemon=True).start()

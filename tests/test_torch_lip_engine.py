@@ -207,6 +207,18 @@ def test_stale_silence_flagging():
     assert not asr.is_stale_silence([speech[1]])  # fresh silence: play it
 
 
+def test_put_feat_gives_up_once_the_session_quits():
+    """A render loop whose inference thread has stopped drops its step's
+    features once quit_event is set instead of blocking on the full queue."""
+    asr = BaseASR(Config())
+    for i in range(asr.feat_queue.maxsize):
+        assert asr.put_feat(i)
+    asr.quit_event = threading.Event()
+    asr.quit_event.set()
+    assert asr.put_feat("late") is False
+    assert [asr.get_next_feat(timeout=1) for _ in range(asr.feat_queue.maxsize)] == [0, 1]
+
+
 def test_first_speech_frame_skips_buffered_silence(avatar):
     """Audio-to-first-frame: pre-buffered idle frames queued ahead of the
     first utterance are dropped, so the first generated frame arrives within
