@@ -1315,16 +1315,6 @@ def write_lip_pth(path: str, state: dict) -> str:
     return path
 
 
-def lip_generator_inputs(faces_u8):
-    """The device step's generator input: [masked, faces] in [0, 1]."""
-    import torch
-
-    faces = faces_u8.float() * (1.0 / 255.0)
-    masked = faces.clone()
-    masked[:, faces.shape[1] // 2:] = 0.0
-    return torch.cat([masked, faces], dim=-1)
-
-
 def lip_bound_ms(model, mel, x, dtype) -> dict:
     """Least time for one generate: the convolutions' operations (2 per
     multiply-add, torch.utils.flop_counter on this call's shapes) at the
@@ -1358,6 +1348,7 @@ def phase_lip(state: dict) -> dict:
     from mere_fusion_tpu_torch.engines import _DEVICE_TREES, make_engine
     from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
     from mere_fusion_tpu_torch.engines.lip import (
+        generator_inputs,
         load_wav2lip,
         make_lip_device_step,
         make_lip_feature_fn,
@@ -1392,7 +1383,7 @@ def phase_lip(state: dict) -> dict:
     mel = features(speech_pcm(n_chunks * cfg.audio.chunk))
     idx = [engines["float32"].mirror_index(len(avatar), i) for i in range(cfg.avatar.batch_size)]
     faces = engines["float32"]._faces_dev[torch.tensor(idx, device=dev)]
-    x = lip_generator_inputs(faces)
+    x = generator_inputs(faces)
     with torch.no_grad():
         pred = {k: e.model(mel, x).float().cpu().numpy() for k, e in engines.items()}
     u8 = {k: e._device_step(mel, faces).cpu().numpy().astype(int) for k, e in engines.items()}

@@ -75,8 +75,7 @@ def make_lip_feature_fn(cfg: Config, device=None):
     return features, n_chunks
 
 
-def load_wav2lip(state=None, dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: int = 0) -> Wav2Lip:
+def load_wav2lip(state=None, dtype: torch.dtype = torch.bfloat16, device=None) -> Wav2Lip:
     """The serving generator on ``device``: from ``state`` (the reference's
     names; tensors already on the device are taken over without a copy) or
     seeded weights, its convs stored in ``dtype`` (BatchNorm in float32),
@@ -86,26 +85,31 @@ def load_wav2lip(state=None, dtype: torch.dtype = torch.bfloat16, device=None,
         model = Wav2Lip(dtype)
     if state is None:
         model.to_empty(device=device)
-        random_init_(model, seed)
+        random_init_(model, seed=0)
     else:
         model.load_state_dict(state, strict=True, assign=True)
         model.to(device)
     return cast_convs_(model, dtype).eval().requires_grad_(False)
 
 
-def make_lip_device_step(model: Wav2Lip, img_size: int = 96):
+def generator_inputs(faces_u8: torch.Tensor) -> torch.Tensor:
+    """Face crops u8 [B, S, S, 3] → the generator's [B, S, S, 6] in [0, 1]:
+    the crops with their lower half set to 0, then the crops."""
+    # jitted JAX divides by 255 as a multiply by the f32 reciprocal
+    faces = faces_u8.float() * (1.0 / 255.0)
+    masked = faces.clone()
+    masked[:, faces.shape[1] // 2:] = 0.0
+    return torch.cat([masked, faces], dim=-1)
+
+
+def make_lip_device_step(model: Wav2Lip):
     """step(mel windows [B, 80, 16], face crops u8 [B, S, S, 3]) → u8
-    [B, S, S, 3] on the model's device: /255, the lower half of the current
-    frame set to 0, concat [masked, faces], the generator, then
-    clip(pred · 255) truncated to uint8 (the JAX step's astype)."""
+    [B, S, S, 3] on the model's device: the generator on generator_inputs,
+    then clip(pred · 255) truncated to uint8 (the JAX step's astype)."""
 
     @torch.no_grad()
     def step(mel: torch.Tensor, faces_u8: torch.Tensor) -> torch.Tensor:
-        # jitted JAX divides by 255 as a multiply by the f32 reciprocal
-        faces = faces_u8.float() * (1.0 / 255.0)
-        masked = faces.clone()
-        masked[:, img_size // 2:] = 0.0
-        pred = model(mel, torch.cat([masked, faces], dim=-1))
+        pred = model(mel, generator_inputs(faces_u8))
         return torch.clamp(pred * 255.0, 0.0, 255.0).to(torch.uint8)
 
     return step
@@ -117,7 +121,7 @@ class LipASR(BaseASR):
 
     def __init__(self, cfg: Config, parent=None, device=None):
         super().__init__(cfg, parent)
-        self._features, self._n_chunks = make_lip_feature_fn(cfg, device)
+        self._features, _ = make_lip_feature_fn(cfg, device)
 
     def run_step(self) -> None:
         for _ in range(self.batch_size * 2):
@@ -164,7 +168,7 @@ class LipReal(BaseReal):
             # crosses, and the gather runs on the device
             self._faces_dev = torch.from_numpy(np.stack(avatar.face_cycle)).to(device)
             self.model = load_wav2lip(state, parse_dtype(cfg.avatar.dtype), device)
-            self._device_step = make_lip_device_step(self.model, s)
+            self._device_step = make_lip_device_step(self.model)
             # two pinned host slots for the one-deep readback: a batch's
             # device→host copy runs while the next batch is enqueued
             self._pinned = ([torch.empty((self.batch_size, s, s, 3), dtype=torch.uint8,

@@ -15,8 +15,8 @@ flax where they differ from torch's modules:
 
 - a conv in the compute dtype rounds its input and kernel to it, returns that
   dtype and adds its bias, rounded to it, after (flax ``nn.Conv``);
-- BatchNorm normalises in float32 with the statistics in float32 and returns
-  the compute dtype; in training it uses the biased batch variance
+- BatchNorm normalises in float32 (float64 for a float64 input) with the
+  statistics in float32 and returns the compute dtype; in training it uses the biased batch variance
   E[x²] − E[x]² and moves the running statistics at momentum 0.9 (flax's
   convention: new = 0.9 · old + 0.1 · batch). torch's BatchNorm2d would move
   ``running_var`` by the unbiased variance at 0.1;
@@ -96,19 +96,18 @@ def conv(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return y if fused else y + b[:, None, None]
 
 
-def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor, training: bool,
-               momentum: float = BN_MOMENTUM) -> torch.Tensor:
+def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor, training: bool) -> torch.Tensor:
     """flax BatchNorm over NCHW y: statistics and normalisation in at least
-    float32, the result in y's dtype. In training the batch's mean and biased variance
-    (E[y²] − E[y]², clipped at 0) normalise, and the running statistics move
-    to momentum · running + (1 − momentum) · batch."""
+    float32, the result in y's dtype. In training the batch's mean and
+    biased variance (E[y²] − E[y]², clipped at 0) normalise, and the running
+    statistics move to BN_MOMENTUM · running + (1 − BN_MOMENTUM) · batch."""
     yf = y.to(torch.promote_types(y.dtype, torch.float32))
     if training:
         mean = yf.mean((0, 2, 3))
         var = torch.clamp_min((yf * yf).mean((0, 2, 3)) - mean * mean, 0.0)
         with torch.no_grad():
-            bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-            bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
             bn.num_batches_tracked.add_(1)
     else:
         mean, var = bn.running_mean, bn.running_var
@@ -131,11 +130,9 @@ class ConvBNRelu(nn.Module):
             layer = nn.ConvTranspose2d(cin, cout, k, s, p, output_padding=extra)
             self.residual = False
         self.conv_block = nn.Sequential(layer, nn.BatchNorm2d(cout, eps=BN_EPS))
-        self.momentum = BN_MOMENTUM
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = batch_norm(self.conv_block[1], conv(self.conv_block[0], x), self.training,
-                       self.momentum)
+        y = batch_norm(self.conv_block[1], conv(self.conv_block[0], x), self.training)
         if self.residual:
             y = y + x
         return torch.relu(y)
@@ -244,11 +241,3 @@ def cast_convs_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
             m.bias.data = m.bias.data.to(dtype)
     return module
 
-
-def set_bn_momentum_(module: nn.Module, momentum: float) -> nn.Module:
-    """Momentum of every conv block's running statistics (flax convention;
-    0 makes one training-mode forward set them to that batch's)."""
-    for m in module.modules():
-        if isinstance(m, ConvBNRelu):
-            m.momentum = momentum
-    return module

@@ -98,7 +98,7 @@ def test_device_step_matches_jax(gen_tree, dtype):
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     ref = np.asarray(jax_lip.make_lip_device_step(gen_tree, 96, jdt)(mel, faces))
-    step = make_lip_device_step(load_wav2lip(wav2lip_from_flax(gen_tree), tdt, CPU), 96)
+    step = make_lip_device_step(load_wav2lip(wav2lip_from_flax(gen_tree), tdt, CPU))
     got = step(torch.from_numpy(mel), torch.from_numpy(faces))
     assert got.dtype == torch.uint8 and got.shape == (2, 96, 96, 3)
     diff = np.abs(got.numpy().astype(int) - ref.astype(int))
