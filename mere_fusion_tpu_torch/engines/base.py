@@ -96,6 +96,19 @@ class BaseReal:
         return device_scope(self.device)
 
     # ---- engine public API ---------------------------------------------------
+    def first_video_frame_shape(self) -> tuple[int, int]:
+        """(H, W) of the frames this engine emits: fixed-format transports
+        (RTMP) size their pipelines from it before frames flow. LipReal and
+        MuseReal read their avatar's frames, NeRFReal its full-body frames
+        or its dataset."""
+        if getattr(self, "avatar", None) is not None:
+            return self.avatar.frame_cycle[0].shape[:2]
+        if getattr(self, "fullbody_frames", None):
+            return self.fullbody_frames[0].shape[:2]
+        if getattr(self, "dataset", None) is not None:
+            return (self.dataset.H, self.dataset.W)
+        raise RuntimeError("engine has no frame source yet")
+
     def put_msg_txt(self, msg: str) -> None:
         self.tts.put_msg_txt(msg)
 

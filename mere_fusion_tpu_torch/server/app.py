@@ -42,7 +42,7 @@ def create_app(cfg: Config, engine_factory, llm=None, devices=None) -> web.Appli
     """devices: where sessions are placed (see SessionManager); None means
     every CUDA device of the host. ``app[MANAGER]`` is the SessionManager."""
     app = web.Application()
-    manager = SessionManager(cfg, engine_factory, devices=devices)
+    manager = SessionManager(cfg, engine_factory, devices=devices, llm=llm)
     app[MANAGER] = manager
 
     def require_session(params):

@@ -1,15 +1,27 @@
-"""Per-user sessions: engine + media transport lifecycle.
+"""Per-user sessions: engine and media transport lifecycle.
 
-Port of mere_fusion_tpu/server/sessions.py. Transport "loopback" is
-in-process: the tracks are drained by consumer tasks at the paced rate
-(tests, demos, hosts without aiortc). WebRTC, RTMP and RTP output and the
-upstream cognition plane (ASR + perception + brain) are not ported yet.
+Port of mere_fusion_tpu/server/sessions.py (reference: app.py:42-97,
+312-531). Transports (``transport.mode``):
+
+- "loopback": in-process; consumer tasks drain the tracks at the paced rate
+  (tests, demos);
+- "rtp": L16 audio and RFC 4175 video over UDP with RTCP sender reports
+  (``transport.rtp_send``): numpy and sockets, no ffmpeg, no aiortc;
+- "rtmp": an FLV push through ffmpeg, or through the native publisher
+  (``transport.rtmp``, ``transport.rtmp_native``) when ffmpeg is absent;
+- "webrtc": two RTCPeerConnections against an SRS relay (pull the caller's
+  stream, push the avatar's), signaled over HTTP with retries
+  (``server.signaling``); needs aiortc.
+
+The upstream cognition plane (streaming ASR, perception, the brain) is not
+ported yet: a session given an LLM raises when a caller's track arrives.
 """
 from __future__ import annotations
 
 import asyncio
 import inspect
 import math
+import threading
 import uuid
 from typing import Optional
 
@@ -24,17 +36,32 @@ class CapacityError(RuntimeError):
 
 
 class Session:
-    def __init__(self, session_id: str, engine, cfg: Config):
+    def __init__(self, session_id: str, engine, cfg: Config, llm=None):
         self.session_id = session_id
         self.model = engine          # the reference's name for the engine
         self.cfg = cfg
+        self.llm = llm
         self.player: Optional[HumanPlayer] = None
         # torch.device this session is placed on (set by SessionManager)
         self.device = getattr(engine, "device", None)
+        self.speech_upstream = None
+        self.video_upstream = None
         self._consumers: list[asyncio.Task] = []
+        self._pcs: list = []
+        self._rtmp = None
+        self._rtp = None
         self._closed = False
+        # set by SessionManager: async () -> bool, which removes this session
+        # from the manager's registry and closes it (the reference discards a
+        # session when its connection dies, app.py:406-478; a bare close
+        # would keep its max_sessions slot and the active gauge)
+        self._manager_discard = None
 
     def ensure_upstream(self) -> None:
+        """Build the cognition plane on the first incoming track: a session
+        without an LLM has none."""
+        if self.llm is None or self.speech_upstream is not None:
+            return
         raise NotImplementedError(
             "the upstream cognition plane (streaming ASR + perception) is not "
             "ported to the PyTorch package yet (ROADMAP: 'Streaming ASR', "
@@ -49,16 +76,42 @@ class Session:
                     asyncio.create_task(self._drain(self.player.audio)),
                     asyncio.create_task(self._drain(self.player.video)),
                 ]
-            elif mode in ("webrtc", "rtmp", "rtp"):
-                raise NotImplementedError(
-                    f"transport {mode!r} is not ported to the PyTorch package "
-                    "yet (ROADMAP: 'Transports'); use loopback")
+            elif mode == "webrtc":
+                await self._start_webrtc()
+            elif mode == "rtmp":
+                await self._start_rtmp()
+            elif mode == "rtp":
+                await self._start_rtp()
             else:
                 raise ValueError(f"unsupported transport mode {mode!r}")
         except Exception:
+            # half-built transports (a negotiated consume pc when the produce
+            # negotiation fails) must not leak live connections
             await self.close()
             raise
         metrics.counter("sessions.started")
+
+    def _start_sink(self, sink) -> None:
+        self._consumers = [asyncio.create_task(
+            sink.run(self.player.video, self.player.audio, threading.Event()))]
+
+    async def _start_rtmp(self) -> None:
+        """FLV push to ``transport.push_url``, sized from the engine's frames."""
+        from mere_fusion_tpu_torch.transport.rtmp import RtmpStreamer, RtmpTrackSink
+
+        h, w = self.model.first_video_frame_shape()
+        self._rtmp = RtmpStreamer(self.cfg.transport.push_url, width=w, height=h,
+                                  fps=self.cfg.audio.fps,
+                                  sample_rate=self.cfg.audio.sample_rate)
+        self._start_sink(RtmpTrackSink(self._rtmp))
+
+    async def _start_rtp(self) -> None:
+        """L16 audio and RFC 4175 video over UDP to ``transport.rtp_host``."""
+        from mere_fusion_tpu_torch.transport.rtp_send import RtpSender, RtpTrackSink
+
+        t = self.cfg.transport
+        self._rtp = RtpSender(t.rtp_host, t.rtp_audio_port, t.rtp_video_port)
+        self._start_sink(RtpTrackSink(self._rtp))
 
     async def _drain(self, track) -> None:
         try:
@@ -66,6 +119,70 @@ class Session:
                 await track.recv()
         except (ConnectionError, asyncio.CancelledError):
             pass
+
+    async def _start_webrtc(self, pc_factory=None, post_json=None, make_answer=None) -> None:
+        """Two peer connections against SRS: pull the caller's stream, push
+        the avatar's (reference app.py:395-531).
+
+        pc_factory, post_json and make_answer are injectable for tests; a
+        server uses aiortc's RTCPeerConnection and aiohttp.
+        """
+        from mere_fusion_tpu_torch.server.signaling import (
+            attach_state_watcher,
+            negotiate,
+            wait_connected,
+        )
+
+        if pc_factory is None:
+            from aiortc import RTCPeerConnection
+
+            pc_factory = RTCPeerConnection
+        sid = self.session_id
+        t = self.cfg.transport
+
+        def on_dead(state: str):
+            return self.discard()
+
+        # pull the caller's stream; registered before negotiating, so that
+        # close() reaches it when a later step fails
+        consume_pc = pc_factory()
+        self._pcs.append(consume_pc)
+        consume_pc.addTransceiver("audio", direction="recvonly")
+        consume_pc.addTransceiver("video", direction="recvonly")
+
+        @consume_pc.on("track")
+        def on_track(track):
+            from mere_fusion_tpu_torch.server.upstream import attach_upstream_track
+
+            reader = attach_upstream_track(self, track)
+            if reader is not None:
+                self._consumers.append(reader)
+
+        attach_state_watcher(consume_pc, on_dead, label=f"consume/{sid}")
+        await negotiate(consume_pc, t.pull_url, f"webrtc://localhost/live/stream_{sid}",
+                        post_json=post_json, make_answer=make_answer)
+        # the push negotiation starts once the pull side is connected
+        # (reference app.py:471-478); a timeout or a death reaches start()'s
+        # close-on-failure path
+        await wait_connected(consume_pc, timeout=t.connect_timeout)
+
+        produce_pc = pc_factory()
+        self._pcs.append(produce_pc)
+        produce_pc.addTrack(self.player.audio)
+        produce_pc.addTrack(self.player.video)
+        attach_state_watcher(produce_pc, on_dead, label=f"produce/{sid}")
+        await negotiate(produce_pc, t.push_url,
+                        f"webrtc://localhost/live/processed_stream_{sid}",
+                        post_json=post_json, make_answer=make_answer)
+
+    async def discard(self) -> None:
+        """Close and deregister (a dead connection): through the manager when
+        registered there, so that the max_sessions slot and the active gauge
+        are released; a bare close for an unmanaged session or a death that
+        races the session's start."""
+        if self._manager_discard is not None and await self._manager_discard():
+            return
+        await self.close()
 
     async def close(self) -> None:
         if self._closed:  # idempotent: teardown may race stop_session
@@ -75,6 +192,12 @@ class Session:
             task.cancel()
         if self._consumers:
             await asyncio.gather(*self._consumers, return_exceptions=True)
+        if self._rtmp is not None:
+            self._rtmp.close()
+        if self._rtp is not None:
+            self._rtp.close()
+        for pc in self._pcs:
+            await pc.close()
         if self.player is not None:
             # joins the render thread (up to 5 s) off the event loop
             await asyncio.get_running_loop().run_in_executor(None, self.player.stop)
@@ -82,11 +205,12 @@ class Session:
 
 
 class SessionManager:
-    def __init__(self, cfg: Config, engine_factory, devices=None):
+    def __init__(self, cfg: Config, engine_factory, devices=None, llm=None):
         """devices: the torch devices sessions are placed on; None means
         every CUDA device of the host (raises if there is none)."""
         self.cfg = cfg
         self.engine_factory = engine_factory
+        self.llm = llm
         self.devices = devices
         self.sessions: dict[str, Session] = {}
         self._starting: set[str] = set()  # admission-counted while building
@@ -136,11 +260,18 @@ class SessionManager:
             # keep streaming while a new caller joins
             loop = asyncio.get_running_loop()
             engine = await loop.run_in_executor(None, self._build_engine, device)
-            session = Session(sid, engine, self.cfg)
+            session = Session(sid, engine, self.cfg, llm=self.llm)
             session.device = device
+            session._manager_discard = lambda: self.stop_session(sid)
             await session.start()
             async with self.lock:
                 self._starting.discard(sid)
+                if session._closed:
+                    # a connection-state watcher fired between start() and
+                    # registration: its discard() found nothing to
+                    # deregister and closed the session; register no corpse
+                    placer.release(sid)
+                    raise RuntimeError("session died during startup")
                 self.sessions[sid] = session
                 metrics.gauge("sessions.active", len(self.sessions))
                 self._publish_placement()
