@@ -3,14 +3,17 @@
 Port of mere_fusion_tpu/cli.py for the slices the PyTorch package carries:
 
     python -m mere_fusion_tpu_torch.cli --avatar_ckpt models/wav2lip.pth \\
-        --tts procedural --transport loopback
+        --tts procedural --transport rtp --rtp_host 10.0.0.2
     python -m mere_fusion_tpu_torch.cli --model musetalk --tts procedural \\
         --transport loopback
     python -m mere_fusion_tpu_torch.cli --model ernerf --pose data/transforms.json \\
         --au data/au.csv --tts procedural --transport loopback
 
 Sessions are placed on the host's CUDA devices; ``--device cpu`` runs them
-on the CPU instead.
+on the CPU instead. ``--transport`` defaults to webrtc against an SRS relay
+(``--push_url``, ``--pull_url``), which needs aiortc; ``rtp`` (L16 audio and
+RFC 4175 video over UDP to ``--rtp_host``) and ``rtmp`` (an FLV push to
+``--push_url``, native when ffmpeg is absent) need neither.
 """
 from __future__ import annotations
 
@@ -34,6 +37,11 @@ _FLAG_TO_KEY = {
     "ref_file": "tts.ref_audio",
     "ref_text": "tts.ref_text",
     "transport": "transport.mode",
+    "push_url": "transport.push_url",
+    "pull_url": "transport.pull_url",
+    "rtp_host": "transport.rtp_host",
+    "rtp_audio_port": "transport.rtp_audio_port",
+    "rtp_video_port": "transport.rtp_video_port",
     "max_session": "server.max_sessions",
     "listenport": "server.listen_port",
     "vae_ckpt": "avatar.vae_ckpt",
@@ -72,9 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tts_server", default="http://127.0.0.1:9880")
     p.add_argument("--ref_file", default="")
     p.add_argument("--ref_text", default="")
-    p.add_argument("--transport", default="loopback",
-                   choices=["webrtc", "rtmp", "rtp", "loopback"],
-                   help="only loopback is ported so far")
+    p.add_argument("--transport", default="webrtc",
+                   choices=["webrtc", "rtmp", "rtp", "loopback"])
+    p.add_argument("--push_url", default="http://localhost:1985/rtc/v1/publish/")
+    p.add_argument("--pull_url", default="http://localhost:1985/rtc/v1/play/")
+    p.add_argument("--rtp_host", default="127.0.0.1",
+                   help="--transport rtp: destination host")
+    p.add_argument("--rtp_audio_port", type=int, default=5004,
+                   help="--transport rtp: L16 audio UDP port (RTCP on +1)")
+    p.add_argument("--rtp_video_port", type=int, default=5006,
+                   help="--transport rtp: RFC4175 video UDP port (RTCP on +1)")
     p.add_argument("--max_session", type=int, default=10)
     p.add_argument("--listenport", type=int, default=8010)
     p.add_argument("--customopt", default="", help="path to custom idle-track json")
