@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, each printing one JSON line with
+Run from the root of a checkout (``chip_smoke.py --receive SPEC`` is the
+receiver process that phase transport starts). Phases, each printing one JSON line with
 its seconds; any failure is fatal (exit code 1, no result line):
 
 1. build    — build kernels K1 (csrc/attention.cu), the sampler family K2,
@@ -112,7 +113,32 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frames, stop. Kernel counts are zeroed just before
               and read just after; K2 launches must equal the nerf.render
               observations.
-8. sampler_family — the dense 512² job set of the K2 check through each
+8. transport  — the live legs out of a session, each session built on the
+              card through make_engine and SessionManager: a Config()
+              Wav2Lip session (bf16, batch 16, phase lip's .pth) with
+              transport.mode "rtp" on synthesized 240×320 and 720×1280
+              bundles, told TRANSPORT_TALK and stopped after it has sent
+              TRANSPORT_FRAMES frames and as much audio, into a receiver
+              process (chip_smoke.py --receive: the port's
+              rtp_native_video_frames and rtp_native_audio_chunks on its own
+              sockets, SO_RCVBUF raised on them only): frames sent and
+              received, sequence gaps, arrival interval p50/p95, audio
+              seconds, send_video ms in the session and alone,
+              lip.infer_batch p50 beside phase lip's loopback figure; the
+              first frame received bit-equal to the frame the session
+              emitted with that pts, and a count of the received frames
+              that are. Then the 240×320 session with transport.mode
+              "rtmp" into a minimal RTMP server process (handshake,
+              connect, createStream, publish answered; tags collected):
+              the route (native, or ffmpeg when on the PATH), tags, Screen
+              Video's encode ms in the session and alone, arrival
+              intervals; on the native route the first keyframe decodes
+              bit-equal to the frame sent. Then an ER-NeRF K2 session at
+              512² (nerf_session's config) with transport.mode "rtp" for
+              NERF_RTP_FRAMES frames, counts zeroed just before: K2
+              launches equal to the rendered frames (the kernels line's
+              rtp_launches), the first frame received bit-equal.
+9. sampler_family — the dense 512² job set of the K2 check through each
               member of the sampler family, with bf16 and float32 shade
               weights, kernel counts zeroed just before and read just after
               (one launch each of K2, K2b, K2c, K2d): K2b's per-sample σ/rgb
@@ -125,13 +151,13 @@ its seconds; any failure is fatal (exit code 1, no result line):
               their registers and spills (none allowed) and their HGMMA
               (bf16) or HMMA (f32) count, K2d's kernel for its registers and
               spills (none allowed); wrong shapes and dtypes must raise.
-9. nerf_modes   — the nerf_model frame through the bilinear and nearest
+10. nerf_modes  — the nerf_model frame through the bilinear and nearest
               steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
               against the K2 frame with no sampler kernel launched; frame
               times in turns; one bilinear frame under torch.profiler. Then a
               loopback session with nerf.sample_mode = "bilinear" at the
               default config: at least 20 rendered frames, no sampler launch.
-10. nerf_train  — ER-NeRF head training at full width on a synthesized 512²,
+11. nerf_train  — ER-NeRF head training at full width on a synthesized 512²,
               8-frame dataset in a temporary directory: one train step's loss,
               gradient norm and gradients with K3 against the plain encode
               from the same state, batch and jitter noise (3 encode + 3
@@ -147,7 +173,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
-11. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
+12. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
               full width with the torso (Config() defaults, nerf.torso, 512²):
               the training CLI's --torso --head_ckpt stage for TORSO_ITERS
               iterations on nerf_train's head workspace and dataset (RGBA
@@ -170,7 +196,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-12. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+13. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
               scale=0.1), written by write_graphdef) with its bytes and the
               seconds to write, read and upload it; one 8,960-sample window
@@ -193,7 +219,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frame, the body around it untouched); then
               tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
               seconds, the real-time factor.
-13. sampler_stages — the profiling entry points prof_r5m.main and
+14. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -225,6 +251,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1426,6 +1453,8 @@ def phase_lip(state: dict) -> dict:
     torch.cuda.empty_cache()
 
     out["session"] = asyncio.run(_lip_session(state, base, avatar))
+    state["lip_base"] = base
+    state["lip_loopback_infer_p50_ms"] = out["session"]["infer_batch_p50_ms"]
     out["train"] = lip_train(dev, mel, x, faces)
     return out
 
@@ -1796,6 +1825,7 @@ async def _nerf_session(state: dict) -> dict:
     from mere_fusion_tpu_torch.server.app import create_app
 
     cfg = nerf_config(*nerf_dataset(8))
+    state["nerf_session_cfg"] = cfg
     engines = []
 
     def factory(c, **kw):
@@ -1858,6 +1888,517 @@ async def _nerf_session(state: dict) -> dict:
 
 def phase_nerf_session(state: dict) -> dict:
     return asyncio.run(_nerf_session(state))
+
+
+# ---- transport: the live legs out of a session ------------------------------------
+
+TRANSPORT_FRAMES = 100            # frames each rtp session sends (4 s at 25 fps) ...
+TRANSPORT_SIZES = ((240, 320), (720, 1280))   # ... at phase_lip's size and a video call's
+RTMP_FRAMES = 50
+NERF_RTP_FRAMES = 50
+RECEIVER_RCVBUF = 64 << 20        # asked of each receiver's own socket; the kernel caps it
+RECEIVER_FIRST_S = 120            # a receiver waits this long for its first datagram ...
+RECEIVER_IDLE_S = 30              # ... and gives up after this long without one
+RECEIVER_END = b"end"             # the datagram that ends an rtp receiver
+# ~7 s of procedural speech: the generator runs through each window
+TRANSPORT_TALK = ("hello over the wire, this is the avatar of the port speaking through a "
+                  "paced real time transport to a receiver in another process")
+
+
+class _TapSocket:
+    """A receiver's UDP socket: waits RECEIVER_FIRST_S for the first datagram
+    and RECEIVER_IDLE_S for each later one, ends (as a timeout) on
+    RECEIVER_END, and notes each datagram's sequence number (with RFC 4175's
+    extended sequence on video) and RTP timestamp."""
+
+    def __init__(self, sock, video: bool):
+        self.sock, self.video = sock, video
+        self.seqs: list[int] = []
+        self.last_ts = None
+
+    def settimeout(self, _t) -> None:
+        pass
+
+    def recvfrom(self, n):
+        import socket
+        import struct
+
+        self.sock.settimeout(RECEIVER_IDLE_S if self.seqs else RECEIVER_FIRST_S)
+        data, addr = self.sock.recvfrom(n)
+        if data == RECEIVER_END:
+            raise socket.timeout
+        if len(data) >= 14:
+            seq, self.last_ts = struct.unpack("!HI", data[2:8])
+            if self.video:
+                seq |= struct.unpack("!H", data[12:14])[0] << 16
+            self.seqs.append(seq)
+        return data, addr
+
+
+def seq_gaps(seqs: list, modulo: int) -> dict:
+    """Packets lost (gaps in the sequence) and late or repeated, in arrival order."""
+    lost = late = 0
+    for a, b in zip(seqs, seqs[1:]):
+        d = (b - a) % modulo
+        if d == 0 or d > modulo // 2:
+            late += 1
+        else:
+            lost += d - 1
+    return {"packets": len(seqs), "lost": lost, "late_or_repeated": late}
+
+
+def quantiles_ms(seconds) -> dict:
+    import numpy as np
+
+    a = np.asarray(seconds, np.float64) * 1e3
+    if not a.size:
+        return {"n": 0}
+    return {"n": int(a.size), "p50": float(np.percentile(a, 50)),
+            "p95": float(np.percentile(a, 95)), "max": float(a.max())}
+
+
+def receiver_sockets():
+    """A video and an audio UDP socket on 127.0.0.1 whose ports are not each
+    other's + 1 (where the sender's RTCP reports go)."""
+    import socket
+
+    while True:
+        socks = []
+        for _ in range(2):
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RECEIVER_RCVBUF)
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        ports = [s.getsockname()[1] for s in socks]
+        if abs(ports[0] - ports[1]) != 1:
+            return socks
+        for s in socks:
+            s.close()
+
+
+def receive_rtp(spec: dict) -> None:
+    """The rtp receiver process: the port's rtp_native_video_frames and
+    rtp_native_audio_chunks on two sockets until each is idle; the first
+    frame to spec["first"], the figures as JSON to spec["out"]."""
+    import socket
+    import threading
+    import zlib
+
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.rtp import rtp_native_audio_chunks
+    from mere_fusion_tpu_torch.transport.rtp_send import L16_PAYLOAD_TYPE, rtp_native_video_frames
+
+    vsock, asock = receiver_sockets()
+    print(json.dumps({"video_port": vsock.getsockname()[1], "audio_port": asock.getsockname()[1],
+                      "rcvbuf_bytes": vsock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)}),
+          flush=True)
+    result: dict = {}
+
+    def video():
+        tap = _TapSocket(vsock, video=True)
+        arrivals, crcs = [], {}
+        for frame in rtp_native_video_frames(width=spec["width"], height=spec["height"],
+                                             sock=tap, timeout=None):
+            arrivals.append(time.perf_counter())
+            if not crcs:
+                np.save(spec["first"], frame)
+                result["first_ts"] = tap.last_ts
+            crcs[str(tap.last_ts)] = zlib.crc32(frame)
+        result.update(frames=len(arrivals), crcs=crcs, video_seq=seq_gaps(tap.seqs, 1 << 32),
+                      arrival_interval_ms=quantiles_ms(np.diff(arrivals)))
+
+    def audio():
+        tap = _TapSocket(asock, video=False)
+        n = sum(len(c) for c in rtp_native_audio_chunks(
+            sock=tap, sample_rate=16000, chunk_seconds=0.1, l16_payload_type=L16_PAYLOAD_TYPE,
+            l16_rate=16000, timeout=None))
+        result.update(audio_s=n / 16000, audio_seq=seq_gaps(tap.seqs, 1 << 16))
+
+    threads = [threading.Thread(target=video), threading.Thread(target=audio)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+
+
+def receive_rtmp(spec: dict) -> None:
+    """The RTMP receiver process: a minimal server (handshake; connect,
+    createStream and publish answered) that collects the media messages
+    until the publisher hangs up; Screen Video decoded and its first
+    keyframe to spec["first"], the figures as JSON to spec["out"]."""
+    import socket
+    import zlib
+
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.flv import amf0_encode, decode_screen_video
+    from mere_fusion_tpu_torch.transport.rtmp_native import (
+        MSG_AUDIO,
+        MSG_COMMAND_AMF0,
+        MSG_DATA_AMF0,
+        MSG_VIDEO,
+        RtmpError,
+        _ChunkReader,
+        decode_amf0_values,
+    )
+
+    listener = socket.socket()
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(1)
+    print(json.dumps({"port": listener.getsockname()[1]}), flush=True)
+    listener.settimeout(RECEIVER_FIRST_S)
+    sock, _ = listener.accept()
+    listener.close()
+    sock.settimeout(RECEIVER_IDLE_S)
+    reader = _ChunkReader(sock, stop_check=lambda: True)   # a timeout ends the read
+
+    def reply(msid: int, *values) -> None:
+        body = b"".join(amf0_encode(v) for v in values)
+        sock.sendall(bytes([3]) + bytes(3) + len(body).to_bytes(3, "big")
+                     + bytes([MSG_COMMAND_AMF0]) + msid.to_bytes(4, "little") + body)
+
+    c0c1 = reader._recv(1537)
+    sock.sendall(b"\x03" + bytes(1536) + c0c1[1:])   # s0, s1, s2 (= c1)
+    reader._recv(1536)                               # c2
+    video, audio_tags, metadata = [], 0, None
+    try:
+        while True:
+            msg_type, _msid, payload = reader.read_message()
+            if msg_type == MSG_COMMAND_AMF0:
+                vals = decode_amf0_values(payload)
+                if vals[0] == "publish":
+                    reply(1, "onStatus", 0.0, None, {"code": "NetStream.Publish.Start"})
+                elif vals[0] == "createStream":
+                    reply(0, "_result", vals[1], None, 1.0)
+                elif len(vals) > 1 and vals[1]:     # connect, releaseStream, FCPublish
+                    reply(0, "_result", vals[1], {"fmsVer": "FMS/3"}, {"level": "status"})
+            elif msg_type == MSG_DATA_AMF0:
+                metadata = decode_amf0_values(payload)[-1]
+            elif msg_type == MSG_VIDEO:
+                # the native publisher's media go on chunk stream 4, fmt 0
+                video.append((time.perf_counter(), reader._streams.get(4, {}).get("ts"), payload))
+            elif msg_type == MSG_AUDIO:
+                audio_tags += 1
+    except (RtmpError, OSError):
+        pass   # the publisher hung up, or went quiet
+    sock.close()
+    result = {"video_tags": len(video), "audio_tags": audio_tags, "metadata": metadata,
+              "codec": video[0][2][0] & 0x0F if video else None,
+              "arrival_interval_ms": quantiles_ms(np.diff([t for t, _, _ in video]))}
+    if result["codec"] == 3:   # Screen Video: decode every frame, in order
+        crcs, prev = {}, None
+        for _t, ts, body in video:
+            prev = decode_screen_video(body[1:], prev)
+            pts = ts // 40 * 3600   # frame k: FLV timestamp 40 k ms, track pts 3600 k
+            if body[0] >> 4 == 1 and "first_key_pts" not in result:
+                np.save(spec["first"], prev)
+                result["first_key_pts"] = pts
+            crcs[str(pts)] = zlib.crc32(np.ascontiguousarray(prev))
+        result["crcs"] = crcs
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+
+
+def start_receiver(spec: dict):
+    """``chip_smoke.py --receive SPEC`` in a process of its own, and the
+    first line it prints: where it listens."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--receive",
+                             json.dumps(spec)], stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=10)
+        raise AssertionError(f"the {spec['kind']} receiver did not start (exit {proc.returncode})")
+    return proc, json.loads(line)
+
+
+def finish_receiver(proc, spec: dict, where: dict) -> dict:
+    """End the receiver (rtp: an end datagram to each socket, queued behind
+    what the session sent; RTMP ends when the publisher hangs up) and read
+    what it wrote."""
+    import socket
+
+    if spec["kind"] == "rtp":
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            for port in (where["video_port"], where["audio_port"]):
+                s.sendto(RECEIVER_END, ("127.0.0.1", port))
+    try:
+        proc.wait(timeout=RECEIVER_FIRST_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the {spec['kind']} receiver exited {proc.returncode}")
+    with open(spec["out"]) as f:
+        return json.load(f)
+
+
+class EmittedFrames:
+    """Taps engines' record_video_frame: the VideoImage objects a session
+    emitted, whose pts its video track sets when it sends them."""
+
+    def __init__(self):
+        self.frames: list = []
+
+    def factory(self, make):
+        def build(cfg, **kw):
+            engine = make(cfg, **kw)
+            record = engine.record_video_frame
+
+            def tap(frame):
+                self.frames.append(frame)
+                record(frame)
+
+            engine.record_video_frame = tap
+            return engine
+
+        return build
+
+    def by_pts(self) -> dict:
+        return {f.pts: f.image for f in self.frames if f.pts is not None}
+
+
+async def _stream_session(cfg, factory, n_frames: int) -> dict:
+    """One session of ``cfg``'s transport through SessionManager, told
+    TRANSPORT_TALK, stopped once it has sent ``n_frames`` frames and as much
+    audio; the host-clock time of each send (and of each Screen Video
+    encode on the native RTMP route)."""
+    from mere_fusion_tpu_torch.server.sessions import SessionManager
+
+    mgr = SessionManager(cfg, factory)
+    t0 = time.perf_counter()
+    session = await mgr.start_session()
+    sent = {"build_s": time.perf_counter() - t0, "frame": [], "audio": [], "encode": [],
+            "audio_samples": 0}
+
+    def timed(fn, key, samples=False):
+        def call(data, *args):
+            t = time.perf_counter()
+            result = fn(data, *args)
+            sent[key].append(time.perf_counter() - t)
+            if samples:
+                sent["audio_samples"] += len(data)
+            return result
+        return call
+
+    if cfg.transport.mode == "rtp":
+        sender = session._rtp
+        sender.send_video = timed(sender.send_video, "frame")
+        sender.send_audio = timed(sender.send_audio, "audio", samples=True)
+        sent["route"] = "rtp"
+    else:
+        streamer = session._rtmp
+        streamer.stream_frame = timed(streamer.stream_frame, "frame")
+        streamer.stream_frame_audio = timed(streamer.stream_frame_audio, "audio", samples=True)
+        if streamer.route == "native":
+            streamer._pkt.video_tag = timed(streamer._pkt.video_tag, "encode")
+        sent["route"] = streamer.route
+    session.model.put_msg_txt(TRANSPORT_TALK)
+    deadline = time.perf_counter() + 180
+    try:
+        while len(sent["frame"]) < n_frames or sent["audio_samples"] < n_frames * 640:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{len(sent['frame'])} frames and "
+                                     f"{sent['audio_samples']} samples sent in 180 s")
+            await asyncio.sleep(0.02)
+    finally:
+        await mgr.close_all()
+    return sent
+
+
+def stream_figures(sent: dict, got: dict, emitted: EmittedFrames) -> dict:
+    """What the receiver got against what the session sent and emitted."""
+    import zlib
+
+    import numpy as np
+
+    by_pts = emitted.by_pts()
+    equal = sum(1 for ts, crc in got.get("crcs", {}).items()
+                if int(ts) in by_pts and zlib.crc32(np.ascontiguousarray(by_pts[int(ts)])) == crc)
+    return {"session_build_s": sent["build_s"], "frames_sent": len(sent["frame"]),
+            "frames_bit_equal": equal, "send_frame_ms": quantiles_ms(sent["frame"]),
+            "send_audio_ms": quantiles_ms(sent["audio"]),
+            "audio_s_sent": sent["audio_samples"] / 16000,
+            "arrival_interval_ms": got["arrival_interval_ms"]}
+
+
+def send_alone_ms(frames: list, reps: int = 20) -> dict:
+    """RtpSender.send_video of ``frames`` in turns with no session running
+    (into a bound socket nobody reads): the packetizer's own host time."""
+    import socket
+
+    from mere_fusion_tpu_torch.transport.rtp_send import RtpSender
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sink:
+        sink.bind(("127.0.0.1", 0))
+        sender = RtpSender("127.0.0.1", audio_port=1, video_port=sink.getsockname()[1],
+                           rtcp=False)
+        times = []
+        for i in range(reps):
+            t = time.perf_counter()
+            sender.send_video(frames[i % len(frames)], ts=i * 3600)
+            times.append(time.perf_counter() - t)
+        sender.close()
+    return quantiles_ms(times)
+
+
+def encode_alone_ms(frames: list, reps: int = 20) -> dict:
+    """FlvPacketizer.video_tag (Screen Video, a keyframe every 50) of
+    ``frames`` in turns with no session running."""
+    from mere_fusion_tpu_torch.transport.flv import FlvPacketizer
+
+    h, w = frames[0].shape[:2]
+    pkt = FlvPacketizer(w, h, gop=50)
+    times = []
+    for i in range(reps):
+        t = time.perf_counter()
+        pkt.video_tag(frames[i % len(frames)])
+        times.append(time.perf_counter() - t)
+    return quantiles_ms(times)
+
+
+def check_first_frame(path: str, pts, emitted: EmittedFrames, what: str) -> None:
+    import numpy as np
+
+    frame = emitted.by_pts().get(pts)
+    if frame is None or not np.array_equal(np.load(path), frame):
+        raise AssertionError(f"{what}: the first frame received (pts {pts}) is not the "
+                             "frame the session emitted with that pts")
+
+
+def lip_over_rtp(state: dict, base: dict, avatar, tmp: str) -> dict:
+    """A Config() Wav2Lip session with transport.mode "rtp" into a receiver
+    process; lip.infer_batch beside its loopback figure from phase lip."""
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+    h, w = avatar.frame_cycle[0].shape[:2]
+    spec = {"kind": "rtp", "width": w, "height": h,
+            "out": os.path.join(tmp, f"rtp_{h}x{w}.json"),
+            "first": os.path.join(tmp, f"rtp_{h}x{w}.npy")}
+    proc, where = start_receiver(spec)
+    try:
+        cfg = Config().override(**{
+            **base, "transport.mode": "rtp", "transport.rtp_host": "127.0.0.1",
+            "transport.rtp_video_port": where["video_port"],
+            "transport.rtp_audio_port": where["audio_port"]})
+        infer = metrics.latency("lip.infer_batch")
+        infer.reset()
+        emitted = EmittedFrames()
+        sent = asyncio.run(_stream_session(
+            cfg, emitted.factory(lambda c, **kw: make_engine(c, avatar=avatar, **kw)),
+            TRANSPORT_FRAMES))
+    finally:
+        got = finish_receiver(proc, spec, where)
+    check_first_frame(spec["first"], got["first_ts"], emitted, f"rtp {h}x{w}")
+    if got["audio_s"] <= 0:
+        raise AssertionError(f"rtp {h}x{w}: no audio received")
+    return {**stream_figures(sent, got, emitted), "frame_hw": [h, w],
+            "send_frame_alone_ms": send_alone_ms(avatar.frame_cycle),
+            "frames_received": got["frames"], "first_frame_bit_equal": True,
+            "video_packets": got["video_seq"], "audio_packets": got["audio_seq"],
+            "packets_per_frame": got["video_seq"]["packets"] / max(1, got["frames"]),
+            "audio_s_received": got["audio_s"], "receiver_rcvbuf_bytes": where["rcvbuf_bytes"],
+            "infer_batch_p50_ms": infer.quantile(0.5) * 1e3, "infer_batch_n": infer.count,
+            "loopback_infer_batch_p50_ms": state["lip_loopback_infer_p50_ms"]}
+
+
+def lip_over_rtmp(base: dict, avatar, tmp: str) -> dict:
+    """The same session with transport.mode "rtmp" into a receiver process:
+    the route taken, tags received, Screen Video's encode ms."""
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+
+    spec = {"kind": "rtmp", "out": os.path.join(tmp, "rtmp.json"),
+            "first": os.path.join(tmp, "rtmp.npy")}
+    proc, where = start_receiver(spec)
+    try:
+        cfg = Config().override(**{
+            **base, "transport.mode": "rtmp",
+            "transport.push_url": f"rtmp://127.0.0.1:{where['port']}/live/chip_smoke"})
+        emitted = EmittedFrames()
+        sent = asyncio.run(_stream_session(
+            cfg, emitted.factory(lambda c, **kw: make_engine(c, avatar=avatar, **kw)),
+            RTMP_FRAMES))
+    finally:
+        got = finish_receiver(proc, spec, where)
+    if got["video_tags"] < 1 or got["audio_tags"] < 1:
+        raise AssertionError(f"rtmp: {got['video_tags']} video and {got['audio_tags']} "
+                             "audio tags received")
+    out = {**stream_figures(sent, got, emitted), "route": sent["route"],
+           "video_tags": got["video_tags"], "audio_tags": got["audio_tags"],
+           "metadata": got["metadata"], "encode_frame_ms": quantiles_ms(sent["encode"]),
+           "encode_frame_alone_ms": encode_alone_ms(avatar.frame_cycle)}
+    if sent["route"] == "native":
+        if got["codec"] != 3:
+            raise AssertionError(f"rtmp native: codec {got['codec']}, not Screen Video")
+        check_first_frame(spec["first"], got["first_key_pts"], emitted, "rtmp")
+        out["first_keyframe_bit_equal"] = True
+    return out
+
+
+def nerf_over_rtp(state: dict, tmp: str) -> dict:
+    """An ER-NeRF K2 session at 512² (nerf_session's config) with
+    transport.mode "rtp", K2's count zeroed just before."""
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+    spec = {"kind": "rtp", "width": NERF_HW, "height": NERF_HW,
+            "out": os.path.join(tmp, "rtp_nerf.json"), "first": os.path.join(tmp, "rtp_nerf.npy")}
+    proc, where = start_receiver(spec)
+    render = metrics.latency("nerf.render")
+    try:
+        cfg = state["nerf_session_cfg"].override(**{
+            "transport.mode": "rtp", "transport.rtp_host": "127.0.0.1",
+            "transport.rtp_video_port": where["video_port"],
+            "transport.rtp_audio_port": where["audio_port"]})
+        emitted = EmittedFrames()
+        zero_kernel_counts()                       # the main path starts here
+        renders0 = render.count
+        sent = asyncio.run(_stream_session(cfg, emitted.factory(make_engine), NERF_RTP_FRAMES))
+        launches, renders = sampler.launches, render.count - renders0   # ... and ends here
+    finally:
+        got = finish_receiver(proc, spec, where)
+    if launches < NERF_RTP_FRAMES or launches != renders:
+        raise AssertionError(f"K2 launched {launches} times for {renders} rendered frames")
+    if attention.launches or any(k3_counts()):
+        raise AssertionError("K1 or K3 launched in the ER-NeRF rtp session")
+    check_first_frame(spec["first"], got["first_ts"], emitted, "rtp ER-NeRF")
+    state["rtp_k2_launches"] = launches
+    frames = [f.image for f in emitted.frames[:20]]
+    return {**stream_figures(sent, got, emitted), "frame_hw": [NERF_HW, NERF_HW],
+            "send_frame_alone_ms": send_alone_ms(frames),
+            "frames_received": got["frames"], "first_frame_bit_equal": True,
+            "video_packets": got["video_seq"], "audio_s_received": got["audio_s"],
+            "k2_launches": launches, "rendered_frames": renders,
+            "render_p50_ms": render.quantile(0.5) * 1e3}
+
+
+def phase_transport(state: dict) -> dict:
+    import tempfile
+
+    import torch
+
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_transport_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    base = state["lip_base"]
+    out: dict = {"rtp": {}}
+    avatars = {}
+    for h, w in TRANSPORT_SIZES:
+        avatars[h, w] = synthesize_avatar(os.path.join(tmp, f"avatar_{h}x{w}"), n_frames=16,
+                                          frame_hw=(h, w))
+        out["rtp"][f"{h}x{w}"] = lip_over_rtp(state, base, avatars[h, w], tmp)
+    out["rtmp"] = lip_over_rtmp(base, avatars[TRANSPORT_SIZES[0]], tmp)
+    out["nerf_rtp"] = nerf_over_rtp(state, tmp)
+    torch.cuda.empty_cache()
+    return out
 
 
 def family_counts() -> dict:
@@ -3137,13 +3678,18 @@ def stage_err(name: str, got, ref) -> float:
 
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
-          ("nerf_session", phase_nerf_session), ("sampler_family", phase_sampler_family),
+          ("nerf_session", phase_nerf_session), ("transport", phase_transport),
+          ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
           ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages))
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--receive"]:      # a receiver process of phase transport
+        spec = json.loads(sys.argv[2])
+        {"rtp": receive_rtp, "rtmp": receive_rtmp}[spec["kind"]](spec)
+        return 0
     try:
         import torch
     except ImportError:
@@ -3217,6 +3763,8 @@ def main() -> int:
         "avatar_launches": state["avatar_k2_launches"],
         # a session fed speech through the DeepSpeech featurizer (nerf_speech)
         "speech_launches": state["speech_k2_launches"],
+        # a session whose frames left over rtp (transport)
+        "rtp_launches": state["rtp_k2_launches"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],

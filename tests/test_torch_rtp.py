@@ -472,8 +472,12 @@ def test_live_session_streams_over_rtp(tmp_path):
     from mere_fusion_tpu_torch.engines.lip import LipReal
     from mere_fusion_tpu_torch.server.sessions import SessionManager
 
-    a_rx, a_port = _udp_pair()
-    v_rx, v_port = _udp_pair()
+    while True:   # the sender's RTCP reports go to each port + 1
+        (a_rx, a_port), (v_rx, v_port) = _udp_pair(), _udp_pair()
+        if abs(a_port - v_port) != 1:
+            break
+        a_rx.close()
+        v_rx.close()
     avatar = synthesize_avatar(str(tmp_path), n_frames=4)
     cfg = Config().override(**{
         "avatar.batch_size": 2, "tts.backend": "procedural", "avatar.dtype": "float32",
