@@ -18,17 +18,18 @@ def send_one_line(socket, text: str) -> None:
 
 
 def receive_one_line(socket) -> str | None:
-    """Receive one packet: its text up to the first NUL, or None when the
-    connection closed."""
-    received = b""
+    """Receive one whole packet: its text up to the first NUL, or None when
+    the connection closed. The JAX package stops at the first chunk that
+    holds a NUL, which leaves the rest of the packet's padding to be read as
+    the next line when recv returns part of a packet; this reads all
+    PACKET_SIZE bytes (ROADMAP §3)."""
+    received = bytearray()
     while len(received) < PACKET_SIZE:
         chunk = socket.recv(PACKET_SIZE - len(received))
         if not chunk:
             return None
         received += chunk
-        if b"\0" in chunk:
-            break
-    return received.split(b"\0", 1)[0].decode("utf-8", errors="replace")
+    return bytes(received).split(b"\0", 1)[0].decode("utf-8", errors="replace")
 
 
 def receive_lines(socket) -> list[str] | None:

@@ -333,6 +333,39 @@ def test_line_packet_roundtrip(sender_mod):
     server.close()
 
 
+class _Chunked:
+    """A socket stand-in whose recv returns at most ``n`` bytes: a packet
+    arrives in pieces, as it may on a loaded host."""
+
+    def __init__(self, data: bytes, n: int):
+        self.data, self.n = data, n
+
+    def recv(self, size):
+        out, self.data = self.data[: min(size, self.n)], self.data[min(size, self.n):]
+        return out
+
+
+def test_line_packet_reads_whole_packets_where_jax_desyncs():
+    """ROADMAP §3: when a packet arrives in pieces, the JAX receiver stops at
+    the piece holding the NUL and reads the packet's remaining padding as
+    the next line; the port reads each whole packet."""
+    sent = []
+    rec = type("S", (), {"sendall": lambda self, d: sent.append(bytes(d))})()
+    line_packet.send_one_line(rec, "hello transcription")
+    line_packet.send_one_line(rec, "line a\0line b")
+    data = b"".join(sent)
+    port = _Chunked(data, 4096)
+    assert line_packet.receive_one_line(port) == "hello transcription\n"
+    assert line_packet.receive_lines(port) == ["line a"]
+    assert line_packet.receive_one_line(port) is None
+    ref = _Chunked(data, 4096)
+    assert jax_lp.receive_one_line(ref) == "hello transcription\n"
+    assert jax_lp.receive_lines(ref) == []      # the first packet's padding
+    whole = _Chunked(data, line_packet.PACKET_SIZE)   # whole packets: both agree
+    assert jax_lp.receive_one_line(whole) == "hello transcription\n"
+    assert jax_lp.receive_lines(whole) == ["line a"]
+
+
 def test_line_packet_bytes_equal_to_jax():
     for text in ("hello", "", "a\nb", "x\0y", "ü" * 40000):
         sent = []
@@ -528,7 +561,12 @@ def test_live_session_streams_over_rtp(tmp_path):
                 break
         await mgr.close_all()
 
-    asyncio.run(main())
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # a quieter neighbour to the other test workers
+    try:
+        asyncio.run(main())
+    finally:
+        torch.set_num_threads(n_threads)
     for t in threads:
         t.join(timeout=JOIN_S)
     a_rx.close()
