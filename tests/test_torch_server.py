@@ -95,9 +95,8 @@ def test_placer_picks_least_loaded_and_caps():
 
 
 def test_unported_transports_raise(monkeypatch):
-    """webrtc needs aiortc: without it (blocked here, absent on this host
-    and on the card's) the start answers 500 naming it, and the placement
-    slot is released."""
+    """webrtc needs aiortc: without it (blocked here) the start answers 500
+    naming it, and the placement slot is released."""
     monkeypatch.setitem(sys.modules, "aiortc", None)
     cfg = Config().override(**{"transport.mode": "webrtc"})
 
