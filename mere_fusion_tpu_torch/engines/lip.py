@@ -235,7 +235,7 @@ class LipReal(BaseReal):
             metrics.latency("lip.infer_batch").observe(time.perf_counter() - t0)
             metrics.rate("lip.infer_fps").tick(self.batch_size)
             for i, (idx, pair) in enumerate(metas):
-                self.res_frame_queue.put((frames[i], idx, pair))
+                self.put_res_frame((frames[i], idx, pair), quit_event)
 
         while not quit_event.is_set():
             if not self.render_event.is_set():
@@ -251,9 +251,9 @@ class LipReal(BaseReal):
             if all(f[1] != 0 for f in audio_frames):
                 flush()
                 for i in range(self.batch_size):
-                    self.res_frame_queue.put(
+                    self.put_res_frame(
                         (None, self.mirror_index(length, index),
-                         audio_frames[i * 2 : i * 2 + 2]))
+                         audio_frames[i * 2 : i * 2 + 2]), quit_event)
                     index += 1
                 continue
             t0 = time.perf_counter()
@@ -316,6 +316,7 @@ class LipReal(BaseReal):
             for frame, _ftype, _seq in audio_frames:
                 chunk = AudioChunk.from_float(frame, self.sample_rate)
                 track_put(loop, audio_track, chunk)
+                self.record_audio_chunk(chunk)
 
     # ---- render loop ---------------------------------------------------------
     def render(self, quit_event, loop=None, audio_track=None, video_track=None):

@@ -433,6 +433,7 @@ class NeRFReal(BaseReal):
             audiotypes.append(ftype)
             chunk = AudioChunk.from_float(frame, self.sample_rate)
             track_put(loop, audio_track, chunk)
+            self.record_audio_chunk(chunk)
         if (audiotypes[0] != 0 and audiotypes[1] != 0
                 and self.custom_index.get(audiotypes[0]) is not None):
             atype = audiotypes[0]

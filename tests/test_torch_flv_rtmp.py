@@ -1,8 +1,8 @@
 """The port's FLV muxer and RTMP publishing against the JAX package's:
 transport/flv.py, transport/rtmp_native.py and transport/rtmp.py.
 
-Twins of tests/test_flv_rtmp_native.py (but test_engine_flv_recording,
-which belongs to 'Recording') and of the ffmpeg-piped streamer test of
+Twins of tests/test_flv_rtmp_native.py (test_engine_flv_recording's is in
+tests/test_torch_recording.py) and of the ffmpeg-piped streamer test of
 tests/test_misc_transport.py, then byte parity with the JAX package (Screen
 Video key and inter frames, AMF0, FLV tags and an FLVWriter file, the RTMP
 chunk writer) and its readers and writers across the packages. The mini

@@ -51,6 +51,7 @@ from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims
 from mere_fusion_tpu_torch.ops import attention
 from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.server.app import MANAGER, create_app
+from mere_fusion_tpu_torch.transport.mp4 import parse_boxes
 from tests.test_musetalk import SMALL_WHISPER, TINY_UNET, TINY_VAE
 
 CPU = torch.device("cpu")
@@ -344,7 +345,7 @@ def test_muse_engine_end_to_end(port_models):
     assert all(f.image.shape == avatar.frame_cycle[0].shape for f in frames)
 
 
-def test_loopback_server_session(port_models):
+def test_loopback_server_session(port_models, tmp_path):
     avatar = synthesize_muse_avatar(port_models, n_frames=4)
     extractor = WhisperFeatureExtractor(dims=PORT_WHISPER, device=CPU)
 
@@ -375,9 +376,21 @@ def test_loopback_server_session(port_models):
                     break
                 await asyncio.sleep(0.1)
             assert generated() >= start + 4
+            out = str(tmp_path / "call.mp4")
+            written = metrics.latency("record.frame").count
             r = await client.post("/record", json={"session_id": sid,
-                                                   "type": "start_record"})
-            assert r.status == 501
+                                                   "type": "start_record", "path": out})
+            assert (await r.json())["code"] == 0
+            model = client.app[MANAGER].get(sid).model
+            for _ in range(600):
+                if metrics.latency("record.frame").count >= written + 2:
+                    break
+                await asyncio.sleep(0.05)
+            r = await client.post("/record", json={"session_id": sid, "type": "end_record"})
+            assert (await r.json())["code"] == 0
+            model.record_thread.join(timeout=10)
+            data = open(out, "rb").read()
+            assert [t for t, _, _ in parse_boxes(data)] == [b"ftyp", b"free", b"mdat", b"moov"]
             r = await client.post("/stop_session", json={"session_id": sid})
             assert (await r.json())["code"] == 0
             r = await client.post("/interrupt", json={"session_id": sid})
