@@ -3,9 +3,11 @@
 Inverse of the JAX package's ``utils/diffusers_convert.py::convert_vae`` /
 ``convert_musetalk_unet`` and ``utils/torch_convert.py::convert_whisper``,
 plus the ER-NeRF head (``ernerf_from_flax``, whose names already match)
-and the Wav2Lip family (``wav2lip_from_flax``, ``wav2lip_disc_from_flax``,
+the Wav2Lip family (``wav2lip_from_flax``, ``wav2lip_disc_from_flax``,
 ``syncnet_from_flax``: ``{"params", "batch_stats"}`` onto the reference's
-names, running statistics included):
+names, running statistics included) and the avatar preparation's face
+models (``s3fd_from_flax``, ``fan_from_flax``, ``bisenet_from_flax``, onto
+the reference's names with their running statistics):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder) key names, which the
 port's modules load with ``load_state_dict(strict=True)``. Layouts:
@@ -29,10 +31,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mere_fusion_tpu_torch.models.bisenet import BiSeNet
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+from mere_fusion_tpu_torch.models.fan import FAN
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
+from mere_fusion_tpu_torch.models.s3fd import S3FD
 from mere_fusion_tpu_torch.models.syncnet import SyncNet
 from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip, Wav2LipDisc
 from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims, sinusoids
@@ -91,12 +96,14 @@ def _leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
         return f"{module}.weight", value
     if leaf == "scale":
         return f"{module}.weight", value
-    if leaf == "bias":
+    if leaf in ("bias", "weight"):   # "weight": S3FD's L2Norm scale vector
         return path, value
     raise KeyError(f"unexpected flax leaf {path!r}")
 
 
-def _translate(tree: Mapping, rules, expected: set[str]) -> dict[str, torch.Tensor]:
+def _translate(tree: Mapping, rules, expected: set[str] | None) -> dict[str, torch.Tensor]:
+    """The tree's leaves under the port's names; their set must be
+    ``expected`` unless that is None."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
     sd = {}
@@ -106,6 +113,8 @@ def _translate(tree: Mapping, rules, expected: set[str]) -> dict[str, torch.Tens
             path = re.sub(pattern, repl, path)
         key, value = _leaf(path[:-1], value)
         sd[key] = torch.from_numpy(np.ascontiguousarray(value))
+    if expected is None:
+        return sd
     missing = expected - set(sd)
     extra = set(sd) - expected
     if missing or extra:
@@ -248,3 +257,55 @@ def wav2lip_disc_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
 def syncnet_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX SyncNet variables → the port's SyncNet state dict."""
     return _conv_bn_from_flax(tree, _SYNCNET_NAMES, SyncNet)
+
+
+# flax submodule names → the reference's Sequential indices
+_FAN_NAMES = [(r"\.downsample_bn\.", ".downsample.0."), (r"\.downsample_conv\.", ".downsample.2.")]
+_BISENET_NAMES = [(r"(^|\.)(layer\d)_(\d)\.", r"\1\2.\3."),
+                  (r"\.downsample_conv\.", ".downsample.0."),
+                  (r"\.downsample_bn\.", ".downsample.1.")]
+
+
+def _with_stats_from_flax(tree: Mapping, rules, build) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` → the state dict of ``build()``: leaves
+    as in ``_translate``, each BatchNorm's ``mean``/``var`` →
+    ``running_mean``/``running_var`` and a ``num_batches_tracked`` of 0."""
+    tree = dict(tree)
+    stats = _flatten(tree.pop("batch_stats", {}))
+    sd = _translate(tree, rules, None)
+
+    def rename(module: str) -> str:
+        module += "."
+        for pattern, repl in rules:
+            module = re.sub(pattern, repl, module)
+        return module[:-1]
+
+    for path, value in stats.items():
+        module, leaf = path.rsplit(".", 1)
+        module = rename(module)
+        sd[f"{module}.running_{leaf}"] = torch.from_numpy(np.ascontiguousarray(value))
+        sd[f"{module}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    expected = _expected_keys(build)
+    missing, extra = expected - set(sd), set(sd) - expected
+    if missing or extra:
+        raise KeyError(f"tree does not match the module: missing "
+                       f"{sorted(missing)[:8]} extra {sorted(extra)[:8]}")
+    return sd
+
+
+def s3fd_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX S3FD variables → the port's S3FD state dict (the reference's
+    names, which the flax module shares)."""
+    return _with_stats_from_flax(tree, [], S3FD)
+
+
+def fan_from_flax(tree: Mapping, num_modules: int = 4) -> dict[str, torch.Tensor]:
+    """JAX FAN variables ``{"params", "batch_stats"}`` → the port's FAN
+    state dict (face_alignment's names)."""
+    return _with_stats_from_flax(tree, _FAN_NAMES, lambda: FAN(num_modules))
+
+
+def bisenet_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX BiSeNet variables ``{"params", "batch_stats"}`` → the port's
+    BiSeNet state dict (the reference's names)."""
+    return _with_stats_from_flax(tree, _BISENET_NAMES, BiSeNet)

@@ -13,6 +13,17 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "mere_fusion_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mere_fusion_tpu", "scripts")
+# modules the import walk must reach, among them each slice's newest
+REQUIRED = (
+    "mere_fusion_tpu_torch.engines.base",
+    "mere_fusion_tpu_torch.transport.mp4",
+    "mere_fusion_tpu_torch.transport.flv",
+    "mere_fusion_tpu_torch.models.s3fd",
+    "mere_fusion_tpu_torch.models.fan",
+    "mere_fusion_tpu_torch.models.bisenet",
+    "mere_fusion_tpu_torch.tools.genavatar",
+    "mere_fusion_tpu_torch.convert",
+)
 
 
 def _port_sources() -> list[str]:
@@ -55,9 +66,10 @@ def test_every_module_imports_with_jax_blocked():
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax')\n"
         "               and sys.modules[k] is not None\n"
         "               for k in list(sys.modules))\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    mods = proc.stdout.split()
+    assert len(mods) >= 25 and not set(REQUIRED) - set(mods), sorted(set(REQUIRED) - set(mods))
