@@ -242,6 +242,39 @@ its seconds; any failure is fatal (exit code 1, no result line):
               read with bf16 weights only: with f32 weights shade's
               16-column 3xTF32 products cost more than K2's two narrow
               dots, so shade does not bound K2 f32's head.
+15. record   — session recording through POST /record: Config() Wav2Lip
+              sessions (phase lip's .pth, bf16, batch 16, loopback) on
+              synthesized 240×320 and 720×1280 bundles, told TRANSPORT_TALK,
+              recorded to .mp4 until the assembly loop has queued
+              RECORD_FRAMES frames and twice as many 20 ms chunks; the MP4
+              parsed back with the port's parse_boxes: every video sample
+              byte-equal to cv2.imencode of the frame queued at its place at
+              quality 90, the PCM equal to the queued chunks; frames queued
+              and written, audio seconds, record.frame ms (p50, p95) in the
+              session and MP4Writer's alone, the queue depth at the stop, what
+              the stop dropped, the seconds from the stop until the recorder
+              closed the file. Then .flv (every Screen Video frame decoded
+              bit-equal to the queued one) and .split.mp4 (whether OpenCV's
+              mp4v writer opens here; the wav equal to the chunks, the frames
+              the MPEG-4 video decodes to; a writer that does not open must be
+              refused) at 240×320; OpenCV's Video I/O build lines; no kernel
+              of the repo launched.
+16. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
+              720×1280 face video written with OpenCV's mp4v and decoded by
+              video_to_frames (the synthesized frames go on directly when it
+              does not decode, which is printed); the seeded S3FD
+              FaceDetector's decode on 16-frame batches in float32 (TF32 off):
+              ms a batch (CUDA events), its bound from the convolutions'
+              operations, busy share and launches (torch.profiler), the
+              card's [1, A, 5] decode against the CPU's; a Wav2Lip bundle
+              made with FixedBoxDetector, loaded by a Config() session from
+              avatar_dir and recorded (as in record); a MuseTalk bundle made
+              with FixedBoxDetector, the seeded FAN (4 modules) and BiSeNet at
+              their published widths and the f32 VAE encode in batches of 16,
+              then served in bf16 from avatar_dir and recorded, with the
+              kernel counts zeroed just before: K1 exactly 5 launches a
+              generate; genavatar's seconds split by its meters (decode,
+              detect, landmarks, parse, crop, encode, write).
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -3676,13 +3709,599 @@ def stage_err(name: str, got, ref) -> float:
     return diff.max().item()
 
 
+# ---- phases record and avatar_prep --------------------------------------------------
+
+RECORD_FRAMES = 100               # frames each recording holds (4 s at 25 fps), and 4 s of audio
+RECORD_SIZES = TRANSPORT_SIZES    # the lip bundle's size and a video call's
+RECORD_OTHER_FRAMES = 50          # the .flv and .split.mp4 recordings (240×320)
+PREP_FRAMES = 100                 # the synthesized video of avatar_prep: 4 s ...
+PREP_HW = (720, 1280)             # ... of a video call's frame
+PREP_BOX = (490, 150, 790, 530)   # its face's fixed (x1, y1, x2, y2)
+PREP_DETECT_BATCH = 16            # genavatar's S3FD batch
+PREP_SESSION_FRAMES = 50          # frames recorded from the Wav2Lip bundle's session
+PREP_MUSE_FRAMES = 32             # generated frames of the MuseTalk bundle's session
+# S3FD's [B, A, 5] decode on the card (f32, TF32 off) against the CPU's: the
+# JAX package holds its heads to the reference within 3e-4 (tests/test_s3fd.py);
+# a score moves by at most a quarter of its logits' error, a box by the reg
+# error × 0.1 × the prior (≤ 512 px at the coarsest scale)
+S3FD_SCORE_ATOL = 3e-4
+S3FD_BOX_ATOL = 0.02
+
+
+class RecorderTap:
+    """Taps an engine's recorder queues: the frames and 20 ms chunks its
+    assembly loop queued while it recorded, in order."""
+
+    def __init__(self, engine):
+        self.frames, self.chunks = [], []
+        for q, out in ((engine.recordq_video, self.frames), (engine.recordq_audio, self.chunks)):
+            put = q.put
+
+            def tapped(item, *a, _put=put, _out=out, **kw):
+                _out.append(item)
+                _put(item, *a, **kw)
+
+            q.put = tapped
+
+
+def jpeg90(image) -> bytes:
+    import cv2
+
+    return cv2.imencode(".jpg", image, [int(cv2.IMWRITE_JPEG_QUALITY), 90])[1].tobytes()
+
+
+def mp4_samples(data: bytes):
+    """(each video sample's bytes, the PCM) of a recorded MP4, read back
+    through its sample tables with the port's parse_boxes."""
+    import struct
+
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.mp4 import parse_boxes
+
+    def kids(start, end):
+        return {t: (s, e) for t, s, e in parse_boxes(data, start, end)}
+
+    moov = kids(0, len(data))[b"moov"]
+    video, pcm = [], np.zeros(0, np.int16)
+    for t, s, e in parse_boxes(data, *moov):
+        if t != b"trak":
+            continue
+        span = (s, e)
+        for name in (b"mdia", b"minf", b"stbl"):
+            span = kids(*span)[name]
+        tables = kids(*span)
+        z = tables[b"stsz"][0]
+        size, count = struct.unpack(">II", data[z + 4:z + 12])
+        c = tables[b"stco"][0]
+        (n,) = struct.unpack(">I", data[c + 4:c + 8])
+        offsets = struct.unpack(f">{n}I", data[c + 8:c + 8 + 4 * n])
+        if size == 0:
+            sizes = struct.unpack(f">{count}I", data[z + 12:z + 12 + 4 * count])
+            video = [data[o:o + k] for o, k in zip(offsets, sizes)]
+        else:
+            pcm = np.concatenate([np.frombuffer(data[o:o + 2 * (count // n)], "<i2")
+                                  for o in offsets])
+    return video, pcm
+
+
+async def _record_session(cfg, factory, path: str, n_frames: int, until=None) -> dict:
+    """One session of the port's aiohttp app, recorded through POST /record:
+    start, record, talk, stop the recording once the assembly loop has queued
+    n_frames frames and 2 n_frames chunks (and ``until()`` holds), wait for
+    the recorder to close the file, stop the session. The queue depth at the
+    stop, what the recorder dropped, the seconds from the stop until the
+    recorder closed the file, record.frame's ms a frame."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.app import MANAGER, create_app
+
+    meter = metrics.latency("record.frame")
+    meter.reset()
+    client = TestClient(TestServer(create_app(cfg, factory)))
+    await client.start_server()
+    try:
+        t0 = time.perf_counter()
+        body = await (await client.post("/start_session", json={})).json()
+        if body.get("code") != 0:
+            raise AssertionError(f"/start_session: {body}")
+        sid = body["session_id"]
+        build_s = time.perf_counter() - t0
+        engine = client.app[MANAGER].get(sid).model
+        tap = RecorderTap(engine)
+        body = await (await client.post("/record", json={
+            "session_id": sid, "type": "start_record", "path": path})).json()
+        if body.get("code") != 0:
+            raise AssertionError(f"/record start_record: {body}")
+        t_rec = time.perf_counter()
+        body = await (await client.post("/talk", json={
+            "session_id": sid, "type": "echo", "text": TRANSPORT_TALK})).json()
+        if body.get("code") != 0:
+            raise AssertionError("/talk failed")
+        deadline = time.perf_counter() + 180
+        while (len(tap.frames) < n_frames or len(tap.chunks) < 2 * n_frames
+               or (until is not None and not until())):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{len(tap.frames)} frames and {len(tap.chunks)} chunks "
+                                     "queued for the recorder in 180 s")
+            if engine.record_error:
+                raise AssertionError(f"the recording stopped: {engine.record_error}")
+            await asyncio.sleep(0.02)
+        depth = {"video": engine.recordq_video.qsize(), "audio": engine.recordq_audio.qsize()}
+        recorded_s = time.perf_counter() - t_rec
+        t_stop = time.perf_counter()
+        body = await (await client.post("/record", json={
+            "session_id": sid, "type": "end_record"})).json()
+        if body.get("code") != 0:
+            raise AssertionError(f"/record end_record: {body}")
+        await asyncio.get_running_loop().run_in_executor(None, engine.record_thread.join, 60)
+        stop_to_close_s = time.perf_counter() - t_stop
+        if engine.record_thread.is_alive():
+            raise AssertionError("the recorder did not close its file 60 s after the stop")
+        queued = len(tap.frames)
+        dropped = {"video": engine.recordq_video.qsize(), "audio": engine.recordq_audio.qsize()}
+        await client.post("/stop_session", json={"session_id": sid})
+    finally:
+        await client.close()
+    await asyncio.get_running_loop().run_in_executor(None, join_engine_threads, engine)
+    return {"tap": tap, "engine": engine, "session_build_s": build_s,
+            "recorded_s": recorded_s, "frames_queued": queued,
+            "queue_depth_at_stop": depth, "dropped_at_stop": dropped,
+            "stop_to_close_s": stop_to_close_s, "error": engine.record_error,
+            "record_frame_ms": {"n": meter.count, "p50": meter.quantile(0.5) * 1e3,
+                                "p95": meter.quantile(0.95) * 1e3}}
+
+
+def join_engine_threads(engine, timeout: float = 60) -> None:
+    """Wait for the threads running the engine's methods (its inference and
+    assembly loops, which a stopped session does not join) to end: a thread
+    still inside a device call when the interpreter exits aborts it."""
+    import threading
+
+    deadline = time.perf_counter() + timeout
+    for t in threading.enumerate():
+        if getattr(getattr(t, "_target", None), "__self__", None) is engine:
+            t.join(max(0.0, deadline - time.perf_counter()))
+            if t.is_alive():
+                raise AssertionError(f"the engine's thread {t.name} still runs {timeout} s "
+                                     "after the session stopped")
+
+
+def check_mp4(path: str, tap: RecorderTap) -> dict:
+    """The recorded MP4 read back: every video sample is the JPEG (quality
+    90) of the frame queued at its place, the PCM the queued chunks."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.mp4 import parse_boxes
+
+    with open(path, "rb") as f:
+        data = f.read()
+    top = [t for t, _, _ in parse_boxes(data)]
+    if top != [b"ftyp", b"free", b"mdat", b"moov"]:
+        raise AssertionError(f"{path}: top-level boxes {top}")
+    video, pcm = mp4_samples(data)
+    bad = [i for i, s in enumerate(video) if s != jpeg90(tap.frames[i].image)]
+    if not video or bad:
+        raise AssertionError(f"{path}: {len(video)} samples, {len(bad)} not the JPEG of the "
+                             f"frame queued at their place (first {bad[:3]})")
+    want = np.concatenate([c.samples for c in tap.chunks[:len(pcm) // 320]])
+    if len(pcm) < 640 * (len(video) - 1) or not np.array_equal(pcm, want):
+        raise AssertionError(f"{path}: the PCM is not the queued chunks")
+    return {"frames_written": len(video), "audio_s_written": len(pcm) / 16000,
+            "bytes": len(data), "samples_bit_equal": len(video), "pcm_equal": True,
+            "speech_in_audio": bool((pcm != 0).any())}
+
+
+def recorder_alone_ms(frames: list, chunks: list, tmp: str) -> dict:
+    """MP4Writer's writes of a frame and its two chunks, no session running:
+    the recorder's own host time."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.mp4 import MP4Writer
+
+    h, w = frames[0].shape[:2]
+    times = []
+    with open(os.path.join(tmp, f"alone_{h}x{w}.mp4"), "wb") as f:
+        writer = MP4Writer(f, w, h)
+        for i, img in enumerate(frames):
+            t = time.perf_counter()
+            writer.write_video(img)
+            for c in chunks[2 * i:2 * i + 2] or [np.zeros(320, np.int16)] * 2:
+                writer.write_audio(c)
+            times.append(time.perf_counter() - t)
+        writer.close()
+    return quantiles_ms(times)
+
+
+def record_figures(rec: dict, tmp: str) -> dict:
+    tap = rec["tap"]
+    return {k: rec[k] for k in ("session_build_s", "recorded_s", "frames_queued",
+                                "queue_depth_at_stop", "dropped_at_stop", "stop_to_close_s",
+                                "record_frame_ms")} | {
+        # the assembly loop runs ahead of the paced tracks by their queue,
+        # so frames reach the recorder in a burst after /talk
+        "queued_fps": rec["frames_queued"] / rec["recorded_s"],
+        "frame_hw": list(tap.frames[0].image.shape[:2]),
+        "record_frame_alone_ms": recorder_alone_ms([f.image for f in tap.frames[:50]],
+                                                   [c.samples for c in tap.chunks[:100]], tmp)}
+
+
+def check_flv(path: str, tap: RecorderTap) -> dict:
+    """The recorded FLV read back: each Screen Video frame decodes bit-equal
+    to the frame queued at its place; the PCM is the queued chunks as the
+    recorder scales them (x / 32768, then × 32767)."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.transport.flv import (
+        TAG_AUDIO,
+        TAG_VIDEO,
+        decode_screen_video,
+        read_flv_tags,
+    )
+
+    with open(path, "rb") as f:
+        tags = read_flv_tags(f.read())
+    prev, frames = None, 0
+    for typ, _ts, body in tags:
+        if typ == TAG_VIDEO:
+            prev = decode_screen_video(body[1:], prev)
+            if not np.array_equal(prev, tap.frames[frames].image):
+                raise AssertionError(f"{path}: video tag {frames} is not the queued frame")
+            frames += 1
+    pcm = np.concatenate([np.frombuffer(b[1:], "<i2") for t, _, b in tags if t == TAG_AUDIO])
+    want = np.concatenate([(np.clip(c.samples.astype(np.float32) / 32768.0, -1, 1) * 32767)
+                           .astype("<i2") for c in tap.chunks[:len(pcm) // 320]])
+    if not frames or not np.array_equal(pcm, want):
+        raise AssertionError(f"{path}: {frames} frames; the PCM is not the queued chunks")
+    return {"frames_written": frames, "audio_s_written": len(pcm) / 16000,
+            "frames_bit_equal": frames, "pcm_equal": True}
+
+
+def check_split(path: str, tap: RecorderTap, opened: bool, error) -> dict:
+    """The .split.mp4 recording: with a writer that opened, the MPEG-4 video
+    (frames decoded, if this OpenCV decodes it) and the wav, whose PCM is the
+    queued chunks; with one that did not, the port's refusal (record_error
+    set, no files)."""
+    import wave
+
+    import cv2
+    import numpy as np
+
+    base = path[: -len(".split.mp4")] + ".mp4"
+    vid, aud = base + ".video.mp4", base + ".audio.wav"
+    if not opened:
+        if error is None or os.path.exists(vid) or os.path.exists(aud):
+            raise AssertionError(f"an unopened writer: error {error!r}, files left")
+        return {"writer_opened": False, "refused": error}
+    if error is not None:
+        raise AssertionError(f"the split recording stopped: {error}")
+    with wave.open(aud) as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    want = np.concatenate([c.samples for c in tap.chunks[:len(pcm) // 320]])
+    if not len(pcm) or not np.array_equal(pcm, want):
+        raise AssertionError(f"{aud}: the PCM is not the queued chunks")
+    cap = cv2.VideoCapture(vid)
+    decoded = 0
+    while cap.read()[0]:
+        decoded += 1
+    cap.release()
+    return {"writer_opened": True, "video_bytes": os.path.getsize(vid),
+            "frames_decoded": decoded, "audio_s_written": len(pcm) / 16000, "pcm_equal": True,
+            "merged": os.path.exists(base)}
+
+
+def video_io_lines() -> list[str]:
+    """OpenCV's build information, its Video I/O section."""
+    import cv2
+
+    lines = cv2.getBuildInformation().splitlines()
+    start = next((i for i, ln in enumerate(lines) if "Video I/O" in ln), None)
+    if start is None:
+        return []
+    out = [lines[start].strip()]
+    for ln in lines[start + 1:]:
+        if ln.strip() and not ln.startswith("    "):
+            break
+        if ln.strip():
+            out.append(ln.strip())
+    return out
+
+
+def phase_record(state: dict) -> dict:
+    import tempfile
+
+    import cv2
+
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+    from mere_fusion_tpu_torch.ops import attention, sampler
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_record_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    base = state["lip_base"]
+    out: dict = {"video_io": video_io_lines(), "mp4": {}}
+    avatars = {}
+    zero_kernel_counts()
+    for h, w in RECORD_SIZES:
+        avatars[h, w] = synthesize_avatar(os.path.join(tmp, f"avatar_{h}x{w}"), n_frames=16,
+                                          frame_hw=(h, w))
+        path = os.path.join(tmp, f"call_{h}x{w}.mp4")
+        rec = asyncio.run(_record_session(
+            Config().override(**base), lambda c, _a=avatars[h, w], **kw: make_engine(
+                c, avatar=_a, **kw), path, RECORD_FRAMES))
+        out["mp4"][f"{h}x{w}"] = {**record_figures(rec, tmp), **check_mp4(path, rec["tap"])}
+    small = avatars[RECORD_SIZES[0]]
+
+    def factory(c, **kw):
+        return make_engine(c, avatar=small, **kw)
+
+    path = os.path.join(tmp, "call.flv")
+    rec = asyncio.run(_record_session(Config().override(**base), factory, path,
+                                      RECORD_OTHER_FRAMES))
+    out["flv"] = {**{k: rec[k] for k in ("frames_queued", "recorded_s", "queue_depth_at_stop",
+                                         "dropped_at_stop", "stop_to_close_s",
+                                         "record_frame_ms")},
+                  **check_flv(path, rec["tap"])}
+    h, w = RECORD_SIZES[0]
+    probe = cv2.VideoWriter(os.path.join(tmp, "probe.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                            25, (w, h))
+    opened = probe.isOpened()
+    probe.release()
+    path = os.path.join(tmp, "call.split.mp4")
+    if opened:
+        rec = asyncio.run(_record_session(Config().override(**base), factory, path,
+                                          RECORD_OTHER_FRAMES))
+        out["split"] = {**{k: rec[k] for k in ("frames_queued", "recorded_s",
+                                               "queue_depth_at_stop", "dropped_at_stop",
+                                               "stop_to_close_s", "record_frame_ms")},
+                        **check_split(path, rec["tap"], True, rec["error"])}
+    else:   # the port refuses an unopened writer: show it on a bare recorder
+        from mere_fusion_tpu_torch.engines.base import BaseReal
+        from mere_fusion_tpu_torch.transport.frames import VideoImage
+
+        eng = BaseReal(Config().override(**{"tts.backend": "procedural"}))
+        eng.start_recording(path)
+        eng.record_video_frame(VideoImage(image=small.frame_cycle[0]))
+        eng.record_thread.join(timeout=30)
+        out["split"] = check_split(path, None, False, eng.record_error)
+    out["ffmpeg_on_path"] = shutil.which("ffmpeg") is not None
+    if attention.launches or sampler.launches or any(k3_counts()):
+        raise AssertionError("a kernel of the repo launched in a recorded Wav2Lip session")
+    return out
+
+
+def synth_face_video(n: int, hw: tuple) -> list:
+    """A face-like 'video' on the host: a gradient background, a skin-toned
+    ellipse inside PREP_BOX that sways a few pixels, eyes, and a mouth that
+    opens and closes."""
+    import cv2
+    import numpy as np
+
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    bg = np.stack([(xx * 200 // w + 30), (yy * 180 // h + 40),
+                   np.full((h, w), 90)], axis=-1).astype(np.uint8)
+    x1, y1, x2, y2 = PREP_BOX
+    cx, cy, ax, ay = (x1 + x2) // 2, (y1 + y2) // 2, (x2 - x1) // 2 - 20, (y2 - y1) // 2 - 10
+    frames = []
+    for i in range(n):
+        img = bg.copy()
+        dx = int(4 * np.sin(i / 7))
+        cv2.ellipse(img, (cx + dx, cy), (ax, ay), 0, 0, 360, (120, 160, 210), -1)
+        for ex in (-ax // 2, ax // 2):
+            cv2.circle(img, (cx + dx + ex, cy - ay // 4), 14, (40, 40, 40), -1)
+        cv2.ellipse(img, (cx + dx, cy + ay // 2), (ax // 3, 4 + 18 * (i % 8) // 7), 0, 0, 360,
+                    (60, 50, 150), -1)
+        frames.append(img)
+    return frames
+
+
+def s3fd_bound_ms(model, x_u8, out) -> dict:
+    """Least time for one batch's decode: S3FD's convolutions (2 operations
+    a multiply-add, torch.utils.flop_counter on this batch's shape) at the
+    card's float32 rate outside the tensor cores (TF32 is off), against the
+    bytes moved once (the weights, the uint8 frames in, the [B, A, 5] f32
+    decode out)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    x = x_u8.permute(0, 3, 1, 2).float()
+    with torch.no_grad(), counter:
+        model(x)
+    flops = float(counter.get_total_flops())
+    nbytes = (sum(t.numel() * t.element_size() for t in model.parameters())
+              + x_u8.numel() + out.numel() * 4)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"gflop": flops / 1e9, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "rate": "67 TFLOP/s f32"}
+
+
+def genavatar_seconds() -> dict:
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+    return {k: metrics.latency(f"genavatar.{k}").total
+            for k in ("decode", "detect", "landmarks", "parse", "crop", "encode", "write")}
+
+
+def reset_genavatar_meters() -> None:
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+    for k in ("decode", "detect", "landmarks", "parse", "crop", "encode", "write"):
+        metrics.latency(f"genavatar.{k}").reset()
+
+
+def phase_avatar_prep(state: dict) -> dict:
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.engines.avatar import load_lip_avatar
+    from mere_fusion_tpu_torch.engines.muse import MuseModels, load_muse_avatar
+    from mere_fusion_tpu_torch.models.bisenet import FaceParsing
+    from mere_fusion_tpu_torch.models.fan import LandmarkDetector
+    from mere_fusion_tpu_torch.models.s3fd import FaceDetector
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.tools import genavatar
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    out: dict = {"video_hw": list(PREP_HW), "video_frames": PREP_FRAMES}
+
+    # ---- the video: written with OpenCV's mp4v, read back by genavatar ----------
+    synth = synth_face_video(PREP_FRAMES, PREP_HW)
+    video = os.path.join(tmp, "face.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25, PREP_HW[::-1])
+    out["video_writer_opened"] = writer.isOpened()
+    for img in synth:
+        writer.write(img)
+    writer.release()
+    reset_genavatar_meters()
+    frames = genavatar.video_to_frames(video) if out["video_writer_opened"] else []
+    out["decoded_frames"] = len(frames)
+    if len(frames) != PREP_FRAMES:
+        print(f"chip_smoke avatar_prep: the mp4v video decoded to {len(frames)} frames here; "
+              "the synthesized frames go to genavatar directly", flush=True)
+        frames = synth
+    out["frames_from"] = "video" if frames is not synth else "synthesized frames"
+
+    # ---- S3FD on the card: 16-frame batches of the video ----------------------------
+    detector = FaceDetector(device=dev)
+    batch = np.stack(frames[:PREP_DETECT_BATCH])
+    t0 = time.perf_counter()
+    for i in range(0, len(frames), PREP_DETECT_BATCH):
+        detector.decode_batch(np.stack(frames[i:i + PREP_DETECT_BATCH]))
+    torch.cuda.synchronize()
+    dets = detector.decode_batch(batch)
+    cpu = FaceDetector(state={k: v.cpu() for k, v in detector.model.state_dict().items()},
+                       device="cpu")
+    want = cpu.decode_batch(batch[:1]).numpy()
+    got = dets[:1].cpu().numpy()
+    err = {"box_px": float(np.abs(got[..., :4] - want[..., :4]).max()),
+           "score": float(np.abs(got[..., 4] - want[..., 4]).max())}
+    if not np.isfinite(got).all() or err["box_px"] > S3FD_BOX_ATOL or err["score"] > S3FD_SCORE_ATOL:
+        raise AssertionError(f"S3FD's decode on the card against the CPU's: {err}")
+    profile = profile_launches(lambda: detector.decode_batch(batch))
+    for k in ("k3_ms", "hashing_ops"):
+        profile.pop(k)
+    out["s3fd"] = {
+        "batch": PREP_DETECT_BATCH, "anchors": int(dets.shape[1]), "dtype": "float32",
+        "all_batches_s": time.perf_counter() - t0,
+        "decode_batch_ms": p50_ms(lambda: detector.decode_batch(batch), iters=5, warmup=1),
+        "card_vs_cpu": {**err, "limits": {"box_px": S3FD_BOX_ATOL, "score": S3FD_SCORE_ATOL}},
+        "profile": profile,
+        **s3fd_bound_ms(detector.model, torch.from_numpy(batch).to(dev), dets)}
+    del detector, cpu, dets
+    torch.cuda.empty_cache()
+
+    # ---- a Wav2Lip bundle, served and recorded ---------------------------------------
+    base = state["lip_base"]
+    avatar_dir = os.path.join(tmp, "avatars")
+    box = genavatar.FixedBoxDetector(PREP_BOX)
+    t0 = time.perf_counter()
+    genavatar.create_lip_avatar(frames, os.path.join(avatar_dir, "prepared_lip"), box)
+    lip_s = {"total": time.perf_counter() - t0, **genavatar_seconds()}
+    if len(load_lip_avatar(os.path.join(avatar_dir, "prepared_lip"))) != PREP_FRAMES:
+        raise AssertionError("the prepared Wav2Lip bundle does not load whole")
+    cfg = Config().override(**{**base, "avatar.avatar_dir": avatar_dir,
+                               "avatar.avatar_id": "prepared_lip"})
+    path = os.path.join(tmp, "prepared_lip.mp4")
+    zero_kernel_counts()
+    rec = asyncio.run(_record_session(cfg, make_engine, path, PREP_SESSION_FRAMES))
+    if attention.launches or sampler.launches or any(k3_counts()):
+        raise AssertionError("a kernel of the repo launched in the prepared Wav2Lip session")
+    if len(rec["engine"].avatar) != PREP_FRAMES:
+        raise AssertionError("the session did not serve the prepared bundle")
+    out["lip_bundle"] = {"genavatar_s": lip_s, **record_figures(rec, tmp),
+                         **check_mp4(path, rec["tap"])}
+
+    # ---- a MuseTalk bundle: FAN's landmarks, BiSeNet's masks, the VAE in batches ----
+    reset_genavatar_meters()
+    t0 = time.perf_counter()
+    models = MuseModels(dtype=torch.float32, device=dev, vae_int8="off")
+    landmarks = LandmarkDetector(num_modules=4, device=dev)
+    parser = FaceParsing(device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    genavatar.create_muse_avatar(frames, os.path.join(avatar_dir, "prepared_muse"), box, models,
+                                 face_parser=parser, landmark_detector=landmarks,
+                                 encode_batch=16)
+    muse_s = {"total": time.perf_counter() - t0, **genavatar_seconds()}
+    fan_ms = p50_ms(lambda: landmarks.heatmaps(np.zeros((1, 256, 256, 3), np.float32)),
+                    iters=10, warmup=2)
+    crop = frames[0][PREP_BOX[1]:PREP_BOX[3], PREP_BOX[0]:PREP_BOX[2]]
+    parse_ms = p50_ms(lambda: parser(crop, size=(crop.shape[1], crop.shape[0])), iters=10,
+                      warmup=2)
+    bundle = load_muse_avatar(os.path.join(avatar_dir, "prepared_muse"))
+    if len(bundle) != PREP_FRAMES or not np.isfinite(bundle.latent_cycle).all():
+        raise AssertionError("the prepared MuseTalk bundle does not load whole and finite")
+    del models, landmarks, parser
+    torch.cuda.empty_cache()
+    calls = {"generate": 0}
+
+    def muse_factory(c, **kw):
+        served = MuseModels(dtype=torch.bfloat16, device=kw["device"], vae_int8="off")
+        generate = served.generate
+
+        def counted(*a, **k):
+            calls["generate"] += 1
+            return generate(*a, **k)
+
+        served.generate = counted
+        return make_engine(c, models=served, **kw)
+
+    def generated() -> float:
+        return metrics.snapshot()["counters"].get("muse.generated_frames", 0.0)
+
+    cfg = Config().override(**{
+        "avatar.kind": "musetalk", "avatar.dtype": "bfloat16", "avatar.batch_size": 16,
+        "avatar.vae_int8": "off", "tts.backend": "procedural", "transport.mode": "loopback",
+        "server.max_sessions": 1, "avatar.avatar_dir": avatar_dir,
+        "avatar.avatar_id": "prepared_muse"})
+    start = generated()
+    infer = metrics.latency("muse.infer_batch")
+    infer.reset()
+    path = os.path.join(tmp, "prepared_muse.mp4")
+    zero_kernel_counts()                       # the main path starts here
+    rec = asyncio.run(_record_session(cfg, muse_factory, path, PREP_SESSION_FRAMES,
+                                      until=lambda: generated() >= start + PREP_MUSE_FRAMES))
+    launches, generates = attention.launches, calls["generate"]   # ... and ends here
+    if generates < 2 or launches != 5 * generates:
+        raise AssertionError(f"K1 launched {launches} times for {generates} generates")
+    if sampler.launches or any(k3_counts()):
+        raise AssertionError("K2 or K3 launched in the prepared MuseTalk session")
+    if len(rec["engine"].avatar) != PREP_FRAMES:
+        raise AssertionError("the session did not serve the prepared bundle")
+    state["prep_k1_launches"] = launches
+    state["prep_generates"] = generates
+    out["muse_bundle"] = {
+        "genavatar_s": muse_s, "models_build_s": build_s, "fan_modules": 4,
+        "fan_crop_ms": fan_ms, "parse_crop_ms": parse_ms, "encode_batch": 16,
+        "generated_frames": generated() - start, "k1_launches": launches,
+        "infer_batch_p50_ms": infer.quantile(0.5) * 1e3, "infer_batch_n": infer.count,
+        "generates": generates, **record_figures(rec, tmp), **check_mp4(path, rec["tap"])}
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
           ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
           ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
-          ("sampler_stages", phase_sampler_stages))
+          ("sampler_stages", phase_sampler_stages), ("record", phase_record),
+          ("avatar_prep", phase_avatar_prep))
 
 
 def main() -> int:
@@ -3731,6 +4350,9 @@ def main() -> int:
         "source": "mere_fusion_tpu_torch/csrc/attention.cu",
         "replaces": "mere_fusion_tpu/ops/attention.py:49",
         "launches": state["session_launches"], "max_abs_err": k1["max_abs_err"],
+        # a session served from a bundle genavatar made (avatar_prep)
+        "prepared_bundle_launches": state["prep_k1_launches"],
+        "prepared_bundle_generates": state["prep_generates"],
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16",
