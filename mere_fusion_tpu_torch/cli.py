@@ -14,6 +14,13 @@ on the CPU instead. ``--transport`` defaults to webrtc against an SRS relay
 (``--push_url``, ``--pull_url``), which needs aiortc; ``rtp`` (L16 audio and
 RFC 4175 video over UDP to ``--rtp_host``) and ``rtmp`` (an FLV push to
 ``--push_url``, native when ffmpeg is absent) need neither.
+
+``--llm`` (openai, chatgpt, vllm, qwen, gemini, echo) gives every session a
+brain: the caller's speech is transcribed by ``--asr_backend`` (jax-whisper,
+the name the config shares with the JAX package, runs the port's Whisper on
+the session's card), the LLM answers, and the avatar speaks the answer.
+API keys come from the environment or a ``.env`` file in the working
+directory.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ _FLAG_TO_KEY = {
     "tts_server": "tts.server_url",
     "ref_file": "tts.ref_audio",
     "ref_text": "tts.ref_text",
+    "asr_backend": "asr.backend",
     "transport": "transport.mode",
     "push_url": "transport.push_url",
     "pull_url": "transport.pull_url",
@@ -80,6 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tts_server", default="http://127.0.0.1:9880")
     p.add_argument("--ref_file", default="")
     p.add_argument("--ref_text", default="")
+    p.add_argument("--asr_backend", default="jax-whisper",
+                   choices=["jax-whisper", "faster-whisper", "openai-api"],
+                   help="the caller's speech recognizer in a session with --llm: the "
+                        "port's Whisper on the card (jax-whisper), faster-whisper or "
+                        "the OpenAI API")
     p.add_argument("--transport", default="webrtc",
                    choices=["webrtc", "rtmp", "rtp", "loopback"])
     p.add_argument("--push_url", default="http://localhost:1985/rtc/v1/publish/")
@@ -129,6 +142,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_mode", default="pallas", choices=["pallas", "nearest", "bilinear"],
                    help="ER-NeRF texture sampling: the K2 kernel (pallas) or the baked "
                         "textures' nearest/bilinear gathers")
+    p.add_argument("--llm", default="",
+                   help="LLM backend that answers the caller (openai|chatgpt|vllm|qwen|"
+                        "gemini|echo); empty: sessions have no brain")
+    p.add_argument("--llm_url", default="",
+                   help="--llm openai/chatgpt: an OpenAI-compatible base URL")
+    p.add_argument("--llm_model", default="gpt-3.5-turbo",
+                   help="--llm openai/chatgpt: the model name, with --llm_url")
     p.add_argument("--device", default="",
                    help="place sessions on this device (e.g. cpu); default: "
                         "every CUDA device")
@@ -143,7 +163,23 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return Config().override(**overrides)
 
 
+def make_llm_from_args(args: argparse.Namespace):
+    """The LLM adapter ``--llm`` names, or None without one."""
+    if not args.llm:
+        return None
+    from mere_fusion_tpu_torch.llm import make_llm
+
+    kw = {}
+    if args.llm in ("openai", "chatgpt") and args.llm_url:
+        kw = {"base_url": args.llm_url, "model": args.llm_model}
+    return make_llm(args.llm, **kw)
+
+
 def main(argv=None) -> None:
+    # API keys from a .env file in the working directory (the environment wins)
+    from mere_fusion_tpu_torch.utils.env import load_dotenv
+
+    load_dotenv()
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     custom_opts = []
@@ -159,7 +195,7 @@ def main(argv=None) -> None:
     devices = [torch.device(args.device)] if args.device else None
     # **kw forwards the SessionManager's device= placement to the engine
     run_server(cfg, lambda c, **kw: make_engine(c, custom_opts=custom_opts, **kw),
-               devices=devices)
+               llm=make_llm_from_args(args), devices=devices)
 
 
 if __name__ == "__main__":

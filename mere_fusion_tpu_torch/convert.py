@@ -9,8 +9,10 @@ names, running statistics included) and the avatar preparation's face
 models (``s3fd_from_flax``, ``fan_from_flax``, ``bisenet_from_flax``, onto
 the reference's names with their running statistics):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
-under diffusers (VAE, UNet) or OpenAI whisper (encoder) key names, which the
-port's modules load with ``load_state_dict(strict=True)``. Layouts:
+under diffusers (VAE, UNet) or OpenAI whisper (encoder, or the full model:
+``whisper_from_flax``) key names, which the port's modules load with
+``load_state_dict(strict=True)``; ``load_whisper_checkpoint`` reads an
+OpenAI whisper ``.pt`` itself. Layouts:
 
 - Conv ``[kh, kw, in, out]`` → ``[out, in, kh, kw]`` (Conv1d ``[k, in, out]``
   → ``[out, in, k]``); Dense ``[in, out]`` → Linear ``[out, in]``; a
@@ -40,7 +42,7 @@ from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
 from mere_fusion_tpu_torch.models.s3fd import S3FD
 from mere_fusion_tpu_torch.models.syncnet import SyncNet
 from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip, Wav2LipDisc
-from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims, sinusoids
+from mere_fusion_tpu_torch.models.whisper import AudioEncoder, Whisper, WhisperDims, sinusoids
 
 _BLOCK_RULES = [
     (r"(^|\.)down_(\d+)_res_(\d+)\.", r"\1down_blocks.\2.resnets.\3."),
@@ -162,6 +164,36 @@ def whisper_encoder_from_flax(tree: Mapping, dims: WhisperDims) -> dict[str, tor
     sd["positional_embedding"] = torch.from_numpy(
         sinusoids(dims.n_audio_ctx, dims.n_audio_state))
     return sd
+
+
+def whisper_from_flax(tree: Mapping, dims: WhisperDims) -> dict[str, torch.Tensor]:
+    """JAX Whisper variables → the port's Whisper state dict: OpenAI's
+    ``encoder.*`` and ``decoder.*`` names (``token_embedding.weight``, the
+    ``positional_embedding`` parameter, ``blocks.{i}.cross_attn``, ``ln``)."""
+    p = tree.get("params", tree)
+    sd = {f"encoder.{k}": v for k, v in whisper_encoder_from_flax(p, dims).items()}
+    dec = dict(p["decoder"])
+    sd["decoder.token_embedding.weight"] = torch.from_numpy(
+        np.asarray(dec.pop("token_embedding")["embedding"], dtype=np.float32).copy())
+    sd["decoder.positional_embedding"] = torch.from_numpy(
+        np.asarray(dec.pop("positional_embedding"), dtype=np.float32).copy())
+    sd.update({f"decoder.{k}": v for k, v in _translate(dec, _WHISPER_RULES, None).items()})
+    expected = _expected_keys(lambda: Whisper(dims))
+    missing, extra = expected - set(sd), set(sd) - expected
+    if missing or extra:
+        raise KeyError(f"tree does not match the module: missing "
+                       f"{sorted(missing)[:8]} extra {sorted(extra)[:8]}")
+    return sd
+
+
+def load_whisper_checkpoint(path: str) -> Whisper:
+    """An OpenAI whisper ``.pt`` (``{"dims": {...}, "model_state_dict":
+    {...}}``) as the port's Whisper on the CPU, loaded with strict=True, in
+    eval mode; half-precision files load into float32."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model = Whisper(WhisperDims(**ckpt["dims"]))
+    model.load_state_dict(ckpt["model_state_dict"], strict=True)
+    return model.eval()
 
 
 def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig) -> dict[str, torch.Tensor]:

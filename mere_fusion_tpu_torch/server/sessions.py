@@ -13,8 +13,10 @@ Port of mere_fusion_tpu/server/sessions.py (reference: app.py:42-97,
   stream, push the avatar's), signaled over HTTP with retries
   (``server.signaling``); needs aiortc.
 
-The upstream cognition plane (streaming ASR, perception, the brain) is not
-ported yet: a session given an LLM raises when a caller's track arrives.
+A session given an LLM builds its upstream cognition plane when the first
+caller's track arrives (``ensure_upstream``): streaming Whisper ASR on the
+session's device, the stub perception, and the brain that puts the LLM's
+phrases on the engine's TTS.
 """
 from __future__ import annotations
 
@@ -36,14 +38,18 @@ class CapacityError(RuntimeError):
 
 
 class Session:
-    def __init__(self, session_id: str, engine, cfg: Config, llm=None):
+    def __init__(self, session_id: str, engine, cfg: Config, llm=None,
+                 asr_backend=None, perception=None):
         self.session_id = session_id
         self.model = engine          # the reference's name for the engine
         self.cfg = cfg
         self.llm = llm
+        self._asr_backend = asr_backend
+        self._perception = perception
         self.player: Optional[HumanPlayer] = None
         # torch.device this session is placed on (set by SessionManager)
         self.device = getattr(engine, "device", None)
+        self.brain = None
         self.speech_upstream = None
         self.video_upstream = None
         self._consumers: list[asyncio.Task] = []
@@ -58,14 +64,38 @@ class Session:
         self._manager_discard = None
 
     def ensure_upstream(self) -> None:
-        """Build the cognition plane on the first incoming track: a session
-        without an LLM has none."""
+        """Build the cognition plane on the first incoming track: incoming
+        speech and video drive the brain, which speaks through the engine. A
+        session without an LLM has none. The ASR backend's weights go on the
+        session's device, so that transcription run from the shared event
+        loop's executor does not pile every session onto one card; a build
+        that fails raises."""
         if self.llm is None or self.speech_upstream is not None:
             return
-        raise NotImplementedError(
-            "the upstream cognition plane (streaming ASR + perception) is not "
-            "ported to the PyTorch package yet (ROADMAP: 'Streaming ASR', "
-            "'Perception')")
+        from mere_fusion_tpu_torch.asr import StreamingTranscriber, make_backend
+        from mere_fusion_tpu_torch.brain import BrainSession
+        from mere_fusion_tpu_torch.server.upstream import SpeechUpstream, VideoUpstream
+
+        if self.brain is None:
+            self.brain = BrainSession(self.model, self.llm)
+        asr_kw = {"device": self.device}
+        if self.cfg.asr.backend == "jax-whisper":
+            asr_kw.update(language=self.cfg.asr.language, beam_size=self.cfg.asr.beam_size)
+        backend = self._asr_backend or make_backend(self.cfg.asr.backend, **asr_kw)
+        transcriber = StreamingTranscriber(
+            backend, buffer_trimming=("segment", self.cfg.asr.buffer_trim_seconds))
+        self.speech_upstream = SpeechUpstream(
+            transcriber, self.brain, min_chunk_seconds=self.cfg.asr.min_chunk_seconds)
+        self.video_upstream = VideoUpstream(
+            self._perception or self._build_perception(), self.brain)
+
+    def _build_perception(self):
+        """The perception backend of the config: the stub; the detectors
+        raise until 'Perception' is ported."""
+        from mere_fusion_tpu_torch.perception import make_perception
+
+        p = self.cfg.perception
+        return make_perception(p.backend, fps_throttle=p.fps_throttle)
 
     async def start(self) -> None:
         mode = self.cfg.transport.mode
@@ -198,9 +228,13 @@ class Session:
             self._rtp.close()
         for pc in self._pcs:
             await pc.close()
+        loop = asyncio.get_running_loop()
         if self.player is not None:
             # joins the render thread (up to 5 s) off the event loop
-            await asyncio.get_running_loop().run_in_executor(None, self.player.stop)
+            await loop.run_in_executor(None, self.player.stop)
+        if self.brain is not None:
+            # joins the phrase thread (up to 5 s) off the event loop
+            await loop.run_in_executor(None, self.brain.close)
         metrics.counter("sessions.closed")
 
 

@@ -23,6 +23,17 @@ REQUIRED = (
     "mere_fusion_tpu_torch.models.bisenet",
     "mere_fusion_tpu_torch.tools.genavatar",
     "mere_fusion_tpu_torch.convert",
+    "mere_fusion_tpu_torch.asr.backends",
+    "mere_fusion_tpu_torch.asr.streaming",
+    "mere_fusion_tpu_torch.asr.sentences",
+    "mere_fusion_tpu_torch.asr.vad",
+    "mere_fusion_tpu_torch.asr.align",
+    "mere_fusion_tpu_torch.brain.orchestrator",
+    "mere_fusion_tpu_torch.llm",
+    "mere_fusion_tpu_torch.perception",
+    "mere_fusion_tpu_torch.utils.bpe",
+    "mere_fusion_tpu_torch.utils.env",
+    "mere_fusion_tpu_torch.server.upstream",
 )
 
 

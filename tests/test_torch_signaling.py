@@ -673,10 +673,34 @@ def test_no_llm_track_starts_no_reader_where_jax_reader_dies(monkeypatch):
     asyncio.run(drive())
 
 
-def test_track_with_llm_raises_until_cognition_is_ported():
-    session = Session("p", engine=SimpleNamespace(), cfg=Config(), llm=object())
-    with pytest.raises(NotImplementedError, match="'Streaming ASR'"):
-        upstream.attach_upstream_track(session, _Track("audio"))
+def test_track_with_llm_gets_a_reader_feeding_speech_upstream():
+    """A session with an LLM builds its cognition plane on the first track,
+    and the track's reader feeds the caller's audio into SpeechUpstream's
+    transcriber."""
+    from mere_fusion_tpu_torch.asr import FakeBackend
+    from mere_fusion_tpu_torch.llm import EchoLLM
+
+    engine = SimpleNamespace(put_msg_txt=lambda msg: None, pause_talk=lambda: None)
+    backend = FakeBackend([])
+    session = Session("p", engine=engine, cfg=Config(), llm=EchoLLM(), asr_backend=backend)
+    track = _Track("audio")
+
+    async def drive():
+        session.player = _player()
+        task = upstream.attach_upstream_track(session, track)
+        assert isinstance(session.speech_upstream, upstream.SpeechUpstream)
+        session._consumers.append(task)
+        for _ in range(1000):
+            await asyncio.sleep(0.01)
+            if backend.calls:
+                break
+        await session.close()
+        assert task.cancelled()
+
+    asyncio.run(drive())
+    assert backend.calls >= 1 and track.reads >= 50
+    assert session.speech_upstream.transcriber.buffer_seconds >= 1.0
+    assert not session.brain._thread.is_alive()
 
 
 def test_webrtc_session_keeps_its_track_readers():
