@@ -275,6 +275,28 @@ its seconds; any failure is fatal (exit code 1, no result line):
               kernel counts zeroed just before: K1 exactly 5 launches a
               generate; genavatar's seconds split by its meters (decode,
               detect, landmarks, parse, crop, encode, write).
+17. asr      — the caller's side of a call: whisper-tiny at its published
+              widths (seeded, init_whisper(TINY, 0)) in f32 with TF32 off on
+              one 30 s window of speech_pcm: the encode and the beam-5
+              decode, unprompted and with a full 96-token prompt (CUDA-event
+              p50 of 10), the decode's steps, device launches a step and
+              busy share (torch.profiler over one decode), each one's bound;
+              the beam-5 and greedy tokens on the card identical to the
+              port's on the CPU on the same weights and audio, the largest
+              logit difference (and, were they to differ, the first
+              differing step and the CPU's top-two gap there). Then the
+              session's ASR alone (make_backend as Session.ensure_upstream
+              builds it) fed ASR_CALLER_SECONDS of the caller's PCM16 frames:
+              process_iter's ms a chunk and the ladder rung each chunk ended
+              on. Then a live call: phase lip's Config() Wav2Lip session
+              with EchoLLM through SessionManager, the avatar talking alone,
+              then talking while the caller's frames arrive in real time
+              through attach_upstream_track (the plane built on the card),
+              finish(), the reply: process_iter ms a chunk in the session
+              beside the same chunk alone, the ms from the committed text to
+              the first phrase at put_msg_txt and to the reply's first
+              frame, lip.infer_batch p50 with the caller speaking and
+              without; no kernel of the repo launched.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -4294,6 +4316,409 @@ def phase_avatar_prep(state: dict) -> dict:
     return out
 
 
+# ---- phase asr --------------------------------------------------------------------
+
+ASR_SEED = 0                      # the session's own backend: init_whisper(TINY, 0)
+ASR_DECODE_ITERS = 10             # CUDA-event p50 of the encode and of each decode
+ASR_PROMPT_TOKENS = 96            # a full prompt bucket (ASRConfig's backend default)
+ASR_CALLER_SECONDS = 10           # the caller's speech in the live call, 20 ms frames
+ASR_TALK = ("good afternoon and welcome, this is the avatar of the port speaking while "
+            "the caller talks over it, so that the speech recognizer and the lip sync "
+            "generator share one card for a while, as they do in a real call where both "
+            "people speak at once and neither waits for the other to finish a sentence")
+
+
+def whisper_encode_flops(dims) -> float:
+    """Multiply-adds × 2 of one encode of a fixed window: the two
+    convolutions, and per block the four projections, the two attention
+    products and the MLP."""
+    t, d, m = 2 * dims.n_audio_ctx, dims.n_audio_state, dims.n_mels
+    a = dims.n_audio_ctx
+    convs = 2 * 3 * m * d * t + 2 * 3 * d * d * a
+    block = 4 * 2 * a * d * d + 2 * 2 * a * a * d + 2 * 2 * a * d * 4 * d
+    return convs + dims.n_audio_layer * block
+
+
+def whisper_step_bound_ms(dims, beams: int, pos: float) -> dict:
+    """Least time for one incremental decode step of ``beams`` rows at mean
+    position ``pos``: the bytes it must read once (each block's weights but
+    the cross key/value projections, made once a decode: 14 D² a block; the
+    f32 token embedding for the logits; the cross K/V of the one audio all
+    beams attend to; each beam's self K/V cache up to pos) against its
+    operations at the f32 rate."""
+    d, v, a = dims.n_text_state, dims.n_vocab, dims.n_audio_ctx
+    layers = dims.n_text_layer
+    weights = layers * 14 * d * d * 4
+    embedding = v * d * 4
+    cross = layers * 2 * a * d * 4
+    cache = layers * 2 * beams * pos * d * 4
+    flops = 2 * beams * (layers * 14 * d * d + layers * 2 * (a + pos) * d + v * d)
+    t_bytes = (weights + embedding + cross + cache) / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes_mb": (weights + embedding + cross + cache) / 1e6,
+            "block_weights_mb": weights / 1e6, "embedding_mb": embedding / 1e6,
+            "cross_kv_mb": cross / 1e6}
+
+
+class _PcmFrame:
+    """A stand-in for an aiortc audio frame: 20 ms of PCM16 at 16 kHz."""
+    sample_rate = 16000
+
+    def __init__(self, pcm):
+        self.pcm = pcm
+
+    def to_ndarray(self, **kw):
+        return self.pcm[None]
+
+
+def _timed_process_iter(transcriber, ms: list) -> None:
+    """Record the host ms of each of transcriber's process_iter calls."""
+    process_iter = transcriber.process_iter
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            return process_iter()
+        finally:
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    transcriber.process_iter = timed
+
+
+def first_difference(a, b):
+    """The first index where two token rows differ, or None."""
+    import numpy as np
+
+    diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(diff[0]) if diff.size else None
+
+
+def caller_frames(seconds: float):
+    """The caller's speech: speech_pcm as PCM16 in 20 ms frames of 320."""
+    import numpy as np
+
+    pcm = np.clip(speech_pcm(int(seconds * 16000), seed=5), -1.0, 1.0)
+    return list((pcm * 32767).astype(np.int16).reshape(-1, 320))
+
+
+def phase_asr(state: dict) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.models.whisper import (
+        SOT_PREV,
+        TINY,
+        init_whisper,
+        make_cached_beam_decoder,
+        make_cached_greedy_decoder,
+        sot_sequence,
+    )
+    from mere_fusion_tpu_torch.ops.mel import melspectrogram, whisper_mel_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cpu_model = init_whisper(TINY, ASR_SEED)
+    model = init_whisper(TINY, ASR_SEED, device=dev)
+    window = TINY.n_audio_ctx * 2 * 160
+    audio = speech_pcm(window, seed=3)
+    cfg_mel = whisper_mel_config(TINY.n_mels)
+    out: dict = {"dims": "whisper-tiny (4 + 4 layers, d 384, 6 heads, vocab 51865)",
+                 "weights": f"init_whisper(TINY, {ASR_SEED})", "window_s": window / 16000}
+
+    # ---- (a) one 30 s window: encode and beam-5 decodes, card against CPU ---------
+    with torch.no_grad():
+        mel = melspectrogram(torch.from_numpy(audio).to(dev), cfg_mel)[None]
+        mel_cpu = melspectrogram(torch.from_numpy(audio), cfg_mel)[None]
+        xa = model.encode(mel)
+        xa_cpu = cpu_model.encode(mel_cpu)
+        encode_ms = p50_ms(lambda: model.encode(mel), iters=ASR_DECODE_ITERS)
+        encode_prof = profile_launches(lambda: model.encode(mel))
+    flops = whisper_encode_flops(TINY)
+    out["encode"] = {"ms": encode_ms, "gflop": flops / 1e9,
+                     "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
+                     "mel_max_abs_err": float((mel.cpu() - mel_cpu).abs().max()),
+                     "xa_max_abs_err": float((xa.cpu() - xa_cpu).abs().max()),
+                     "profile": {k: v for k, v in encode_prof.items()
+                                 if k not in ("k3_ms", "hashing_ops")}}
+    rng = np.random.default_rng(ASR_SEED)
+    prompts = {"unprompted": sot_sequence(0),
+               "prompted": [SOT_PREV] + rng.integers(0, 50000, ASR_PROMPT_TOKENS).tolist()
+               + sot_sequence(0)}
+    decoders = {"beam5": (make_cached_beam_decoder(model, 5, 128, return_scores=True),
+                          make_cached_beam_decoder(cpu_model, 5, 128, return_scores=True)),
+                "greedy": (make_cached_greedy_decoder(model, 128, return_scores=True),
+                           make_cached_greedy_decoder(cpu_model, 128, return_scores=True))}
+    out["decode"] = {}
+    for pname, prompt in prompts.items():
+        plen = len(prompt)
+        p = torch.tensor([prompt])
+        for dname, (decode, decode_cpu) in decoders.items():
+            toks, avg, ns = decode(xa, p, plen)
+            steps = decode.stats["steps"]
+            toks_cpu, avg_cpu, ns_cpu = decode_cpu(xa_cpu, p, plen)
+            card, host = toks[0].cpu().numpy(), toks_cpu[0].numpy()
+            with torch.no_grad():
+                logits = model.logits(toks, xa).cpu()
+                logits_cpu = cpu_model.logits(toks.cpu(), xa_cpu)
+            row = {"steps": steps, "prompt_len": plen, "tokens_equal": bool((card == host).all()),
+                   "max_logit_diff": float((logits - logits_cpu).abs().max()),
+                   "avg_logprob": float(avg[0]), "avg_logprob_cpu": float(avg_cpu[0]),
+                   "no_speech_prob": float(ns[0]), "no_speech_prob_cpu": float(ns_cpu[0]),
+                   "eot_generated": bool((card[plen:] == 50257).any())}
+            first = first_difference(card, host)
+            if first is not None:
+                with torch.no_grad():
+                    top2 = torch.topk(cpu_model.logits(toks_cpu, xa_cpu)[0, first - 1], 2).values
+                row.update(first_diff_step=first, cpu_top2_gap=float(top2[0] - top2[1]))
+            if dname == "beam5":
+                row["ms"] = p50_ms(lambda: decode(xa, p, plen), iters=ASR_DECODE_ITERS)
+                prof = profile_launches(lambda: decode(xa, p, plen))
+                for k in ("k3_ms", "hashing_ops"):
+                    prof.pop(k)
+                row["profile"] = prof
+                row["launches_per_step"] = prof["device_launches"] / steps
+                row["ms_per_step"] = row["ms"] / steps
+                # mean self-cache position over the steps; the cross K/V's
+                # projections of the one audio, once a decode
+                step = whisper_step_bound_ms(TINY, 5, (steps + 1) / 2)
+                cross_ms = (2 * TINY.n_text_layer * 2 * TINY.n_audio_ctx
+                            * TINY.n_text_state ** 2) / PEAK_F32_FLOPS * 1e3
+                row["step_bound"] = step
+                row["bound_ms"] = cross_ms + steps * step["bound_ms"]
+                row["bound_by"] = step["bound_by"]
+            out["decode"][f"{dname}_{pname}"] = row
+            if not row["tokens_equal"]:
+                raise AssertionError(f"{dname} {pname} tokens differ, card vs CPU: {row}")
+    if not all(np.isfinite(r["avg_logprob"]) for r in out["decode"].values()):
+        raise AssertionError(f"non-finite scores: {out['decode']}")
+    del cpu_model, xa_cpu
+
+    # ---- (b) the transcriber's ladder alone, the live call's chunks ----------------
+    frames = caller_frames(ASR_CALLER_SECONDS)
+    out["ladder_alone"] = asr_ladder_alone(dev, frames)
+
+    # ---- (c) a live call: Wav2Lip session with EchoLLM, the caller speaking --------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asr_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    zero_kernel_counts()
+    out["call"] = asyncio.run(_asr_call(state, dev, frames, tmp))
+    from mere_fusion_tpu_torch.ops import attention, sampler
+
+    counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
+    if any(counts.values()):
+        raise AssertionError(f"a kernel of the repo launched in the call: {counts}")
+    alone = out["ladder_alone"]["process_iter_ms"]
+    session = out["call"]["process_iter_ms"]
+    out["process_iter_ms_session_vs_alone"] = [
+        [s, a] for s, a in zip(session, alone)]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ladder_rungs(backend, rungs: list):
+    """Record the temperature each transcribe of ``backend`` ended on."""
+    transcribe = backend.transcribe
+
+    def tapped(audio, init_prompt=""):
+        res = transcribe(audio, init_prompt)
+        rungs.append(backend.temperatures.index(res["temperature"]))
+        return res
+
+    backend.transcribe = tapped
+
+
+def asr_ladder_alone(dev, frames) -> dict:
+    """The session's ASR built alone (make_backend as Session.ensure_upstream
+    builds it, on the card), fed the caller's frames through SpeechUpstream:
+    process_iter's ms a chunk and the ladder rung each chunk ended on."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.asr import StreamingTranscriber, make_backend
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.upstream import SpeechUpstream
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    backend = make_backend(cfg.asr.backend, device=dev, language=cfg.asr.language,
+                           beam_size=cfg.asr.beam_size)
+    build_s = time.perf_counter() - t0
+    rungs: list = []
+    _ladder_rungs(backend, rungs)
+    up = SpeechUpstream(StreamingTranscriber(backend, buffer_trimming=(
+        "segment", cfg.asr.buffer_trim_seconds)), None, cfg.asr.min_chunk_seconds)
+    ms: list = []
+    _timed_process_iter(up.transcriber, ms)
+    meter = metrics.latency("asr.process_iter")
+    meter.reset()
+    for f in frames:
+        up.process_pcm(f.astype(np.float32) / 32768.0)
+    if len(ms) != len(rungs) or len(ms) != meter.count or not ms:
+        raise AssertionError(f"{len(ms)} process_iter calls, {len(rungs)} transcribes")
+    return {"build_s": build_s, "tokenizer": backend.tokenizer is not None,
+            "chunks": len(ms), "rung_per_chunk": rungs,
+            "temperatures": list(backend.temperatures), "process_iter_ms": ms,
+            "process_iter_p50_ms": sorted(ms)[len(ms) // 2]}
+
+
+ASR_REPLY = "Thank you, I heard you. "   # EchoLLM's template: a short reply
+
+
+async def _asr_call(state: dict, dev, frames, tmp: str) -> dict:
+    """Phase lip's Config() Wav2Lip session with EchoLLM, through
+    SessionManager: the avatar talks alone, then again while the caller's
+    frames arrive in real time through attach_upstream_track (a stand-in
+    track); then the transcriber's tail is flushed (finish) and the brain's
+    reply is timed from the committed text to put_msg_txt and to the first
+    frame of the reply."""
+    from mere_fusion_tpu_torch.asr import TorchWhisperBackend
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+    from mere_fusion_tpu_torch.llm import EchoLLM
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.sessions import SessionManager
+    from mere_fusion_tpu_torch.server.upstream import attach_upstream_track
+
+    avatar = synthesize_avatar(os.path.join(tmp, "avatar"), n_frames=16)
+    idle = {f.tobytes() for f in avatar.frame_cycle}
+    talking: list = []          # perf_counter of each emitted frame whose face moved
+
+    def factory(c, **kw):
+        engine = make_engine(c, avatar=avatar, **kw)
+        record = engine.record_video_frame
+
+        def tap(frame):
+            if frame.image.tobytes() not in idle:
+                talking.append(time.perf_counter())
+            record(frame)
+
+        engine.record_video_frame = tap
+        return engine
+
+    manager = SessionManager(Config().override(**state["lip_base"]), factory, devices=[dev],
+                             llm=EchoLLM(ASR_REPLY))
+    infer = metrics.latency("lip.infer_batch")
+    loop = asyncio.get_running_loop()
+
+    async def until(cond, seconds: float, what: str):
+        deadline = time.perf_counter() + seconds
+        while not cond():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{what}: not within {seconds} s")
+            await asyncio.sleep(0.02)
+
+    async def talk(extra=None) -> dict:
+        """The avatar says ASR_TALK; lip.infer_batch's samples until it is
+        idle again (and ``extra`` is done)."""
+        infer.reset()
+        n0 = len(talking)
+        say(ASR_TALK)
+        await until(lambda: len(talking) > n0, 60, "the avatar's first talking frame")
+        if extra is not None:
+            await extra
+        await until(lambda: time.perf_counter() - talking[-1] > 1.5, 120,
+                    "the avatar back to idle")
+        return {"infer_batch_p50_ms": infer.quantile(0.5) * 1e3,
+                "infer_batch_p95_ms": infer.quantile(0.95) * 1e3, "infer_batch_n": infer.count}
+
+    class CallerTrack:
+        """The caller's microphone: the frames paced in real time from the
+        first recv, then silence for good."""
+        kind = "audio"
+
+        def __init__(self):
+            self.sent, self.t0 = 0, None
+
+        async def recv(self):
+            if self.sent >= len(frames):
+                await asyncio.sleep(3600)
+            if self.t0 is None:
+                self.t0 = time.perf_counter()
+            await asyncio.sleep(max(0.0, self.t0 + 0.02 * self.sent - time.perf_counter()))
+            self.sent += 1
+            return _PcmFrame(frames[self.sent - 1])
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    session = await manager.start_session()
+    out["session_build_s"] = time.perf_counter() - t0
+    engine = session.model
+    say = engine.put_msg_txt
+    try:
+        await until(lambda: engine.latest_frame is not None, 60, "the first frame")
+        out["without_caller"] = await talk()
+        metrics.latency("asr.process_iter").reset()
+
+        t_attach = time.perf_counter()
+        session._consumers.append(attach_upstream_track(session, CallerTrack()))
+        out["plane_build_s"] = time.perf_counter() - t_attach
+        up = session.speech_upstream
+        backend = up.transcriber.backend
+        if not isinstance(backend, TorchWhisperBackend) or \
+                backend.model.decoder.token_embedding.weight.device != dev:
+            raise AssertionError(f"the session's ASR is not the port's Whisper on {dev}")
+        rungs, in_call = [], []
+        _ladder_rungs(backend, rungs)
+        _timed_process_iter(up.transcriber, in_call)
+        processed = [0]
+        process_pcm = up.process_pcm
+
+        def counted(pcm):
+            process_pcm(pcm)
+            processed[0] += 1
+
+        up.process_pcm = counted
+        texts, phrases = [], []
+        text_produce = session.brain.text_produce
+
+        def on_text(text):
+            texts.append(time.perf_counter())
+            text_produce(text)
+
+        def on_phrase(msg):
+            phrases.append(time.perf_counter())
+            say(msg)
+
+        session.brain.text_produce = on_text
+        engine.put_msg_txt = on_phrase
+        t_call = time.perf_counter()
+        out["with_caller"] = await talk(until(lambda: processed[0] == len(frames), 300,
+                                              "the caller's frames processed"))
+        out["caller_frames_done_s"] = time.perf_counter() - t_call
+        mid_call = len(texts)
+        t_finish = time.perf_counter()
+        await loop.run_in_executor(None, up.finish)
+        await until(lambda: any(t > t_finish for t in phrases)
+                    and talking[-1] > min(t for t in phrases if t > t_finish), 60,
+                    "the reply's first frame")
+        text_at = min(t for t in texts if t > t_finish)
+        phrase_at = min(t for t in phrases if t > t_finish)
+        reply_frame = min(t for t in talking if t > phrase_at)
+        out.update({
+            "caller_seconds": len(frames) * 0.02, "chunks": len(in_call),
+            "process_iter_ms": in_call, "process_iter_p50_ms": sorted(in_call)[len(in_call) // 2],
+            "asr_process_iter_meter_n": metrics.latency("asr.process_iter").count,
+            "rung_per_chunk": rungs, "texts_committed_mid_call": mid_call,
+            "finish_to_text_ms": (text_at - t_finish) * 1e3,
+            "text_to_first_phrase_ms": (phrase_at - text_at) * 1e3,
+            "phrase_to_first_reply_frame_ms": (reply_frame - phrase_at) * 1e3,
+            "text_to_first_reply_frame_ms": (reply_frame - text_at) * 1e3,
+            "idle_s_before_reply": phrase_at - max(t for t in talking if t < phrase_at),
+        })
+        if len(in_call) != len(frames) // 50 or len(rungs) != len(in_call):
+            raise AssertionError(f"process_iter ran {len(in_call)} times for "
+                                 f"{len(frames) // 50} chunks")
+    finally:
+        await manager.stop_session(session.session_id)
+    await loop.run_in_executor(None, join_engine_threads, engine)
+    return out
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
@@ -4301,7 +4726,7 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
           ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
-          ("avatar_prep", phase_avatar_prep))
+          ("avatar_prep", phase_avatar_prep), ("asr", phase_asr))
 
 
 def main() -> int:
