@@ -18,7 +18,10 @@ RFC 4175 video over UDP to ``--rtp_host``) and ``rtmp`` (an FLV push to
 ``--llm`` (openai, chatgpt, vllm, qwen, gemini, echo) gives every session a
 brain: the caller's speech is transcribed by ``--asr_backend`` (jax-whisper,
 the name the config shares with the JAX package, runs the port's Whisper on
-the session's card), the LLM answers, and the avatar speaks the answer.
+the session's card), the LLM answers, and the avatar speaks the answer;
+``--perception yolo-tpu`` (with ``--yolo_ckpt``, ``--yolo_scale``,
+``--perception_fps``, ``--face_attrs``, ``--ocr``) summarizes the caller's
+camera for it with the port's YOLOv10 on the session's card.
 API keys come from the environment or a ``.env`` file in the working
 directory.
 """
@@ -68,6 +71,12 @@ _FLAG_TO_KEY = {
     "audio_in_dim": "nerf.audio_in_dim",
     "fullbody_img": "nerf.fullbody_imgs",
     "sample_mode": "nerf.sample_mode",
+    "perception": "perception.backend",
+    "yolo_ckpt": "perception.ckpt",
+    "yolo_scale": "perception.scale",
+    "perception_fps": "perception.fps_throttle",
+    "face_attrs": "perception.face_attrs",
+    "ocr": "perception.ocr",
 }
 
 
@@ -142,6 +151,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_mode", default="pallas", choices=["pallas", "nearest", "bilinear"],
                    help="ER-NeRF texture sampling: the K2 kernel (pallas) or the baked "
                         "textures' nearest/bilinear gathers")
+    p.add_argument("--perception", default="stub", choices=["stub", "yolo-tpu", "yolo"],
+                   help="the caller's camera in a session with --llm: the port's YOLOv10 "
+                        "on the session's card (yolo-tpu, the config's name), ultralytics "
+                        "(yolo), or the stub")
+    p.add_argument("--yolo_ckpt", default="",
+                   help="yolov10*.pt weights (yolo-tpu reads it without the ultralytics "
+                        "package); empty: seeded random weights")
+    p.add_argument("--yolo_scale", default="x", choices=["n", "s", "m", "b", "l", "x"])
+    p.add_argument("--perception_fps", type=int, default=10,
+                   help="analyze every Nth camera frame")
+    p.add_argument("--face_attrs", default="",
+                   help="face attributes for yolo-tpu on the card: 'random' or "
+                        "'age=age.h5,gender=gender.h5,...' (DeepFace .h5 weights); "
+                        "empty = the deepface library when importable")
+    p.add_argument("--ocr", default="",
+                   help="scene-text OCR for yolo-tpu on the card: 'random' or "
+                        "'craft=craft_mlt_25k.pth,crnn=english_g2.pth'; "
+                        "empty = the easyocr library when importable")
     p.add_argument("--llm", default="",
                    help="LLM backend that answers the caller (openai|chatgpt|vllm|qwen|"
                         "gemini|echo); empty: sessions have no brain")

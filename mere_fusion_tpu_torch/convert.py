@@ -7,7 +7,9 @@ the Wav2Lip family (``wav2lip_from_flax``, ``wav2lip_disc_from_flax``,
 ``syncnet_from_flax``: ``{"params", "batch_stats"}`` onto the reference's
 names, running statistics included) and the avatar preparation's face
 models (``s3fd_from_flax``, ``fan_from_flax``, ``bisenet_from_flax``, onto
-the reference's names with their running statistics):
+the reference's names with their running statistics) and the perception
+nets (``yolo_from_flax`` onto ultralytics' names, ``face_attrs_from_flax``,
+``craft_from_flax``, ``crnn_from_flax`` onto the flax names with dots):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder, or the full model:
 ``whisper_from_flax``) key names, which the port's modules load with
@@ -36,12 +38,15 @@ import torch
 from mere_fusion_tpu_torch.models.bisenet import BiSeNet
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+from mere_fusion_tpu_torch.models.face_attrs import EmotionNet, VGGFaceAttr
 from mere_fusion_tpu_torch.models.fan import FAN
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
+from mere_fusion_tpu_torch.models.ocr import CRAFT, CRNN, DEFAULT_CHARSET
 from mere_fusion_tpu_torch.models.s3fd import S3FD
 from mere_fusion_tpu_torch.models.syncnet import SyncNet
 from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip, Wav2LipDisc
+from mere_fusion_tpu_torch.models.yolo import YOLOV10_SPEC, YoloV10
 from mere_fusion_tpu_torch.models.whisper import AudioEncoder, Whisper, WhisperDims, sinusoids
 
 _BLOCK_RULES = [
@@ -298,13 +303,15 @@ _BISENET_NAMES = [(r"(^|\.)(layer\d)_(\d)\.", r"\1\2.\3."),
                   (r"\.downsample_bn\.", ".downsample.1.")]
 
 
-def _with_stats_from_flax(tree: Mapping, rules, build) -> dict[str, torch.Tensor]:
+def _with_stats_from_flax(tree: Mapping, rules, build, extra=None) -> dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` → the state dict of ``build()``: leaves
     as in ``_translate``, each BatchNorm's ``mean``/``var`` →
-    ``running_mean``/``running_var`` and a ``num_batches_tracked`` of 0."""
+    ``running_mean``/``running_var`` and a ``num_batches_tracked`` of 0;
+    ``extra`` entries, mapped by the caller, join them."""
     tree = dict(tree)
     stats = _flatten(tree.pop("batch_stats", {}))
     sd = _translate(tree, rules, None)
+    sd.update(extra or {})
 
     def rename(module: str) -> str:
         module += "."
@@ -341,3 +348,58 @@ def bisenet_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX BiSeNet variables ``{"params", "batch_stats"}`` → the port's
     BiSeNet state dict (the reference's names)."""
     return _with_stats_from_flax(tree, _BISENET_NAMES, BiSeNet)
+
+
+# flax's merged names → torch paths: "model_23" → "model.23",
+# "one2one_cv2_0_1" → "one2one_cv2.0.1", "m_0" → "m.0"
+_INDEX_NAMES = [(r"_(\d+)(?=[._])", r".\1")]
+
+
+def yolo_from_flax(tree: Mapping, scale: str = "x", nc: int = 80,
+                   spec: tuple = YOLOV10_SPEC) -> dict[str, torch.Tensor]:
+    """JAX YoloV10 variables ``{"params", "batch_stats"}`` → the port's
+    YoloV10 state dict (ultralytics' names), BatchNorm statistics included."""
+    return _with_stats_from_flax(tree, _INDEX_NAMES, lambda: YoloV10(scale, nc, spec=spec))
+
+
+def face_attrs_from_flax(tree: Mapping, n_classes: int | None = None,
+                         width: float = 1.0) -> dict[str, torch.Tensor]:
+    """JAX VGGFaceAttr variables (``n_classes`` given) or EmotionNet
+    variables (``n_classes`` None) → the port's state dict. EmotionNet
+    flattens channels-last as the flax module does, so ``dense_0`` keeps its
+    rows."""
+    if n_classes is None:
+        return _translate(tree, [], _expected_keys(lambda: EmotionNet(width=width)))
+    return _translate(tree, [], _expected_keys(lambda: VGGFaceAttr(n_classes, width=width)))
+
+
+def craft_from_flax(tree: Mapping, width: float = 1.0) -> dict[str, torch.Tensor]:
+    """JAX CRAFT variables ``{"params", "batch_stats"}`` → the port's CRAFT
+    state dict."""
+    return _with_stats_from_flax(tree, [], lambda: CRAFT(width=width))
+
+
+_LSTM_LEAVES = (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
+                ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0"))
+
+
+def crnn_from_flax(tree: Mapping, n_classes: int = 1 + len(DEFAULT_CHARSET),
+                   output_channel: int = 256, hidden: int = 256) -> dict[str, torch.Tensor]:
+    """JAX CRNN variables → the port's CRNN state dict: each BiLSTM's
+    ``w_ih_fw`` … ``b_hh_bw`` → ``lstm.weight_ih_l0`` …
+    ``lstm.bias_hh_l0_reverse`` (torch's gate order, as the flax cells
+    use), its ``proj`` a Linear."""
+    params = dict(tree["params"])
+    extra = {}
+    for i in range(2):
+        rnn = dict(params.pop(f"rnn_{i}"))
+        params[f"rnn_{i}"] = {"proj": rnn.pop("proj")}
+        for ours, theirs in _LSTM_LEAVES:
+            for d, suffix in (("fw", ""), ("bw", "_reverse")):
+                extra[f"rnn_{i}.lstm.{theirs}{suffix}"] = torch.from_numpy(
+                    np.array(rnn.pop(f"{ours}_{d}"), dtype=np.float32))
+        if rnn:
+            raise KeyError(f"tree does not match the module: extra rnn_{i} leaves {sorted(rnn)}")
+    return _with_stats_from_flax(
+        {"params": params, "batch_stats": tree.get("batch_stats", {})}, [],
+        lambda: CRNN(n_classes, output_channel, hidden), extra)

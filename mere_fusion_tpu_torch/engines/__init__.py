@@ -60,8 +60,9 @@ def _native_state(family: str, raw) -> tuple[dict, dict]:
 
 def load_serving_tree(family: str, path: str, loader=None):
     """(host state dict, metadata) for serving: a torch checkpoint
-    (.pth/.pt/.bin) whose keys the port's modules carry natively, or what
-    a custom ``loader(path)`` returns. Cached per path."""
+    (.pth/.pt/.bin) whose keys the port's modules carry natively (family
+    "yolo": an ultralytics ``yolov10*.pt``, read without the ultralytics
+    package), or what a custom ``loader(path)`` returns. Cached per path."""
     key = (family, os.path.abspath(path))
     with _TREE_LOCK:
         hit = _HOST_TREES.get(key)
@@ -74,6 +75,12 @@ def load_serving_tree(family: str, path: str, loader=None):
                 f"{path!r} is an orbax directory; the PyTorch package loads "
                 "torch checkpoints only (ROADMAP: 'Checkpoints' — "
                 "utils/checkpoint.py and tools/convert_ckpt.py)")
+        elif path.endswith(_TORCH_SUFFIXES) and family == "yolo":
+            # an ultralytics .pt pickles its model object, which the weights-only
+            # unpickler refuses: the tolerant unpickler reads its tensors
+            from mere_fusion_tpu_torch.utils.yolo_convert import convert_yolo_file
+
+            tree, meta = convert_yolo_file(path), {}
         elif path.endswith(_TORCH_SUFFIXES):
             tree, meta = _native_state(
                 family, torch.load(path, map_location="cpu", weights_only=True))

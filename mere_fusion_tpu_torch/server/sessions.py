@@ -15,8 +15,9 @@ Port of mere_fusion_tpu/server/sessions.py (reference: app.py:42-97,
 
 A session given an LLM builds its upstream cognition plane when the first
 caller's track arrives (``ensure_upstream``): streaming Whisper ASR on the
-session's device, the stub perception, and the brain that puts the LLM's
-phrases on the engine's TTS.
+session's device, the configured perception (the port's YOLOv10 summarizer
+on the session's device with ``perception.backend`` yolo-tpu), and the brain
+that puts the LLM's phrases on the engine's TTS.
 """
 from __future__ import annotations
 
@@ -90,12 +91,22 @@ class Session:
             self._perception or self._build_perception(), self.brain)
 
     def _build_perception(self):
-        """The perception backend of the config: the stub; the detectors
-        raise until 'Perception' is ported."""
-        from mere_fusion_tpu_torch.perception import make_perception
+        """The perception backend of the config: the port's YOLOv10 summarizer
+        (``yolo-tpu``) on this session's device, ultralytics (``yolo``) or the
+        stub. Built with the upstream, at the first incoming track, never on
+        the session start's critical path."""
+        from mere_fusion_tpu_torch.perception import make_perception, parse_perception_spec
 
         p = self.cfg.perception
-        return make_perception(p.backend, fps_throttle=p.fps_throttle)
+        if p.backend in ("yolo-tpu", "yolo_tpu"):
+            return make_perception(
+                p.backend, ckpt=p.ckpt or None, scale=p.scale, fps_throttle=p.fps_throttle,
+                conf=p.conf, device=self.device, face_attrs=parse_perception_spec(p.face_attrs),
+                ocr=parse_perception_spec(p.ocr))
+        if p.backend == "yolo":
+            kw = {"model_path": p.ckpt} if p.ckpt else {}
+            return make_perception("yolo", fps_throttle=p.fps_throttle, **kw)
+        return make_perception("stub", fps_throttle=p.fps_throttle)
 
     async def start(self) -> None:
         mode = self.cfg.transport.mode

@@ -14,6 +14,12 @@ kernels [in, out], Conv1d kernels [k, in, out]), so a test can hold the two
 equal; ``convert.ernerf_from_flax`` then maps that tree onto the port's
 names, the one mapping of the package. ``density_from_ernerf`` turns the
 Morton-order density grid into the port's raster-order ``DensityGrid``.
+
+EasyOCR's detector and recognizer (``craft_mlt_25k.pth``, ``english_g2.pth``):
+``convert_craft`` and ``convert_crnn`` map their state dicts onto the port's
+CRAFT and CRNN by order (weighted modules in state-dict order, classified as
+conv, BatchNorm, LSTM or linear), as the JAX package's converters do, with
+the counts checked.
 """
 from __future__ import annotations
 
@@ -210,3 +216,83 @@ def convert_syncnet(state_dict: Mapping[str, Any]) -> dict:
     from mere_fusion_tpu_torch.models.syncnet import SyncNet
 
     return reference_state(state_dict, SyncNet)
+
+
+def _grouped_layers(state_dict: Mapping[str, Any]) -> list[tuple[str, dict]]:
+    """(module_path, {leaf: tensor}) per weighted module in state-dict order,
+    ``module.`` stripped and ``num_batches_tracked`` dropped."""
+    groups: dict = {}
+    for k, v in strip_prefix(state_dict).items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        mod, leaf = k.rsplit(".", 1) if "." in k else ("", k)
+        groups.setdefault(mod, {})[leaf] = torch.as_tensor(v).detach().float()
+    return list(groups.items())
+
+
+def _layer_kind(leaves: Mapping[str, torch.Tensor]) -> str:
+    if "running_mean" in leaves:
+        return "bn"
+    if "weight_ih_l0" in leaves:
+        return "lstm"
+    w = leaves.get("weight")
+    return {4: "conv", 2: "linear"}.get(None if w is None else w.ndim, "other")
+
+
+def _put(out: dict, name: str, leaves: Mapping[str, torch.Tensor]) -> None:
+    for leaf, v in leaves.items():
+        out[f"{name}.{leaf}"] = v
+    if "running_mean" in leaves:
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _by_kind(state_dict: Mapping[str, Any], want: dict, what: str) -> dict[str, list]:
+    kinds: dict[str, list] = {k: [] for k in want}
+    for _m, leaves in _grouped_layers(state_dict):
+        kind = _layer_kind(leaves)
+        if kind in kinds:
+            kinds[kind].append(leaves)
+    got = {k: len(v) for k, v in kinds.items()}
+    if got != want:
+        raise ValueError(f"{what} checkpoint shape: want {want}, got {got}")
+    return kinds
+
+
+def convert_craft(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """CRAFT detector state dict (EasyOCR craft_mlt_25k.pth; the reference's
+    easyocr.Reader, yolo_opencv.py:189-199) → the port's CRAFT state dict:
+    13 VGG conv+BN pairs, fc6/fc7, 4 double_conv blocks (conv+BN ×2 each),
+    the 5-conv class head, in that order."""
+    kinds = _by_kind(state_dict, {"conv": 28, "bn": 21}, "CRAFT")
+    convs, bns = iter(kinds["conv"]), iter(kinds["bn"])
+    out: dict = {}
+    for stage, reps in (("s1", 2), ("s2", 2), ("s3", 3), ("s4", 3), ("s5", 3)):
+        for j in range(reps):
+            _put(out, f"{stage}_{j}.conv", next(convs))
+            _put(out, f"{stage}_{j}.bn", next(bns))
+    _put(out, "fc6", next(convs))
+    _put(out, "fc7", next(convs))
+    for k in range(4):
+        for j in range(2):
+            _put(out, f"up_{k}.conv_{j}", next(convs))
+            _put(out, f"up_{k}.bn_{j}", next(bns))
+    for j in range(5):
+        _put(out, f"cls_{j}", next(convs))
+    return out
+
+
+def convert_crnn(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """CRNN recognizer state dict (EasyOCR english_g2, "None-VGG-BiLSTM-CTC")
+    → the port's CRNN state dict: 7 extractor convs (BN after conv_4 and
+    conv_5), two bidirectional LSTMs and their projections, the CTC head."""
+    kinds = _by_kind(state_dict, {"conv": 7, "bn": 2, "lstm": 2, "linear": 3}, "CRNN")
+    out: dict = {}
+    for i, leaves in enumerate(kinds["conv"]):
+        _put(out, f"conv_{i}", leaves)
+    for i, leaves in zip((4, 5), kinds["bn"]):
+        _put(out, f"bn_{i}", leaves)
+    for i in range(2):
+        _put(out, f"rnn_{i}.lstm", kinds["lstm"][i])
+        _put(out, f"rnn_{i}.proj", kinds["linear"][i])
+    _put(out, "head", kinds["linear"][2])
+    return out

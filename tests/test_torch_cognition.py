@@ -1,4 +1,4 @@
-"""The port's cognition plane (brain/, llm/, perception/ stub,
+"""The port's cognition plane (brain/, llm/, perception/'s stub,
 server/upstream.py's processors, Session.ensure_upstream, the CLI's
 --asr_backend/--llm flags) against the JAX package's.
 
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import sys
 import threading
 import time
 from types import SimpleNamespace
@@ -130,7 +131,7 @@ def test_speech_upstream_commits_into_the_brain_as_jax():
     assert metrics.latency("asr.process_iter").count == before + 4   # 2 s in 0.5 s chunks
 
 
-def test_video_upstream_and_stub_perception_as_jax():
+def test_video_upstream_and_stub_perception_as_jax(monkeypatch):
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for _ in range(6)]
     frames += [np.full((48, 64, 3), 200, np.uint8)] * 3
@@ -143,14 +144,18 @@ def test_video_upstream_and_stub_perception_as_jax():
             up.process_frame(f)
         out[name] = got
     assert out["port"] == out["jax"] and len(out["port"]) == 4
-    for kind in ("yolo", "yolo-tpu"):
-        with pytest.raises(NotImplementedError, match="'Perception'"):
-            perception.make_perception(kind)
+    # the detectors need their library (yolo) or a card (yolo-tpu), as in JAX
+    monkeypatch.setitem(sys.modules, "ultralytics", None)
+    with pytest.raises(ImportError):
+        perception.make_perception("yolo")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perception.make_perception("yolo-tpu")
     with pytest.raises(ValueError, match="unknown perception"):
         perception.make_perception("cctv")
 
 
-def test_session_with_llm_builds_the_plane_on_its_device():
+def test_session_with_llm_builds_the_plane_on_its_device(monkeypatch):
     session = Session("s", engine=_Engine(CPU), cfg=Config(), llm=llm.EchoLLM())
     session.ensure_upstream()
     backend = session.speech_upstream.transcriber.backend
@@ -167,11 +172,13 @@ def test_session_with_llm_builds_the_plane_on_its_device():
     asyncio.run(session.close())
     assert not session.brain._thread.is_alive()
 
-    # no fallback: a detector that is not ported, or an unknown ASR backend, raises
-    cfg = Config().override(**{"perception.backend": "yolo-tpu"})
-    session = Session("y", engine=_Engine(CPU), cfg=cfg, llm=llm.EchoLLM(),
+    # no fallback: the detector with no device and no card, or an unknown
+    # ASR backend, raises
+    cfg = Config().override(**{"perception.backend": "yolo-tpu", "perception.scale": "n"})
+    session = Session("y", engine=_Engine(None), cfg=cfg, llm=llm.EchoLLM(),
                       asr_backend=FakeBackend([]))
-    with pytest.raises(NotImplementedError, match="'Perception'"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         session.ensure_upstream()
     session.brain.close()
     cfg = Config().override(**{"asr.backend": "whisper-cpp"})

@@ -31,6 +31,12 @@ REQUIRED = (
     "mere_fusion_tpu_torch.brain.orchestrator",
     "mere_fusion_tpu_torch.llm",
     "mere_fusion_tpu_torch.perception",
+    "mere_fusion_tpu_torch.perception.__main__",
+    "mere_fusion_tpu_torch.models.yolo",
+    "mere_fusion_tpu_torch.models.face_attrs",
+    "mere_fusion_tpu_torch.models.ocr",
+    "mere_fusion_tpu_torch.utils.yolo_convert",
+    "mere_fusion_tpu_torch.utils.keras_convert",
     "mere_fusion_tpu_torch.utils.bpe",
     "mere_fusion_tpu_torch.utils.env",
     "mere_fusion_tpu_torch.server.upstream",
