@@ -297,6 +297,27 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the first phrase at put_msg_txt and to the reply's first
               frame, lip.infer_batch p50 with the caller speaking and
               without; no kernel of the repo launched.
+18. perception — the caller's camera: YOLOv10-x (seeded, the person
+              logit raised by PERSON_BIAS so that every analysed frame sees a
+              person) at 640 px, f32 with TF32 off on the card against the
+              CPU on the same weights and canvas (box and class logits within
+              YOLO_F32_LOGIT_REL of their largest), bf16 against f32
+              (detections above conf shared, YOLO_BF16_OVERLAP), the bf16
+              forward's CUDA-event p50 of 20, launches and busy share
+              (torch.profiler) beside its bound, detect() on a 720×1280
+              frame; the face attributes (age, gender, emotion) at width 1.0
+              in f32 at one face and four, and the CRAFT+CRNN reader at width
+              1.0 on a frame with text drawn by cv2.putText (detect on the 960
+              canvas, recognize of the drawn lines, readtext), each beside its
+              bound; process_frame alone. Then a live call: phase lip's
+              Config() Wav2Lip session built with Session(perception=…) and
+              EchoLLM, the avatar talking alone, then while the caller's
+              camera sends PERCEPTION_FPS frames a second for
+              PERCEPTION_CAMERA_S through attach_upstream_track: the
+              summaries that reach the brain (one a fps_throttle frames),
+              process_frame p50/p95 of the analysed frames, lip.infer_batch
+              p50 with the camera and without, the avatar's frames a second;
+              no kernel of the repo launched.
 
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
@@ -4719,6 +4740,396 @@ async def _asr_call(state: dict, dev, frames, tmp: str) -> dict:
     return out
 
 
+PERCEPTION_HW = (720, 1280)       # a video call's camera frame
+PERCEPTION_FPS = 25               # the caller's camera ...
+PERCEPTION_CAMERA_S = 10          # ... for 10 s of the live call
+PERCEPTION_ITERS = 20             # CUDA-event p50 of the forward, host p50 of detect()
+PERCEPTION_TEXT = ("HELLO FROM THE CALLER", "MERE FUSION 2026", "room 42 / exit left")
+# YOLOv10-x, the card's f32 (TF32 off) against the port's on the CPU, same
+# weights and canvas: the box logits' largest difference, of their largest
+# magnitude. f32 sums in another order through ~260 convolutions are ~1e-6
+# off; a wrong layout, statistic or head is off by its own size. (Seeded
+# weights shrink the signal through the SiLUs: every score is near 0.5 and
+# the boxes near constant, so scores and boxes are printed, not held.)
+YOLO_F32_LOGIT_REL = 1e-3
+# bf16 against f32 on the card: the detections above conf (pairs of anchor
+# and class) shared, of their union
+YOLO_BF16_OVERLAP = 0.95
+# added to the "person" logit of the seeded detector: every analysed frame
+# sees a person, so the face attributes run on each (the worst case)
+PERSON_BIAS = 1.0
+
+
+def camera_frame(k: int = 0):
+    """A 720×1280 BGR frame of the caller's camera: a gradient, seeded noise
+    and PERCEPTION_TEXT drawn by cv2.putText, the text shifted by k px.
+    Returns (frame, the text lines' (x1, y1, x2, y2) boxes)."""
+    import cv2
+    import numpy as np
+
+    h, w = PERCEPTION_HW
+    rng = np.random.default_rng(k)
+    ramp = (np.linspace(40, 200, h, dtype=np.float32)[:, None, None]
+            + np.linspace(0, 50, w, dtype=np.float32)[None, :, None])
+    img = np.clip(ramp + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+    boxes = []
+    for i, line in enumerate(PERCEPTION_TEXT):
+        org = (80 + k, 180 + 200 * i)
+        (tw, th), base = cv2.getTextSize(line, cv2.FONT_HERSHEY_SIMPLEX, 2.5, 6)
+        cv2.putText(img, line, org, cv2.FONT_HERSHEY_SIMPLEX, 2.5, (255, 255, 255), 6,
+                    cv2.LINE_AA)
+        boxes.append((org[0] - 8, org[1] - th - 8, org[0] + tw + 8, org[1] + base + 8))
+    return img, boxes
+
+
+def net_bound_ms(fn, nets, peak: float, in_bytes: int) -> dict:
+    """Least time for fn(): its operations (torch.utils.flop_counter on this
+    call's shapes) at ``peak``, against the bytes moved once: the nets'
+    parameters and statistics as stored, the input, and each convolution's
+    output written once."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    acts = [0]
+
+    def hook(_m, _i, out):
+        acts[0] += out.numel() * out.element_size()
+
+    hooks = [m.register_forward_hook(hook) for net in nets for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    counter = FlopCounterMode(display=False)
+    try:
+        with torch.no_grad(), counter:
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    flops = float(counter.get_total_flops())
+    nbytes = in_bytes + acts[0] + sum(t.numel() * t.element_size() for net in nets
+                                      for t in list(net.parameters()) + list(net.buffers()))
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"gflop": flops / 1e9, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def host_p50_ms(fn, iters: int = 10, warmup: int = 2) -> dict:
+    """Host-clock ms of fn() (which reads its result back to the host)."""
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return {"p50_ms": ms[iters // 2], "min_ms": ms[0], "max_ms": ms[-1]}
+
+
+def topk_pairs(scores, k: int = 300) -> set:
+    """The (anchor · nc + class) pairs of models/yolo.select_topk's picks."""
+    nc = scores.shape[-1]
+    idx = scores.amax(-1).topk(k, dim=-1).indices
+    picked = scores.gather(1, idx[..., None].expand(-1, -1, nc)).flatten(1).topk(k).indices
+    return set((idx[0, picked[0] // nc] * nc + picked[0] % nc).tolist())
+
+
+def phase_perception(state: dict) -> dict:
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.models.face_attrs import (
+        EMOTION_LABELS,
+        GENDER_LABELS,
+        FaceAttributeAnalyzer,
+    )
+    from mere_fusion_tpu_torch.models.ocr import TextReader
+    from mere_fusion_tpu_torch.models.yolo import YoloDetector, build_yolo, letterbox
+    from mere_fusion_tpu_torch.perception import TPUYoloPerception
+
+    dev = torch.device("cuda", 0)
+    frame, text_boxes = camera_frame(0)
+    out: dict = {"frame": list(PERCEPTION_HW), "weights": "random_init_, seed 0"}
+
+    # ---- (a) YOLOv10-x at 640 px: f32 on the card and the CPU, bf16 --------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = build_yolo(None, scale="x", device=dev, seed=0)
+    with torch.no_grad():
+        for head in f32.model[-1].one2one_cv3:
+            head[-1].bias[0] += PERSON_BIAS
+    state_dict = f32.state_dict()
+    bf16 = build_yolo(state_dict, scale="x", device=dev, dtype=torch.bfloat16)
+    cpu = build_yolo({k: v.cpu() for k, v in state_dict.items()}, scale="x",
+                     device=torch.device("cpu"))
+    canvas, _gain, _pad = letterbox(frame, 640)
+    u8 = torch.from_numpy(np.ascontiguousarray(canvas[..., ::-1])).permute(2, 0, 1)[None]
+    x_cpu = u8.float() / 255.0
+    x = x_cpu.to(dev)
+    with torch.no_grad():
+        b32, s32 = (t.cpu() for t in f32(x, raw=True))
+        b16, s16 = (t.cpu() for t in bf16(x, raw=True))
+        lb32, lc32 = (t.float().cpu() for t in f32.logits(x))
+        lb16, lc16 = (t.float().cpu() for t in bf16.logits(x))
+        t0 = time.perf_counter()
+        bc, sc = cpu(x_cpu, raw=True)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        lbc, lcc = cpu.logits(x_cpu)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    conf = 0.25
+    above32, above16 = s32 >= conf, s16 >= conf
+    yolo = {
+        "scale": "x", "imgsz": 640, "params": sum(p.numel() for p in f32.parameters()),
+        "person_bias": PERSON_BIAS,
+        "f32_vs_cpu": {"box_logit_rel": rel(lb32, lbc), "class_logit_rel": rel(lc32, lcc),
+                       "box_logit_max": float(lbc.abs().max()),
+                       "max_score_diff": float((s32 - sc).abs().max()),
+                       "max_box_diff_px": float((b32 - bc).abs().max()),
+                       "top300_equal_share": len(topk_pairs(s32) & topk_pairs(sc)) / 300,
+                       "cpu_forward_ms": cpu_ms},
+        "bf16_vs_f32": {"box_logit_rel": rel(lb16, lb32), "class_logit_rel": rel(lc16, lc32),
+                        "max_score_diff": float((s16 - s32).abs().max()),
+                        "max_box_diff_px": float((b16 - b32).abs().max()),
+                        "above_conf_f32": int(above32.sum()), "above_conf_bf16": int(above16.sum()),
+                        "above_conf_overlap": float((above32 & above16).sum()
+                                                    / max(int((above32 | above16).sum()), 1)),
+                        "top300_equal_share": len(topk_pairs(s16) & topk_pairs(s32)) / 300},
+        "scores": {"min": float(s16.min()), "max": float(s16.max()),
+                   "finite": bool(torch.isfinite(s16).all() and torch.isfinite(b16).all())},
+    }
+    del cpu, f32
+    if not yolo["f32_vs_cpu"]["box_logit_rel"] <= YOLO_F32_LOGIT_REL or \
+            not yolo["f32_vs_cpu"]["class_logit_rel"] <= YOLO_F32_LOGIT_REL:
+        raise AssertionError(f"YOLOv10-x f32 on the card is off the CPU's: {yolo['f32_vs_cpu']}")
+    if not yolo["scores"]["finite"] or \
+            yolo["bf16_vs_f32"]["above_conf_overlap"] < YOLO_BF16_OVERLAP:
+        raise AssertionError(f"YOLOv10-x bf16 is off the f32: {yolo['bf16_vs_f32']}")
+    with torch.no_grad():
+        yolo["forward_bf16_ms"] = p50_ms(lambda: bf16(x), iters=PERCEPTION_ITERS)
+        prof = profile_launches(lambda: bf16(x))
+        yolo["bound"] = net_bound_ms(lambda: bf16(x), [bf16], PEAK_BF16_FLOPS, u8.numel())
+    for k in ("k3_ms", "hashing_ops"):
+        prof.pop(k)
+    yolo["profile"] = prof
+    yolo["over_bound"] = yolo["forward_bf16_ms"] / yolo["bound"]["bound_ms"]
+    detector = YoloDetector(model=bf16, device=dev)
+    dets = detector.detect(frame, conf=conf)
+    yolo["detect_720p"] = {**host_p50_ms(lambda: detector.detect(frame, conf=conf),
+                                         iters=PERCEPTION_ITERS, warmup=3),
+                           "detections": len(dets),
+                           "labels": sorted({label for _, _, label in dets})[:8]}
+    out["yolo"] = yolo
+
+    # ---- (b) face attributes at width 1.0 (age, gender, emotion) ----------------
+    torch.backends.cudnn.allow_tf32 = True          # cuDNN's default: the serving path's
+    faces = FaceAttributeAnalyzer.init_random(tasks=("age", "gender", "emotion"), width=1.0,
+                                              device=dev, seed=0)
+    regions = [(60 + 300 * i, 120, 300 + 300 * i, 420) for i in range(4)]
+    fa: dict = {"tasks": sorted(faces.nets), "width": 1.0, "dtype": "float32, TF32 convolutions",
+                "params": sum(p.numel() for n in faces.nets.values() for p in n.parameters())}
+    for n in (1, 4):
+        faces.detector = lambda _f, n=n: regions[:n]
+        got = faces.analyze(frame)
+        if len(got) != n or not all(f["dominant_gender"] in GENDER_LABELS
+                                    and f["dominant_emotion"] in EMOTION_LABELS
+                                    and 0 <= f["age"] <= 100 for f in got):
+            raise AssertionError(f"analyze gave {got}")
+        bgr = np.random.default_rng(n).random((n, 224, 224, 3), np.float32)
+        gray = np.random.default_rng(n).random((n, 48, 48), np.float32)
+        fa[f"faces_{n}"] = {**host_p50_ms(lambda: faces.analyze(frame)),
+                            "bound": net_bound_ms(lambda: faces.probabilities(bgr, gray),
+                                                  list(faces.nets.values()), PEAK_TF32_FLOPS,
+                                                  bgr.nbytes + gray.nbytes),
+                            "first": {k: got[0][k] for k in ("age", "dominant_gender",
+                                                             "dominant_emotion")}}
+    faces.detector = None
+    out["face_attrs"] = fa
+
+    # ---- (c) OCR at width 1.0 on the frame with text ---------------------------------
+    reader = TextReader(width=1.0, device=dev, seed=0)
+    det_canvas, _ = reader.detection_canvas(frame)
+    gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
+    crops = [np.ascontiguousarray(gray[y1:y2, x1:x2]) for x1, y1, x2, y2 in text_boxes]
+    boxes = reader.detect(frame)
+    read = reader.readtext(frame)
+    recognized = reader.recognize(crops)
+    out["ocr"] = {
+        "canvas": det_canvas.shape[0], "detect": host_p50_ms(lambda: reader.detect(frame)),
+        "detect_bound": net_bound_ms(lambda: reader.detection_maps(det_canvas), [reader.det],
+                                     PEAK_TF32_FLOPS, det_canvas.nbytes),
+        "recognize": {**host_p50_ms(lambda: reader.recognize(crops)), "crops": len(crops),
+                      "widths": [c.shape[1] for c in crops],
+                      "texts": [t for t, _ in recognized]},
+        "readtext": host_p50_ms(lambda: reader.readtext(frame), iters=5),
+        "boxes_found": len(boxes), "texts_found": [t for _, t, _ in read][:5],
+    }
+
+    # ---- (d) the live call: a lip session with EchoLLM and the caller's camera -------
+    perception = TPUYoloPerception(detector=detector, device=dev, conf=conf, face_attrs=faces,
+                                   ocr=reader, fps_throttle=10)
+    frames = [camera_frame(k)[0] for k in range(5)]
+    perception.fps_throttle = 1
+    alone = host_p50_ms(lambda: perception.process_frame(frames[0]), iters=10)
+    perception.fps_throttle, perception._count = 10, 0
+    out["process_frame_alone"] = alone
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_perception_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    zero_kernel_counts()
+    out["call"] = asyncio.run(_perception_call(state, dev, perception, frames, tmp))
+    from mere_fusion_tpu_torch.ops import attention, sampler
+
+    counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
+    if any(counts.values()):
+        raise AssertionError(f"a kernel of the repo launched in the call: {counts}")
+    del perception, detector, bf16, faces, reader
+    torch.cuda.empty_cache()
+    return out
+
+
+class _BgrFrame:
+    """A stand-in for an aiortc video frame."""
+
+    def __init__(self, image):
+        self.image = image
+
+    def to_ndarray(self, format=None):
+        return self.image
+
+
+async def _perception_call(state: dict, dev, perception, frames, tmp: str) -> dict:
+    """Phase lip's Config() Wav2Lip session with EchoLLM, built with
+    ``Session(perception=…)`` on the card: the avatar talks alone, then
+    again while the caller's camera (PERCEPTION_FPS for PERCEPTION_CAMERA_S,
+    the frames cycled) arrives through attach_upstream_track; the summaries
+    that reach the brain, process_frame's ms for the analysed frames, and
+    the avatar's frames a second from the first camera frame until the
+    last one is processed (camera_s: 10 s when perception keeps up)."""
+    from mere_fusion_tpu_torch.asr import FakeBackend
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+    from mere_fusion_tpu_torch.llm import EchoLLM
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+    from mere_fusion_tpu_torch.server.sessions import Session
+    from mere_fusion_tpu_torch.server.upstream import attach_upstream_track
+
+    avatar = synthesize_avatar(os.path.join(tmp, "avatar"), n_frames=16)
+    idle = {f.tobytes() for f in avatar.frame_cycle}
+    emitted, talking = [], []
+    cfg = Config().override(**state["lip_base"])
+    loop = asyncio.get_running_loop()
+    engine = await loop.run_in_executor(
+        None, lambda: make_engine(cfg, avatar=avatar, device=dev))
+    record = engine.record_video_frame
+
+    def tap(frame):
+        t = time.perf_counter()
+        emitted.append(t)
+        if frame.image.tobytes() not in idle:
+            talking.append(t)
+        record(frame)
+
+    engine.record_video_frame = tap
+    session = Session("camera", engine, cfg, llm=EchoLLM(ASR_REPLY),
+                      asr_backend=FakeBackend([]), perception=perception)
+    session.device = dev
+    infer = metrics.latency("lip.infer_batch")
+    n_frames = PERCEPTION_FPS * PERCEPTION_CAMERA_S
+
+    async def until(cond, seconds: float, what: str):
+        deadline = time.perf_counter() + seconds
+        while not cond():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{what}: not within {seconds} s")
+            await asyncio.sleep(0.02)
+
+    async def talk(extra=None) -> dict:
+        infer.reset()
+        n0 = len(talking)
+        engine.put_msg_txt(ASR_TALK)
+        await until(lambda: len(talking) > n0, 60, "the avatar's first talking frame")
+        if extra is not None:
+            await extra
+        await until(lambda: time.perf_counter() - talking[-1] > 1.5, 120,
+                    "the avatar back to idle")
+        return {"infer_batch_p50_ms": infer.quantile(0.5) * 1e3,
+                "infer_batch_p95_ms": infer.quantile(0.95) * 1e3, "infer_batch_n": infer.count}
+
+    class CameraTrack:
+        """The caller's camera: n_frames paced at PERCEPTION_FPS from the
+        first recv, then nothing more."""
+        kind = "video"
+
+        def __init__(self):
+            self.sent, self.t0 = 0, None
+
+        async def recv(self):
+            if self.sent >= n_frames:
+                await asyncio.sleep(3600)
+            if self.t0 is None:
+                self.t0 = time.perf_counter()
+            await asyncio.sleep(max(0.0, self.t0 + self.sent / PERCEPTION_FPS
+                                    - time.perf_counter()))
+            self.sent += 1
+            return _BgrFrame(frames[(self.sent - 1) % len(frames)])
+
+    analysed, processed, done_at = [], [0], []
+    process_frame = perception.process_frame
+
+    def timed(frame):
+        t0 = time.perf_counter()
+        summary = process_frame(frame)
+        if summary is not None:
+            analysed.append((time.perf_counter() - t0) * 1e3)
+        processed[0] += 1
+        if processed[0] == n_frames:
+            done_at.append(time.perf_counter())
+        return summary
+
+    perception.process_frame = timed
+    out: dict = {}
+    await session.start()
+    try:
+        await until(lambda: engine.latest_frame is not None, 60, "the first frame")
+        await talk()        # warm: the session's first batches pay cuDNN's first calls
+        out["without_camera"] = await talk()
+        track = CameraTrack()
+        t_attach = time.perf_counter()
+        session._consumers.append(attach_upstream_track(session, track))
+        out["plane_build_s"] = time.perf_counter() - t_attach
+        summaries = []
+        video_produce = session.brain.video_produce
+        session.brain.video_produce = lambda s: (summaries.append(s), video_produce(s))
+        n_emitted = len(emitted)
+        out["with_camera"] = await talk(until(lambda: processed[0] == n_frames, 300,
+                                              "the caller's camera frames processed"))
+        camera_s = done_at[0] - track.t0
+        ms = sorted(analysed)
+        out.update({
+            "camera_frames": n_frames, "camera_s": camera_s, "summaries": len(summaries),
+            "summaries_expected": n_frames // perception.fps_throttle,
+            "process_frame_ms": analysed, "process_frame_p50_ms": ms[len(ms) // 2],
+            "process_frame_p95_ms": ms[min(len(ms) - 1, int(len(ms) * 0.95))],
+            "avatar_fps_during_camera": sum(track.t0 <= t <= done_at[0]
+                                            for t in emitted[n_emitted:]) / camera_s,
+            "first_summary": summaries[0][:200] if summaries else None,
+        })
+        if len(summaries) != n_frames // perception.fps_throttle:
+            raise AssertionError(f"{len(summaries)} summaries reached the brain "
+                                 f"of {n_frames // perception.fps_throttle}")
+        if not summaries[0].startswith("scene contains "):
+            raise AssertionError(f"summary {summaries[0]!r}")
+    finally:
+        await session.close()
+    await loop.run_in_executor(None, join_engine_threads, engine)
+    return out
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
@@ -4726,7 +5137,8 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
           ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
-          ("avatar_prep", phase_avatar_prep), ("asr", phase_asr))
+          ("avatar_prep", phase_avatar_prep), ("asr", phase_asr),
+          ("perception", phase_perception))
 
 
 def main() -> int:

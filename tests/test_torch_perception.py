@@ -14,7 +14,6 @@ from it (none here).
 from __future__ import annotations
 
 import asyncio
-import os
 import shutil
 from types import SimpleNamespace
 
