@@ -9,7 +9,9 @@ names, running statistics included) and the avatar preparation's face
 models (``s3fd_from_flax``, ``fan_from_flax``, ``bisenet_from_flax``, onto
 the reference's names with their running statistics) and the perception
 nets (``yolo_from_flax`` onto ultralytics' names, ``face_attrs_from_flax``,
-``craft_from_flax``, ``crnn_from_flax`` onto the flax names with dots):
+``craft_from_flax``, ``crnn_from_flax`` onto the flax names with dots)
+and the LPIPS criterion (``lpips_from_flax`` onto torchvision's and the
+lpips package's names):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder, or the full model:
 ``whisper_from_flax``) key names, which the port's modules load with
@@ -40,6 +42,7 @@ from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwo
 from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.models.face_attrs import EmotionNet, VGGFaceAttr
 from mere_fusion_tpu_torch.models.fan import FAN
+from mere_fusion_tpu_torch.models.lpips import ALEX_CONVS, LPIPS
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
 from mere_fusion_tpu_torch.models.ocr import CRAFT, CRNN, DEFAULT_CHARSET
@@ -403,3 +406,21 @@ def crnn_from_flax(tree: Mapping, n_classes: int = 1 + len(DEFAULT_CHARSET),
     return _with_stats_from_flax(
         {"params": params, "batch_stats": tree.get("batch_stats", {})}, [],
         lambda: CRNN(n_classes, output_channel, hidden), extra)
+
+
+def lpips_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """JAX LPIPS variables → the port's LPIPS state dict: ``alex.conv{i}``
+    → ``net.features.{0,3,6,8,10}``, the lin head ``lin{i}`` [C, 1] →
+    ``lins.{i}.model.1.weight`` [1, C, 1, 1]."""
+    p = dict(tree.get("params", tree))
+    alex = p.pop("alex")
+    rules = [(rf"^conv{i}\.", f"net.features.{j}.") for i, j in enumerate(ALEX_CONVS)]
+    lins = {}
+    for i in range(len(ALEX_CONVS)):
+        w = np.array(p.pop(f"lin{i}"), dtype=np.float32)
+        lins[f"lins.{i}.model.1.weight"] = torch.from_numpy(w.T.reshape(1, -1, 1, 1).copy())
+    if p:
+        raise KeyError(f"tree does not match the module: extra {sorted(p)}")
+    expected = _expected_keys(LPIPS)
+    sd = _translate(alex, rules, expected - set(lins))
+    return {**sd, **lins}
