@@ -148,3 +148,32 @@ def test_make_lpips_fn_loads_files_as_jax(tmp_path):
         assert torch.equal(va, vb), k
     assert all(float(lin.model[1].weight.min()) >= 0 for lin in a.lins)
 
+
+def test_metrics_match_jax():
+    from mere_fusion_tpu.train import metrics as jmetrics
+    from mere_fusion_tpu_torch.train import metrics
+
+    rng = np.random.default_rng(11)
+    pred = rng.uniform(0, 1, (24, 32, 3)).astype(np.float32)
+    gt = np.clip(pred + rng.normal(0, 0.05, pred.shape), 0, 1).astype(np.float32)
+    for name in ("psnr", "ssim"):
+        want = float(getattr(jmetrics, name)(jnp.asarray(pred), jnp.asarray(gt)))
+        got = float(getattr(metrics, name)(torch.from_numpy(pred), torch.from_numpy(gt)))
+        np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=name)
+    # SSIM's variances are the population's, as jnp.var takes them
+    assert float(metrics.ssim(torch.from_numpy(pred), torch.from_numpy(pred))) == 1.0
+    flat = np.full((8, 8, 3), 0.5, np.float32)
+    assert float(metrics.psnr(torch.from_numpy(flat), torch.from_numpy(flat))) == float(
+        jmetrics.psnr(jnp.asarray(flat), jnp.asarray(flat))) == 120.0
+    lms_a, lms_b = rng.uniform(0, 64, (2, 3, 20, 2))
+    assert metrics.landmark_distance(lms_a, lms_b) == jmetrics.landmark_distance(lms_a, lms_b)
+    meters = [(mod.MetricMeter(mod.psnr, "PSNR"), cast)
+              for mod, cast in ((jmetrics, jnp.asarray), (metrics, torch.from_numpy))]
+    assert [m.mean for m, _ in meters] == [0.0, 0.0]
+    for k in range(3):
+        for meter, cast in meters:
+            meter.update(cast(pred), cast(np.clip(gt + 0.01 * k, 0, 1)))
+    (jm, _), (pm, _) = meters
+    assert pm.count == jm.count == 3 and pm.name == jm.name
+    np.testing.assert_allclose(pm.mean, jm.mean, rtol=1e-6)
+    assert pm.report() == f"PSNR = {pm.mean:.4f}"
