@@ -2987,6 +2987,30 @@ def write_torso_imgs(root: str, n: int, hw: int) -> None:
         cv2.imwrite(os.path.join(root, "torso_imgs", f"{i}.png"), img)
 
 
+def write_lms(root: str, n: int, hw: int) -> None:
+    """68-point landmark files for a synthesized dataset under root
+    (gt_imgs/<i>.lms, x and y in pixels, as the reference's data layout):
+    the jaw, brows, nose and eyes on an ellipse over the bright square of
+    ``synthesize_nerf_train_data``, the mouth (points 48–59 outer, 60–67
+    inner) in its lower third, moving and opening with the frame."""
+    import os
+
+    import numpy as np
+
+    t = np.linspace(0, 2 * np.pi, 48, endpoint=False)
+    for i in range(n):
+        c = hw // 4 + i + hw / 4                     # the square's centre
+        face = np.stack([c + 0.22 * hw * np.cos(t), c + 0.22 * hw * np.sin(t)], -1)
+        mx, my = c + 0.01 * hw * (i % 3), c + 0.12 * hw
+        w, h = 0.09 * hw, (0.03 + 0.005 * i) * hw
+        u = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        outer = np.stack([mx + w * np.cos(u), my + h * np.sin(u)], -1)
+        v = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+        inner = np.stack([mx + 0.6 * w * np.cos(v), my + 0.5 * h * np.sin(v)], -1)
+        np.savetxt(os.path.join(root, "gt_imgs", f"{i}.lms"),
+                   np.concatenate([face, outer, inner]), "%f")
+
+
 def ernerf_to_reference(state) -> dict:
     """The port's NeRFNetwork state dict under the reference's key names
     (ernerf/nerf_triplane/network.py): the inverse of the package's

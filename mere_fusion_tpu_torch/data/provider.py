@@ -7,8 +7,11 @@ coordinates, optional camera-path smoothing, AU45 blink areas from
 OpenFace's au.csv (read with ``csv``: no pandas), infinite mirrored looping
 for live streaming, the training set's preload tiers 0/1/2 and its torso
 images and batches (``torso_imgs/``), and the procedural datasets the tests
-and ``chip_smoke.py`` train on (without torso images: the callers write
-them). The lips batches and patch sampling are not ported.
+and ``chip_smoke.py`` train on (without torso images or landmarks: the
+callers write them). Besides random pixels, a training batch can be square
+patches (the LPIPS patch loss) or the static window over the lips that the
+lips fine-tuning trains on, its rect read from the frames' ``.lms``
+landmark files.
 """
 from __future__ import annotations
 
@@ -211,14 +214,28 @@ class NeRFTrainDataset:
     masks_dev: torch.Tensor | None = None    # preload=2: [N, H·W] bool
     bg_dev: torch.Tensor | None = None       # preload=2: [H·W, 3] float32
     torso_imgs: np.ndarray | None = None     # [N, H, W, 4] float32 RGBA (torso_imgs/)
+    lips_rects: np.ndarray | None = None     # [N, 4] int32 (rmin, rmax, cmin, cmax) (.lms)
 
     def __len__(self) -> int:
         return len(self.poses)
 
-    def sample_lips_rays(self, *args, **kwargs) -> dict:
-        raise NotImplementedError(
-            "lips fine-tuning batches are not ported to the PyTorch package yet "
-            "(ROADMAP: 'ER-NeRF LPIPS fine-tuning')")
+    def sample_lips_rays(self, index: int, rng: np.random.Generator, size: int = 64,
+                         att_window: int = 8) -> dict:
+        """The lips fine-tuning batch of frame ``index``: the size×size
+        window centred on the frame's lips rect and clamped into the frame,
+        row-major (the JAX package's static window, where the reference
+        takes each frame's own rect). rng is not drawn from. The colours
+        come from the host's frames at every preload tier, as in JAX.
+        Tensors on ``self.device``."""
+        if self.lips_rects is None:
+            raise ValueError("the dataset has no lips rects (.lms landmark files)")
+        rmin, rmax, cmin, cmax = self.lips_rects[index]
+        half = size // 2
+        r0 = int(np.clip((rmin + rmax) // 2 - half, 0, self.H - size))
+        c0 = int(np.clip((cmin + cmax) // 2 - half, 0, self.W - size))
+        dy, dx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        sel = ((r0 + dy) * self.W + (c0 + dx)).reshape(-1)
+        return self._batch(index, sel, att_window, host_colours=True)
 
     def sample_torso_rays(self, index: int, num_rays: int, rng: np.random.Generator) -> dict:
         """One torso-stage batch of num_rays random pixels of frame
@@ -246,17 +263,34 @@ class NeRFTrainDataset:
                     att_window: int = 8, patch_size: int | None = None) -> dict:
         """One training batch of num_rays random pixels of frame ``index``,
         drawn with the same generator calls as the JAX package, so a seed
-        gives the same pixels. Tensors on ``self.device``."""
+        gives the same pixels. With ``patch_size``, num_rays / patch_size²
+        square patches instead, each row-major, one after the other (the
+        layout the LPIPS term reshapes). Tensors on ``self.device``."""
+        if patch_size is not None:
+            ps = patch_size
+            num_patch = num_rays // (ps * ps)
+            if num_patch * ps * ps != num_rays:
+                raise ValueError(f"num_rays {num_rays} is not a multiple of patch_size² "
+                                 f"({ps}²)")
+            tl_y = rng.integers(0, self.H - ps, size=num_patch)
+            tl_x = rng.integers(0, self.W - ps, size=num_patch)
+            dy, dx = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+            sel = ((tl_y[:, None, None] + dy[None]) * self.W
+                   + (tl_x[:, None, None] + dx[None])).reshape(-1)
+        else:
+            sel = rng.integers(0, self.H * self.W, size=num_rays)
+        return self._batch(index, sel, att_window)
+
+    def _batch(self, index: int, sel: np.ndarray, att_window: int,
+               host_colours: bool = False) -> dict:
+        """The rays, colours, background and face mask of frame ``index``'s
+        pixels ``sel``, with the frame's audio window, eye and index. Under
+        preload 2 the gathers run on the device, unless ``host_colours``."""
         from mere_fusion_tpu_torch.models.ernerf.renderer import get_rays
 
-        if patch_size is not None:
-            raise NotImplementedError(
-                "patch sampling for the LPIPS loss is not ported to the PyTorch package "
-                "yet (ROADMAP: 'ER-NeRF LPIPS fine-tuning')")
         dev = self.device
         pose = torch.from_numpy(self.poses[index]).to(dev)
         rays_o, rays_d = get_rays(pose, self.intrinsics, self.H, self.W)
-        sel = rng.integers(0, self.H * self.W, size=num_rays)
         idx = np.clip(np.arange(index - att_window // 2, index + att_window // 2),
                       0, len(self) - 1)
         sel_t = torch.from_numpy(sel).to(dev)
@@ -267,7 +301,7 @@ class NeRFTrainDataset:
             "eye": torch.tensor([[self.eye_area[index]]], dtype=torch.float32, device=dev),
             "index": int(index),
         }
-        if self.images_dev is not None:
+        if self.images_dev is not None and not host_colours:
             # preload=2: the gathers run on the device; only sel is shipped
             batch["rgb"] = self.images_dev[index][sel_t].float() / 255.0
             batch["bg_color"] = self.bg_dev[sel_t]
@@ -286,7 +320,10 @@ class NeRFTrainDataset:
         [N, A, 16] features, au.csv blink areas, optional
         parsing/{img_id}.png face masks (else the centre half of the frame),
         optional torso_imgs/{img_id}.png BGRA torso images (read at every
-        preload tier). ``device`` None means the current CUDA device."""
+        preload tier), optional {img_id}.lms landmarks (68 × (x, y) pixels)
+        under ori_imgs/ or gt_imgs/: when frame 0 has one, every frame must,
+        and each frame's lips rect is the square around landmarks 48–59.
+        ``device`` None means the current CUDA device."""
         if preload not in (0, 1, 2):
             raise ValueError(f"preload is 0, 1 or 2, got {preload}")
         device = resolve_device(device)
@@ -336,6 +373,7 @@ class NeRFTrainDataset:
                                         cv2.IMREAD_UNCHANGED),
                              cv2.COLOR_BGRA2RGBA).astype(np.float32) / 255
                 for fr in transform["frames"]])
+        lips = read_lips_rects(root, transform["frames"], H, W)
         image_store = LazyFrames(img_paths) if preload == 0 else np.stack(images)
         face_masks = np.stack(masks)
         images_dev = masks_dev = bg_dev = None
@@ -351,7 +389,38 @@ class NeRFTrainDataset:
                    eye_area=np.asarray(eyes, np.float32), face_masks=face_masks, bg_img=bg,
                    intrinsics=(fl, fl, transform["cx"], transform["cy"]), H=H, W=W,
                    device=device, images_dev=images_dev, masks_dev=masks_dev, bg_dev=bg_dev,
-                   torso_imgs=torso)
+                   torso_imgs=torso, lips_rects=lips)
+
+
+def read_lips_rects(root: str, frames: list, H: int, W: int) -> np.ndarray | None:
+    """Each frame's squared lips rect [N, 4] int32 (rmin, rmax, cmin, cmax)
+    from its ``{img_id}.lms`` under ori_imgs/ or gt_imgs/, or None when
+    frame 0 has none. The rect's rows come from the landmarks' y (the
+    reference calls the row axis x); its side is the larger extent of
+    landmarks 48–59, clipped to the frame. A frame without a file raises
+    FileNotFoundError."""
+    dirs = [os.path.join(root, d) for d in ("ori_imgs", "gt_imgs")]
+    dirs = [d for d in dirs if os.path.isdir(d)]
+
+    def find(img_id):
+        return next((p for d in dirs for p in [os.path.join(d, f"{img_id}.lms")]
+                     if os.path.exists(p)), None)
+
+    if find(frames[0]["img_id"]) is None:
+        return None
+    lips = []
+    for fr in frames:
+        path = find(fr["img_id"])
+        if path is None:
+            raise FileNotFoundError(f"frame {fr['img_id']} has no .lms landmark file "
+                                    f"(searched {dirs})")
+        lms = np.loadtxt(path)[48:60]
+        rmin, rmax = int(lms[:, 1].min()), int(lms[:, 1].max())
+        cmin, cmax = int(lms[:, 0].min()), int(lms[:, 0].max())
+        cy, cx = (rmin + rmax) // 2, (cmin + cmax) // 2
+        half = max(rmax - rmin, cmax - cmin) // 2
+        lips.append([max(0, cy - half), min(H, cy + half), max(0, cx - half), min(W, cx + half)])
+    return np.asarray(lips, np.int32)
 
 
 def synthesize_nerf_train_data(dirpath: str, n_frames: int = 4, hw: int = 64,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -44,11 +45,22 @@ from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwo
 from mere_fusion_tpu_torch.train import ernerf_cli
 from mere_fusion_tpu_torch.train import ernerf_train as ptrain
 from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+from chip_smoke import write_lms
 
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10,
            individual_dim=4, num_train_frames=4)
 TRAIN = dict(grid_size=16, n_candidates=16, n_steps=4, iters=1000)
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread, so that this file does not
+    oversubscribe the cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:
@@ -220,13 +232,69 @@ def test_train_dataset_batches_match_jax(scene, preload):
                                        atol=1e-7, err_msg=key)
 
 
-def test_unported_batches_raise(scene):
-    dp = pprov.NeRFTrainDataset.load(scene, scale=1.0, device=CPU)
-    rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="ER-NeRF LPIPS fine-tuning"):
-        dp.sample_rays(0, 16, rng, patch_size=4)
-    with pytest.raises(NotImplementedError, match="ER-NeRF LPIPS fine-tuning"):
-        dp.sample_lips_rays(0, rng)
+@pytest.fixture(scope="module")
+def lips_scene(tmp_path_factory):
+    """A 64² scene with landmark files (gt_imgs/<i>.lms), for the patch and
+    lips batches, the LPIPS steps and the fine-tuning CLI."""
+    root = str(tmp_path_factory.mktemp("lips_scene"))
+    pprov.synthesize_nerf_train_data(root, n_frames=3, hw=64)
+    write_lms(root, 3, 64)
+    return root
+
+
+def test_lms_lips_rects_match_jax(lips_scene, scene, tmp_path):
+    dj = jprov.NeRFTrainDataset.load(lips_scene, scale=1.0)
+    dp = pprov.NeRFTrainDataset.load(lips_scene, scale=1.0, device=CPU)
+    assert dp.lips_rects.dtype == np.int32 and dp.lips_rects.shape == (3, 4)
+    np.testing.assert_array_equal(dp.lips_rects, dj.lips_rects)
+    # the landmarks' y are rows: a mouth wider than tall gives a square rect
+    rmin, rmax, cmin, cmax = dp.lips_rects[0]
+    assert rmax - rmin == cmax - cmin > 0
+    # no .lms: no rects, as in JAX; frame 0 with one and a later frame without: both raise
+    assert pprov.NeRFTrainDataset.load(scene, scale=1.0, device=CPU).lips_rects is None
+    other = shutil.copytree(lips_scene, str(tmp_path / "some_lms"))
+    os.remove(os.path.join(other, "gt_imgs", "2.lms"))
+    with pytest.raises(FileNotFoundError, match="frame 2 has no .lms"):
+        jprov.NeRFTrainDataset.load(other, scale=1.0)
+    with pytest.raises(FileNotFoundError, match="frame 2 has no .lms"):
+        pprov.NeRFTrainDataset.load(other, scale=1.0, device=CPU)
+
+
+@pytest.mark.parametrize("preload", [0, 1, 2])
+def test_patch_and_lips_batches_match_jax(lips_scene, preload):
+    """Patch batches (two 32² patches) and the 32² lips window equal JAX's
+    at every preload tier: the same pixels, patch-major and row-major."""
+    dj = jprov.NeRFTrainDataset.load(lips_scene, scale=1.0, preload=preload)
+    dp = pprov.NeRFTrainDataset.load(lips_scene, scale=1.0, preload=preload, device=CPU)
+    rng_j, rng_p, rng_t = (np.random.default_rng(5) for _ in range(3))
+    for index, kind in ((0, "patch"), (2, "patch"), (1, "lips"), (2, "lips")):
+        if kind == "patch":
+            bj = dj.sample_rays(index, 2048, rng_j, patch_size=32)
+            bp = dp.sample_rays(index, 2048, rng_p, patch_size=32)
+            corners = list(zip(rng_t.integers(0, 32, 2), rng_t.integers(0, 32, 2)))
+        else:
+            bj = dj.sample_lips_rays(index, rng_j, size=32)
+            bp = dp.sample_lips_rays(index, rng_p, size=32)
+            rmin, rmax, cmin, cmax = dp.lips_rects[index]
+            corners = [(int(np.clip((rmin + rmax) // 2 - 16, 0, 32)),
+                        int(np.clip((cmin + cmax) // 2 - 16, 0, 32)))]
+        assert set(bp) == set(bj) and bp["index"] == int(bj["index"])
+        for key in ("rgb", "bg_color", "auds", "eye", "face_mask"):
+            np.testing.assert_array_equal(bp[key].numpy(), np.asarray(bj[key]),
+                                          err_msg=f"{kind} {key}")
+        for key in ("rays_o", "rays_d"):
+            np.testing.assert_allclose(bp[key].numpy(), np.asarray(bj[key]), rtol=0,
+                                       atol=1e-7, err_msg=f"{kind} {key}")
+        # each 32² block of rays is one row-major square of the frame
+        _, rays_d = prend.get_rays(t_(dp.poses[index]), dp.intrinsics, 64, 64)
+        rays_d = rays_d.reshape(64, 64, 3)
+        got = bp["rays_d"].reshape(-1, 32, 32, 3)
+        assert got.shape[0] == len(corners)
+        for block, (y0, x0) in zip(got, corners):
+            assert torch.equal(block, rays_d[y0:y0 + 32, x0:x0 + 32]), (kind, y0, x0)
+    assert rng_p.random() == rng_j.random() == rng_t.random()     # the same draws
+    with pytest.raises(ValueError, match="multiple of patch_size"):
+        dp.sample_rays(0, 1000, rng_p, patch_size=32)
 
 
 def test_optimizer_groups_match_optax(nets):
