@@ -19,7 +19,11 @@ for the audio attention net. The jitter noise comes from an explicit
 The torso stage (``init_torso_train``, ``make_torso_train_step``) trains
 only the torso's parameters with Adam against torso-over-background
 targets, every head parameter loaded from the head's checkpoint and frozen.
-The LPIPS patch and lips terms are not ported.
+
+The patch and lips fine-tuning steps add an LPIPS term on the batch's
+patches (``lpips_fn`` with ``patch_hw``): 0.1 × LPIPS on random patches,
+0.01 × LPIPS on the lips window, whose step also drops the uncertainty loss.
+Its gradient reaches the hash tables through K3's backward.
 """
 from __future__ import annotations
 
@@ -108,9 +112,14 @@ def init_nerf_train(network: NeRFNetwork, tcfg: NeRFTrainConfig) -> NeRFTrainSta
 
 
 def nerf_loss(state: NeRFTrainState, batch: dict, tcfg: NeRFTrainConfig,
-              noise: torch.Tensor) -> tuple[torch.Tensor, dict]:
+              noise: torch.Tensor, lpips_fn=None, patch_hw: tuple | None = None,
+              lpips_weight: float = 0.1) -> tuple[torch.Tensor, dict]:
     """The head-stage loss of one batch; noise [N, 3] in [0, 1) places the
-    jitter points. Returns (loss, metrics) with the metrics detached."""
+    jitter points. With ``lpips_fn`` and ``patch_hw`` = (ph, pw), the batch
+    is patches of ph×pw rays, patch-major and row-major, and the loss adds
+    lpips_weight × lpips_fn over them (NHWC, the [0, 1] colours as they are,
+    as the reference passes them). Returns (loss, metrics) with the metrics
+    detached."""
     network = state.network
     enc_a = network.encode_audio(batch["auds"])
     ind = (network.individual_code(batch["index"])
@@ -146,6 +155,11 @@ def nerf_loss(state: NeRFTrainState, batch: dict, tcfg: NeRFTrainConfig,
         loss = loss + 1e-3 * sf * unc * off_face
     loss = loss.mean()
 
+    if lpips_fn is not None and patch_hw is not None:
+        ph, pw = patch_hw
+        loss = loss + lpips_weight * lpips_fn(pred.reshape(-1, ph, pw, 3),
+                                              rgb.reshape(-1, ph, pw, 3))
+
     # weights-sum entropy: push rays to fully opaque or fully transparent
     ws = torch.clamp(out["weights_sum"], 1e-5, 1 - 1e-5)
     loss_ws = -(ws * torch.log2(ws) + (1 - ws) * torch.log2(1 - ws))
@@ -171,14 +185,15 @@ def nerf_loss(state: NeRFTrainState, batch: dict, tcfg: NeRFTrainConfig,
 
 
 def compute_grads(state: NeRFTrainState, batch: dict, tcfg: NeRFTrainConfig,
-                  noise: torch.Tensor) -> dict:
+                  noise: torch.Tensor, **lpips) -> dict:
     """Loss and gradients of one batch, left in every parameter's ``.grad``
     (zeros where the loss does not reach, as in the JAX step, so the
-    optimiser updates every parameter). Returns the metrics with grad_norm."""
+    optimiser updates every parameter). ``lpips`` holds nerf_loss's LPIPS
+    arguments. Returns the metrics with grad_norm."""
     params = list(state.network.parameters())
     for p in params:
         p.grad = None
-    loss, metrics = nerf_loss(state, batch, tcfg, noise)
+    loss, metrics = nerf_loss(state, batch, tcfg, noise, **lpips)
     loss.backward()
     for p in params:
         if p.grad is None:
@@ -188,16 +203,21 @@ def compute_grads(state: NeRFTrainState, batch: dict, tcfg: NeRFTrainConfig,
     return metrics
 
 
-def make_nerf_train_step(tcfg: NeRFTrainConfig):
+def make_nerf_train_step(tcfg: NeRFTrainConfig, lpips_fn=None, patch_hw: tuple | None = None,
+                         lpips_weight: float = 0.1):
     """step(state, batch, generator=None, noise=None) → metrics, updating
     the state in place: gradients, the optimiser, the EMA, the step count.
-    noise [N, 3] in [0, 1) defaults to a draw from ``generator``."""
+    noise [N, 3] in [0, 1) defaults to a draw from ``generator``. With
+    ``lpips_fn`` and ``patch_hw`` the loss has the LPIPS patch term
+    (nerf_loss); lpips_weight 0.1 for random patches, 0.01 for the lips
+    window."""
+    lpips = {"lpips_fn": lpips_fn, "patch_hw": patch_hw, "lpips_weight": lpips_weight}
 
     def train_step(state: NeRFTrainState, batch: dict, generator=None, noise=None) -> dict:
         if noise is None:
             noise = torch.rand(batch["rays_o"].shape, generator=generator,
                                device=batch["rays_o"].device)
-        metrics = compute_grads(state, batch, tcfg, noise)
+        metrics = compute_grads(state, batch, tcfg, noise, **lpips)
         apply_update(state)
         return metrics
 

@@ -1,9 +1,11 @@
 """The ER-NeRF head-training slice of the PyTorch port against the JAX
 package on the CPU at toy sizes (4 levels, 2^10 tables, grid 16, 16
 candidates, 4 steps, 32² images, 3 frames, as tests/test_nerf_train.py
-uses): the renderer's training path, the density refresh, the training
-dataset and its preload tiers, the optimiser groups, one whole train step
-and the CLI.
+uses; a 64² scene with landmarks and 32² patches for the fine-tuning): the
+renderer's training path, the density refresh, the training dataset and its
+preload tiers with its patch and lips batches, the optimiser groups, one
+whole train step, the LPIPS patch and lips steps, ``--test`` evaluation, the
+training viewer and the CLI.
 
 Weights come from the JAX init through ``convert.ernerf_from_flax``, inputs
 from numpy seeds, and the jitter noise of the train step from the JAX
@@ -18,7 +20,12 @@ draw. Tolerances, with their reasons:
 - the train step: loss, mse and gradient norm 1e-6 relative (1.2e-7
   read); every gradient within 2e-5 of its parameter's largest gradient
   entry (3.9e-6 read: f32 sums over the 1024 samples and the hash-table
-  scatter sums in another order).
+  scatter sums in another order);
+- the LPIPS patch and lips steps, with the JAX package's LPIPS weights
+  through ``convert.lpips_from_flax``: the same limits (9.3e-8 on the
+  metrics; 1.2e-5 patch, 3.3e-6 lips on the gradients), and the port's
+  two-patch step on the camera's rays against its float64 step the same
+  (1.0e-7, 6.3e-6).
 """
 from __future__ import annotations
 
@@ -34,12 +41,14 @@ import pytest
 import torch
 
 from mere_fusion_tpu.data import provider as jprov
+from mere_fusion_tpu.models import lpips as jlpips
 from mere_fusion_tpu.models.ernerf import renderer as jrend
 from mere_fusion_tpu.models.ernerf.network import NeRFNetConfig as JNetConfig
 from mere_fusion_tpu.models.ernerf.network import NeRFNetwork as JNetwork
 from mere_fusion_tpu.train import ernerf_train as jtrain
-from mere_fusion_tpu_torch.convert import density_from_flax, ernerf_from_flax
+from mere_fusion_tpu_torch.convert import density_from_flax, ernerf_from_flax, lpips_from_flax
 from mere_fusion_tpu_torch.data import provider as pprov
+from mere_fusion_tpu_torch.models import lpips as plpips
 from mere_fusion_tpu_torch.models.ernerf import renderer as prend
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
 from mere_fusion_tpu_torch.train import ernerf_cli
@@ -372,6 +381,116 @@ def test_train_step_matches_jax(nets):
         ema = state_p.ema[name]
         np.testing.assert_allclose(ema.numpy(), (0.95 * before[name] + 0.05 * p.detach()).numpy(),
                                    rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def lpips_pair():
+    """(the JAX package's make_lpips_fn() weights, the port's LPIPS with them)."""
+    variables = jax.jit(jlpips.LPIPS().init)(jax.random.key(0), jnp.zeros((1, 32, 32, 3)),
+                                             jnp.zeros((1, 32, 32, 3)))
+    module = plpips.LPIPS()
+    module.load_state_dict(lpips_from_flax(jax.tree_util.tree_map(np.array, variables)),
+                           strict=True)
+    return variables, module
+
+
+def lpips_batch(root: str, kind: str, n_patches: int = 1, camera_rays: bool = True) -> dict:
+    """A numpy batch of frame 1 of the scene at root: n_patches 32² patches
+    or the 32² lips window; with ``camera_rays`` False its rays are
+    make_batch's instead of the camera's."""
+    ds = jprov.NeRFTrainDataset.load(root, scale=1.0)
+    rng = np.random.default_rng(2)
+    bj = (ds.sample_rays(1, n_patches * 1024, rng, patch_size=32) if kind == "patch"
+          else ds.sample_lips_rays(1, rng, size=32))
+    b = {k: np.asarray(v) for k, v in bj.items()}
+    b["index"] = int(b["index"])
+    if not camera_rays:
+        b.update({k: v for k, v in make_batch(len(b["rgb"]), seed=12).items()
+                  if k in ("rays_o", "rays_d")})
+    return b
+
+
+def lpips_step_config(kind: str) -> tuple[float, bool]:
+    """(LPIPS weight, uncertainty loss) of the CLI's patch and lips steps."""
+    return (0.1, True) if kind == "patch" else (0.01, False)
+
+
+def port_lpips_grads(variables, module, b: dict, kind: str, noise, dtype=torch.float32):
+    """The port's step gradients and metrics from the JAX variables, at 500
+    of 1000 iterations on a full grid, in ``dtype``."""
+    weight, unc_loss = lpips_step_config(kind)
+    pnet = port_net(variables).to(dtype)
+    tcfg = ptrain.NeRFTrainConfig(**TRAIN, unc_loss=unc_loss)
+    state = ptrain.init_nerf_train(pnet, tcfg)
+    state.density, state.step = density_from_flax(
+        jrend.DensityGrid.create(TRAIN["grid_size"])), 500
+    lp = plpips.LPIPS()
+    lp.load_state_dict(module.state_dict())
+    fn = plpips.make_lpips_fn(module=lp.to(dtype), device=CPU)
+    batch = {k: v.to(dtype) if k != "index" and v.is_floating_point() else v
+             for k, v in torch_batch(b).items()}
+    m = ptrain.compute_grads(state, batch, tcfg, noise.to(dtype), lpips_fn=fn,
+                             patch_hw=(32, 32), lpips_weight=weight)
+    plain, _ = ptrain.nerf_loss(state, batch, tcfg, noise.to(dtype))
+    return m, {n: p.grad for n, p in pnet.named_parameters()}, float(plain.detach())
+
+
+@pytest.mark.parametrize("kind", ["patch", "lips"])
+def test_lpips_train_steps_match_jax(nets, lips_scene, lpips_pair, kind):
+    """One patch step (a 32² patch's colours, 0.1 × LPIPS) and one lips step
+    (the 32² window's, 0.01 × LPIPS, no uncertainty loss) against JAX's,
+    within test_train_step_matches_jax's tolerances, on that test's rays.
+    Jitted JAX is no reference on the camera's rays or at 2,048 rays: its
+    gradients there read 1.4e-4 and 1.8e-3 of their largest entry from the
+    float64 step, where eager JAX's and the port's read 6.5e-7 to 3e-6
+    (ROADMAP §3). The camera's rays and two patches are held to float64
+    below."""
+    jnet, variables, _ = nets
+    lp_vars, lp_module = lpips_pair
+    weight, unc_loss = lpips_step_config(kind)
+    tx = recording_tx()
+    dj = jrend.DensityGrid.create(TRAIN["grid_size"])
+    state_j = jtrain.NeRFTrainState(variables["params"], tx.init(variables["params"]),
+                                    variables["params"], dj, jnp.asarray(500, jnp.int32))
+    b = lpips_batch(lips_scene, kind, camera_rays=False)
+    key = jax.random.key(4)
+    step = jtrain.make_nerf_train_step(
+        jnet, tx, jtrain.NeRFTrainConfig(**TRAIN, unc_loss=unc_loss),
+        lpips_fn=jlpips.make_lpips_fn(variables=lp_vars), patch_hw=(32, 32),
+        lpips_weight=weight)
+    new_j, m_j = step(state_j, jax_batch(b), key)
+    noise = t_(np.asarray(jax.random.uniform(key, b["rays_o"].shape)))
+    want = ernerf_from_flax({"params": new_j.opt_state["grads"]}, JNetConfig(**NET))
+    m_p, grads, plain = port_lpips_grads(variables, lp_module, b, kind, noise)
+    for name in ("loss", "mse", "weights_sum", "grad_norm"):
+        np.testing.assert_allclose(float(m_p[name]), float(m_j[name]), rtol=1e-6, err_msg=name)
+    for name, g in grads.items():
+        ref = want[name].numpy()
+        scale = float(np.abs(ref).max())
+        # without the uncertainty loss (lips) nothing reaches the uncertainty head
+        assert scale > 0 or (not unc_loss and name.startswith("unc_net.")), name
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=2e-5 * scale, err_msg=name)
+    # the LPIPS term is in the loss: without it the loss moves past the tolerance
+    assert abs(plain - float(m_p["loss"])) > 1e-4 * abs(float(m_p["loss"]))
+
+
+def test_lpips_patch_step_of_two_patches_matches_float64(nets, lips_scene, lpips_pair):
+    """Two 32² patches on the camera's rays (the LPIPS term's mean over
+    patches): the port's f32 step against its own float64 step, within
+    test_train_step_matches_jax's tolerances."""
+    _, variables, _ = nets
+    b = lpips_batch(lips_scene, "patch", n_patches=2)
+    noise = t_(np.random.default_rng(6).random(b["rays_o"].shape, np.float32))
+    m32, g32, _ = port_lpips_grads(variables, lpips_pair[1], b, "patch", noise)
+    m64, g64, _ = port_lpips_grads(variables, lpips_pair[1], b, "patch", noise, torch.float64)
+    for name in ("loss", "mse", "weights_sum", "grad_norm"):
+        np.testing.assert_allclose(float(m32[name]), float(m64[name]), rtol=1e-6, err_msg=name)
+    for name, g in g32.items():
+        ref = g64[name].numpy()
+        scale = float(np.abs(ref).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(g.double().numpy(), ref, rtol=0, atol=2e-5 * scale,
+                                   err_msg=name)
 
 
 def test_checkpointer_keeps_the_newest(tmp_path):
