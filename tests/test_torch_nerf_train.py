@@ -493,6 +493,107 @@ def test_lpips_patch_step_of_two_patches_matches_float64(nets, lips_scene, lpips
                                    err_msg=name)
 
 
+class FakeClock:
+    """A perf_counter that moves only when told to."""
+
+    def __init__(self):
+        self.now = 100.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+
+def drive_viewer(viewer_mod, monkeypatch, durations) -> tuple[list, list]:
+    """Tick a viewer of viewer_mod 200 times under a fake clock: each
+    iteration takes durations[it][0] ms of training, each render
+    durations[it][1] ms. Returns (train_steps after every tick, the stats
+    after every render)."""
+    clock = FakeClock()
+    monkeypatch.setattr(viewer_mod, "time", clock)
+    it_box = [0]
+
+    def render_fn(state, pose, intrinsics):
+        clock.now += durations[it_box[0]][1] / 1e3
+        return np.full((16, 16, 3), 0.5, np.float32)
+
+    v = viewer_mod.TrainingViewer(render_fn, width=16, height=16, port=0)
+    steps, stats = [], []
+    try:
+        for it in range(len(durations)):
+            it_box[0] = it
+            clock.now += durations[it][0] / 1e3
+            v.tick(object(), it, {"loss": 0.5 / (it + 1)})
+            steps.append(v.train_steps)
+            if not stats or v.stats["step"] != stats[-1]["step"]:
+                stats.append(dict(v.stats))
+    finally:
+        v.close()
+    return steps, stats
+
+
+def test_viewer_train_steps_match_jax(monkeypatch):
+    """The retarget rule: the same train_steps sequence and stats as the JAX
+    viewer's under the same clock, with training at 2-200 ms an iteration."""
+    from mere_fusion_tpu.train import viewer as jviewer
+    from mere_fusion_tpu_torch.train import viewer as pviewer
+
+    rng = np.random.default_rng(9)
+    train_ms = np.repeat(rng.choice([2.0, 20.0, 45.0, 200.0], 10), 20)
+    durations = list(zip(train_ms * rng.uniform(0.9, 1.1, 200), rng.uniform(5, 50, 200)))
+    want = drive_viewer(jviewer, monkeypatch, durations)
+    got = drive_viewer(pviewer, monkeypatch, durations)
+    assert got == want
+    assert set(got[0]) >= {4, 16} and len(set(got[0])) >= 3
+    assert len(got[1]) > 10 and got[1][-1]["step"] > 180
+
+
+def test_viewer_http_contract():
+    """/stats, the MJPEG /preview, POST /camera re-rendering the moved view,
+    400 on a bad body, 404 elsewhere; close ends the open /preview stream."""
+    import urllib.error
+    import urllib.request
+
+    from mere_fusion_tpu_torch.train.viewer import TrainingViewer
+
+    poses = []
+
+    def render_fn(state, pose, intrinsics):
+        poses.append(pose.copy())
+        img = np.zeros((32, 32, 3), np.float32)
+        img[8:24, 8:24] = [0.2, 0.5, 0.9]
+        return img
+
+    v = TrainingViewer(render_fn, width=32, height=32, port=0)
+    url = f"http://127.0.0.1:{v.port}"
+    stream = None
+    try:
+        for it in range(16):
+            v.tick(object(), it, {"loss": 0.5})
+        assert len(poses) == 1
+        with urllib.request.urlopen(url + "/stats", timeout=5) as r:
+            stats = json.loads(r.read())
+        assert stats["step"] == 15 and stats["loss"] == 0.5 and 4 <= stats["train_steps"] <= 16
+        stream = urllib.request.urlopen(url + "/preview", timeout=5)
+        assert stream.headers["Content-Type"].startswith("multipart/x-mixed-replace")
+        head = stream.read(64)
+        assert b"--mjpeg" in head and b"image/jpeg" in head
+        req = urllib.request.Request(url + "/camera", data=json.dumps({"dx": 400.0}).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=5) as r:
+            assert json.loads(r.read())["ok"] is True
+        assert len(poses) == 2 and not np.allclose(poses[1], poses[0])
+        for path, data, code in (("/camera", b"{bad", 400), ("/nothing", None, 404)):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(urllib.request.Request(url + path, data=data), timeout=5)
+            assert err.value.code == code
+    finally:
+        v.close()
+    # the stream ends with the viewer (the JAX one's stays open)
+    rest = stream.read()
+    stream.close()
+    assert rest.count(b"--mjpeg") <= 2
+
+
 def test_checkpointer_keeps_the_newest(tmp_path):
     ckpt = Checkpointer(str(tmp_path / "ws"), max_keep=2)
     assert ckpt.latest_step is None
