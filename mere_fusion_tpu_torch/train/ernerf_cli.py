@@ -1,27 +1,40 @@
-"""ER-NeRF training CLI of the PyTorch port: the head stage, then the torso.
+"""ER-NeRF training CLI of the PyTorch port: the reference recipe's head
+stage, its patch and lips fine-tuning, the torso stage and evaluation.
 
     python -m mere_fusion_tpu_torch.train.ernerf_cli data/obama --iters 100000 \\
         --workspace trial_obama
+    python -m mere_fusion_tpu_torch.train.ernerf_cli data/obama --iters 125000 \\
+        --workspace trial_obama --finetune_lips --patch_size 32
+    python -m mere_fusion_tpu_torch.train.ernerf_cli data/obama --workspace trial_obama --test
     python -m mere_fusion_tpu_torch.train.ernerf_cli data/obama --iters 100000 \\
         --workspace trial_obama_torso --torso --head_ckpt trial_obama
 
 Data dir format: transforms.json + gt_imgs/ + aud.npy + au.csv (+ parsing/,
++ <img_id>.lms landmarks under ori_imgs/ or gt_imgs/ for --finetune_lips,
 + torso_imgs/ for the torso stage). Runs on the current CUDA device unless
 ``--device cpu``. Each head iteration trains on one random frame's ray
-batch and refreshes the density grid every 16 iterations; a rerun with the
-same workspace resumes from its latest checkpoint. ``--torso`` trains only
-the torso nets on one random frame's torso batch an iteration, with the
-head's raw parameters and density grid loaded from the ``--head_ckpt``
-workspace and frozen; it starts afresh each run, as the JAX CLI does. Both
-stages checkpoint ``ckpt-<step>.pt`` into their workspace, which
-``nerf.ckpt`` serves. LPIPS patch and lips fine-tuning, ``--test``
-evaluation and the training viewer are not ported and raise.
+batch (with ``--patch_size``, square patches and a 0.1 × LPIPS term; with
+``--finetune_lips``, every odd iteration the static lips window and a 0.01 ×
+LPIPS term) and refreshes the density grid every 16 iterations; a rerun
+with the same workspace resumes from its latest checkpoint, as the
+reference's two-stage recipe does. ``--viewer_port`` serves the training
+viewer (train/viewer.py) during the run. ``--test`` renders every frame from
+the workspace's EMA weights and writes PSNR and SSIM to its eval.json.
+``--torso`` trains only the torso nets on one random frame's torso batch an
+iteration, with the head's raw parameters and density grid loaded from the
+``--head_ckpt`` workspace and frozen; it starts afresh each run, as the JAX
+CLI does. Both stages checkpoint ``ckpt-<step>.pt`` into their workspace,
+which ``nerf.ckpt`` serves. LPIPS runs with seeded random weights unless
+``--lpips_alex`` and ``--lpips_lins`` name torchvision's AlexNet and the
+lpips package's lin heads.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+import torch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,33 +58,37 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device; 'cpu' to run "
                         "on the CPU)")
-    # flags of the JAX CLI whose features are not ported: each raises
+    p.add_argument("--patch_size", type=int, default=0,
+                   help="sample NxN pixel patches and add the 0.1 x LPIPS patch loss")
+    p.add_argument("--lpips_alex", default=None,
+                   help="torchvision alexnet .pth for the LPIPS backbone")
+    p.add_argument("--lpips_lins", default=None,
+                   help="lpips package lin-head .pth (alex.pth)")
+    p.add_argument("--finetune_lips", action="store_true",
+                   help="lips fine-tuning: every odd iteration a step on the static lips "
+                        "window with a 0.01 x LPIPS loss")
+    p.add_argument("--lips_size", type=int, default=64,
+                   help="side of the static lips window")
+    p.add_argument("--test", action="store_true",
+                   help="evaluation: render every training frame from the workspace's EMA "
+                        "weights and write PSNR/SSIM to <workspace>/eval.json")
+    p.add_argument("--viewer_port", type=int, default=None,
+                   help="serve the training viewer on this port (0 = any free port): "
+                        "MJPEG /preview of the in-flight weights, POST /camera, /stats")
+    p.add_argument("--viewer_size", type=int, default=256,
+                   help="training-viewer render resolution")
     p.add_argument("--torso", action="store_true",
                    help="torso stage: train only the torso nets against torso_imgs/, "
                         "the head loaded from --head_ckpt and frozen")
     p.add_argument("--head_ckpt", default="",
                    help="workspace of the trained head stage to load and freeze")
-    p.add_argument("--test", action="store_true")
-    p.add_argument("--patch_size", type=int, default=0)
-    p.add_argument("--finetune_lips", action="store_true")
-    p.add_argument("--viewer_port", type=int, default=None)
-    args = p.parse_args(argv)
-    unported = (("test", args.test, "ER-NeRF evaluation"),
-                ("patch_size", args.patch_size > 0, "ER-NeRF LPIPS fine-tuning"),
-                ("finetune_lips", args.finetune_lips, "ER-NeRF LPIPS fine-tuning"),
-                ("viewer_port", args.viewer_port is not None, "ER-NeRF training viewer"))
-    for flag, given, item in unported:
-        if given:
-            raise NotImplementedError(f"--{flag} is not ported to the PyTorch package yet "
-                                      f"(ROADMAP: '{item}')")
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
 
     import numpy as np
-    import torch
 
     from mere_fusion_tpu_torch.data.provider import NeRFTrainDataset
     from mere_fusion_tpu_torch.device import resolve_device
@@ -98,14 +115,32 @@ def main(argv=None) -> None:
         num_levels=args.num_levels, base_resolution=args.base_resolution,
         desired_resolution=args.desired_resolution,
         log2_hashmap_size=args.log2_hashmap_size)
-    network = init_ernerf_(NeRFNetwork(net_cfg).to(device), args.seed)
     tcfg = NeRFTrainConfig(grid_size=args.grid_size, iters=args.iters, lr=args.lr,
                            lr_net=args.lr_net)
+    if args.test:
+        _evaluate(args, dataset, net_cfg, tcfg, device)
+        return
+    network = init_ernerf_(NeRFNetwork(net_cfg).to(device), args.seed)
     if args.torso:
         _train_torso(args, dataset, network, tcfg, device)
         return
     state = init_nerf_train(network, tcfg)
-    step = make_nerf_train_step(tcfg)
+    lpips_fn = patch_hw = None
+    patch_size = args.patch_size or None
+    if patch_size or args.finetune_lips:
+        from mere_fusion_tpu_torch.models.lpips import make_lpips_fn
+
+        lpips_fn = make_lpips_fn(args.lpips_alex, args.lpips_lins, device=device)
+    if patch_size:
+        patch_hw = (patch_size, patch_size)
+    step = make_nerf_train_step(tcfg, lpips_fn=lpips_fn if patch_size else None,
+                                patch_hw=patch_hw)
+    lips_step = None
+    if args.finetune_lips:
+        # the reference's lips steps drop the uncertainty loss (utils.py:789)
+        lips_step = make_nerf_train_step(
+            dataclasses.replace(tcfg, unc_loss=False), lpips_fn=lpips_fn,
+            patch_hw=(args.lips_size, args.lips_size), lpips_weight=0.01)
 
     ckpt = Checkpointer(args.workspace)
     it0 = 0
@@ -121,6 +156,14 @@ def main(argv=None) -> None:
 
     mean_auds = torch.from_numpy(
         dataset.auds[np.clip(np.arange(8), 0, len(dataset) - 1)]).to(device)
+    viewer = None
+    if args.viewer_port is not None:
+        from mere_fusion_tpu_torch.train.viewer import TrainingViewer
+
+        viewer = TrainingViewer(_make_viewer_render(tcfg, dataset, args.viewer_size),
+                                width=args.viewer_size, height=args.viewer_size,
+                                port=args.viewer_port)
+        print(f"[train] viewer: http://127.0.0.1:{viewer.port}/preview", flush=True)
     noise_gen = torch.Generator(device=device)
     slog = ScalarLogger(args.workspace)
     stop = StopFlag.install()
@@ -131,11 +174,18 @@ def main(argv=None) -> None:
     try:
         for it in range(it0, args.iters):
             frame = int(rng.integers(0, len(dataset)))
-            batch = dataset.sample_rays(frame, args.num_rays, rng)
             noise_gen.manual_seed(it)          # the JAX loop's jax.random.key(it)
-            metrics = step(state, batch, generator=noise_gen)
+            if lips_step is not None and it % 2 == 1:
+                # a lips step every other iteration, as the reference flips them
+                batch = dataset.sample_lips_rays(frame, rng, size=args.lips_size)
+                metrics = lips_step(state, batch, generator=noise_gen)
+            else:
+                batch = dataset.sample_rays(frame, args.num_rays, rng, patch_size=patch_size)
+                metrics = step(state, batch, generator=noise_gen)
             if it % 16 == 0:
                 refresh_density_grid(state, mean_auds, tcfg)
+            if viewer is not None:
+                viewer.tick(state, it, metrics)
             if it % 100 == 0:
                 loss = float(metrics["loss"])
                 rate = (it - it0 + 1) / (time.time() - t0)
@@ -150,9 +200,96 @@ def main(argv=None) -> None:
                   {"loss": float(metrics["loss"])})
     finally:
         stop.uninstall()
+        if viewer is not None:
+            viewer.close()
         slog.close()
         ckpt.close()
     print("[train] done")
+
+
+@torch.no_grad()
+def render_image(network, density, tcfg, pose, intrinsics, H: int, W: int, auds, eye):
+    """One whole H×W frame of the network on a white background, clipped
+    to [0, 1]: pose [4, 4], intrinsics (fx, fy, cx, cy), the audio window
+    auds [8, A, 16] and eye [1, 1], frame 0's individual code, the
+    training config's sampling. One K3 encode on the card."""
+    from mere_fusion_tpu_torch.models.ernerf.renderer import get_rays, render_rays
+
+    enc_a = network.encode_audio(auds)
+    ind = network.individual_code(0) if network.cfg.individual_dim > 0 else None
+    rays_o, rays_d = get_rays(pose, tuple(float(v) for v in intrinsics), H, W)
+    out = render_rays(lambda x, d, tr: network(x, d, enc_a, ind, eye, tr), rays_o, rays_d,
+                      density, bound=tcfg.bound, grid_size=tcfg.grid_size,
+                      bg_color=torch.ones(3, device=pose.device),
+                      n_candidates=tcfg.n_candidates, n_steps=tcfg.n_steps)
+    return torch.clamp(out["image"].reshape(H, W, 3), 0.0, 1.0)
+
+
+def _make_viewer_render(tcfg, dataset, size: int):
+    """The training viewer's render closure: the state's current (non-EMA)
+    weights and density grid, one size² orbit-camera frame with the
+    dataset's first audio window and its mean eye area held fixed, read back
+    as numpy. The reference's train GUI likewise renders whatever its loader
+    last gave it."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.device import device_scope
+
+    dev = dataset.device
+    auds = torch.from_numpy(dataset.auds[np.clip(np.arange(8), 0, len(dataset) - 1)]).to(dev)
+    eye = torch.tensor([[float(np.mean(dataset.eye_area))]], dtype=torch.float32, device=dev)
+
+    def render_fn(state, pose, intrinsics):
+        # /camera renders on the server's handler threads: pin their device
+        with device_scope(dev):
+            img = render_image(state.network, state.density, tcfg,
+                               torch.from_numpy(np.asarray(pose, np.float32)).to(dev),
+                               intrinsics, size, size, auds, eye)
+            return img.cpu().numpy()
+
+    return render_fn
+
+
+def _evaluate(args, dataset, net_cfg, tcfg, device) -> None:
+    """Render every frame from the workspace's EMA weights and density grid
+    and report PSNR and SSIM into <workspace>/eval.json, as the JAX
+    package's --test does (the reference's main.py --test and
+    Trainer.evaluate metrics)."""
+    import json
+    import os
+
+    import numpy as np
+
+    from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetwork
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+    from mere_fusion_tpu_torch.train.metrics import MetricMeter, psnr, ssim
+    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+
+    raw = Checkpointer(args.workspace).restore(map_location=device)
+    network = NeRFNetwork(net_cfg).to(device)
+    network.load_state_dict({k: v.float() for k, v in raw["ema"].items()}, strict=True)
+    density = DensityGrid(**raw["density"])
+    m_psnr = MetricMeter(psnr, "PSNR")
+    m_ssim = MetricMeter(ssim, "SSIM")
+    att = 8
+    t0 = time.time()
+    for i in range(len(dataset)):
+        idx = np.clip(np.arange(i - att // 2, i + att // 2), 0, len(dataset) - 1)
+        img = render_image(network, density, tcfg, torch.from_numpy(dataset.poses[i]).to(device),
+                           dataset.intrinsics, dataset.H, dataset.W,
+                           torch.from_numpy(dataset.auds[idx]).to(device),
+                           torch.tensor([[dataset.eye_area[i]]], dtype=torch.float32,
+                                        device=device))
+        gt = torch.from_numpy(np.asarray(dataset.images[i])).to(device)
+        m_psnr.update(img, gt)
+        m_ssim.update(img, gt)
+    dt = time.time() - t0
+    report = {"frames": len(dataset), "psnr": m_psnr.mean, "ssim": float(m_ssim.mean),
+              "seconds": round(dt, 1)}
+    with open(os.path.join(args.workspace, "eval.json"), "w") as f:
+        json.dump(report, f)
+    print(f"[test] {m_psnr.report()}  {m_ssim.report()}  "
+          f"({len(dataset)} frames in {dt:.1f} s)")
 
 
 def _train_torso(args, dataset, network, tcfg, device) -> None:

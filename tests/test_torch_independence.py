@@ -40,6 +40,9 @@ REQUIRED = (
     "mere_fusion_tpu_torch.utils.bpe",
     "mere_fusion_tpu_torch.utils.env",
     "mere_fusion_tpu_torch.server.upstream",
+    "mere_fusion_tpu_torch.models.lpips",
+    "mere_fusion_tpu_torch.train.metrics",
+    "mere_fusion_tpu_torch.train.viewer",
 )
 
 

@@ -25,7 +25,11 @@ draw. Tolerances, with their reasons:
   through ``convert.lpips_from_flax``: the same limits (9.3e-8 on the
   metrics; 1.2e-5 patch, 3.3e-6 lips on the gradients), and the port's
   two-patch step on the camera's rays against its float64 step the same
-  (1.0e-7, 6.3e-6).
+  (1.0e-7, 6.3e-6);
+- ``--test``'s PSNR and SSIM: 1e-5 relative (3.0e-8 and 2.9e-6 read: f32
+  means over the frame in another order);
+- the viewer's render: 2e-5 (2.4e-7 read); its JPEG within 4 LSB of the
+  render on average (0.83 read at quality 85).
 """
 from __future__ import annotations
 
@@ -607,6 +611,7 @@ def test_checkpointer_keeps_the_newest(tmp_path):
         Checkpointer(str(tmp_path / "empty")).restore()
 
 
+EVAL_RTOL = 1e-5
 TOY_FLAGS = ["--device", "cpu", "--num_levels", "4", "--base_resolution", "16",
              "--desired_resolution", "64", "--log2_hashmap_size", "10", "--grid_size", "16",
              "--num_rays", "128"]
@@ -625,10 +630,141 @@ def test_cli_trains_checkpoints_and_resumes(scene, tmp_path, capsys):
     assert Checkpointer(ws).restore()["step"] == 5
 
 
-@pytest.mark.parametrize("flag", [["--test"], ["--patch_size", "16"],
-                                  ["--finetune_lips"], ["--viewer_port", "0"]],
+def converted_workspaces(nets, root: str, tmp_path) -> tuple:
+    """A JAX workspace (orbax) and a port workspace (ckpt-<step>.pt) holding
+    the same EMA weights (the widened tables) and a full density grid.
+    Returns (JAX workspace, port workspace, the JAX net config)."""
+    from mere_fusion_tpu.utils.checkpoint import Checkpointer as JCheckpointer
+
+    jnet, variables, _ = nets
+    tcfg_j = jtrain.NeRFTrainConfig(**TRAIN)
+    _, state_j = jtrain.init_nerf_train(jnet, variables, tcfg_j)
+    dj = jrend.DensityGrid(grid=jnp.full((16**3,), 20.0), occupancy=jnp.ones((16**3,), bool),
+                           mean_density=jnp.asarray(20.0))
+    state_j = state_j._replace(density=dj, step=jnp.asarray(7, jnp.int32))
+    ws_j, ws_p = str(tmp_path / "ws_jax"), str(tmp_path / "ws_port")
+    ckpt = JCheckpointer(ws_j)
+    ckpt.save(7, state_j, {"loss": 0.0})
+    ckpt.close()
+    state_p = ptrain.init_nerf_train(port_net(variables), ptrain.NeRFTrainConfig(**TRAIN))
+    state_p.density, state_p.step = density_from_flax(dj), 7
+    Checkpointer(ws_p).save(7, state_p.state_dict(), {"loss": 0.0})
+    return ws_j, ws_p
+
+
+def test_evaluate_matches_jax(nets, lips_scene, tmp_path, capsys, monkeypatch):
+    """--test's eval.json against the JAX package's _evaluate on the same
+    converted workspace: every frame rendered whole at 64² on white.
+
+    The JAX package's --test fails on its own workspaces: restore_raw gives
+    numpy arrays, which its jitted render closes over, and grid_encode then
+    indexes a numpy table with a traced index (ROADMAP §3). The reference
+    run here gets the restored tree as jax arrays."""
+    import argparse
+
+    from mere_fusion_tpu.train import ernerf_cli as jcli
+    from mere_fusion_tpu.utils.checkpoint import Checkpointer as JCheckpointer
+
+    ws_j, ws_p = converted_workspaces(nets, lips_scene, tmp_path)
+    tcfg_j = jtrain.NeRFTrainConfig(grid_size=16)
+    ds_j = jprov.NeRFTrainDataset.load(lips_scene, scale=1.0)
+    args_j = argparse.Namespace(workspace=ws_j)
+    with pytest.raises(jax.errors.TracerArrayConversionError):
+        jcli._evaluate(args_j, ds_j, JNetConfig(**NET), tcfg_j)
+    restore_raw = JCheckpointer.restore_raw
+    monkeypatch.setattr(JCheckpointer, "restore_raw", lambda self, step=None: jax.tree.map(
+        jnp.asarray, restore_raw(self, step)))
+    jcli._evaluate(args_j, ds_j, JNetConfig(**NET), tcfg_j)
+    ernerf_cli._evaluate(argparse.Namespace(workspace=ws_p),
+                         pprov.NeRFTrainDataset.load(lips_scene, scale=1.0, device=CPU),
+                         NeRFNetConfig(**NET), ptrain.NeRFTrainConfig(grid_size=16), CPU)
+    reports = []
+    for ws in (ws_j, ws_p):
+        with open(os.path.join(ws, "eval.json")) as f:
+            reports.append(json.load(f))
+    want, got = reports
+    assert set(got) == set(want) == {"frames", "psnr", "ssim", "seconds"}
+    assert got["frames"] == want["frames"] == 3
+    assert 5 < got["psnr"] < 60 and 0 < got["ssim"] < 1
+    np.testing.assert_allclose(got["psnr"], want["psnr"], rtol=EVAL_RTOL)
+    np.testing.assert_allclose(got["ssim"], want["ssim"], rtol=EVAL_RTOL)
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1].startswith("[test] PSNR = ") and "3 frames in" in out[-1]
+
+
+def test_viewer_preview_matches_jax(nets, lips_scene):
+    """The viewer's render of the current weights against the JAX CLI's
+    render closure (2e-5), and that frame over HTTP as an MJPEG part."""
+    import urllib.request
+
+    import cv2
+
+    from mere_fusion_tpu.train import ernerf_cli as jcli
+    from mere_fusion_tpu_torch.train.viewer import TrainingViewer
+
+    jnet, variables, pnet = nets
+    dj = jrend.DensityGrid(grid=jnp.full((16**3,), 20.0), occupancy=jnp.ones((16**3,), bool),
+                           mean_density=jnp.asarray(20.0))
+    tcfg_j = jtrain.NeRFTrainConfig(**TRAIN)
+    ds_j = jprov.NeRFTrainDataset.load(lips_scene, scale=1.0)
+    jrender = jcli._make_viewer_render(jnet, JNetConfig(**NET), tcfg_j, ds_j, 32)
+    state_j = jtrain.NeRFTrainState(variables["params"], None, None, dj, None)
+    state_p = ptrain.NeRFTrainState(network=pnet, optimizer=None, density=density_from_flax(dj))
+    prender = ernerf_cli._make_viewer_render(
+        ptrain.NeRFTrainConfig(**TRAIN),
+        pprov.NeRFTrainDataset.load(lips_scene, scale=1.0, device=CPU), 32)
+    v = TrainingViewer(prender, width=32, height=32, port=0)
+    try:
+        # the dataset's camera, mirrored by update_pose (ROADMAP §3), panned back to the head
+        v.cam.update_pose(ds_j.poses[0])
+        v.cam.pan(0, 0, -2e4 * v.cam.radius)
+        pose, intr = v.cam.pose.astype(np.float32), v.cam.intrinsics.astype(np.float32)
+        want = np.asarray(jrender(state_j, pose, intr))
+        got = prender(state_p, pose, intr)
+        assert got.shape == want.shape == (32, 32, 3) and got.dtype == np.float32
+        assert want.std() > 0.01                  # not a blank frame
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+        for it in range(16):
+            v.tick(state_p, it, {"loss": torch.tensor(0.25)})
+        with urllib.request.urlopen(f"http://127.0.0.1:{v.port}/preview", timeout=10) as r:
+            r.readline()
+            r.readline()
+            size = int(r.readline().split(b":")[1])
+            r.readline()
+            jpg = r.read(size)
+        img = cv2.imdecode(np.frombuffer(jpg, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+        assert img.shape == (32, 32, 3)
+        assert np.abs(img.astype(float) - np.clip(want * 255, 0, 255)).mean() < 4   # JPEG q85
+        assert v.stats["step"] == 15 and v.stats["loss"] == 0.25
+    finally:
+        v.close()
+
+
+@pytest.mark.parametrize("flag", [["--test"], ["--patch_size", "32"],
+                                  ["--finetune_lips", "--lips_size", "32"],
+                                  ["--viewer_port", "0", "--viewer_size", "32"]],
                          ids=lambda f: f[0])
-def test_cli_unported_flags_raise(scene, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP: 'ER-NeRF"):
-        ernerf_cli.main([scene, "--workspace", str(tmp_path), *flag, *TOY_FLAGS])
-    assert not os.listdir(tmp_path)
+def test_cli_fine_tuning_flags_run(lips_scene, tmp_path, capsys, flag):
+    """Each flag that raised before runs through the CLI at toy size: the
+    patch and lips runs log finite losses and checkpoint, --test writes
+    eval.json for every frame, the viewer serves during the run."""
+    ws = str(tmp_path / "ws")
+    argv = [lips_scene, "--workspace", ws, *TOY_FLAGS]
+    if flag[0] == "--test":
+        ernerf_cli.main([*argv, "--iters", "2"])
+        ernerf_cli.main([*argv, *flag])
+        with open(os.path.join(ws, "eval.json")) as f:
+            report = json.load(f)
+        assert report["frames"] == 3 and np.isfinite(report["psnr"]) and np.isfinite(
+            report["ssim"])
+        return
+    rays = ["--num_rays", "1024"] if flag[0] == "--patch_size" else []
+    ernerf_cli.main([*argv, *rays, "--iters", "18", *flag])
+    assert Checkpointer(ws).steps() == [18]
+    assert np.isfinite(Checkpointer(ws).restore()["network"]["plane_xy"]).all()
+    with open(os.path.join(ws, "scalars.jsonl")) as f:
+        rec = [json.loads(line) for line in f]
+    assert rec[0]["step"] == 0 and np.isfinite(rec[0]["loss"])
+    out = capsys.readouterr().out
+    if flag[0] == "--viewer_port":
+        assert "[train] viewer: http://127.0.0.1:" in out
