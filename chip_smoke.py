@@ -173,7 +173,25 @@ its seconds; any failure is fatal (exit code 1, no result line):
               none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
-12. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
+12. nerf_finetune — the reference recipe after the head stage, on a copy
+              of nerf_train's step-200 checkpoint and its dataset (68-point
+              .lms landmarks written here by write_lms): one patch step
+              (four 32² patches, 0.1 × LPIPS with seeded weights) and one
+              64² lips step (0.01 × LPIPS, no uncertainty loss) with K3
+              and with the plain encode from the same state, batch and noise
+              (K3_STEP_RTOL, K3_STEP_GRAD_RTOL; 3 encode + 3 backward
+              launches a step); the head, patch and lips steps' ms and
+              LPIPS's forward and forward + backward at [4, 3, 32, 32] and
+              [1, 3, 64, 64] (CUDA events); the CLI's --finetune_lips
+              --patch_size 32 for FINETUNE_ITERS iterations with the counts
+              zeroed just before (exact K3 launches, no K1 or K2, the
+              resume, finite losses of both step kinds); --test on the
+              workspace (eval.json for 8 frames, one K3 encode a frame, the
+              peak device memory, a 512² frame's p50 with K3 and plain, one
+              frame with K3 within EVAL_ENCODE_ATOL of plain); the viewer
+              during a VIEWER_ITERS-iteration run (--viewer_port: one JPEG
+              from /preview over HTTP, /stats, a POST /camera).
+13. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
               full width with the torso (Config() defaults, nerf.torso, 512²):
               the training CLI's --torso --head_ckpt stage for TORSO_ITERS
               iterations on nerf_train's head workspace and dataset (RGBA
@@ -196,7 +214,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-13. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+14. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
               scale=0.1), written by write_graphdef) with its bytes and the
               seconds to write, read and upload it; one 8,960-sample window
@@ -219,7 +237,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frame, the body around it untouched); then
               tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
               seconds, the real-time factor.
-14. sampler_stages — the profiling entry points prof_r5m.main and
+15. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -242,7 +260,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               read with bf16 weights only: with f32 weights shade's
               16-column 3xTF32 products cost more than K2's two narrow
               dots, so shade does not bound K2 f32's head.
-15. record   — session recording through POST /record: Config() Wav2Lip
+16. record   — session recording through POST /record: Config() Wav2Lip
               sessions (phase lip's .pth, bf16, batch 16, loopback) on
               synthesized 240×320 and 720×1280 bundles, told TRANSPORT_TALK,
               recorded to .mp4 until the assembly loop has queued
@@ -259,7 +277,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the MPEG-4 video decodes to; a writer that does not open must be
               refused) at 240×320; OpenCV's Video I/O build lines; no kernel
               of the repo launched.
-16. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
+17. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
               720×1280 face video written with OpenCV's mp4v and decoded by
               video_to_frames (the synthesized frames go on directly when it
               does not decode, which is printed); the seeded S3FD
@@ -275,7 +293,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               kernel counts zeroed just before: K1 exactly 5 launches a
               generate; genavatar's seconds split by its meters (decode,
               detect, landmarks, parse, crop, encode, write).
-17. asr      — the caller's side of a call: whisper-tiny at its published
+18. asr      — the caller's side of a call: whisper-tiny at its published
               widths (seeded, init_whisper(TINY, 0)) in f32 with TF32 off on
               one 30 s window of speech_pcm: the encode and the beam-5
               decode, unprompted and with a full 96-token prompt (CUDA-event
@@ -297,7 +315,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the first phrase at put_msg_txt and to the reply's first
               frame, lip.infer_batch p50 with the caller speaking and
               without; no kernel of the repo launched.
-18. perception — the caller's camera: YOLOv10-x (seeded, the person
+19. perception — the caller's camera: YOLOv10-x (seeded, the person
               logit raised by PERSON_BIAS so that every analysed frame sees a
               person) at 640 px, f32 with TF32 off on the card against the
               CPU on the same weights and canvas (box and class logits within
@@ -326,7 +344,9 @@ without a result when no CUDA device is visible or the package is missing.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -2966,6 +2986,341 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
             "it_per_s_at_it100": logged[100]["it_per_s"]}
 
 
+FINETUNE_FROM = 200               # the head stage's checkpoint the fine-tuning resumes
+FINETUNE_ITERS = 48               # fine-tuning iterations: 24 patch steps, 24 lips steps
+FINETUNE_PATCH = 32               # --patch_size: four patches of the 4,096 rays
+FINETUNE_LIPS = 64                # --lips_size, the CLI's default
+LPIPS_SHAPES = ((4, 3, 32, 32), (1, 3, 64, 64))   # the patch step's and the lips step's
+VIEWER_ITERS = 128                # a run long enough to fetch a frame during it
+VIEWER_SIZE = 256                 # --viewer_size, the CLI's default
+# one 512² --test frame with K3's encode against the plain encode: the encode is
+# bit-equal to its plain version, so only the head's sums could move a colour
+EVAL_ENCODE_ATOL = 1e-5
+
+
+def phase_nerf_finetune(state: dict) -> dict:
+    import os
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = state["nerf_train_dir"]
+    root, head_ws = os.path.join(tmp, "data"), os.path.join(tmp, "workspace")
+    write_lms(root, 8, NERF_HW)
+    # a copy of the head stage's step-200 checkpoint, which the fine-tuning resumes
+    ws = os.path.join(tmp, "finetune_workspace")
+    os.makedirs(ws)
+    name = f"ckpt-{FINETUNE_FROM}.pt"
+    shutil.copy(os.path.join(head_ws, name), os.path.join(ws, name))
+    return _nerf_finetune(state, dev, root, ws)
+
+
+def _step_against_plain(tstate, batch, tcfg, noise, lpips) -> dict:
+    """One step's loss, gradient norm and gradients with K3's encode against
+    the plain encode from the same state, batch and noise; K3's launches."""
+    import torch
+
+    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
+    from mere_fusion_tpu_torch.train.ernerf_train import compute_grads
+
+    metrics, grads, launches = {}, {}, {}
+    try:
+        for impl in ("plain", "auto"):
+            net_mod.ENCODE_IMPL = impl
+            before = k3_counts()
+            m = compute_grads(tstate, batch, tcfg, noise, **lpips)
+            torch.cuda.synchronize()
+            launches[impl] = tuple(a - b for a, b in zip(k3_counts(), before))
+            metrics[impl] = {k: float(v) for k, v in m.items()}
+            grads[impl] = {n: p.grad.clone() for n, p in tstate.network.named_parameters()}
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    if launches != {"plain": (0, 0, 0), "auto": (3, 0, 3)}:
+        raise AssertionError(f"K3 launches per step {launches}, want plain (0, 0, 0), "
+                             "auto (3, 0, 3)")
+    step_rel = {k: abs(metrics["auto"][k] - metrics["plain"][k]) / abs(metrics["plain"][k])
+                for k in ("loss", "grad_norm")}
+    grad_rel = {}
+    for n, g in grads["plain"].items():
+        scale = g.abs().max()
+        if scale == 0:          # the lips step's uncertainty head: no gradient in either
+            if grads["auto"][n].abs().max() != 0:
+                raise AssertionError(f"{n}: a gradient with K3 where plain has none")
+            continue
+        grad_rel[n] = ((grads["auto"][n] - g).abs().max() / scale).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    if max(step_rel.values()) > K3_STEP_RTOL or grad_rel[worst] > K3_STEP_GRAD_RTOL:
+        raise AssertionError(f"step with K3 against plain: {step_rel} (limit {K3_STEP_RTOL}); "
+                             f"{worst} gradient {grad_rel[worst]} (limit {K3_STEP_GRAD_RTOL})")
+    if not all(map(math.isfinite, metrics["auto"].values())):
+        raise AssertionError(f"step metrics not finite: {metrics['auto']}")
+    return {"loss": metrics["auto"]["loss"], "grad_norm": metrics["auto"]["grad_norm"],
+            "rel_err": step_rel, "grad_rel_err_max": [worst, grad_rel[worst]],
+            "k3_launches": launches["auto"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def read_mjpeg_part(url: str) -> bytes:
+    """The first JPEG of an MJPEG stream (the training viewer's /preview)."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        if not r.headers["Content-Type"].startswith("multipart/x-mixed-replace"):
+            raise AssertionError(f"/preview sent {r.headers['Content-Type']}")
+        headers = {}
+        while True:
+            line = r.readline().strip()
+            if not line and headers:
+                break
+            if b":" in line:
+                k, v = line.split(b":", 1)
+                headers[k.strip().lower()] = v.strip()
+        return r.read(int(headers[b"content-length"]))
+
+
+def viewer_run(argv: list) -> dict:
+    """The training CLI with --viewer_port in a thread; while it trains, one
+    JPEG from /preview, /stats after it and a POST /camera. Returns the
+    frame's shape, the stats, the CLI's lines and seconds."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+
+    port = free_port()
+    box: dict = {}
+
+    def run():
+        try:
+            box["lines"] = run_cli([*argv, "--viewer_port", str(port)])
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller's thread
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, name="viewer-cli")
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    stats = None
+    try:
+        while thread.is_alive() and time.perf_counter() - t0 < 300:
+            try:
+                with urllib.request.urlopen(url + "/stats", timeout=5) as r:
+                    stats = _json.loads(r.read())
+            except OSError:
+                stats = None
+            if stats and "render_ms" in stats:
+                break
+            time.sleep(0.05)
+        if not stats or "render_ms" not in stats:
+            raise AssertionError(f"the viewer rendered nothing during the run: {stats}")
+        jpg = read_mjpeg_part(url + "/preview")
+        frame = cv2.imdecode(np.frombuffer(jpg, np.uint8), cv2.IMREAD_COLOR)
+        # a camera move, rendered on the server's handler thread (the orbit
+        # camera looks away from the head whatever its orbit: ROADMAP §3)
+        req = urllib.request.Request(url + "/camera", data=_json.dumps({"dx": 200.0}).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            camera = _json.loads(r.read())
+        moved = cv2.imdecode(np.frombuffer(read_mjpeg_part(url + "/preview"), np.uint8),
+                              cv2.IMREAD_COLOR)
+        with urllib.request.urlopen(url + "/stats", timeout=5) as r:
+            after = _json.loads(r.read())
+        fetched_during_run = thread.is_alive()
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    shapes = [None if f is None else f.shape for f in (frame, moved)]
+    if shapes != [(VIEWER_SIZE, VIEWER_SIZE, 3)] * 2 or camera != {"ok": True}:
+        raise AssertionError(f"viewer: frames {shapes}, camera {camera}")
+    if not fetched_during_run:
+        raise AssertionError("the run ended before the viewer was read")
+    return {"jpeg_bytes": len(jpg), "frame_mean": float(frame.mean()),
+            "moved_frame_mean": float(moved.mean()), "stats_first": stats,
+            "stats_after": after, "lines": box["lines"], "seconds": time.perf_counter() - t0}
+
+
+def _nerf_finetune(state: dict, dev, root: str, ws: str) -> dict:
+    import json as _json
+    import os
+
+    import numpy as np
+    import torch
+
+    import mere_fusion_tpu_torch.models.ernerf.network as net_mod
+    from mere_fusion_tpu_torch.data.provider import NeRFTrainDataset
+    from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+    from mere_fusion_tpu_torch.models.lpips import make_lpips_fn
+    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.train.ernerf_cli import render_image
+    from mere_fusion_tpu_torch.train.ernerf_train import (
+        NeRFTrainConfig,
+        init_nerf_train,
+        make_nerf_train_step,
+    )
+    from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+
+    iters = FINETUNE_FROM + FINETUNE_ITERS
+    ds = NeRFTrainDataset.load(root, device=dev)      # the CLI's loading defaults
+    if ds.lips_rects is None or ds.lips_rects.shape != (8, 4):
+        raise AssertionError(f"lips rects from the .lms files: {ds.lips_rects}")
+    tcfg = NeRFTrainConfig(iters=iters)
+    lips_cfg = dataclasses.replace(tcfg, unc_loss=False)
+    net = NeRFNetwork(NeRFNetConfig(num_train_frames=len(ds))).to(dev)
+    tstate = init_nerf_train(net, tcfg)
+    tstate.load_state_dict(Checkpointer(ws).restore(map_location=dev))
+    lpips_fn = make_lpips_fn(device=dev)
+    rng = np.random.default_rng(1)
+    batches = {"head": ds.sample_rays(3, 4096, rng),
+               "patch": ds.sample_rays(3, 4096, rng, patch_size=FINETUNE_PATCH),
+               "lips": ds.sample_lips_rays(3, rng, size=FINETUNE_LIPS)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = {k: torch.rand(b["rays_o"].shape, generator=gen, device=dev)
+             for k, b in batches.items()}
+    lpips = {"head": {},
+             "patch": {"lpips_fn": lpips_fn, "patch_hw": (FINETUNE_PATCH, FINETUNE_PATCH)},
+             "lips": {"lpips_fn": lpips_fn, "patch_hw": (FINETUNE_LIPS, FINETUNE_LIPS),
+                      "lpips_weight": 0.01}}
+    cfgs = {"head": tcfg, "patch": tcfg, "lips": lips_cfg}
+
+    # 1. one patch step and one lips step from the same state, batch and noise:
+    # K3 against the plain encode
+    steps = {k: _step_against_plain(tstate, batches[k], cfgs[k], noise[k], lpips[k])
+             for k in ("patch", "lips")}
+
+    # 2. times by CUDA events: the head, patch and lips steps with K3, in turns;
+    # LPIPS's forward and forward + backward alone at the two steps' shapes
+    times = {}
+    for _ in range(2):
+        for k in ("head", "patch", "lips"):
+            fn = make_nerf_train_step(cfgs[k], **lpips[k])
+            times.setdefault(f"{k}_step_ms", []).append(time_ms(
+                lambda: fn(tstate, batches[k], noise=noise[k]), iters=10, warmup=2))
+    module = lpips_fn.module
+    lpips_times = {}
+    for shape in LPIPS_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev)
+        y = torch.rand(shape, generator=gen, device=dev)
+        xg = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            module(xg, y).backward()
+
+        with torch.no_grad():
+            fwd = time_ms(lambda: module(x, y), iters=20, warmup=3)
+        prof = profile_launches(fwd_bwd)
+        lpips_times["x".join(map(str, shape))] = {
+            "forward_ms": fwd, "forward_backward_ms": time_ms(fwd_bwd),
+            **{f"forward_backward_{k}": prof[k] for k in ("device_ms", "device_busy_share",
+                                                           "device_launches", "top")}}
+    del tstate, net
+    torch.cuda.empty_cache()
+
+    # 3. the fine-tuning CLI: the slice's main path, counts zeroed just before
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    lines = run_cli([root, "--workspace", ws, "--iters", str(iters), "--finetune_lips",
+                     "--patch_size", str(FINETUNE_PATCH)])
+    cli_s = time.perf_counter() - t0
+    counts = k3_counts()                                    # ... and ends here
+    refreshes = sum(1 for it in range(FINETUNE_FROM, iters) if it % 16 == 0)
+    want = (FINETUNE_ITERS * 3 + refreshes * 32, 0, FINETUNE_ITERS * 3)
+    if counts != want or attention.launches or sampler.launches:
+        raise AssertionError(f"fine-tuning CLI: K3 launches {counts}, want {want}; K1 "
+                             f"{attention.launches}, K2 {sampler.launches}")
+    if f"[train] resumed from step {FINETUNE_FROM}" not in lines:
+        raise AssertionError(f"the fine-tuning did not resume the head stage: {lines}")
+    with open(os.path.join(ws, "scalars.jsonl")) as f:
+        logged = [_json.loads(line) for line in f]
+    last = torch.load(Checkpointer(ws).path(iters), map_location="cpu", weights_only=True)
+    # it 200 is a patch step, the last (it 247) a lips step
+    losses = {"patch_it200": logged[-1]["loss"], "lips_last": last["metrics"]["loss"]}
+    if logged[-1]["step"] != FINETUNE_FROM or not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"fine-tuning losses {losses}, logged {logged}")
+    state["k3_finetune_launches"] = counts
+
+    # 4. --test on the workspace: eval.json for every frame, K3 once a frame
+    zero_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    test_lines = run_cli([root, "--workspace", ws, "--test"])
+    test_s = time.perf_counter() - t0
+    eval_counts = k3_counts()
+    eval_peak = torch.cuda.max_memory_allocated() - base_mem
+    with open(os.path.join(ws, "eval.json")) as f:
+        report = _json.load(f)
+    if report["frames"] != len(ds) or not (math.isfinite(report["psnr"])
+                                           and math.isfinite(report["ssim"])):
+        raise AssertionError(f"eval.json {report}")
+    if eval_counts != (len(ds), 0, 0):
+        raise AssertionError(f"--test: K3 launches {eval_counts}, want ({len(ds)}, 0, 0)")
+    state["k3_eval_launches"] = eval_counts
+    # one frame as --test renders it, K3 against the plain encode, and its time
+    raw = Checkpointer(ws).restore(map_location=dev)
+    ema = NeRFNetwork(NeRFNetConfig(num_train_frames=len(ds))).to(dev)
+    ema.load_state_dict(raw["ema"])
+    density = DensityGrid(**raw["density"])
+    idx = np.clip(np.arange(3 - 4, 3 + 4), 0, len(ds) - 1)
+    frame_args = (ema, density, tcfg, torch.from_numpy(ds.poses[3]).to(dev), ds.intrinsics,
+                  ds.H, ds.W, torch.from_numpy(ds.auds[idx]).to(dev),
+                  torch.tensor([[ds.eye_area[3]]], device=dev))
+    images = {}
+    try:
+        for impl in ("plain", "auto"):
+            net_mod.ENCODE_IMPL = impl
+            images[impl] = render_image(*frame_args)
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    frame_err = (images["auto"] - images["plain"]).abs().max().item()
+    if frame_err > EVAL_ENCODE_ATOL:
+        raise AssertionError(f"--test frame with K3 against plain: {frame_err} (limit "
+                             f"{EVAL_ENCODE_ATOL})")
+    frame_ms = {}
+    try:
+        for impl in ("plain", "auto", "auto", "plain"):
+            net_mod.ENCODE_IMPL = impl
+            frame_ms.setdefault(impl, []).append(p50_ms(lambda: render_image(*frame_args),
+                                                        iters=5, warmup=1))
+    finally:
+        net_mod.ENCODE_IMPL = "auto"
+    del raw, ema, images
+    torch.cuda.empty_cache()
+
+    # 5. the viewer during a short run: a JPEG over HTTP, /stats, a camera move
+    zero_kernel_counts()
+    viewer_iters = iters + VIEWER_ITERS
+    viewer = viewer_run([root, "--workspace", ws, "--iters", str(viewer_iters),
+                         "--finetune_lips", "--patch_size", str(FINETUNE_PATCH),
+                         "--viewer_size", str(VIEWER_SIZE)])
+    viewer_counts = k3_counts()
+    refreshes = sum(1 for it in range(iters, viewer_iters) if it % 16 == 0)
+    renders = viewer_counts[0] - VIEWER_ITERS * 3 - refreshes * 32
+    if viewer_counts[1:] != (0, VIEWER_ITERS * 3) or renders < 2:
+        raise AssertionError(f"viewer run: K3 launches {viewer_counts}: {renders} renders")
+    state["k3_viewer_launches"] = viewer_counts
+    return {"patch_step": steps["patch"], "lips_step": steps["lips"], **times,
+            "lpips": lpips_times, "cli_seconds": cli_s, "cli_k3_launches": list(counts),
+            "cli_losses": losses, "cli_lines": lines,
+            "eval": report, "eval_seconds": test_s, "eval_lines": test_lines,
+            "eval_k3_launches": list(eval_counts), "eval_peak_bytes": eval_peak,
+            "eval_frame_max_abs_err": frame_err, "eval_frame_ms": frame_ms,
+            "viewer_k3_launches": list(viewer_counts), "viewer_renders": renders,
+            **{f"viewer_{k}": v for k, v in viewer.items()}}
+
+
 def write_torso_imgs(root: str, n: int, hw: int) -> None:
     """BGRA torso images for a synthesized dataset under root
     (torso_imgs/<i>.png, as the reference's data layout): shoulders (an
@@ -5159,7 +5514,7 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
           ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
-          ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
+          ("nerf_finetune", phase_nerf_finetune), ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
           ("avatar_prep", phase_avatar_prep), ("asr", phase_asr),
           ("perception", phase_perception))
@@ -5306,12 +5661,20 @@ def main() -> int:
         # the corner route serves sample positions that need a gradient, which
         # no path of the port's asks for: the CLI's encodes launch it no time
         **({"note": "off the main path since the encode kernel"} if part == "forward" else {}),
-    } for part, launches in zip(("forward", "backward"), state["k3_cli_launches"][1:])] + [{
+        # the fine-tuning CLI, --test and the viewer's run (nerf_finetune)
+        **{f"{path}_launches": state[f"k3_{path}_launches"][i]
+           for path in ("finetune", "eval", "viewer")},
+    } for i, part, launches in zip((1, 2), ("forward", "backward"),
+                                   state["k3_cli_launches"][1:])] + [{
         # the training CLI's encodes: the forward of every step and refresh
         "name": "hash encode, corners hashed in the kernel (K3)", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/hash_lookup.cu",
         "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",
         "launches": state["k3_cli_launches"][0], "max_abs_err": k3e["training"]["max_abs_err"],
+        # the fine-tuning CLI's steps and refreshes, --test's frames, the viewer's
+        # run with its renders (nerf_finetune)
+        **{f"{path}_launches": state[f"k3_{path}_launches"][0]
+           for path in ("finetune", "eval", "viewer")},
         "ms": k3e["training"]["kernel_ms"], "plain_ms": k3e["training"]["plain_ms"],
         "bound_ms": k3e["training"]["bound_ms"], "bound_by": k3e["training"]["bound_by"],
         # no single PyTorch call hashes the corners (embedding_bag needs them made)

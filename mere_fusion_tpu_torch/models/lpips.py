@@ -35,8 +35,6 @@ ALEX_CHANNELS = (64, 192, 384, 256, 256)
 # torchvision alexnet.features: the index of each conv, the ReLU after each tap
 ALEX_CONVS = (0, 3, 6, 8, 10)
 ALEX_TAPS = (1, 4, 7, 9, 11)
-# the lpips package's full dump: slice s holds the conv at ALEX_CONVS[s - 1]
-_SLICES = 5
 
 
 class AlexNetFeatures(nn.Module):
