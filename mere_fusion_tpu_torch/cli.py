@@ -143,6 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio_in_dim", type=int, default=None,
                    help="the featurizer's logit width the avatar was trained on "
                         "(29 for a DeepSpeech .pb; default 44)")
+    p.add_argument("--fullbody", action="store_true",
+                   help="paste the rendered head into full-body frames (needs "
+                        "--fullbody_img)")
     p.add_argument("--fullbody_img", default="",
                    help="directory of full-body frames (<index>.jpg/png) to paste "
                         "the rendered head into")
@@ -185,6 +188,8 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> Config:
     overrides = {key: getattr(args, flag) for flag, key in _FLAG_TO_KEY.items()
                  if getattr(args, flag, None) is not None}
+    if getattr(args, "fullbody", False) and not args.fullbody_img:
+        raise SystemExit("--fullbody needs --fullbody_img <dir>")
     if getattr(args, "fullbody_img", ""):
         overrides["nerf.fullbody_offset"] = (args.fullbody_offset_x, args.fullbody_offset_y)
     return Config().override(**overrides)

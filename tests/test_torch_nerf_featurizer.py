@@ -261,3 +261,17 @@ def test_server_cli_maps_the_featurizer_and_fullbody_flags():
     assert tuple(nc.fullbody_offset) == (12, 34)
     nc = config_from_args(build_parser().parse_args(["--model", "ernerf"])).nerf
     assert (nc.asr_model, nc.audio_in_dim, nc.fullbody_imgs) == ("", 44, "")
+    # the JAX package's fullbody command line (tests/test_config.py) maps as it does
+    argv = ["--model", "ernerf", "--pose", "/d/t.json", "--au", "/d/au.csv",
+            "--fix_eye", "0.3", "--fullbody", "--fullbody_img", "/d/full",
+            "--fullbody_offset_x", "40", "--fullbody_offset_y", "60"]
+    from mere_fusion_tpu import cli as jax_cli
+
+    nc = config_from_args(build_parser().parse_args(argv)).nerf
+    ref = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv)).nerf
+    assert (nc.pose_path, nc.au_path, nc.fix_eye, nc.fullbody_imgs) == (
+        ref.pose_path, ref.au_path, ref.fix_eye, ref.fullbody_imgs) == (
+        "/d/t.json", "/d/au.csv", 0.3, "/d/full")
+    assert tuple(nc.fullbody_offset) == tuple(ref.fullbody_offset) == (40, 60)
+    with pytest.raises(SystemExit, match="--fullbody needs --fullbody_img <dir>"):
+        config_from_args(build_parser().parse_args(["--model", "ernerf", "--fullbody"]))
