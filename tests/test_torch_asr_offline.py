@@ -4,12 +4,16 @@ the JAX package's.
 Host code first: every text normalizer byte-equal to JAX's on a seeded
 corpus (numbers from ``numwords._VOCAB``, every key of
 ``spelling.uk_to_us_mapping()``, symbols and diacritics); the txt/vtt/srt
-writers byte-equal.
+writers byte-equal; ``simulate_streaming``'s emissions in the unaware mode and
+``server.handle_connection``'s lines over a socket pair, on scripted
+FakeBackend streams.
 """
 from __future__ import annotations
 
 import io
 import random
+import socket
+import threading
 
 import numpy as np
 import pytest
@@ -18,13 +22,18 @@ import torch
 from mere_fusion_tpu import asr as jasr
 from mere_fusion_tpu.asr import normalizers as jnorm
 from mere_fusion_tpu.asr import numwords as jnum
+from mere_fusion_tpu.asr import server as jserver
+from mere_fusion_tpu.asr import simulate as jsim
 from mere_fusion_tpu.asr import spelling as jspell
 from mere_fusion_tpu.asr import writers as jwriters
 from mere_fusion_tpu_torch import asr as tasr
 from mere_fusion_tpu_torch.asr import normalizers as tnorm
 from mere_fusion_tpu_torch.asr import numwords as tnum
+from mere_fusion_tpu_torch.asr import server as tserver
+from mere_fusion_tpu_torch.asr import simulate as tsim
 from mere_fusion_tpu_torch.asr import spelling as tspell
 from mere_fusion_tpu_torch.asr import writers as twriters
+from mere_fusion_tpu_torch.transport.line_packet import receive_one_line
 
 SR = 16000
 
@@ -116,3 +125,94 @@ def test_writers_byte_equal_jax(fmt):
     assert twriters.compression_ratio("abc " * 50) == jwriters.compression_ratio("abc " * 50)
     chunks = [dict(s, tokens=[1, 2]) for s in SEGMENTS]
     assert twriters.chunks_to_segments(chunks) == jwriters.chunks_to_segments(chunks)
+
+
+# ---- the streaming simulation and the socket server ----------------------------------
+
+def _script(n_words: int, t0: float = 0.2, dt: float = 0.3):
+    return [(t0 + i * dt, t0 + (i + 1) * dt - 0.05, f"w{i}." if i % 5 == 4 else f"w{i}")
+            for i in range(n_words)]
+
+
+@pytest.mark.parametrize("trimming", [("segment", 15.0), ("sentence", 3.0)])
+def test_simulate_streaming_unaware_as_jax(trimming):
+    results = []
+    for pkg, sim in ((jasr, jsim), (tasr, tsim)):
+        backend = pkg.FakeBackend(_script(30), jitter_last=True)
+        st = pkg.StreamingTranscriber(backend, buffer_trimming=trimming)
+        res = sim.simulate_streaming(st, np.zeros(11 * SR, np.float32), min_chunk=0.5,
+                                     backend_offset_hook=backend.set_offset)
+        results.append(([(e.emitted_at, e.beg, e.end, e.text) for e in res.emissions],
+                        res.transcript, res.mean_latency))
+    assert results[1] == results[0]
+    assert "w0" in results[1][1] and "w29" in results[1][1]
+    e = tsim.Emission(2.0, 1.0, 1.5, "x")
+    assert e.latency == jsim.Emission(2.0, 1.0, 1.5, "x").latency == 0.5
+
+
+class _Stepped:
+    """A transcriber that signals each process_iter, so that the client
+    sends the next half second only after the server has read the last one:
+    every run then makes the same calls, whatever the socket's timing."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.stepped = threading.Semaphore(0)
+
+    def insert_audio_chunk(self, pcm):
+        self.inner.insert_audio_chunk(pcm)
+
+    def process_iter(self):
+        try:
+            return self.inner.process_iter()
+        finally:
+            self.stepped.release()
+
+    def finish(self):
+        return self.inner.finish()
+
+
+def _served_lines(pkg, server_mod, pcm: np.ndarray, piece: int) -> list[str]:
+    """Stream PCM16 through server_mod.handle_connection on a socket pair
+    with a FakeBackend transcriber, half a second at a time in pieces of
+    ``piece`` bytes (odd sizes split samples); the lines the client receives."""
+    backend = pkg.FakeBackend(_script(10), jitter_last=False)
+    transcriber = _Stepped(pkg.StreamingTranscriber(backend))
+    srv, client = socket.socketpair()
+
+    def run():
+        server_mod.handle_connection(srv, transcriber, min_chunk_seconds=0.5)
+        srv.close()
+
+    lines = []
+
+    def read():          # a line is a whole 64 KiB packet: read while sending
+        while (line := receive_one_line(client)) is not None:
+            lines.append(line)
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (run, read)]
+    for t in threads:
+        t.start()
+    data = pcm.tobytes()
+    half = SR // 2 * 2
+    for start in range(0, len(data), half):
+        part = data[start:start + half]
+        for i in range(0, len(part), piece):
+            client.sendall(part[i:i + piece])
+        if len(part) == half:
+            assert transcriber.stepped.acquire(timeout=10)
+    client.shutdown(socket.SHUT_WR)
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    client.close()
+    return lines
+
+
+def test_handle_connection_lines_as_jax():
+    pcm = np.random.default_rng(0).integers(-3000, 3000, 4 * SR).astype(np.int16)
+    port = _served_lines(tasr, tserver, pcm, 7001)
+    assert port == _served_lines(jasr, jserver, pcm, 7001)
+    assert port and all(ln.split()[0].isdigit() and ln.split()[1].isdigit() for ln in port)
+    assert "w0" in " ".join(port)
+    assert tserver.CHUNK_BYTES == jserver.CHUNK_BYTES

@@ -28,6 +28,12 @@ REQUIRED = (
     "mere_fusion_tpu_torch.asr.sentences",
     "mere_fusion_tpu_torch.asr.vad",
     "mere_fusion_tpu_torch.asr.align",
+    "mere_fusion_tpu_torch.asr.normalizers",
+    "mere_fusion_tpu_torch.asr.numwords",
+    "mere_fusion_tpu_torch.asr.spelling",
+    "mere_fusion_tpu_torch.asr.writers",
+    "mere_fusion_tpu_torch.asr.simulate",
+    "mere_fusion_tpu_torch.asr.server",
     "mere_fusion_tpu_torch.brain.orchestrator",
     "mere_fusion_tpu_torch.llm",
     "mere_fusion_tpu_torch.perception",
