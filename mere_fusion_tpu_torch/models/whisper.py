@@ -133,21 +133,23 @@ class MultiHeadAttention(nn.Module):
 
     def step_cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """Cross-attention of x [B, 1, D] over ``cross_kv``'s keys and
-        values; a batch of one serves every row of x (the beams and the
-        sampled candidates share their audio)."""
+        values; a key set serves B / Bk consecutive rows of x (the beams and
+        the sampled candidates of one window share its audio)."""
         return self.out(self._attend_heads(self.query(x), k, v))
 
     def _attend_heads(self, q, k, v):
         """softmax(q k) v for q [B, Lq, D] against keys [Bk, h, dh, Lk] and
-        values [Bk, h, Lk, dh] in the heads' layout; Bk = 1 serves all B
-        rows with one read of k and v."""
+        values [Bk, h, Lk, dh] in the heads' layout. With Bk < B, key set j
+        serves rows j·r … j·r + r − 1 (r = B / Bk) with one read of its k
+        and v."""
         b, lq, d = q.shape
-        h = self.n_head
+        bk, h = k.shape[0], self.n_head
         q = (q * self._scale()).reshape(b, lq, h, -1)
-        if k.shape[0] == 1 and b > 1:     # shared keys: the rows ride the query axis
-            q = q.permute(2, 0, 1, 3).reshape(h, b * lq, -1)
-            w = torch.softmax((q @ k[0]).float(), dim=-1).to(v.dtype)
-            return (w @ v[0]).reshape(h, b, lq, -1).permute(1, 2, 0, 3).reshape(b, lq, d)
+        if bk < b:     # shared keys: a key set's rows ride the query axis
+            r = b // bk
+            q = q.reshape(bk, r, lq, h, -1).permute(0, 3, 1, 2, 4).reshape(bk, h, r * lq, -1)
+            w = torch.softmax((q @ k).float(), dim=-1).to(v.dtype)
+            return (w @ v).reshape(bk, h, r, lq, -1).permute(0, 2, 3, 1, 4).reshape(b, lq, d)
         w = torch.softmax((q.transpose(1, 2) @ k).float(), dim=-1).to(v.dtype)
         return (w @ v).transpose(1, 2).reshape(b, lq, d)
 
@@ -305,7 +307,8 @@ class TextDecoder(nn.Module):
              logits: bool = True) -> Optional[torch.Tensor]:
         """One incremental decode step: token [B, 1] at position ``pos``,
         the ``init_cache`` caches written in place at ``pos``, the
-        ``cross_kv`` keys and values (a batch of one serves all B rows).
+        ``cross_kv`` keys and values (a batch of Bk serves B / Bk
+        consecutive rows each).
         Returns the logits [B, n_vocab], or None with logits=False (the
         blocks only)."""
         x = self.token_embedding(token) + self.positional_embedding[pos]
@@ -410,16 +413,16 @@ def non_speech_token_ids(tokenizer) -> tuple:
 
 # ---- decoders -----------------------------------------------------------------
 def _topk_low_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k largest entries of a 1-D float32 tensor, descending, equal
-    values by the lower index first (lax.top_k's order; torch.topk promises
-    no order among ties). Each entry gets a distinct int64 key: its float's
-    order-preserving bits above its reversed index."""
+    """The k largest entries of each row of a float32 tensor [..., N],
+    descending, equal values by the lower index first (lax.top_k's order;
+    torch.topk promises no order among ties). Each entry gets a distinct
+    int64 key: its float's order-preserving bits above its reversed index."""
     bits = (x + 0.0).view(torch.int32)          # + 0.0: -0.0 sorts as 0.0
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    idx = torch.arange(x.numel(), device=x.device)
+    idx = torch.arange(x.shape[-1], device=x.device)
     top = torch.topk((key << 32) + (0x7FFFFFFF - idx), k).values
     pos = 0x7FFFFFFF - (top & 0xFFFFFFFF)
-    return x[pos], pos
+    return x.gather(-1, pos), pos
 
 
 def _suppress_index(suppress_tokens, device) -> Optional[torch.Tensor]:
@@ -473,9 +476,11 @@ def make_greedy_decoder(model: Whisper, max_new_tokens: int = 128,
 
 def _scored_loop(model: Whisper, xa, prompt, prompt_len: int, max_new_tokens: int,
                  sup, pick, stats: dict):
-    """The cached greedy/sampling loop over B rows of one buffer. ``pick``
-    maps a step's (suppressed) logits and its index to the next tokens.
-    Returns (tokens, avg_logprob, no_speech_prob)."""
+    """The cached greedy/sampling loop over B rows of one buffer: xa is
+    one window for all rows, or one window a row. ``pick`` maps a step's
+    (suppressed) logits and its index to the next tokens. A row stops at
+    its EOT; the loop, when every row has. Returns (tokens, avg_logprob,
+    no_speech_prob)."""
     dec = model.decoder
     b, p = prompt.shape
     total = p + max_new_tokens
@@ -519,7 +524,8 @@ def make_cached_greedy_decoder(model: Whisper, max_new_tokens: int = 128,
                                return_scores: bool = False):
     """KV-cached greedy decode: one incremental decoder step a token.
 
-    Returns decode(xa, prompt, prompt_len) → tokens [B, P+max_new]; with
+    Returns decode(xa [1 or B, T', D], prompt [B, P], prompt_len) → tokens
+    [B, P+max_new], a window for all B rows or one a row; with
     return_scores → (tokens, avg_logprob [B], no_speech_prob [B]), where
     avg_logprob = Σ logprob(chosen) / (n_generated + 1), the EOT step
     included, and no_speech_prob is the <|nospeech|> probability at the
@@ -598,15 +604,21 @@ def make_cached_beam_decoder(model: Whisper, beam_size: int = 5,
                              suppress_tokens: Optional[tuple] = None,
                              return_scores: bool = False):
     """KV-cached beam search (whisper's BeamSearchDecoder, patience 1.0, with
-    the maximum-likelihood ranker): ``beam_size`` beams on the batch axis, a
-    top-2n expansion a step over the flattened beam × vocab log-probs,
-    finished hypotheses kept in an n-slot pool ranked by average log-prob
-    over the generated region, the best live beam when none finished.
-    Batch-1 input (the streaming case).
+    the maximum-likelihood ranker) over a batch of windows: B independent
+    searches of ``beam_size`` beams on B·n rows, rows b·n … b·n + n − 1
+    reading window b's cross-attention keys. Each window takes a top-2n
+    expansion a step over its own n × vocab log-probs and keeps finished
+    hypotheses in its own n-slot pool ranked by average log-prob over the
+    generated region; the best live beam when none finished. A window whose
+    pool is full leaves the batch (its rows, caches and keys are dropped),
+    so that its tokens and scores stop changing: each window's result is
+    the batch-1 search's on that window alone, as JAX's vmap over the
+    batch-1 loop gives. The loop ends when every window has left, or at the
+    buffer's end.
 
-    Returns decode(xa [1, T', D], prompt [1, P], prompt_len) → tokens
-    [1, P+max_new]; with return_scores → (tokens, avg_logprob [1],
-    no_speech_prob [1]). ``decode.stats["steps"]`` is the last call's step
+    Returns decode(xa [B, T', D], prompt [B or 1, P], prompt_len) → tokens
+    [B, P+max_new]; with return_scores → (tokens, avg_logprob [B],
+    no_speech_prob [B]). ``decode.stats["steps"]`` is the last call's step
     count."""
     n = beam_size
     stats: dict = {}
@@ -616,69 +628,104 @@ def make_cached_beam_decoder(model: Whisper, beam_size: int = 5,
         xa, prompt, dev = _decode_inputs(model, xa, prompt)
         sup = _suppress_index(suppress_tokens, dev)
         dec = model.decoder
+        nw = xa.shape[0]
         total = prompt.shape[1] + max_new_tokens
-        cross_k, cross_v = dec.cross_kv(xa)      # one audio, read once for all beams
-        k_cache, v_cache = dec.init_cache(n, total)
-        tokens = torch.cat([prompt, torch.full((1, max_new_tokens), EOT, dtype=torch.long,
-                                               device=dev)], 1).repeat(n, 1)
-        # identical beams: only beam 0 is alive at the first expansion
-        sum_lp = torch.full((n,), -1e9, dtype=torch.float32, device=dev)
-        sum_lp[0] = 0.0
-        fin_tokens = torch.full((n, total), EOT, dtype=torch.long, device=dev)
-        fin_scores = torch.full((n,), -torch.inf, dtype=torch.float32, device=dev)
-        fin_count = torch.zeros((), dtype=torch.long, device=dev)
-        ns = torch.zeros((), dtype=torch.float32, device=dev)
+        cross_k, cross_v = dec.cross_kv(xa)      # a window's keys, read once for its beams
+        k_cache, v_cache = dec.init_cache(nw * n, total)
+        tokens = torch.cat([prompt.expand(nw, -1),
+                            torch.full((nw, max_new_tokens), EOT, dtype=torch.long,
+                                       device=dev)], 1).repeat_interleave(n, 0)
+        # identical beams: only beam 0 of a window is alive at the first expansion
+        sum_lp = torch.full((nw, n), -1e9, dtype=torch.float32, device=dev)
+        sum_lp[:, 0] = 0.0
+        fin_tokens = torch.full((nw, n, total), EOT, dtype=torch.long, device=dev)
+        fin_scores = torch.full((nw, n), -torch.inf, dtype=torch.float32, device=dev)
+        fin_count = torch.zeros(nw, dtype=torch.long, device=dev)
+        ns = torch.zeros(nw, dtype=torch.float32, device=dev)
+        out_tokens = torch.full((nw, total), EOT, dtype=torch.long, device=dev)
+        out_avg = torch.zeros(nw, dtype=torch.float32, device=dev)
+        live = torch.arange(nw, device=dev)      # the windows still searching
         sot_step = prompt_len - 4
+
+        def settle(windows, mask):
+            """The pool's best for the windows ``mask`` picks."""
+            best = fin_scores[mask].argmax(1)
+            out_tokens[windows] = fin_tokens[mask][torch.arange(best.numel(), device=dev),
+                                                   best]
+            out_avg[windows] = fin_scores[mask].amax(1)
+
         i = 0
         while i < total - 1:
-            if i >= prompt_len and int(fin_count) >= n:    # the step's one readback
-                break
             in_prompt = i + 1 < prompt_len
             logits = dec.step(tokens[:, i:i + 1], i, k_cache, v_cache, cross_k, cross_v,
                               logits=not in_prompt or i == sot_step)
-            if i == sot_step:
-                ns = torch.softmax(logits[0], -1)[NO_SPEECH]
-            if in_prompt:    # tokens, scores, pool and caches stay as they are
+            if i == sot_step:                    # every window is still live here
+                ns = torch.softmax(logits[::n], -1)[:, NO_SPEECH]
+            if in_prompt:    # tokens, scores, pools and caches stay as they are
                 i += 1
                 continue
             if sup is not None:
                 logits[:, sup] = -torch.inf
             lp = torch.log_softmax(logits, -1)
-            v = lp.shape[-1]
-            top_lp, top_idx = _topk_low_index((sum_lp[:, None] + lp).reshape(-1), 2 * n)
-            src, tok_id = top_idx // v, top_idx % v
+            a, v = live.numel(), lp.shape[-1]
+            top_lp, top_idx = _topk_low_index(
+                (sum_lp[:, :, None] + lp.view(a, n, v)).view(a, n * v), 2 * n)
+            src = top_idx // v + n * torch.arange(a, device=dev)[:, None]   # [a, 2n] rows
+            tok_id = top_idx % v
             is_eot = tok_id == EOT
             # finished candidates → the pool, ranked by avg logprob over the
             # generated region (no length penalty)
             gen_len = _scalar(max(i + 1 - prompt_len, 1), dev)
             cand_avg = torch.where(is_eot, top_lp / gen_len, -torch.inf)
-            cand_tokens = tokens[src]
-            cand_tokens[:, i + 1] = EOT
-            all_scores = torch.cat([fin_scores, cand_avg])
-            keep = torch.sort(all_scores, descending=True, stable=True).indices[:n]
-            fin_scores = all_scores[keep]
-            fin_tokens = torch.cat([fin_tokens, cand_tokens])[keep]
-            fin_count = torch.clamp(fin_count + is_eot.sum(), max=n)
-            # continue with the best n unfinished candidates
-            live = torch.sort(torch.where(is_eot, torch.inf, -top_lp), stable=True).indices[:n]
-            src_l = src[live]
+            cand_tokens = tokens[src]                                       # [a, 2n, total]
+            cand_tokens[:, :, i + 1] = EOT
+            all_scores = torch.cat([fin_scores, cand_avg], 1)
+            keep = torch.sort(all_scores, dim=1, descending=True, stable=True).indices[:, :n]
+            fin_scores = all_scores.gather(1, keep)
+            fin_tokens = torch.cat([fin_tokens, cand_tokens], 1).gather(
+                1, keep[:, :, None].expand(-1, -1, total))
+            fin_count = torch.clamp(fin_count + is_eot.sum(1), max=n)
+            # continue with the best n unfinished candidates of each window
+            order = torch.sort(torch.where(is_eot, torch.inf, -top_lp), dim=1,
+                               stable=True).indices[:, :n]
+            src_l = src.gather(1, order).view(-1)
             tokens = tokens[src_l]
-            tokens[:, i + 1] = tok_id[live]
-            sum_lp = top_lp[live]
+            tokens[:, i + 1] = tok_id.gather(1, order).view(-1)
+            sum_lp = top_lp.gather(1, order)
             k_cache[..., :i + 1] = k_cache[:, src_l, ..., :i + 1]
             v_cache[:, :, :, :i + 1] = v_cache[:, src_l, :, :i + 1]
             i += 1
+            going = fin_count < n
+            going_host = going.tolist()           # the step's one readback
+            if all(going_host):
+                continue
+            settle(live[~going], ~going)          # full pools: those windows leave
+            if not any(going_host):
+                live = live[going]
+                break
+            rows = going.repeat_interleave(n)
+            live, fin_scores, fin_tokens = live[going], fin_scores[going], fin_tokens[going]
+            fin_count, sum_lp, tokens = fin_count[going], sum_lp[going], tokens[rows]
+            k_cache, v_cache = k_cache[:, rows], v_cache[:, rows]
+            cross_k, cross_v = cross_k[:, going], cross_v[:, going]
         stats["steps"] = i
-        # the best live beam when nothing finished
-        if int(fin_count) > 0:
-            best = fin_tokens[fin_scores.argmax()]
-            avg = fin_scores.max()
-        else:
-            best = tokens[sum_lp.argmax()]
-            avg = sum_lp.max() / _scalar(max(i - prompt_len, 1), dev)
+        if live.numel():
+            # the buffer's end: the pool's best, or the best live beam when
+            # nothing finished
+            has = fin_count > 0
+            has_host = has.tolist()
+            if any(has_host):
+                settle(live[has], has)
+            if not all(has_host):
+                none = ~has
+                best = sum_lp[none].argmax(1)
+                rows = n * torch.arange(live.numel(), device=dev)[none] + best
+                out_tokens[live[none]] = tokens[rows]
+                out_avg[live[none]] = (sum_lp[none].amax(1)
+                                       / _scalar(max(i - prompt_len, 1), dev))
         if return_scores:
-            return best[None], avg[None], ns[None]
-        return best[None]
+            return out_tokens, out_avg, ns
+        return out_tokens
 
     decode.stats = stats
     return decode

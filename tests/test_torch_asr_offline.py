@@ -7,6 +7,18 @@ corpus (numbers from ``numwords._VOCAB``, every key of
 writers byte-equal; ``simulate_streaming``'s emissions in the unaware mode and
 ``server.handle_connection``'s lines over a socket pair, on scripted
 FakeBackend streams.
+
+Then the device path at narrow widths with the full 51,865-token vocabulary
+(the JAX init through convert.whisper_from_flax, as
+tests/test_torch_asr_streaming.py): the batched beam decoder window by
+window against the port's batch-1 decoder; ``transcribe_long``'s chunks,
+text and duration against ``JaxWhisperBackend.transcribe_long``'s, greedy
+and beam-3, with timestamps and without, three windows at batch size 2 (JAX
+pads the last group, the port does not); both CLIs' ``main`` on a WAV with
+the backends patched in. The decoder's final-norm bias leans toward EOT and
+a few timestamp tokens lean toward EOT's embedding, so that windows of one
+batch stop at different steps (some fill their pool, some reach the
+buffer's end) and timestamp tokens appear among the text.
 """
 from __future__ import annotations
 
@@ -15,6 +27,8 @@ import random
 import socket
 import threading
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,6 +40,7 @@ from mere_fusion_tpu.asr import server as jserver
 from mere_fusion_tpu.asr import simulate as jsim
 from mere_fusion_tpu.asr import spelling as jspell
 from mere_fusion_tpu.asr import writers as jwriters
+from mere_fusion_tpu.models import whisper as jw
 from mere_fusion_tpu_torch import asr as tasr
 from mere_fusion_tpu_torch.asr import normalizers as tnorm
 from mere_fusion_tpu_torch.asr import numwords as tnum
@@ -33,6 +48,8 @@ from mere_fusion_tpu_torch.asr import server as tserver
 from mere_fusion_tpu_torch.asr import simulate as tsim
 from mere_fusion_tpu_torch.asr import spelling as tspell
 from mere_fusion_tpu_torch.asr import writers as twriters
+from mere_fusion_tpu_torch.convert import whisper_from_flax
+from mere_fusion_tpu_torch.models import whisper as tw
 from mere_fusion_tpu_torch.transport.line_packet import receive_one_line
 
 SR = 16000
@@ -216,3 +233,64 @@ def test_handle_connection_lines_as_jax():
     assert port and all(ln.split()[0].isdigit() and ln.split()[1].isdigit() for ln in port)
     assert "w0" in " ".join(port)
     assert tserver.CHUNK_BYTES == jserver.CHUNK_BYTES
+
+
+# ---- the device path against the JAX package ------------------------------------------
+
+DIMS = dict(n_mels=80, n_audio_ctx=32, n_audio_state=64, n_audio_head=2, n_audio_layer=2,
+            n_vocab=51865, n_text_ctx=448, n_text_state=64, n_text_head=2, n_text_layer=2)
+WINDOW = 32 * 2 * 160          # the backend's fixed window at these dims: 0.64 s
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jdims, tdims = jw.WhisperDims(**DIMS), tw.WhisperDims(**DIMS)
+    model = jw.Whisper(jdims)
+    variables = jax.jit(model.init)(jax.random.key(1), jnp.zeros((1, 80, 64)),
+                                    jnp.zeros((1, 4), jnp.int32))
+    variables = jax.tree_util.tree_map(np.array, variables)
+    dec = variables["params"]["decoder"]
+    eot = dec["token_embedding"]["embedding"][jw.EOT].copy()
+    dec["ln"]["bias"] = (dec["ln"]["bias"] + 4.5 * eot / (eot @ eot)).astype(np.float32)
+    dec["token_embedding"]["embedding"][jw.TIMESTAMP_BEGIN::100] += 0.5 * eot
+    return variables, whisper_from_flax(variables, tdims), jdims, tdims
+
+
+def _speech(seconds: float, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    f0 = 140 * (1 + 0.3 * t)
+    pcm = sum(0.12 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3))
+    return (pcm + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def test_batched_beam_decoder_equals_batch_1_per_window(weights):
+    """Four windows on one batch against each window alone: some fill
+    their pool (and leave the batch) at different steps, some reach the
+    buffer's end."""
+    _, state, _, tdims = weights
+    model = tw.Whisper(tdims)
+    model.load_state_dict(state)
+    model.eval()
+    audio = np.concatenate([_speech(0.64, s) * (0.3 + 0.4 * s) for s in range(4)])
+    from mere_fusion_tpu_torch.ops.mel import melspectrogram, whisper_mel_config
+
+    with torch.no_grad():
+        mels = melspectrogram(torch.from_numpy(audio).view(4, WINDOW), whisper_mel_config(80))
+        xa = model.encode(mels)
+    prompt = torch.tensor([tw.sot_sequence(0)])
+    decode = tw.make_cached_beam_decoder(model, beam_size=3, max_new_tokens=24,
+                                         return_scores=True)
+    toks, avg, ns = decode(xa, prompt.expand(4, -1), 4)
+    steps = decode.stats["steps"]
+    assert toks.shape == (4, 28) and avg.shape == ns.shape == (4,)
+    lengths = []
+    for b in range(4):
+        one = decode(xa[b:b + 1], prompt, 4)
+        np.testing.assert_array_equal(one[0][0].numpy(), toks[b].numpy())
+        assert float(one[1][0]) == pytest.approx(float(avg[b]), abs=1e-5)
+        assert float(one[2][0]) == pytest.approx(float(ns[b]), abs=1e-6)
+        lengths.append(int((toks[b, 4:] != tw.EOT).sum()))
+    # windows that stop early and one that runs to the buffer's end
+    assert min(lengths) < 24 and max(lengths) == 24 and len(set(lengths)) > 2, lengths
+    assert steps == 27
