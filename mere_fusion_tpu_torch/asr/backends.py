@@ -9,8 +9,9 @@ ladder, language detection and DTW word times. faster-whisper and the OpenAI
 API remain available when their packages/keys exist, and FakeBackend drives
 deterministic streaming-logic tests.
 
-The offline long-file batch path (``transcribe_long`` and its timestamp
-decoder) is not ported yet (ROADMAP: 'Streaming ASR, the rest').
+``transcribe_long`` is the offline long-file path: fixed 30-second windows,
+their mels in one call, encoded and decoded a group of windows at a time
+(the beam search runs one search a window on the batch).
 """
 from __future__ import annotations
 
@@ -204,6 +205,7 @@ class TorchWhisperBackend:
         self._sample_seed = 0
         self._sampler = None      # lazy: fallback rungs are rare with trained weights
         self._detector = None     # lazy: language auto-detect
+        self._ts_decode = None    # lazy: the offline path's timestamp decoder
         if beam_size > 1:
             self._decode = make_cached_beam_decoder(
                 self.model, beam_size=beam_size, max_new_tokens=128,
@@ -390,15 +392,99 @@ class TorchWhisperBackend:
         return starts[:n_text]
 
     def _ts_decoder(self):
-        raise NotImplementedError(
-            "the timestamp decoder of the offline batch path is not ported to the "
-            "PyTorch package yet (ROADMAP: 'Streaming ASR, the rest')")
+        """Decoder variant for timestamp-mode decoding: the same search as
+        the main decoder, with <|notimestamps|> suppressed (the published
+        whisper rule while timestamps are being predicted; no other
+        timestamp rule is applied, as in the JAX package); lazy — the
+        offline long-file path is the only caller."""
+        if self._ts_decode is None:
+            from mere_fusion_tpu_torch.models.whisper import (
+                NO_TIMESTAMPS,
+                make_cached_beam_decoder,
+                make_cached_greedy_decoder,
+            )
+
+            suppress = tuple(sorted(set(self._suppress or ()) | {NO_TIMESTAMPS}))
+            if self.beam_size > 1:
+                self._ts_decode = make_cached_beam_decoder(
+                    self.model, beam_size=self.beam_size, max_new_tokens=128,
+                    suppress_tokens=suppress, return_scores=True)
+            else:
+                self._ts_decode = make_cached_greedy_decoder(
+                    self.model, max_new_tokens=128, suppress_tokens=suppress,
+                    return_scores=True)
+        return self._ts_decode
 
     def transcribe_long(self, audio: np.ndarray, batch_size: int = 24,
                         timestamps: bool = True) -> dict:
-        raise NotImplementedError(
-            "offline long-file transcription is not ported to the PyTorch package "
-            "yet (ROADMAP: 'Streaming ASR, the rest')")
+        """Offline long-file transcription: split into 30 s windows and
+        decode them in device batches — the reference's active backend's
+        chunked mode (InsanelyFastWhisperASR, whisper_online.py:254-302:
+        chunk_length_s=30, batch_size=24).
+
+        The windows' mels are made in one call; each group of
+        ``batch_size`` windows is encoded in one call and decoded in one
+        batched search (the beam decoder runs one n-beam search a window).
+        The last group is not padded to ``batch_size``: a window's tokens do
+        not depend on the others in its group.
+
+        timestamps=True decodes WITH whisper timestamp tokens (the SOT
+        sequence without <|notimestamps|>, <|notimestamps|> suppressed) and
+        segments each window at the predicted timestamps — sub-window
+        boundaries in the spirit of the reference's vendored-whisper
+        seek-by-timestamp segmentation (musetalk/whisper/whisper/
+        transcribe.py:103-127), while the windows stay fixed at 30 s so that
+        decodes batch. Off on vocabs without timestamp tokens.
+
+        Returns {"chunks": [{start, end, tokens, text}...], "text", "duration"}.
+        """
+        import torch
+
+        from mere_fusion_tpu_torch.models.whisper import (
+            EOT,
+            NO_TIMESTAMPS,
+            TIMESTAMP_BEGIN,
+        )
+        from mere_fusion_tpu_torch.ops.mel import melspectrogram, whisper_mel_config
+
+        window = self.dims.n_audio_ctx * 2 * 160
+        duration = len(audio) / SAMPLE_RATE
+        n_chunks = max(1, -(-len(audio) // window))
+        padded = np.zeros(n_chunks * window, dtype=np.float32)
+        padded[: len(audio)] = audio
+
+        use_ts = (timestamps and self.dims.n_vocab > TIMESTAMP_BEGIN
+                  and NO_TIMESTAMPS in self._sot)
+        sot = (tuple(t for t in self._sot if t != NO_TIMESTAMPS)
+               if use_ts else tuple(self._sot))
+        decode = self._ts_decoder() if use_ts else self._decode
+        prompt = torch.tensor([sot], dtype=torch.long, device=self.device)
+        all_tokens = []
+        with torch.no_grad():
+            mels = melspectrogram(torch.from_numpy(padded).to(self.device).view(n_chunks, window),
+                                  whisper_mel_config(self.dims.n_mels))
+            for i in range(0, n_chunks, batch_size):
+                xa = self.model.encode(mels[i:i + batch_size])
+                toks = decode(xa, prompt.expand(xa.shape[0], -1), len(sot))[0]
+                all_tokens.extend(toks.cpu().numpy())
+
+        window_s = window / SAMPLE_RATE
+        chunks = []
+        for c, toks in enumerate(all_tokens):
+            seq = [int(t) for t in toks[len(sot):] if t != EOT]
+            off = c * window_s
+            wend = min((c + 1) * window_s, duration)
+            for s0, s1, seg_toks in timestamp_segments(
+                    seq, TIMESTAMP_BEGIN if use_ts else None, window_s):
+                chunks.append({
+                    "start": off + s0,
+                    "end": min(off + s1, wend),
+                    "tokens": seg_toks,
+                    "text": "".join(self._token_text(t) for t in seg_toks),
+                })
+        return {"chunks": chunks,
+                "text": "".join(ch["text"] for ch in chunks),
+                "duration": duration}
 
     def _token_text(self, tok: int) -> str:
         if self.tokenizer is not None:
@@ -429,6 +515,7 @@ class TorchWhisperBackend:
 
     def segments_end_ts(self, res: dict) -> list[float]:
         return [res["duration"]]
+
 
 class FasterWhisperBackend:
     """CTranslate2 faster-whisper (whisper_online.py:101-162), if installed."""

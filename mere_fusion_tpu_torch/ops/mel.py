@@ -129,35 +129,40 @@ def num_mel_frames(n_samples: int, cfg: MelConfig) -> int:
 
 
 def melspectrogram(wav: torch.Tensor, cfg: MelConfig = WAV2LIP_MEL) -> torch.Tensor:
-    """Mel spectrogram [n_mels, n_frames] (float32) of 1-D PCM in [-1, 1]
-    at cfg.sample_rate, on the tensor's device."""
+    """Mel spectrogram [..., n_mels, n_frames] (float32) of PCM [..., N] in
+    [-1, 1] at cfg.sample_rate, on the tensor's device; each row of a batch
+    is its own signal (its own padding and, for log10, its own floor)."""
     x = wav.to(torch.float32)
+    lead = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1])
     if cfg.preemph is not None:
         # y[n] = x[n] - k x[n-1], y[0] = x[0] (scipy lfilter([1,-k],[1]))
-        x = torch.cat([x[:1], x[1:] - cfg.preemph * x[:-1]])
+        x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], 1)
     pad = cfg.n_fft // 2
-    x = F.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
-    frames = x.unfold(0, cfg.n_fft, cfg.hop).to(torch.float64)   # [T, n_fft]
+    x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, cfg.n_fft, cfg.hop).to(torch.float64)   # [R, T, n_fft]
 
     cos_m, sin_m = _dft_window_matrices(cfg)
     f64 = dict(device=x.device, dtype=torch.float64)
     re = frames @ torch.as_tensor(cos_m, **f64)
     im = frames @ torch.as_tensor(sin_m, **f64)
-    power = re * re + im * im                                     # [T, n_bins]
+    power = re * re + im * im                                     # [R, T, n_bins]
     if cfg.drop_last_frame:
-        power = power[:-1]
+        power = power[:, :-1]
     spec = torch.sqrt(power.clamp_min(0.0)) if cfg.power == 1.0 else power
     fb = torch.as_tensor(mel_filterbank(cfg), **f64)
-    mel = (spec @ fb.T).T.to(torch.float32)                      # [n_mels, T]
+    mel = (spec @ fb.T).transpose(1, 2).to(torch.float32)         # [R, n_mels, T]
 
     if cfg.log_style == "db_norm":
         min_level = float(np.exp(cfg.min_level_db / 20.0 * np.log(10.0)))
         db = 20.0 * torch.log10(mel.clamp_min(min_level)) - cfg.ref_level_db
         v = cfg.max_abs_value
-        return torch.clamp(
+        out = torch.clamp(
             2.0 * v * ((db - cfg.min_level_db) / (-cfg.min_level_db)) - v, -v, v)
+        return out.reshape(*lead, *out.shape[1:])
     if cfg.log_style == "log10":
         log_spec = torch.log10(mel.clamp_min(1e-10))
-        log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
-        return (log_spec + 4.0) / 4.0
+        log_spec = torch.maximum(log_spec, log_spec.amax((1, 2), keepdim=True) - 8.0)
+        out = (log_spec + 4.0) / 4.0
+        return out.reshape(*lead, *out.shape[1:])
     raise ValueError(f"unknown log_style {cfg.log_style!r}")

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import io
 import random
+import re
 import socket
 import threading
 
@@ -32,8 +33,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
 from mere_fusion_tpu import asr as jasr
+from mere_fusion_tpu.asr import __main__ as jmain
+from mere_fusion_tpu.asr import backends as jbackends
 from mere_fusion_tpu.asr import normalizers as jnorm
 from mere_fusion_tpu.asr import numwords as jnum
 from mere_fusion_tpu.asr import server as jserver
@@ -42,6 +46,8 @@ from mere_fusion_tpu.asr import spelling as jspell
 from mere_fusion_tpu.asr import writers as jwriters
 from mere_fusion_tpu.models import whisper as jw
 from mere_fusion_tpu_torch import asr as tasr
+from mere_fusion_tpu_torch.asr import __main__ as tmain
+from mere_fusion_tpu_torch.asr import backends as tbackends
 from mere_fusion_tpu_torch.asr import normalizers as tnorm
 from mere_fusion_tpu_torch.asr import numwords as tnum
 from mere_fusion_tpu_torch.asr import server as tserver
@@ -242,6 +248,19 @@ DIMS = dict(n_mels=80, n_audio_ctx=32, n_audio_state=64, n_audio_head=2, n_audio
 WINDOW = 32 * 2 * 160          # the backend's fixed window at these dims: 0.64 s
 
 
+class _Tok:
+    """A stand-in tokenizer (as tests/test_torch_asr_streaming.py's): token
+    t decodes to " t<t>" when t is even, else "~<t>"; encode maps each word
+    to one id, so that the suppressed non-speech set is not empty."""
+
+    def decode(self, toks):
+        t = int(toks[0])
+        return f" t{t}" if t % 2 == 0 else f"~{t}"
+
+    def encode(self, s):
+        return [sum(s.encode()) % 50000 for s in s.split()] or [0]
+
+
 @pytest.fixture(scope="module")
 def weights():
     jdims, tdims = jw.WhisperDims(**DIMS), tw.WhisperDims(**DIMS)
@@ -262,6 +281,25 @@ def _speech(seconds: float, seed: int = 0) -> np.ndarray:
     f0 = 140 * (1 + 0.3 * t)
     pcm = sum(0.12 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3))
     return (pcm + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+# three windows, the last one partial
+AUDIO = np.concatenate([_speech(0.64, 0) * 0.5, _speech(0.64, 1), _speech(0.3, 2) * 1.5])
+
+
+@pytest.fixture(scope="module")
+def backends(weights):
+    """(JAX, port) backends, greedy with the stand-in tokenizer and beam-3
+    with none, built once: the JAX ones keep their compiled decodes."""
+    variables, state, jdims, tdims = weights
+    out = {}
+    for name, kw in (("greedy", dict(beam_size=1, tokenizer=_Tok())),
+                     ("beam3", dict(beam_size=3, tokenizer=None))):
+        kw.update(temperatures=(0.0,))
+        out[name] = (jbackends.JaxWhisperBackend(variables=variables, dims=jdims, **kw),
+                     tbackends.TorchWhisperBackend(state_dict=state, dims=tdims,
+                                                   device=torch.device("cpu"), **kw))
+    return out
 
 
 def test_batched_beam_decoder_equals_batch_1_per_window(weights):
@@ -294,3 +332,84 @@ def test_batched_beam_decoder_equals_batch_1_per_window(weights):
     # windows that stop early and one that runs to the buffer's end
     assert min(lengths) < 24 and max(lengths) == 24 and len(set(lengths)) > 2, lengths
     assert steps == 27
+
+
+def _chunks(res: dict):
+    return [(c["start"], c["end"], c["tokens"], c["text"]) for c in res["chunks"]]
+
+
+@pytest.mark.parametrize("timestamps", [False, True], ids=["plain", "timestamps"])
+@pytest.mark.parametrize("kind", ["greedy", "beam3"])
+def test_transcribe_long_matches_jax(backends, kind, timestamps):
+    jax_be, port_be = backends[kind]
+    res_t = port_be.transcribe_long(AUDIO, batch_size=2, timestamps=timestamps)
+    res_j = jax_be.transcribe_long(AUDIO, batch_size=2, timestamps=timestamps)
+    assert _chunks(res_t) == _chunks(res_j)
+    assert res_t["text"] == res_j["text"]
+    assert res_t["duration"] == res_j["duration"] == len(AUDIO) / SR
+    assert set(res_t) == {"chunks", "text", "duration"}
+    assert res_t["chunks"][-1]["end"] <= res_t["duration"]
+    if timestamps:
+        assert (port_be._ts_decode is not None
+                and port_be._ts_decoder() is port_be._ts_decoder())
+        if kind == "greedy":      # the tokenizer's non-speech set joins <|notimestamps|>
+            assert port_be._suppress and jw.NO_TIMESTAMPS not in port_be._suppress
+    lengths = [len(c["tokens"]) for c in res_t["chunks"]]
+    assert any(lengths), lengths
+
+
+def _run_main(mod, pkg, backend, argv, monkeypatch, capsys):
+    seen = {}
+
+    def make_backend(name, **kw):
+        seen.update(kw, name=name)
+        return backend
+
+    monkeypatch.setattr(pkg, "make_backend", make_backend)
+    mod.main(argv)
+    out = capsys.readouterr().out
+    return re.sub(r"in [0-9.]+ s \([0-9.]+x realtime\)", "in T s (Rx realtime)", out), seen
+
+
+@pytest.mark.parametrize("mode", ["offline", "unaware", "batch"])
+def test_cli_matches_jax(backends, tmp_path, monkeypatch, capsys, mode):
+    jax_be, port_be = backends["beam3"]
+    wav = tmp_path / "in.wav"
+    wavfile.write(wav, SR, (AUDIO * 32767).astype(np.int16))
+    fmt = {"offline": "txt", "unaware": "vtt", "batch": "srt"}[mode]
+    outs = []
+    for mod, pkg, be, extra in ((jmain, jasr, jax_be, []),
+                                (tmain, tasr, port_be, ["--device", "cpu"])):
+        path = tmp_path / f"{mod.__name__}.{fmt}"
+        argv = [str(wav), "--mode", mode, "--batch-size", "2", "--beam-size", "3",
+                "--min-chunk-size", "0.5", "--output-format", fmt,
+                "--output-file", str(path)] + extra
+        out, seen = _run_main(mod, pkg, be, argv, monkeypatch, capsys)
+        outs.append((out, path.read_bytes(), seen))
+    (out_j, file_j, seen_j), (out_t, file_t, seen_t) = outs
+    assert out_t == out_j and file_t == file_j
+    assert seen_t == dict(seen_j, device="cpu") == dict(
+        name="jax-whisper", language="en", beam_size=3, device="cpu")
+    assert out_t.strip()
+    if mode == "batch":
+        assert "(Rx realtime)" in out_t and file_t.startswith(b"1\n00:00:00,000 --> ")
+
+
+def test_cli_flags_load_wav_and_device(tmp_path, monkeypatch, capsys):
+    helps = []
+    for mod in (jmain, tmain):
+        with pytest.raises(SystemExit):
+            mod.main(["--help"])
+        helps.append(set(re.findall(r"--[a-z][a-z-]*", capsys.readouterr().out)))
+    assert helps[1] == helps[0] | {"--device"}
+    # an 8 kHz stereo int16 file: the first channel, resampled to 16 kHz
+    rng = np.random.default_rng(5)
+    path = tmp_path / "st.wav"
+    wavfile.write(path, 8000, rng.integers(-9000, 9000, (4000, 2)).astype(np.int16))
+    loaded = tmain.load_wav_16k(str(path))
+    np.testing.assert_array_equal(loaded, jmain.load_wav_16k(str(path)))
+    assert loaded.dtype == np.float32 and len(loaded) == 8000
+    # no card and no --device: the backend raises, as TorchWhisperBackend does
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.main([str(path), "--mode", "offline"])
