@@ -34,6 +34,7 @@ REQUIRED = (
     "mere_fusion_tpu_torch.asr.writers",
     "mere_fusion_tpu_torch.asr.simulate",
     "mere_fusion_tpu_torch.asr.server",
+    "mere_fusion_tpu_torch.asr.__main__",
     "mere_fusion_tpu_torch.brain.orchestrator",
     "mere_fusion_tpu_torch.llm",
     "mere_fusion_tpu_torch.perception",
