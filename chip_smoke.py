@@ -315,7 +315,27 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the first phrase at put_msg_txt and to the reply's first
               frame, lip.infer_batch p50 with the caller speaking and
               without; no kernel of the repo launched.
-19. perception — the caller's camera: YOLOv10-x (seeded, the person
+19. asr_offline — a recorded file transcribed on the card: a WAV of
+              ASR_OFFLINE_WINDOWS 30 s windows of speech_pcm (12.5 min: one
+              group of ASR_OFFLINE_BATCH and a remainder) through the port's
+              load_wav_16k and TorchWhisperBackend.transcribe_long (whisper-
+              tiny seeded as in asr, f32 with TF32 off, beam 5, batch 24),
+              without timestamps (twice: the second timed, both the same
+              chunks) and with them: seconds of audio a second of wall time,
+              ms and steps a group, a step's ms beside its bound at 24 × 5
+              rows; launches a step and busy share from torch.profiler over
+              the group's first ASR_PROFILE_TOKENS tokens, batched and alone;
+              the windows ASR_OFFLINE_CHECKED decoded alone by the batch-1
+              decoder, token-equal to the batched search and to
+              transcribe_long's chunks, with their ms beside the batched
+              decode's; window 0's tokens on the card against the port on
+              the CPU (first difference); the CLI as two processes on the
+              WAV (--mode batch --output-format srt, whose file must be
+              write_srt of the in-process run's chunks, and --mode offline);
+              server.handle_connection on a socket pair with a card-backed
+              StreamingTranscriber fed ASR_SERVER_SECONDS of PCM16: the lines
+              received and process_iter ms; no kernel of the repo launched.
+20. perception — the caller's camera: YOLOv10-x (seeded, the person
               logit raised by PERSON_BIAS so that every analysed frame sees a
               person) at 640 px, f32 with TF32 off on the card against the
               CPU on the same weights and canvas (box and class logits within
@@ -345,6 +365,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import io
 import json
 import math
 import os
@@ -4739,18 +4760,18 @@ def whisper_encode_flops(dims) -> float:
     return convs + dims.n_audio_layer * block
 
 
-def whisper_step_bound_ms(dims, beams: int, pos: float) -> dict:
+def whisper_step_bound_ms(dims, beams: int, pos: float, windows: int = 1) -> dict:
     """Least time for one incremental decode step of ``beams`` rows at mean
     position ``pos``: the bytes it must read once (each block's weights but
     the cross key/value projections, made once a decode: 14 D² a block; the
-    f32 token embedding for the logits; the cross K/V of the one audio all
-    beams attend to; each beam's self K/V cache up to pos) against its
-    operations at the f32 rate."""
+    f32 token embedding for the logits; the cross K/V of the ``windows``
+    audios the beams attend to, one read each; each beam's self K/V cache up
+    to pos) against its operations at the f32 rate."""
     d, v, a = dims.n_text_state, dims.n_vocab, dims.n_audio_ctx
     layers = dims.n_text_layer
     weights = layers * 14 * d * d * 4
     embedding = v * d * 4
-    cross = layers * 2 * a * d * 4
+    cross = windows * layers * 2 * a * d * 4
     cache = layers * 2 * beams * pos * d * 4
     flops = 2 * beams * (layers * 14 * d * d + layers * 2 * (a + pos) * d + v * d)
     t_bytes = (weights + embedding + cross + cache) / PEAK_BYTES * 1e3
@@ -4915,6 +4936,347 @@ def phase_asr(state: dict) -> dict:
     session = out["call"]["process_iter_ms"]
     out["process_iter_ms_session_vs_alone"] = [
         [s, a] for s, a in zip(session, alone)]
+    torch.cuda.empty_cache()
+    return out
+
+
+ASR_OFFLINE_WINDOWS = 25          # 12.5 min of speech: one group of 24 and a remainder
+ASR_OFFLINE_BATCH = 24            # transcribe_long's default (InsanelyFastWhisper's)
+ASR_OFFLINE_CHECKED = (0, 1, 12, 23)   # windows of the first group also decoded alone
+ASR_SERVER_SECONDS = 4            # speech streamed through the socket server
+ASR_PROFILE_TOKENS = 16           # the decode torch.profiler reads: its first 19 steps
+
+
+def offline_speech(windows: int, window: int = 480000):
+    """``windows`` 30 s windows of speech_pcm, a seed each."""
+    import numpy as np
+
+    return np.concatenate([speech_pcm(window, seed=100 + w) for w in range(windows)])
+
+
+def _timed_calls(fn, calls: list, what: str, stats=None):
+    """fn, recording each call's rows, host ms (to a synchronize) and, with
+    ``stats``, the decoder's steps."""
+    import torch
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        calls.append({"what": what, "rows": int(args[0].shape[0]),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      **({"steps": stats["steps"]} if stats is not None else {})})
+        return res
+
+    return timed
+
+
+def asr_cli(wav: str, tmp: str) -> dict:
+    """The ASR CLI as two processes on ``wav``, run together: --mode batch
+    with an SRT file, and --mode offline. Their outputs, exit codes and
+    seconds."""
+    srt = os.path.join(tmp, "speech.srt")
+    argvs = {"batch": ["--mode", "batch", "--output-format", "srt", "--output-file", srt],
+             "offline": ["--mode", "offline"]}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", "mere_fusion_tpu_torch.asr", wav] + a,
+                                 cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for k, a in argvs.items()}
+    out = {}
+    for k, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=240)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out[k] = {"rc": proc.returncode, "stdout": stdout.splitlines(),
+                  "stderr_tail": stderr.splitlines()[-5:],
+                  "seconds": time.perf_counter() - t0}
+        if proc.returncode != 0:
+            raise AssertionError(f"the ASR CLI's {k} mode failed: {out[k]}")
+    with open(srt, encoding="utf-8") as f:
+        out["batch"]["srt"] = f.read()
+    return out
+
+
+def parse_srt(text: str) -> list[tuple]:
+    """(index, start s, end s, text) of each cue of an SRT file."""
+    stamp = r"(\d\d):(\d\d):(\d\d),(\d\d\d)"
+    cues = []
+    for block in text.split("\n\n"):
+        block = block.strip("\n")       # a cue with no text leaves an extra newline
+        if not block:
+            continue
+        lines = block.split("\n")
+        m = re.fullmatch(f"{stamp} --> {stamp}", lines[1])
+        if not lines[0].isdigit() or m is None:
+            raise AssertionError(f"not an SRT cue: {block!r}")
+        g = [int(x) for x in m.groups()]
+        cues.append((int(lines[0]), g[0] * 3600 + g[1] * 60 + g[2] + g[3] / 1e3,
+                     g[4] * 3600 + g[5] * 60 + g[6] + g[7] / 1e3, "\n".join(lines[2:])))
+    return cues
+
+
+def serve_speech(backend, seconds: float) -> dict:
+    """server.handle_connection on a socket pair with a StreamingTranscriber
+    over ``backend``: ``seconds`` of speech_pcm sent as PCM16 in 20 ms
+    writes paced in real time, the lines received, process_iter's ms a
+    chunk."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from mere_fusion_tpu_torch.asr import StreamingTranscriber
+    from mere_fusion_tpu_torch.asr.server import handle_connection
+    from mere_fusion_tpu_torch.transport.line_packet import receive_one_line
+
+    transcriber = StreamingTranscriber(backend)
+    ms: list = []
+    _timed_process_iter(transcriber, ms)
+    srv, client = socket.socketpair()
+    lines: list = []
+    errors: list = []
+
+    def serve():
+        try:
+            handle_connection(srv, transcriber)
+        except Exception as e:      # noqa: BLE001 - raised below in the phase
+            errors.append(repr(e))
+        finally:
+            srv.close()
+
+    def read():
+        while (line := receive_one_line(client)) is not None:
+            lines.append(line)
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (serve, read)]
+    for t in threads:
+        t.start()
+    pcm = (np.clip(speech_pcm(int(seconds * 16000), seed=9), -1, 1) * 32767).astype(np.int16)
+    t0 = time.perf_counter()
+    for k, frame in enumerate(pcm.reshape(-1, 320)):
+        time.sleep(max(0.0, t0 + k * 0.02 - time.perf_counter()))
+        client.sendall(frame.tobytes())
+    client.shutdown(socket.SHUT_WR)
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - t0
+    client.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"the socket server did not finish: {errors}")
+    if not lines or not all(re.fullmatch(r"\d+ \d+ .*", ln, re.S) for ln in lines):
+        raise AssertionError(f"the socket server answered {lines!r}")
+    return {"seconds_streamed": seconds, "lines": len(lines),
+            "first_line": lines[0].strip()[:120],
+            "process_iter_ms": ms, "wall_s": wall,
+            "decoded_at": "t = 0 only (seeded weights trip the ladder's gates; its cost is phase asr's)"}
+
+
+def phase_asr_offline(state: dict) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from mere_fusion_tpu_torch.asr import TorchWhisperBackend
+    from mere_fusion_tpu_torch.asr.__main__ import load_wav_16k
+    from mere_fusion_tpu_torch.asr.writers import chunks_to_segments, write_srt
+    from mere_fusion_tpu_torch.models.whisper import (
+        EOT,
+        TINY,
+        init_whisper,
+        make_cached_beam_decoder,
+        sot_sequence,
+    )
+    from mere_fusion_tpu_torch.ops.mel import melspectrogram, whisper_mel_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_asr_offline_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    zero_kernel_counts()
+    clock = [time.perf_counter()]
+    sections: dict = {}
+
+    def section(name):
+        clock.append(time.perf_counter())
+        sections[name] = clock[-1] - clock[-2]
+
+    window = TINY.n_audio_ctx * 2 * 160
+    batch, n = ASR_OFFLINE_BATCH, 5
+    wav = os.path.join(tmp, "speech.wav")
+    wavfile.write(wav, 16000, (np.clip(offline_speech(ASR_OFFLINE_WINDOWS, window), -1, 1)
+                               * 32767).astype(np.int16))
+    audio = load_wav_16k(wav)
+    # the session's weights (init_whisper(TINY, ASR_SEED)); the offline path
+    # runs no ladder, and the server's transcriber decodes at t = 0
+    backend = TorchWhisperBackend(device=dev, dims=TINY, beam_size=n, temperatures=(0.0,))
+    out: dict = {"audio_s": len(audio) / 16000, "windows": ASR_OFFLINE_WINDOWS,
+                 "batch_size": batch, "beam_size": n,
+                 "weights": f"init_whisper(TINY, {ASR_SEED}), f32, TF32 off"}
+
+    section("wav_and_backend")
+
+    # ---- (a) transcribe_long without and with timestamps ------------------------------
+    calls: list = []
+    plain_decode, ts_decode = backend._decode, backend._ts_decoder()
+    encode = backend.model.encode
+    backend._decode = _timed_calls(plain_decode, calls, "decode", plain_decode.stats)
+    backend._ts_decode = _timed_calls(ts_decode, calls, "decode", ts_decode.stats)
+    backend.model.encode = _timed_calls(encode, calls, "encode")
+    runs = {}
+    for name, ts in (("warm-up", False), ("plain", False), ("timestamps", True)):
+        calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = backend.transcribe_long(audio, batch_size=batch, timestamps=ts)
+        wall = time.perf_counter() - t0
+        runs[name] = res
+        if name == "warm-up":
+            continue
+        decodes = [c for c in calls if c["what"] == "decode"]
+        out[name] = {"wall_s": wall, "audio_s_per_s": res["duration"] / wall,
+                     "groups": [{k: c[k] for k in ("rows", "ms", "steps")} for c in decodes],
+                     "encode_ms": [c["ms"] for c in calls if c["what"] == "encode"],
+                     "ms_per_step": [c["ms"] / c["steps"] for c in decodes],
+                     "chunks": len(res["chunks"]),
+                     "text_tokens": sum(len(c["tokens"]) for c in res["chunks"])}
+        if [c["rows"] for c in decodes] != [batch, ASR_OFFLINE_WINDOWS - batch]:
+            raise AssertionError(f"groups {decodes}")
+    backend._decode, backend._ts_decode = plain_decode, ts_decode
+    del backend.model.encode
+    for name, res in runs.items():
+        ends = [c["end"] for c in res["chunks"]]
+        if (res["duration"] != len(audio) / 16000 or len(res["chunks"]) < ASR_OFFLINE_WINDOWS
+                or not all(0 <= c["start"] <= c["end"] <= res["duration"] for c in res["chunks"])
+                or ends != sorted(ends)
+                or res["text"] != "".join(c["text"] for c in res["chunks"])):
+            raise AssertionError(f"{name}: malformed transcript {res['chunks'][:3]}")
+    if runs["plain"]["chunks"] != runs["warm-up"]["chunks"]:
+        raise AssertionError("two runs of transcribe_long gave different chunks")
+    out["timestamps"]["windows_split"] = len(runs["timestamps"]["chunks"]) - ASR_OFFLINE_WINDOWS
+
+    section("transcribe_long")
+
+    # ---- (b) one group's batched decode against the batch-1 decoder -------------------
+    cfg_mel = whisper_mel_config(TINY.n_mels)
+    prompt = torch.tensor([sot_sequence(0)], device=dev)
+    with torch.no_grad():
+        mels = melspectrogram(torch.from_numpy(audio[:batch * window]).to(dev).view(batch, window),
+                              cfg_mel)
+        xa = backend.model.encode(mels)
+    decode = plain_decode
+    toks, avg, ns = decode(xa, prompt.expand(batch, -1), 4)
+    steps = decode.stats["steps"]
+    # torch.profiler over a whole decode (~29,000 launches) takes ~40 s to
+    # read back: profile the first ASR_PROFILE_TOKENS tokens' steps instead
+    short = make_cached_beam_decoder(backend.model, n, ASR_PROFILE_TOKENS, return_scores=True)
+    prof = profile_launches(lambda: short(xa, prompt.expand(batch, -1), 4))
+    short_steps = short.stats["steps"]
+    for k in ("k3_ms", "hashing_ops"):
+        prof.pop(k)
+    group_ms = [g["ms"] for r in ("plain", "timestamps") for g in out[r]["groups"]
+                if g["rows"] == batch]
+    step = whisper_step_bound_ms(TINY, batch * n, (steps + 1) / 2, windows=batch)
+    cross_ms = (batch * 2 * TINY.n_text_layer * 2 * TINY.n_audio_ctx
+                * TINY.n_text_state ** 2) / PEAK_F32_FLOPS * 1e3
+    out["batched_decode"] = {
+        "windows": batch, "rows": batch * n, "steps": steps, "ms": group_ms,
+        "ms_per_step": [ms / steps for ms in group_ms],
+        "launches_per_step": prof["device_launches"] / short_steps,
+        "device_busy_share": prof["device_busy_share"], "profile": prof,
+        "profiled_steps": short_steps,
+        "step_bound": step, "bound_ms": cross_ms + steps * step["bound_ms"],
+        "bound_by": step["bound_by"]}
+    alone = {}
+    for b in ASR_OFFLINE_CHECKED:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = decode(xa[b:b + 1], prompt, 4)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        card, batched = one[0][0].cpu().numpy(), toks[b].cpu().numpy()
+        text = [int(t) for t in batched[4:] if t != EOT]
+        alone[b] = {"ms": ms, "steps": decode.stats["steps"],
+                    "tokens_equal": bool((card == batched).all()),
+                    "first_difference": first_difference(card, batched),
+                    "avg_logprob": float(one[1][0]), "avg_logprob_batched": float(avg[b]),
+                    "no_speech_prob": float(one[2][0]), "no_speech_prob_batched": float(ns[b]),
+                    "equals_transcribe_long": text == runs["plain"]["chunks"][b]["tokens"]}
+        if not (alone[b]["tokens_equal"] and alone[b]["equals_transcribe_long"]):
+            raise AssertionError(f"window {b}: batched search differs from batch 1: {alone[b]}")
+    one_prof = profile_launches(lambda: short(xa[:1], prompt, 4))
+    one_steps = short.stats["steps"]
+    out["batch_1"] = {
+        "windows": {str(b): r for b, r in alone.items()},
+        "ms_per_window": sorted(r["ms"] for r in alone.values()),
+        "batched_ms_per_window": [ms / batch for ms in group_ms],
+        "launches_per_step": one_prof["device_launches"] / one_steps,
+        "device_busy_share": one_prof["device_busy_share"],
+        "ms_per_step": sorted(r["ms"] / r["steps"] for r in alone.values())}
+
+    section("batched_vs_batch_1")
+
+    # ---- (c) window 0 on the CPU ----------------------------------------------------------
+    cpu_model = init_whisper(TINY, ASR_SEED)
+    with torch.no_grad():
+        mel_cpu = melspectrogram(torch.from_numpy(audio[:window]), cfg_mel)[None]
+        xa_cpu = cpu_model.encode(mel_cpu)
+    toks_cpu = make_cached_beam_decoder(cpu_model, n, 128)(xa_cpu, prompt.cpu(), 4)[0].numpy()
+    card = toks[0].cpu().numpy()
+    cpu = {"tokens_equal": bool((card == toks_cpu).all()),
+           "first_difference": first_difference(card, toks_cpu),
+           "mel_max_abs_err": float((mels[0].cpu() - mel_cpu[0]).abs().max()),
+           "xa_max_abs_err": float((xa[0].cpu() - xa_cpu[0]).abs().max())}
+    if cpu["first_difference"] is not None:
+        with torch.no_grad():
+            top2 = torch.topk(cpu_model.logits(torch.from_numpy(toks_cpu)[None], xa_cpu)
+                              [0, cpu["first_difference"] - 1], 2).values
+        cpu["cpu_top2_gap"] = float(top2[0] - top2[1])
+    out["window_0_card_vs_cpu"] = cpu
+    del cpu_model, xa_cpu
+
+    section("window_0_on_the_cpu")
+
+    # ---- (d) the CLI on the WAV, and the socket server ------------------------------------
+    # the CLI's process keeps torch's defaults, under which cuDNN's f32
+    # convolutions (the encoder's two) run TF32: its reference run here does too
+    torch.backends.cudnn.allow_tf32 = True
+    ts_chunks = backend.transcribe_long(audio, batch_size=batch)["chunks"]
+    torch.backends.cudnn.allow_tf32 = False
+    out["cli_reference_equals_tf32_off_run"] = ts_chunks == runs["timestamps"]["chunks"]
+    section("cli_reference_run")
+    cli = asr_cli(wav, tmp)
+    expected = io.StringIO()
+    write_srt(chunks_to_segments(ts_chunks), expected)
+    cues = parse_srt(cli["batch"]["srt"])
+    if cli["batch"]["srt"] != expected.getvalue() or len(cues) != len(ts_chunks):
+        raise AssertionError("the CLI's SRT is not write_srt of the run's chunks: "
+                             f"{cli['batch']['srt'][:300]!r}")
+    lines = [ln for ln in cli["batch"]["stdout"] if ln.startswith("[")]
+    if len(lines) != len(ts_chunks):
+        raise AssertionError(f"the CLI printed {len(lines)} chunks, the run made {len(ts_chunks)}")
+    out["cli"] = {"srt_cues": len(cues), "srt_equals_run": True,
+                  "batch_summary": cli["batch"]["stdout"][-1],
+                  "batch_seconds": cli["batch"]["seconds"],
+                  "offline_seconds": cli["offline"]["seconds"],
+                  "offline_chars": len(cli["offline"]["stdout"][0]) if cli["offline"]["stdout"]
+                  else 0}
+    section("cli")
+    out["server"] = serve_speech(backend, ASR_SERVER_SECONDS)
+    section("server")
+    out["section_s"] = sections
+    from mere_fusion_tpu_torch.ops import attention, sampler
+
+    counts = {"K1": attention.launches, "K2": sampler.launches, "K3": sum(k3_counts())}
+    if any(counts.values()):
+        raise AssertionError(f"a kernel of the repo launched: {counts}")
+    del backend, xa
     torch.cuda.empty_cache()
     return out
 
@@ -5517,7 +5879,7 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_finetune", phase_nerf_finetune), ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
           ("avatar_prep", phase_avatar_prep), ("asr", phase_asr),
-          ("perception", phase_perception))
+          ("asr_offline", phase_asr_offline), ("perception", phase_perception))
 
 
 def main() -> int:
