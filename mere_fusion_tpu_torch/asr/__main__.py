@@ -32,7 +32,7 @@ def load_wav_16k(path: str) -> np.ndarray:
     return resample_pcm(data.astype(np.float32), sr, 16000)
 
 
-def build_parser() -> argparse.ArgumentParser:
+def main(argv=None) -> None:
     p = argparse.ArgumentParser("asr-simulate")
     p.add_argument("audio")
     p.add_argument("--backend", default="jax-whisper")
@@ -59,11 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="where jax-whisper runs (default: the current CUDA device; "
                         "'cpu' to run on the CPU)")
-    return p
-
-
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    args = p.parse_args(argv)
 
     from mere_fusion_tpu_torch.utils.env import load_dotenv
 

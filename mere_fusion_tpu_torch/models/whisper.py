@@ -700,14 +700,13 @@ def make_cached_beam_decoder(model: Whisper, beam_size: int = 5,
             if all(going_host):
                 continue
             settle(live[~going], ~going)          # full pools: those windows leave
-            if not any(going_host):
-                live = live[going]
-                break
             rows = going.repeat_interleave(n)
             live, fin_scores, fin_tokens = live[going], fin_scores[going], fin_tokens[going]
             fin_count, sum_lp, tokens = fin_count[going], sum_lp[going], tokens[rows]
             k_cache, v_cache = k_cache[:, rows], v_cache[:, rows]
             cross_k, cross_v = cross_k[:, going], cross_v[:, going]
+            if not any(going_host):
+                break
         stats["steps"] = i
         if live.numel():
             # the buffer's end: the pool's best, or the best live beam when
