@@ -298,7 +298,8 @@ its seconds; any failure is fatal (exit code 1, no result line):
               one 30 s window of speech_pcm: the encode and the beam-5
               decode, unprompted and with a full 96-token prompt (CUDA-event
               p50 of 10), the decode's steps, device launches a step and
-              busy share (torch.profiler over one decode), each one's bound;
+              busy share (torch.profiler over the decode's first
+              ASR_PROFILE_TOKENS tokens' steps), each one's bound;
               the beam-5 and greedy tokens on the card identical to the
               port's on the CPU on the same weights and audio, the largest
               logit difference (and, were they to differ, the first
@@ -4742,6 +4743,7 @@ def phase_avatar_prep(state: dict) -> dict:
 ASR_SEED = 0                      # the session's own backend: init_whisper(TINY, 0)
 ASR_DECODE_ITERS = 10             # CUDA-event p50 of the encode and of each decode
 ASR_PROMPT_TOKENS = 96            # a full prompt bucket (ASRConfig's backend default)
+ASR_PROFILE_TOKENS = 16           # tokens of the decodes torch.profiler reads
 ASR_CALLER_SECONDS = 10           # the caller's speech in the live call, 20 ms frames
 ASR_TALK = ("good afternoon and welcome, this is the avatar of the port speaking while "
             "the caller talks over it, so that the speech recognizer and the lip sync "
@@ -4897,11 +4899,15 @@ def phase_asr(state: dict) -> dict:
                 row.update(first_diff_step=first, cpu_top2_gap=float(top2[0] - top2[1]))
             if dname == "beam5":
                 row["ms"] = p50_ms(lambda: decode(xa, p, plen), iters=ASR_DECODE_ITERS)
-                prof = profile_launches(lambda: decode(xa, p, plen))
+                # the profiler over the first ASR_PROFILE_TOKENS tokens' steps
+                # (a whole decode's ~30,000 launches take ~40 s to read back)
+                short = make_cached_beam_decoder(model, 5, ASR_PROFILE_TOKENS)
+                prof = profile_launches(lambda: short(xa, p, plen))
                 for k in ("k3_ms", "hashing_ops"):
                     prof.pop(k)
                 row["profile"] = prof
-                row["launches_per_step"] = prof["device_launches"] / steps
+                row["profiled_steps"] = short.stats["steps"]
+                row["launches_per_step"] = prof["device_launches"] / row["profiled_steps"]
                 row["ms_per_step"] = row["ms"] / steps
                 # mean self-cache position over the steps; the cross K/V's
                 # projections of the one audio, once a decode
@@ -4944,7 +4950,6 @@ ASR_OFFLINE_WINDOWS = 25          # 12.5 min of speech: one group of 24 and a re
 ASR_OFFLINE_BATCH = 24            # transcribe_long's default (InsanelyFastWhisper's)
 ASR_OFFLINE_CHECKED = (0, 1, 12, 23)   # windows of the first group also decoded alone
 ASR_SERVER_SECONDS = 4            # speech streamed through the socket server
-ASR_PROFILE_TOKENS = 16           # the decode torch.profiler reads: its first 19 steps
 
 
 def offline_speech(windows: int, window: int = 480000):
@@ -5173,8 +5178,7 @@ def phase_asr_offline(state: dict) -> dict:
     decode = plain_decode
     toks, avg, ns = decode(xa, prompt.expand(batch, -1), 4)
     steps = decode.stats["steps"]
-    # torch.profiler over a whole decode (~29,000 launches) takes ~40 s to
-    # read back: profile the first ASR_PROFILE_TOKENS tokens' steps instead
+    # as in phase asr: the profiler over the first ASR_PROFILE_TOKENS tokens' steps
     short = make_cached_beam_decoder(backend.model, n, ASR_PROFILE_TOKENS, return_scores=True)
     prof = profile_launches(lambda: short(xa, prompt.expand(batch, -1), 4))
     short_steps = short.stats["steps"]
