@@ -420,6 +420,20 @@ def _mm(a, b, dtype):
     return torch.matmul(a.to(dtype).to(torch.float32), b.to(torch.float32))
 
 
+def _dot_seq(a, v, dtype):
+    """a [.., K] · v [K], a rounded to ``dtype``, summed k = 0, 1, ... in
+    float32: with bf16 operands each product is exact, so each step rounds
+    as the kernel's fmaf chain does. torch.matmul of [M, K] by [K, 1] sums
+    in an order of its own, which moved the eye logit of a trained avatar's
+    sample by an ulp and flipped the bf16 rounding of values downstream."""
+    a = a.to(dtype).to(torch.float32)
+    v = v.to(torch.float32)
+    out = a[..., 0] * v[0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * v[k]
+    return out
+
+
 def head_hidden(x, dsamp, w: dict):
     """The NeRF head chain of the JAX ``_shade_core`` on per-sample features
     x [.., 3·CP] with per-sample direction rows dsamp [.., 64], up to the
@@ -436,7 +450,7 @@ def head_hidden(x, dsamp, w: dict):
     eye_h = torch.relu(hx[..., na + ns_:na + ns_ + ne])
     aud_ch = _mm(aud_h, w["w_aud1"], dtype)
     h = h0 + _mm(aud_ch, w["w_aud_sig"], dtype)
-    eye_att = torch.sigmoid(_mm(eye_h, w["w_eye1"][:, :1], dtype))
+    eye_att = torch.sigmoid(_dot_seq(eye_h, w["w_eye1"][:, 0], dtype)[..., None])
     h = torch.relu(h + eye_att * w["w_sig_e"][0].to(f32))
     h = torch.relu(_mm(h, w["w_sig1"], dtype))
     geo = _mm(h, w["w_geo"], dtype)

@@ -16,6 +16,8 @@ Inputs come from numpy seeds; weights from the JAX init through
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,16 @@ from mere_fusion_tpu_torch.ops import triplane_bake as pbake
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
 SAMPLER = dict(resolution=128, channels=4, tile_w=4, tile_h=4, k=8, kg=2, wu=32, wv=16)
 BOUND = 1.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:
@@ -335,6 +347,25 @@ def test_k2_head_in_k16_chunks_matches_pallas_interpret(monkeypatch):
           f"{(got - plain).abs().max().item():.3e} against the plain version")
     assert np.abs(ref[..., 0]).max() > 0.5
     assert err <= 1e-5
+
+
+K2_MISS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures_torch",
+                       "k2_avatar_miss.pt")
+
+
+def test_k2_plain_sums_the_eye_logit_as_the_kernel_does():
+    """The tile of a trained avatar's frame on which the card's K2 read
+    1.4e-5 against the plain version (chip_smoke.dump_k2's file): the plain
+    version took the eye logit's 16 -> 1 product from torch.matmul, whose
+    order moved one logit by an ulp and flipped bf16 roundings downstream.
+    Summed in the kernel's order, the plain version is within K2's limit of
+    the kernel's recorded output; the plain output recorded with it is not."""
+    from chip_smoke import load_k2_dump
+
+    args, got, ref = load_k2_dump(K2_MISS, torch.device("cpu"))
+    plain = psamp.sample_shade_comp_tiles_plain(*args)
+    assert (plain - got).abs().max().item() <= 1e-5
+    assert (ref - got).abs().max().item() > 1e-5
 
 
 def test_k2_cuda_path_refuses_cpu_operands():

@@ -25,10 +25,12 @@ against the same limit, which the plain version with single TF32 products
 """
 from __future__ import annotations
 
+import os
+
 import pytest
 import torch
 
-from chip_smoke import k2_operands   # the dense job set chip_smoke checks K2 on
+from chip_smoke import k2_operands, load_k2_dump   # chip_smoke's K2 operands
 from mere_fusion_tpu_torch.config import Config
 from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork, init_ernerf_
@@ -282,3 +284,16 @@ def test_frame_step_matches_plain_on_gpu(cuda_device, tmp_path):
     assert counts == {"plain": 0, "auto": 1}
     lsb = (frames["auto"].int() - frames["plain"].int()).abs().max().item()
     assert lsb <= 1 and float(frames["auto"].float().std()) > 2
+
+
+@pytest.mark.cuda
+def test_kernel_on_a_trained_avatars_miss(cuda_device):
+    """The tile on which K2 once read 1.4e-5 against the plain version
+    (tests/fixtures_torch, chip_smoke.dump_k2's file), within the limit since
+    the plain version sums the eye logit in the kernel's order."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures_torch",
+                        "k2_avatar_miss.pt")
+    args, _, _ = load_k2_dump(path, cuda_device)
+    got = sampler.sample_shade_comp_tiles(*args)
+    torch.cuda.synchronize()
+    assert (got - sampler.sample_shade_comp_tiles_plain(*args)).abs().max().item() <= 1e-5
