@@ -28,6 +28,16 @@ import mere_fusion_tpu.ops.attention as jax_attention
 from mere_fusion_tpu_torch.ops import attention
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture()
 def interpret_pallas(monkeypatch):
     monkeypatch.setattr(jax_attention.pl, "pallas_call",

@@ -24,6 +24,16 @@ CPU = torch.device("cpu")
 DIMS = WhisperDims(**SMALL_WHISPER.__dict__)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def _max_rel(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max() / max(1e-6, float(np.abs(b).max())))
 

@@ -43,6 +43,16 @@ SCRIPT = [(0.2 + 0.3 * i, 0.45 + 0.3 * i, w)
           for i, w in enumerate(["nice", "to", "meet", "you", "today"])]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 class _Engine:
     """A stand-in engine: the phrases put on its TTS, in order."""
 

@@ -35,6 +35,16 @@ BISENET_ATOL = 1e-4
 MASK_EQUAL_SHARE = 0.999
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def _fill(rng):
     def fill(path, leaf):
         name = jax.tree_util.keystr(path)

@@ -35,6 +35,16 @@ JSPEC = JGridSpec(**SPEC_KW)
 BOUND = 1.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture(autouse=True)
 def _force_mxu():
     hash_mxu.FORCE = True

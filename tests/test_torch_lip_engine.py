@@ -42,9 +42,33 @@ CPU = torch.device("cpu")
 MEL_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture(scope="module")
 def gen_tree():
     return generator_tree(seed=11)
+
+
+@pytest.fixture(scope="module")
+def jax_step(gen_tree):
+    """JAX's device step for a dtype, built once for the file: each dtype's
+    step compiles once at the shapes the tests share."""
+    steps = {}
+
+    def get(jdt):
+        if jdt not in steps:
+            steps[jdt] = jax_lip.make_lip_device_step(gen_tree, 96, jdt)
+        return steps[jdt]
+
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -91,13 +115,13 @@ def test_feature_fn_matches_jax(batch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_device_step_matches_jax(gen_tree, dtype):
+def test_device_step_matches_jax(gen_tree, jax_step, dtype):
     rng = np.random.default_rng(12)
     mel = rng.standard_normal((2, 80, 16)).astype(np.float32)
     faces = rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    ref = np.asarray(jax_lip.make_lip_device_step(gen_tree, 96, jdt)(mel, faces))
+    ref = np.asarray(jax_step(jdt)(mel, faces))
     step = make_lip_device_step(load_wav2lip(wav2lip_from_flax(gen_tree), tdt, CPU))
     got = step(torch.from_numpy(mel), torch.from_numpy(faces))
     assert got.dtype == torch.uint8 and got.shape == (2, 96, 96, 3)
@@ -267,7 +291,7 @@ def _reference_pth(tree, path: str) -> str:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_make_engine_wav2lip_serving_ckpt(gen_tree, avatar, tmp_path, dtype):
+def test_make_engine_wav2lip_serving_ckpt(gen_tree, jax_step, avatar, tmp_path, dtype):
     path = _reference_pth(gen_tree, str(tmp_path / "wav2lip.pth"))
     cfg = _cfg(**{"avatar.ckpt": path, "avatar.dtype": dtype})
     n_trees = len(_DEVICE_TREES)
@@ -283,8 +307,7 @@ def test_make_engine_wav2lip_serving_ckpt(gen_tree, avatar, tmp_path, dtype):
     mel = rng.standard_normal((2, 80, 16)).astype(np.float32)
     faces = np.stack(avatar.face_cycle[:2])
     out = engine._device_step(torch.from_numpy(mel), torch.from_numpy(faces)).numpy()
-    ref = np.asarray(jax_lip.make_lip_device_step(
-        gen_tree, 96, getattr(jnp, dtype))(mel, faces))
+    ref = np.asarray(jax_step(getattr(jnp, dtype))(mel, faces))
     diff = np.abs(out.astype(int) - ref.astype(int))
     assert (diff.max() <= 1) if dtype == "float32" else ((diff > 1).mean() <= BF16_SHARE)
 

@@ -60,6 +60,16 @@ PORT_UNET = UNetConfig(**dataclasses.asdict(TINY_UNET))
 PORT_WHISPER = WhisperDims(**dataclasses.asdict(SMALL_WHISPER))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def _max_rel(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max() / max(1e-6, float(np.abs(b).max())))
 

@@ -37,6 +37,16 @@ OVERRIDES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def seeded_state(torso: bool, frames: int = 3) -> dict:
     """A port network's state at toy widths, seed 0, tables widened to
     U(−1, 1) so that every feature shows."""

@@ -60,6 +60,16 @@ NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap
 N_TILES = 64 * 64 // (Config().nerf.pallas_tile_w * Config().nerf.pallas_tile_h)  # 64² frame
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture(scope="module")
 def data_dir(tmp_path_factory):
     return synthesize_nerf_dataset(str(tmp_path_factory.mktemp("nerfdata")), hw=64)

@@ -57,6 +57,16 @@ OVERRIDES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture()
 def toy_pb(tmp_path, monkeypatch):
     """A DeepSpeech graph at hidden width 64 (both packages' PARAM_SHAPES

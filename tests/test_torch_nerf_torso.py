@@ -77,6 +77,16 @@ COARSE_LEVELS = 3      # the torso grid's levels that the train-step test keeps
 EDGES = np.asarray([[-1, -1], [1, 1], [1, -1], [-1, 1], [0, 1], [1, 0], [-1, 0.3]], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def t_(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 

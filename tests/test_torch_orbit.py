@@ -56,6 +56,16 @@ MOVES = [("orbit", (120.0, -40.0)), ("scale", (1.0,)), ("pan", (100.0, -50.0)),
          ("orbit", (2000.0, 0.0)), ("pan", (3.0, 4.0, 5.0)), ("scale", (-2.5,))]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def test_orbit_camera_matches_jax():
     port, ref = OrbitCamera(128, 96, r=2.0, fovy=50.0), JOrbitCamera(128, 96, r=2.0, fovy=50.0)
     np.testing.assert_allclose(port.intrinsics, ref.intrinsics, rtol=0, atol=1e-6)

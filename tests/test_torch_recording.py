@@ -48,6 +48,16 @@ from mere_fusion_tpu_torch.transport.frames import AudioChunk, VideoImage
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def _children(data, start, end):
     return {t: (s, e) for t, s, e in mp4.parse_boxes(data, start, end)}
 

@@ -47,6 +47,16 @@ TILES = 4
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture(scope="module")
 def ref():
     """(scripts.prof_r5k, scripts.prof_r5m), imported with JAX's compilation

@@ -19,6 +19,16 @@ from tests.fakes import FakeEngine
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def make_client(max_sessions: int = 2) -> TestClient:
     cfg = Config().override(**{"transport.mode": "loopback",
                                "server.max_sessions": max_sessions})

@@ -41,6 +41,16 @@ from tests.aiortc_fake import (
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def make_pc(**kw):
     """A pc with one recvonly audio transceiver (createOffer needs media, C1)."""
     pc = ContractFakePC(**kw)

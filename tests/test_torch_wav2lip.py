@@ -52,6 +52,16 @@ ATOL = 2e-5
 BF16_SHARE = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def _fill(rng):
     def fill(path, leaf):
         name = jax.tree_util.keystr(path)

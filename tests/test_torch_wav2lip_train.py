@@ -61,6 +61,16 @@ CAPTURE = optax.GradientTransformation(
     lambda params: {}, lambda g, state, params=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 @pytest.fixture(scope="module")
 def trees():
     return generator_tree(seed=21), disc_tree(seed=22), syncnet_tree(seed=23)
