@@ -138,7 +138,9 @@ def transform_point(point, center, scale, resolution, invert=False):
 
 def crop_face(image: np.ndarray, center, scale, resolution: int = 256):
     """Center crop and resize as face_alignment's ``crop``: 1-indexed box
-    arithmetic, zeros outside the frame, bilinear resize."""
+    arithmetic, zeros outside the frame, bilinear resize. A box wholly
+    outside the frame gives a black crop, where face_alignment's (and the
+    JAX twin's) slices fail to broadcast."""
     import cv2
 
     ul = transform_point([1, 1], center, scale, resolution, invert=True)
@@ -154,8 +156,9 @@ def crop_face(image: np.ndarray, center, scale, resolution: int = 256):
     new_y = [max(1, -ul[1] + 1), min(br[1], ht) - ul[1]]
     old_x = [max(1, ul[0] + 1), min(br[0], wd)]
     old_y = [max(1, ul[1] + 1), min(br[1], ht)]
-    new_img[new_y[0] - 1:new_y[1], new_x[0] - 1:new_x[1]] = \
-        image[old_y[0] - 1:old_y[1], old_x[0] - 1:old_x[1]]
+    if old_x[1] >= old_x[0] and old_y[1] >= old_y[0]:   # a box wholly outside: all zeros
+        new_img[new_y[0] - 1:new_y[1], new_x[0] - 1:new_x[1]] = \
+            image[old_y[0] - 1:old_y[1], old_x[0] - 1:old_x[1]]
     return cv2.resize(new_img, (resolution, resolution),
                       interpolation=cv2.INTER_LINEAR)
 
