@@ -11,7 +11,8 @@ the reference's names with their running statistics) and the perception
 nets (``yolo_from_flax`` onto ultralytics' names, ``face_attrs_from_flax``,
 ``craft_from_flax``, ``crnn_from_flax`` onto the flax names with dots)
 and the LPIPS criterion (``lpips_from_flax`` onto torchvision's and the
-lpips package's names):
+lpips package's names) and the RTMPose wholebody landmarker
+(``rtmpose_from_flax`` onto mmpose's names, running statistics included):
 a flax tree, given as nested dicts of numpy arrays, becomes a state dict
 under diffusers (VAE, UNet) or OpenAI whisper (encoder, or the full model:
 ``whisper_from_flax``) key names, which the port's modules load with
@@ -46,6 +47,7 @@ from mere_fusion_tpu_torch.models.lpips import ALEX_CONVS, LPIPS
 from mere_fusion_tpu_torch.models.musetalk.unet import UNet2DCondition, UNetConfig
 from mere_fusion_tpu_torch.models.musetalk.vae import AutoencoderKL, VAEConfig
 from mere_fusion_tpu_torch.models.ocr import CRAFT, CRNN, DEFAULT_CHARSET
+from mere_fusion_tpu_torch.models.rtmpose import RTMPose
 from mere_fusion_tpu_torch.models.s3fd import S3FD
 from mere_fusion_tpu_torch.models.syncnet import SyncNet
 from mere_fusion_tpu_torch.models.wav2lip import Wav2Lip, Wav2LipDisc
@@ -424,3 +426,31 @@ def lpips_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     expected = _expected_keys(LPIPS)
     sd = _translate(alex, rules, expected - set(lins))
     return {**sd, **lins}
+
+
+# flax's RTMPose names → mmpose's: "stem_0" → "stem.0", "stage4_1" →
+# "stage4.1", "blocks_2" → "blocks.2", "conv2_depthwise_conv" →
+# "conv2.depthwise_conv", the head's Dense "mlp" → "mlp.1"
+_RTMPOSE_NAMES = [(r"(^|\.)stem_(\d)\.", r"\1stem.\2."),
+                  (r"(^|\.)(stage\d)_(\d)\.", r"\1\2.\3."),
+                  (r"\.blocks_(\d+)\.", r".blocks.\1."),
+                  (r"\.conv2_(depthwise_conv|pointwise_conv)\.", r".conv2.\1."),
+                  (r"^head\.mlp\.", "head.mlp.1.")]
+
+
+def rtmpose_from_flax(tree: Mapping, deepen: float = 1.0,
+                      widen: float = 1.0) -> dict[str, torch.Tensor]:
+    """JAX RTMPose variables ``{"params", "batch_stats"}`` → the port's
+    RTMPose state dict (mmpose's names); the ScaleNorm gains, the GAU's
+    gamma, beta and res_scale keep their shapes."""
+    params = {k: dict(v) for k, v in tree["params"].items()}
+    head = params["head"] = dict(params["head"])
+    gau = head["gau"] = dict(head["gau"])
+    as_t = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))
+    extra = {"head.mlp.0.g": as_t(head.pop("mlp_ln")["g"]),
+             "head.gau.ln.g": as_t(gau.pop("ln")["g"]),
+             "head.gau.res_scale.scale": as_t(gau.pop("res_scale"))}
+    for name in ("gamma", "beta"):
+        extra[f"head.gau.{name}"] = as_t(gau.pop(name))
+    return _with_stats_from_flax({"params": params, "batch_stats": tree["batch_stats"]},
+                                 _RTMPOSE_NAMES, lambda: RTMPose(deepen, widen), extra)

@@ -197,7 +197,8 @@ def create_muse_avatar(frames: list[np.ndarray], out_dir: str, detector,
 
     face_parser: a models.bisenet.FaceParsing, whose parsing makes the blend
     masks as the reference's does; without one, feathered boxes.
-    landmark_detector: a models.fan.LandmarkDetector for the reference's
+    landmark_detector: a models.fan.LandmarkDetector or a models.rtmpose
+    WholebodyLandmarker (the reference's DWPose) for the reference's
     landmark-refined boxes. The faces are VAE-encoded ``encode_batch`` at a
     time (all in one call when None): a minute of video is 1,500 faces,
     whose first 128-channel activations alone take ~50 GB in one call."""
@@ -293,7 +294,7 @@ def main(argv=None) -> None:
                    help="2DFAN4 .pth for landmark-refined musetalk boxes")
     p.add_argument("--dwpose_ckpt", default=None,
                    help="RTMPose wholebody dw-ll_ucoco_384.pth, the reference's "
-                        "own musetalk landmarker (not ported yet)")
+                        "own musetalk landmarker")
     p.add_argument("--bisenet_ckpt", default=None,
                    help="79999_iter.pth for parsing-based blend masks")
     p.add_argument("--vae_ckpt", default=None,
@@ -302,11 +303,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
     args = p.parse_args(argv)
-    if args.dwpose_ckpt:
-        raise NotImplementedError(
-            "the RTMPose wholebody landmarker (--dwpose_ckpt) is not ported to "
-            "the PyTorch package yet (ROADMAP: 'ER-NeRF data tools' — "
-            "models/rtmpose.py); use --fan_ckpt")
 
     from mere_fusion_tpu_torch.device import resolve_device
     from mere_fusion_tpu_torch.models.s3fd import FaceDetector
@@ -329,7 +325,12 @@ def main(argv=None) -> None:
             vae_state, _ = load_serving_tree("vae", args.vae_ckpt)
         models = MuseModels(vae_state=vae_state, device=device)
         landmark_detector = None
-        if args.fan_ckpt:
+        if args.dwpose_ckpt:
+            from mere_fusion_tpu_torch.models.rtmpose import WholebodyLandmarker
+
+            landmark_detector = WholebodyLandmarker.from_checkpoint(args.dwpose_ckpt,
+                                                                    device=device)
+        elif args.fan_ckpt:
             from mere_fusion_tpu_torch.models.fan import LandmarkDetector
 
             landmark_detector = LandmarkDetector.from_checkpoints(

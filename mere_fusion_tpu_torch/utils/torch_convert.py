@@ -296,3 +296,37 @@ def convert_crnn(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         _put(out, f"rnn_{i}.proj", kinds["linear"][i])
     _put(out, "head", kinds["linear"][2])
     return out
+
+
+def convert_rtmpose(state_dict: Mapping[str, Any], deepen: float = 1.0,
+                    widen: float = 1.0) -> dict:
+    """DWPose/RTMPose wholebody .pth (mmpose ``dw-ll_ucoco_384.pth``,
+    reference musetalk/utils/preprocessing.py:17-18) → the port's RTMPose
+    state dict (models/rtmpose.py, which carries mmpose's names).
+
+    Every tensor the port's module has is read, its shape checked; a
+    missing key raises KeyError, as the JAX converter's walk of the same
+    tree does. Keys the module does not have (mmpose's data preprocessor,
+    an EMA copy) are not read; BatchNorm's ``num_batches_tracked`` defaults
+    to 0."""
+    from mere_fusion_tpu_torch.models.rtmpose import RTMPose
+
+    sd = strip_prefix(state_dict)
+    with torch.device("meta"):
+        expected = RTMPose(deepen, widen).state_dict()
+    out, missing, bad = {}, [], []
+    for key, ref in expected.items():
+        if key not in sd:
+            if key.endswith("num_batches_tracked"):
+                out[key] = torch.zeros((), dtype=torch.int64)
+            else:
+                missing.append(key)
+            continue
+        v = torch.as_tensor(sd[key])
+        if tuple(v.shape) != tuple(ref.shape):
+            bad.append((key, tuple(v.shape), tuple(ref.shape)))
+        out[key] = v.to(ref.dtype)
+    if missing or bad:
+        raise KeyError(f"RTMPose checkpoint does not match deepen={deepen} widen={widen}: "
+                       f"missing {missing[:8]} shapes {bad[:4]}")
+    return out

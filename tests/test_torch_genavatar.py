@@ -50,6 +50,16 @@ MASK_EQUAL_SHARE = 0.999
 BOX = (40, 30, 104, 94)    # (x1, y1, x2, y2) in a 120×160 frame
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, so that this file does not oversubscribe the
+    cores other test workers share."""
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n_threads)
+
+
 def synth_frames(n: int = 8, h: int = 120, w: int = 160, seed: int = 0) -> list[np.ndarray]:
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
@@ -185,10 +195,13 @@ def parsers():
 
 @pytest.mark.parametrize("parse", [False, True])
 def test_muse_bundle_matches_jax(tmp_path, muse_pair, parsers, parse):
-    frames = synth_frames()
+    # parsing: one crop size for every frame, so JAX compiles its parser
+    # once, and three frames (BiSeNet runs at 512² a frame on both sides);
+    # without it eight, so that the jittered boxes' smoothing window fills
+    n = 3 if parse else 8
+    frames = synth_frames(n)
     jm, pm = muse_pair
     jparse, pparse = parsers if parse else (None, None)
-    # parsing: one crop size for every frame, so JAX compiles its parser once
     detector = (lambda: genavatar.FixedBoxDetector(BOX)) if parse else JitterDetector
     port = genavatar.create_muse_avatar(frames, str(tmp_path / "port" / "av"), detector(), pm,
                                         bbox_shift=4, face_parser=pparse, encode_batch=3)
@@ -197,7 +210,7 @@ def test_muse_bundle_matches_jax(tmp_path, muse_pair, parsers, parse):
     assert _tree_files(port) == _tree_files(ref)
     for name in ("coords.pkl", "mask_coords.pkl", "avator_info.json"):
         assert _read(os.path.join(port, name)) == _read(os.path.join(ref, name)), name
-    for i in range(8):
+    for i in range(n):
         assert _read(os.path.join(port, "full_imgs", f"{i}.png")) == \
             _read(os.path.join(ref, "full_imgs", f"{i}.png"))
         a, b = (cv2.imread(os.path.join(d, "mask", f"{i}.png")) for d in (port, ref))
@@ -206,10 +219,10 @@ def test_muse_bundle_matches_jax(tmp_path, muse_pair, parsers, parse):
             assert _read(os.path.join(port, "mask", f"{i}.png")) == \
                 _read(os.path.join(ref, "mask", f"{i}.png"))
     got, want = (np.load(os.path.join(d, "latents.npy")) for d in (port, ref))
-    assert got.shape == want.shape == (8, 32, 32, 8)
+    assert got.shape == want.shape == (n, 32, 32, 8)
     assert np.abs(got - want).max() <= LATENT_REL * np.abs(want).max()
     avatar = load_muse_avatar(port)
-    assert len(avatar) == 8 and avatar.coords == pickle.load(open(os.path.join(ref, "coords.pkl"), "rb"))
+    assert len(avatar) == n and avatar.coords == pickle.load(open(os.path.join(ref, "coords.pkl"), "rb"))
 
 
 def test_batched_encode_equals_one_call(tmp_path, muse_pair):
@@ -288,10 +301,38 @@ def test_main_writes_a_muse_bundle(tmp_path, fixed_s3fd, muse_pair, parsers, mon
                                   pm.encode_pair(torch.from_numpy(faces)).numpy())
 
 
-def test_dwpose_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ER-NeRF data tools"):
-        genavatar.main(["in.mp4", "--kind", "musetalk", "--out", str(tmp_path),
-                        "--dwpose_ckpt", "dw.pth", "--device", "cpu"])
+def test_dwpose_raises_naming_the_roadmap_item(tmp_path, fixed_s3fd, muse_pair, monkeypatch):
+    """--dwpose_ckpt no longer raises: the CLI serves the RTMPose wholebody
+    landmarker from an mmpose-layout checkpoint (seeded at deepen 1/3,
+    widen 0.25, built at that size), and the bundle's boxes are JAX's
+    get_landmark_and_bbox with JAX's landmarker on the same weights
+    (through the JAX package's own converter of the same file)."""
+    from mere_fusion_tpu.models import rtmpose as jax_rtmpose
+    from mere_fusion_tpu.utils.torch_convert import convert_rtmpose as jax_convert_rtmpose
+    from mere_fusion_tpu_torch.models import rtmpose
+
+    size = dict(deepen=1.0 / 3.0, widen=0.25)
+    net = rtmpose.init_rtmpose_(rtmpose.RTMPose(**size), 5)
+    pth = str(tmp_path / "dw-ll_ucoco_384.pth")
+    torch.save({"state_dict": net.state_dict()}, pth)
+    build = rtmpose.WholebodyLandmarker.from_checkpoint.__func__
+    monkeypatch.setattr(rtmpose.WholebodyLandmarker, "from_checkpoint", classmethod(
+        lambda cls, path, **kw: build(cls, path, dtype=torch.float32, **size, **kw)))
+    _, pm = muse_pair
+    monkeypatch.setattr(muse_mod, "MuseModels", lambda vae_state=None, device=None: pm)
+    video = str(tmp_path / "in.mp4")
+    _write_video(video, n=3, hw=(72, 80))
+    out = str(tmp_path / "muse")
+    genavatar.main([video, "--kind", "musetalk", "--out", out, "--device", "cpu",
+                    "--dwpose_ckpt", pth])
+    avatar = load_muse_avatar(out)
+    lm = jax_rtmpose.WholebodyLandmarker(
+        jax_convert_rtmpose(torch.load(pth)["state_dict"], **size), dtype=jnp.float32, **size)
+    want = jax_genavatar.get_landmark_and_bbox(
+        genavatar.video_to_frames(video), genavatar.FixedBoxDetector((10, 10, 50, 50), 0.9), lm)
+    # the crop loop clips the boxes' tops at the frame
+    assert len(avatar) == 3 and avatar.coords == [(x1, max(0, y1), x2, y2)
+                                                  for x1, y1, x2, y2 in want]
 
 
 def test_genavatar_meters_split_the_time(tmp_path):

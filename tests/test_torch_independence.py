@@ -50,6 +50,10 @@ REQUIRED = (
     "mere_fusion_tpu_torch.models.lpips",
     "mere_fusion_tpu_torch.train.metrics",
     "mere_fusion_tpu_torch.train.viewer",
+    "mere_fusion_tpu_torch.tools.face_tracking",
+    "mere_fusion_tpu_torch.tools.render_3dmm",
+    "mere_fusion_tpu_torch.tools.nerf_data",
+    "mere_fusion_tpu_torch.models.rtmpose",
 )
 
 
