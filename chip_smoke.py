@@ -400,6 +400,7 @@ BF16_GENERATE_REL = 0.037
 # or with single TF32 products (f32 weights, allow_tf32) is further off than
 # this limit on the same inputs, which the check asserts.
 K2_ATOL = {"float32": 1e-5, "bfloat16": 1e-5}
+K2_MISS = "tests/fixtures_torch/k2_avatar_miss.pt"   # dump_k2's file of a recorded miss
 # K3 against its plain version at the training shape: the forward sums the
 # same four f32 products in the same order (bit-equal expected); the table
 # gradient's atomics add in another order, held relative to its largest entry.
@@ -953,6 +954,17 @@ def k2_check(state: dict) -> dict:
     else:
         raise AssertionError("K2 accepted a uv of the wrong shape")
     del ops, planes, jobs, uv, dproj, dtv, weights, got, ref
+    # the tile of a trained avatar's frame on which K2 read 1.4e-5 before the
+    # plain version summed the eye logit in the kernel's order
+    args, _, missed = load_k2_dump(K2_MISS, dev)
+    got = sampler.sample_shade_comp_tiles(*args)
+    torch.cuda.synchronize()
+    err = (got - sampler.sample_shade_comp_tiles_plain(*args)).abs().max().item()
+    if not err <= K2_ATOL["bfloat16"]:
+        raise AssertionError(f"K2 on the trained avatar's recorded miss: {err}")
+    out["recorded_miss"] = {"max_abs_err": err,
+                            "before_repair": (got.cpu() - missed).abs().max().item()}
+    del args, got
     torch.cuda.empty_cache()
     state["k2_numbers"] = out["bfloat16"]
     state["k2_f32_numbers"] = out["float32"]
@@ -3464,6 +3476,77 @@ def reference_pth(path: str, cfg, n_frames: int) -> "DensityGrid":
                        mean_density=torch.tensor(mean))
 
 
+def k2_texel_rows(planes, jobs, uv, spec):
+    """The rows of planes.reshape(-1, CP) that K2's bilinear fetches read for
+    the tiles of (jobs, uv), as sampler._tile_features indexes them."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops.sampler import CP
+
+    t = uv.shape[0] // 3
+    jobs = jobs.reshape(t, 3, 1 + 2 * spec.kg)
+    uv = uv.reshape(t, 3, spec.kg, 2, spec.sg)
+    _, m, width = planes.shape
+    rv = width // CP
+    p = jobs[:, :, 0].long()[:, :, None, None]
+    ou = jobs[:, :, 1::2].long()[..., None]
+    ov = jobs[:, :, 2::2].long()[..., None]
+    i0 = torch.floor(torch.clamp(uv[:, :, :, 0] - ou.float(), 0.0, spec.wu - 1.001))
+    j0 = torch.floor(torch.clamp(uv[:, :, :, 1] - ov.float(), 0.0, spec.wv - 1.001))
+    row = torch.clamp(ou + i0.long(), 0, m - 2)
+    col = torch.clamp(ov + j0.long(), 0, rv - 2)
+    base = ((p * m + row) * rv + col).reshape(-1)
+    return torch.unique(torch.cat([base, base + 1, base + rv, base + rv + 1]))
+
+
+def dump_k2(args, got, ref, name: str, tol: float = 0.0) -> str:
+    """K2's operands, its output and the plain output on the tiles whose
+    output misses ``tol`` (the worst tile when none does), saved as
+    chiprun_out/<name>.pt small enough to bring back: of the planes only
+    the texel rows those tiles read. ``load_k2_dump`` rebuilds operands on
+    which K2 and its plain version compute those tiles as they did."""
+    import os
+
+    import torch
+
+    from mere_fusion_tpu_torch.ops.sampler import CP
+
+    planes, jobs, uv, dproj, dtv, weights, spec = args
+    t = uv.shape[0] // 3
+    err = (got - ref).abs().reshape(t, -1).amax(1)
+    tiles = torch.nonzero(err > tol).reshape(-1)
+    if tiles.numel() == 0:
+        tiles = err.argmax().reshape(1)
+    sub_jobs = jobs.reshape(t, -1)[tiles].reshape(-1)
+    sub_uv = uv.reshape(t, 3, *uv.shape[1:])[tiles].reshape(-1, *uv.shape[1:])
+    rows = k2_texel_rows(planes, sub_jobs, sub_uv, spec)
+    cpu = lambda x: x.detach().cpu()
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", f"{name}.pt")
+    torch.save({"planes_shape": tuple(planes.shape), "planes_dtype": planes.dtype,
+                "texel_rows": cpu(rows), "texels": cpu(planes.reshape(-1, CP)[rows]),
+                "jobs": cpu(sub_jobs), "uv": cpu(sub_uv), "dproj": cpu(dproj[tiles]),
+                "dtv": cpu(dtv[tiles]), "weights": {k: cpu(v) for k, v in weights.items()},
+                "spec": spec, "tiles": cpu(tiles), "tile_err": cpu(err[tiles]),
+                "got": cpu(got[tiles]), "ref": cpu(ref[tiles])}, path)
+    return path
+
+
+def load_k2_dump(path: str, device) -> tuple:
+    """(K2's operands, its output, the plain output) of a ``dump_k2`` file,
+    the operands on ``device``."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops.sampler import CP
+
+    d = torch.load(path, map_location="cpu", weights_only=False)
+    planes = torch.zeros(d["planes_shape"], dtype=d["planes_dtype"])
+    planes.view(-1, CP)[d["texel_rows"]] = d["texels"]
+    args = (planes.to(device), d["jobs"].to(device), d["uv"].to(device), d["dproj"].to(device),
+            d["dtv"].to(device), {k: v.to(device) for k, v in d["weights"].items()}, d["spec"])
+    return args, d["got"], d["ref"]
+
+
 def phase_nerf_avatar(state: dict) -> dict:
     import os
 
@@ -3565,7 +3648,9 @@ def phase_nerf_avatar(state: dict) -> dict:
     ref = sampler.sample_shade_comp_tiles_plain(*args)
     k2_err = (got - ref).abs().max().item()
     if not k2_err <= K2_ATOL["bfloat16"]:
-        raise AssertionError(f"K2 on the avatar's frame: {k2_err} > {K2_ATOL['bfloat16']}")
+        dump = dump_k2(args, got, ref, "k2_avatar_miss", K2_ATOL["bfloat16"])
+        raise AssertionError(f"K2 on the avatar's frame: {k2_err} > {K2_ATOL['bfloat16']} "
+                             f"(operands in {dump})")
     if frames[0].shape != (NERF_HW, NERF_HW, 3) or float(frames[0].std()) <= 2:
         raise AssertionError(f"avatar frame {frames[0].shape}, std {frames[0].std()}")
     raw = Checkpointer(torso_ws).restore(map_location=dev)
@@ -3638,6 +3723,440 @@ def phase_nerf_avatar(state: dict) -> dict:
     torch.cuda.empty_cache()
     return {**out, "k2_launches": launches, "k2_max_abs_err": k2_err,
             "k2_tol": K2_ATOL["bfloat16"], "occupied_cells": int(want.occupancy.sum())}
+
+
+# ---- nerf_data: from a video to an ER-NeRF training set -------------------------------
+BFM_GRID = (175, 198)             # vertex rows × columns: 34,650 vertices, the BFM's count
+BFM_ID, BFM_EXP = 100, 79         # the ER-NeRF tracker's identity and expression coefficients
+DATA_FRAMES = 100                 # the synthetic capture: 4 s at 25 fps ...
+DATA_HW = 512                     # ... of 512² frames
+DATA_FOCAL = 1150.0               # the tracker's initial focal and depth (fit_landmarks'
+DATA_DEPTH = 600.0                # defaults), the capture's own
+DATA_RENDER_BATCH = 10            # frames rendered a call
+PHOTO_FRAMES = 4                  # frames of the photometric run (task 8 --photometric),
+#                                   spread over the turn: the run fits its landmarks anew,
+#                                   and the first few frames alone barely turn (23.9° off)
+DATA_TRAIN_ITERS = 100
+FIT_CHECK_STEPS = 20              # fit_landmarks' first steps, card against the CPU ...
+FIT_CHECK_REL = 1e-4              # ... each leaf against its largest entry
+# pose bounds of the JAX package's own tests: the landmark fit's rotation per
+# frame and focal (tests/test_face_tracking.py), the mesh path's mean rotation,
+# mean translation and focal (tests/test_render_3dmm.py)
+LANDMARK_ROT_DEG, LANDMARK_FOCAL_REL = 1.5, 0.1
+PHOTO_ROT_DEG, PHOTO_TRANS, PHOTO_FOCAL_REL = 1.0, 6.0, 0.02
+DWPOSE_FRAMES = 8                 # genavatar --dwpose_ckpt: a short clip of the capture
+# task 7 on a copy of the capture's first frame at 128²: seeded S3FD keeps
+# ~1,150 boxes a 512² frame after NMS, and FAN runs on every box (as
+# face_alignment does; nerf_data keeps the first)
+LANDMARK_HW = 128
+
+
+def synthetic_bfm(seed: int = 0):
+    """A seeded morphable model at the BFM's widths: a bumpy head-sized
+    surface on a BFM_GRID vertex grid (±80 × ±100 units, the tracker's
+    units), local identity and expression bases, a row-major triangle grid
+    and 68 landmark vertices spread over it; with a multi-scale albedo.
+    Returns (MorphableModel, colors [N, 3])."""
+    import numpy as np
+
+    from mere_fusion_tpu_torch.tools.face_tracking import MorphableModel
+
+    rng = np.random.default_rng(seed)
+    rows, cols = BFM_GRID
+    yy, xx = np.meshgrid(np.linspace(-1, 1, rows), np.linspace(-1, 1, cols), indexing="ij")
+    zz = 0.35 * (1 - 0.5 * (xx ** 2 + yy ** 2))
+    for cx, cy, a, s in ((0.0, 0.05, 0.25, 0.12), (-0.35, -0.3, 0.06, 0.15),
+                         (0.35, -0.3, 0.06, 0.15), (0.0, 0.45, 0.08, 0.2)):
+        zz = zz + a * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / s ** 2)
+    mean = np.stack([80 * xx, 100 * yy, 80 * zz], -1).reshape(-1, 3).astype(np.float32)
+    n = mean.shape[0]
+
+    def bases(k, amp, radius):
+        """k local displacement fields, a Gaussian bump each (centre,
+        width, 3-D direction seeded), as the BFM's are local: a field
+        spread over the whole face would shear it like a turn."""
+        c = rng.uniform(-0.8, 0.8, (k, 2, 1, 1))
+        s = rng.uniform(*radius, (k, 1, 1))
+        field = np.exp(-((xx[None] - c[:, 0]) ** 2 + (yy[None] - c[:, 1]) ** 2) / s ** 2)
+        mix = rng.normal(0, 1, (k, 3)) * amp
+        return (field.reshape(k, n, 1) * mix[:, None, :]).reshape(k, n * 3).T.astype(np.float32)
+
+    idx = np.arange(n).reshape(rows, cols)
+    f1 = np.stack([idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:]], -1)
+    f2 = np.stack([idx[1:, :-1], idx[1:, 1:], idx[:-1, 1:]], -1)
+    faces = np.stack([f1, f2], 2).reshape(-1, 3).astype(np.int32)
+    colors = np.full((n, 3), 0.5)
+    for scale, amp, count in ((0.45, 0.25, 6), (0.22, 0.18, 12), (0.11, 0.12, 24)):
+        for _ in range(count):
+            cx, cy = rng.uniform(-1, 1, 2)
+            colors += (rng.uniform(-amp, amp, 3)[None]
+                       * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / scale ** 2).reshape(n, 1))
+    keyinds = np.linspace(cols + 1, n - cols - 2, 68).astype(np.int64)
+    model = MorphableModel(mean=mean, base_id=bases(BFM_ID, 3.0, (0.2, 0.4)),
+                           base_exp=bases(BFM_EXP, 2.0, (0.08, 0.2)),
+                           faces=faces, keyinds=keyinds)
+    return model, np.clip(colors, 0, 1).astype(np.float32)
+
+
+def capture_poses(n: int):
+    """A slow head turn: yaw ±0.25 rad over the clip, a little pitch and
+    roll, the head drifting a few units at the tracker's depth."""
+    import numpy as np
+
+    t = np.linspace(0.0, 1.0, n)
+    euler = np.stack([0.06 * np.sin(2 * np.pi * t), 0.25 * np.sin(np.pi * (t - 0.5)),
+                      0.04 * np.sin(4 * np.pi * t)], -1).astype(np.float32)
+    trans = np.stack([4.0 * np.sin(2 * np.pi * t), 3.0 * np.cos(2 * np.pi * t),
+                      -DATA_DEPTH + 8.0 * np.sin(np.pi * t)], -1).astype(np.float32)
+    return euler, trans
+
+
+def write_bfm_dir(path: str, model) -> None:
+    """The model as the reference's converted BFM directory: 3DMM_info.npy,
+    topology_info.npy's "tris", keys_info.npy's "keyinds"."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    np.save(os.path.join(path, "3DMM_info.npy"),
+            {"mu_shape": model.mean.reshape(-1), "b_shape": model.base_id,
+             "b_exp": model.base_exp}, allow_pickle=True)
+    np.save(os.path.join(path, "topology_info.npy"), {"tris": model.faces}, allow_pickle=True)
+    np.save(os.path.join(path, "keys_info.npy"), {"keyinds": model.keyinds}, allow_pickle=True)
+
+
+def transforms_poses(path: str):
+    """(R [F,3,3], t [F,3], focal) of a transforms.json, the tracker's
+    world-to-camera pose: the exported c2w is (−Rᵀ, −Rᵀ t)."""
+    import json as _json
+
+    import numpy as np
+
+    with open(path) as f:
+        d = _json.load(f)
+    m = np.asarray([fr["transform_matrix"] for fr in d["frames"]], np.float64)
+    rot = -np.transpose(m[:, :3, :3], (0, 2, 1))
+    return rot, -np.einsum("fij,fj->fi", rot, m[:, :3, 3]), float(d["focal_len"])
+
+
+def pose_figures(path: str, euler, trans) -> dict:
+    """Rotation (degrees, mean and largest) and translation (mean) errors of
+    a transforms.json against the capture's poses, and its focal."""
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.tools.face_tracking import euler_to_rot
+
+    rot, t, focal = transforms_poses(path)
+    rgt = euler_to_rot(torch.from_numpy(euler)).double().numpy()[: len(rot)]
+    cos = np.clip((np.einsum("fij,fij->f", rot, rgt) - 1) / 2, -1.0, 1.0)
+    deg = np.degrees(np.arccos(cos))
+    return {"rot_deg_mean": float(deg.mean()), "rot_deg_max": float(deg.max()),
+            "trans_mean": float(np.linalg.norm(t - trans[: len(t)], axis=-1).mean()),
+            "focal": focal, "focal_rel_err": abs(focal - DATA_FOCAL) / DATA_FOCAL}
+
+
+def raster_bound_ms(model, hw: int, n_pairs: int) -> tuple[float, str]:
+    """rasterize_topk's least time: its inputs read once (uv, z_norm, the
+    faces as int64) and its [P, 2] int32 ids written once, against the
+    float32 operations of the (face, pixel) pairs it tests (the triangle
+    geometry, the barycentric nearness and the rank: ~45 each)."""
+    n, t = model.mean.shape[0], model.faces.shape[0]
+    moved = n * 12 + t * 24 + hw * hw * 2 * 4
+    ops = n_pairs * 45
+    by_bytes, by_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_nerf_data(state: dict) -> dict:
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from mere_fusion_tpu_torch.audio import deepspeech as ds
+    from mere_fusion_tpu_torch.engines import make_engine
+    from mere_fusion_tpu_torch.models.bisenet import FaceParsing
+    from mere_fusion_tpu_torch.models.fan import LandmarkDetector
+    from mere_fusion_tpu_torch.models.s3fd import FaceDetector
+    from mere_fusion_tpu_torch.ops import sampler
+    from mere_fusion_tpu_torch.tools import face_tracking as ft
+    from mere_fusion_tpu_torch.tools import nerf_data
+    from mere_fusion_tpu_torch.tools import render_3dmm as r3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    root, bfm = os.path.join(tmp, "capture"), os.path.join(tmp, "bfm")
+    ori = os.path.join(root, "ori_imgs")
+    os.makedirs(ori)
+    out, seconds = {}, {}
+
+    # 1. the capture: the BFM-width model rendered at known poses
+    t0 = time.perf_counter()
+    model, colors = synthetic_bfm()
+    write_bfm_dir(bfm, model)
+    euler, trans = capture_poses(DATA_FRAMES)
+    seconds["model"] = time.perf_counter() - t0
+    center = (DATA_HW / 2.0, DATA_HW / 2.0)
+    faces_t = torch.from_numpy(model.faces).to(dev)
+    cols_t = torch.from_numpy(colors).to(dev)
+    basis = ft.model_tensors(model, dev)
+    lmk = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, DATA_FRAMES, DATA_RENDER_BATCH):
+        sl = slice(s, s + DATA_RENDER_BATCH)
+        e, tr = torch.from_numpy(euler[sl]).to(dev), torch.from_numpy(trans[sl]).to(dev)
+        zero_id = torch.zeros(BFM_ID, device=dev)
+        pts = r3.geometry_world(model, zero_id, torch.zeros(len(e), BFM_EXP, device=dev), e, tr,
+                                basis=basis)
+        rgb, cov = r3.render_mesh_ss(pts, faces_t, cols_t, DATA_FOCAL, center,
+                                     (DATA_HW, DATA_HW))
+        # over black, as the JAX tests render: the photometric stage of the
+        # CLI fits against a black plate (ROADMAP §3)
+        img = rgb
+        lmk.append(ft.project(pts[:, torch.from_numpy(model.keyinds).to(dev)], DATA_FOCAL,
+                              center).cpu().numpy())
+        for j, frame in enumerate((img.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()):
+            cv2.imwrite(os.path.join(ori, f"{s + j}.jpg"), frame[..., ::-1])
+    torch.cuda.synchronize()
+    seconds["render_frames"] = time.perf_counter() - t0
+    print(json.dumps({"nerf_data_step": "render_frames", "s": seconds["render_frames"]}),
+          flush=True)
+    lmk = np.concatenate(lmk)
+    first = cv2.imread(os.path.join(ori, "0.jpg"))
+    if first.shape != (DATA_HW, DATA_HW, 3) or float(first.std()) < 10:
+        raise AssertionError(f"capture frame {first.shape}, std {first.std()}")
+    pcm = np.concatenate([speech_pcm(8960, seed=11 + k) for k in range(8)])[: 640 * DATA_FRAMES]
+    wavfile.write(os.path.join(root, "aud.wav"), 16000, (pcm * 32767).astype(np.int16))
+    synthesize_au(os.path.join(root, "au.csv"), DATA_FRAMES)
+
+    # 2. tasks 2 and 4-7 through the CLI, seeded weights written as checkpoints
+    pb = os.path.join(tmp, "ds.pb")
+    write_graphdef(pb, deepspeech_graph_names(ds.init_params(np.random.default_rng(11),
+                                                             scale=0.1)))
+    ckpts = {"bisenet": os.path.join(tmp, "79999_iter.pth"),
+             "fan": os.path.join(tmp, "2DFAN4.pth"), "s3fd": os.path.join(tmp, "s3fd.pth")}
+    torch.save(FaceParsing(device=dev).model.state_dict(), ckpts["bisenet"])
+    torch.save(LandmarkDetector(num_modules=4, device=dev).model.state_dict(), ckpts["fan"])
+    torch.save(FaceDetector(device=dev).model.state_dict(), ckpts["s3fd"])
+    few = os.path.join(tmp, "few_frames")
+    os.makedirs(os.path.join(few, "ori_imgs"))
+    cv2.imwrite(os.path.join(few, "ori_imgs", "0.jpg"),
+                cv2.resize(first, (LANDMARK_HW, LANDMARK_HW), interpolation=cv2.INTER_AREA))
+    flags = {2: ["--deepspeech_pb", pb], 4: ["--bisenet_ckpt", ckpts["bisenet"]], 5: [], 6: [],
+             7: ["--fan_ckpt", ckpts["fan"], "--s3fd_ckpt", ckpts["s3fd"]]}
+    for task, extra in flags.items():
+        t0 = time.perf_counter()
+        nerf_data.main([few if task == 7 else root, "--task", str(task), *extra])
+        torch.cuda.synchronize()
+        seconds[f"task_{task}"] = time.perf_counter() - t0
+        print(json.dumps({"nerf_data_step": f"task_{task}", "s": seconds[f"task_{task}"]}),
+              flush=True)
+    aud = np.load(os.path.join(root, "aud.npy"))
+    if aud.shape != (DATA_FRAMES, 16, 29) or not np.isfinite(aud).all():
+        raise AssertionError(f"task 2's aud.npy {aud.shape}")
+    for sub, ext in (("parsing", "png"), ("gt_imgs", "jpg"), ("torso_imgs", "png")):
+        if len([f for f in os.listdir(os.path.join(root, sub)) if f.endswith(ext)]) != DATA_FRAMES:
+            raise AssertionError(f"{sub}/ does not hold a file a frame")
+    out["task_7_lms_written"] = len([f for f in os.listdir(os.path.join(few, "ori_imgs"))
+                                     if f.endswith(".lms")])
+    for i in range(DATA_FRAMES):    # the ground truth landmarks (seeded FAN's are arbitrary)
+        np.savetxt(os.path.join(ori, f"{i}.lms"), lmk[i], "%f")
+
+    # 3. tasks 8 and 9 from the landmarks, then with the photometric refinement
+    t0 = time.perf_counter()
+    nerf_data.main([root, "--task", "8", "--bfm_dir", bfm])
+    seconds["task_8"] = time.perf_counter() - t0
+    print(json.dumps({"nerf_data_step": "task_8", "s": seconds["task_8"]}),
+          flush=True)
+    poses = pose_figures(os.path.join(root, "transforms.json"), euler, trans)
+    print(json.dumps({"nerf_data_landmark_poses": poses}), flush=True)
+    if not (poses["rot_deg_max"] < LANDMARK_ROT_DEG
+            and poses["focal_rel_err"] < LANDMARK_FOCAL_REL):
+        raise AssertionError(f"the landmark fit's poses: {poses}")
+    out["landmark_poses"] = poses
+    photo = os.path.join(tmp, "photometric")
+    os.makedirs(os.path.join(photo, "ori_imgs"))
+    picked = np.linspace(0, DATA_FRAMES - 1, PHOTO_FRAMES).round().astype(int)
+    for j, i in enumerate(picked):
+        for ext in ("jpg", "lms"):
+            shutil.copy(os.path.join(ori, f"{i}.{ext}"),
+                        os.path.join(photo, "ori_imgs", f"{j}.{ext}"))
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nerf_data.main([photo, "--task", "8", "--bfm_dir", bfm, "--photometric"])
+    torch.cuda.synchronize()
+    seconds["task_8_photometric"] = time.perf_counter() - t0
+    print(json.dumps({"nerf_data_step": "task_8_photometric", "s": seconds["task_8_photometric"]}),
+          flush=True)
+    out["photometric_peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    photo_poses = pose_figures(os.path.join(photo, "transforms.json"), euler[picked],
+                               trans[picked])
+    print(json.dumps({"nerf_data_photometric_poses": photo_poses}), flush=True)
+    if not (photo_poses["rot_deg_mean"] < PHOTO_ROT_DEG and photo_poses["trans_mean"] < PHOTO_TRANS
+            and photo_poses["focal_rel_err"] < PHOTO_FOCAL_REL):
+        raise AssertionError(f"the photometric refinement's poses: {photo_poses}")
+    out["photometric_poses"] = photo_poses
+
+    # fit_landmarks: its first steps on the card against the CPU, its step
+    lmk_model = model.subset(model.keyinds)
+    card = ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW), iters=FIT_CHECK_STEPS, device=dev)
+    cpu = ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW), iters=FIT_CHECK_STEPS,
+                           device=torch.device("cpu"))
+    fit_err = {k: float(np.abs(np.asarray(card[k]) - np.asarray(cpu[k])).max()
+                        / max(float(np.abs(np.asarray(cpu[k])).max()), 1e-6))
+               for k in ("euler", "trans", "exp", "id", "focal", "pixel_rmse")}
+    if not max(fit_err.values()) <= FIT_CHECK_REL:
+        raise AssertionError(f"fit_landmarks on the card against the CPU: {fit_err}")
+    steps = 100
+    fit_ms = time_ms(lambda: ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW), iters=steps,
+                                              device=dev), iters=3, warmup=1) / steps
+    prof = profile_launches(lambda: ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW),
+                                                     iters=10, device=dev))
+    out["fit_landmarks"] = {"card_vs_cpu_rel": fit_err, "limit": FIT_CHECK_REL,
+                            "ms_per_step": fit_ms,
+                            "launches_per_step": prof["device_launches"] / 10,
+                            "device_busy_share": prof["device_busy_share"]}
+
+    # rasterize_topk at 128² and 512² (frame 0), beside its bound
+    pts0 = r3.geometry_world(model, torch.zeros(BFM_ID, device=dev),
+                             torch.zeros(1, BFM_EXP, device=dev),
+                             torch.from_numpy(euler[:1]).to(dev),
+                             torch.from_numpy(trans[:1]).to(dev), basis=basis)[0]
+    z = torch.clamp(-pts0[:, 2], min=1e-4)
+    zn = (z.max() - z) / (z.max() - z.min() + 1e-6)
+    raster = {}
+    for hw in (128, 512):
+        uv = ft.project(pts0, DATA_FOCAL * hw / DATA_HW, (hw / 2.0, hw / 2.0))
+        ids = r3.rasterize_topk(uv, zn, faces_t, (hw, hw), d_max=1.2)
+        lo, hi = r3._reach_boxes(uv[None], faces_t.long(), (hw, hw), 1.2)
+        pairs = int(((hi - lo)[..., 0] * (hi - lo)[..., 1]).sum())
+        bound, by = raster_bound_ms(model, hw, pairs)
+        raster[f"{hw}"] = {"ms": time_ms(lambda: r3.rasterize_topk(uv, zn, faces_t, (hw, hw),
+                                                                   d_max=1.2), iters=10, warmup=2),
+                           "bound_ms": bound, "bound_by": by, "pairs_tested": pairs,
+                           "scan_pairs": faces_t.shape[0] * hw * hw,
+                           "covered_pixels": int((ids[:, 0] >= 0).sum())}
+    out["rasterize_topk"] = raster
+
+    # 4. train on the produced directory, the counts zeroed
+    ws = os.path.join(tmp, "workspace")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    lines = run_cli([root, "--workspace", ws, "--iters", str(DATA_TRAIN_ITERS),
+                     "--audio_dim", "29"])
+    seconds["train"] = time.perf_counter() - t0
+    print(json.dumps({"nerf_data_step": "train", "s": seconds["train"]}),
+          flush=True)
+    k3 = k3_counts()
+    if not k3[0] or not k3[2] or sampler.launches:
+        raise AssertionError(f"training on the produced set: K3 {k3}, K2 {sampler.launches}")
+    out["train"] = {"k3_launches": list(k3), "lines": lines[-3:]}
+
+    # 5. serve a frame of it: K2 once, against its plain version
+    cfg = nerf_config(os.path.join(root, "transforms.json"), os.path.join(root, "au.csv"))
+    # the tracker exports −Rᵀ (a reflection, as the JAX package's does), which
+    # the path smoothing's scipy Rotation refuses (ROADMAP §3): served unsmoothed
+    cfg = cfg.override(**{"nerf.scale": 4.0, "nerf.audio_in_dim": 29, "nerf.ckpt": ws,
+                          "nerf.smooth_path": False})
+    kernel, recorded = sampler.sample_shade_comp_tiles, []
+
+    def recording(*args):
+        result = kernel(*args)
+        recorded[:] = [(args, result)]
+        return result
+
+    sampler.sample_shade_comp_tiles = recording     # the step keeps what it was built with
+    try:
+        engine = make_engine(cfg, device=dev)
+    finally:
+        sampler.sample_shade_comp_tiles = kernel
+    auds = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 29, 16)).astype(np.float32)).to(dev)
+    d = engine.dataset.collate(0)
+    zero_kernel_counts()
+    recorded.clear()
+    img = engine._render_step(d["pose"], auds, d["eye"], engine.density, engine._bg_dev,
+                              pose_key=0)[0].cpu().numpy()
+    if sampler.launches != 1 or img.shape != (DATA_HW, DATA_HW, 3):
+        raise AssertionError(f"the served frame: K2 {sampler.launches}, {img.shape}")
+    (args, got), = recorded
+    ref = sampler.sample_shade_comp_tiles_plain(*args)
+    k2_err = (got - ref).abs().max().item()
+    if not k2_err <= K2_ATOL["bfloat16"]:
+        dump = dump_k2(args, got, ref, "k2_nerf_data_miss", K2_ATOL["bfloat16"])
+        raise AssertionError(f"K2 on the produced set's frame: {k2_err} (operands in {dump})")
+    out["serve"] = {"k2_launches": 1, "k2_max_abs_err": k2_err, "k2_tiles": args[2].shape[0] // 3}
+    state["data_k2_launches"] = 1
+    state["k3_data_launches"] = list(k3)
+    del engine, args, got, ref
+    torch.cuda.empty_cache()
+
+    # 6. genavatar --dwpose_ckpt: a seeded RTMPose written as mmpose's checkpoint
+    out["dwpose"] = genavatar_dwpose(tmp, ori, dev)
+    out["step_seconds"] = seconds
+    return out
+
+
+def synthesize_au(path: str, n: int) -> None:
+    """au.csv as OpenFace writes it (the AU45_r column the loader reads)."""
+    with open(path, "w") as f:
+        f.write("frame, face_id, timestamp, confidence, success, AU45_r\n")
+        for i in range(n):
+            f.write(f"{i + 1}, 0, {i * 0.04:.3f}, 0.98, 1, {0.2 + 0.1 * (i % 3):.2f}\n")
+
+
+def genavatar_dwpose(tmp: str, ori: str, dev) -> dict:
+    """``genavatar --kind musetalk --dwpose_ckpt`` on a clip of the capture,
+    seeded RTMPose-l weights in mmpose's layout, S3FD's boxes fixed (seeded
+    weights find no face), the seeded MuseTalk VAE."""
+    import os
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.engines.muse import load_muse_avatar
+    from mere_fusion_tpu_torch.models import s3fd as s3fd_mod
+    from mere_fusion_tpu_torch.models.rtmpose import WholebodyLandmarker
+    from mere_fusion_tpu_torch.tools import genavatar
+
+    pth = os.path.join(tmp, "dw-ll_ucoco_384.pth")
+    lm = WholebodyLandmarker(device=dev)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in lm.model.state_dict().items()}}, pth)
+    video = os.path.join(tmp, "clip.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25, (DATA_HW, DATA_HW))
+    for i in range(DWPOSE_FRAMES):
+        writer.write(cv2.imread(os.path.join(ori, f"{i}.jpg")))
+    writer.release()
+    face_box = (DATA_HW // 4, DATA_HW // 4, 3 * DATA_HW // 4, 3 * DATA_HW // 4)
+    real = s3fd_mod.FaceDetector
+    s3fd_mod.FaceDetector = lambda *a, **k: genavatar.FixedBoxDetector(face_box)
+    out_dir = os.path.join(tmp, "dwpose_avatar")
+    t0 = time.perf_counter()
+    try:
+        genavatar.main([video, "--kind", "musetalk", "--out", out_dir, "--dwpose_ckpt", pth])
+    finally:
+        s3fd_mod.FaceDetector = real
+    seconds = time.perf_counter() - t0
+    bundle = load_muse_avatar(out_dir)
+    if len(bundle) != DWPOSE_FRAMES or not np.isfinite(bundle.latent_cycle).all():
+        raise AssertionError("genavatar --dwpose_ckpt: the bundle does not load whole")
+    frame = cv2.imread(os.path.join(ori, "0.jpg"))[..., ::-1].copy()
+    ms = p50_ms(lambda: lm.landmarks_from_boxes(frame, [face_box]), iters=10, warmup=2)
+    return {"seconds": seconds, "frames": len(bundle),
+            "coords": [[int(v) for v in c] for c in bundle.coords[:2]],
+            "landmarks_ms_p50": ms}
 
 
 def _varint(v: int) -> bytes:
@@ -5880,7 +6399,8 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
           ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
-          ("nerf_finetune", phase_nerf_finetune), ("nerf_avatar", phase_nerf_avatar), ("nerf_speech", phase_nerf_speech),
+          ("nerf_finetune", phase_nerf_finetune), ("nerf_avatar", phase_nerf_avatar),
+          ("nerf_data", phase_nerf_data), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
           ("avatar_prep", phase_avatar_prep), ("asr", phase_asr),
           ("asr_offline", phase_asr_offline), ("perception", phase_perception))
@@ -5969,6 +6489,8 @@ def main() -> int:
         "speech_launches": state["speech_k2_launches"],
         # a session whose frames left over rtp (transport)
         "rtp_launches": state["rtp_k2_launches"],
+        # a frame of the avatar trained on the set nerf_data produced
+        "data_launches": state["data_k2_launches"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],
@@ -6027,9 +6549,10 @@ def main() -> int:
         # the corner route serves sample positions that need a gradient, which
         # no path of the port's asks for: the CLI's encodes launch it no time
         **({"note": "off the main path since the encode kernel"} if part == "forward" else {}),
-        # the fine-tuning CLI, --test and the viewer's run (nerf_finetune)
+        # the fine-tuning CLI, --test and the viewer's run (nerf_finetune), the
+        # training on the set nerf_data produced
         **{f"{path}_launches": state[f"k3_{path}_launches"][i]
-           for path in ("finetune", "eval", "viewer")},
+           for path in ("finetune", "eval", "viewer", "data")},
     } for i, part, launches in zip((1, 2), ("forward", "backward"),
                                    state["k3_cli_launches"][1:])] + [{
         # the training CLI's encodes: the forward of every step and refresh
@@ -6038,9 +6561,9 @@ def main() -> int:
         "replaces": "mere_fusion_tpu/ops/hash_mxu.py:216",
         "launches": state["k3_cli_launches"][0], "max_abs_err": k3e["training"]["max_abs_err"],
         # the fine-tuning CLI's steps and refreshes, --test's frames, the viewer's
-        # run with its renders (nerf_finetune)
+        # run with its renders (nerf_finetune), the training on nerf_data's set
         **{f"{path}_launches": state[f"k3_{path}_launches"][0]
-           for path in ("finetune", "eval", "viewer")},
+           for path in ("finetune", "eval", "viewer", "data")},
         "ms": k3e["training"]["kernel_ms"], "plain_ms": k3e["training"]["plain_ms"],
         "bound_ms": k3e["training"]["bound_ms"], "bound_by": k3e["training"]["bound_by"],
         # no single PyTorch call hashes the corners (embedding_bag needs them made)
