@@ -32,8 +32,9 @@ its seconds; any failure is fatal (exit code 1, no result line):
               without the bf16 rounding of activations (bf16 weights) or
               with single TF32 products (f32 weights, allow_tf32) must fail
               the tolerance; each kernel's registers, spills and HGMMA
-              (bf16 weights) or HMMA (f32) count; a wrong shape must raise.
-              K3 (hash lookup) at the
+              (bf16 weights) or HMMA (f32) count; a wrong shape must raise;
+              K2 on the tile of a trained avatar's frame it once missed
+              (K2_MISS, load_k2_dump) within K2_ATOL. K3 (hash lookup) at the
               training shape (65,536 seeded points in [−1, 1]³, the full-width
               12-level 2^14 triplane spec, tables U(−1, 1), seeded gout):
               forward against the plain version, the table gradient against
@@ -203,7 +204,8 @@ its seconds; any failure is fatal (exit code 1, no result line):
               torso prefill), the torso cache's bytes a pose, 8 frames with
               the counts zeroed just before (exactly one K2 launch each; K2
               on the last one's operands within K2_ATOL of its plain
-              version), the first frame bit-equal to a NeRFReal's given the
+              version; dump_k2 writes the tiles that miss under
+              chiprun_out/ before the phase fails), the first frame bit-equal to a NeRFReal's given the
               workspace's EMA weights and density directly; the frame with
               the cached torso and the same checkpoint served as a head
               (nerf.torso unset) in turns; one live torso pass (a cache
@@ -214,7 +216,27 @@ its seconds; any failure is fatal (exit code 1, no result line):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-14. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+14. nerf_data — an ER-NeRF training set made from a video on the card: a
+              seeded morphable model at the ER-NeRF tracker's widths
+              (synthetic_bfm: 34,650 vertices, 100 identity and 79 expression
+              coefficients, local bump bases, a triangle grid, 68 landmark
+              vertices) written as a converted BFM directory, DATA_FRAMES
+              frames at 512² of a slow head turn rendered by render_mesh_ss,
+              speech_pcm as aud.wav and an au.csv; the data CLI's tasks 2
+              (a seeded DeepSpeech graph), 4-6 (seeded BiSeNet) and 7
+              (seeded FAN and S3FD on one LANDMARK_HW² frame, timed only),
+              each timed; tasks 8-9 from the ground-truth landmarks, the
+              poses against the capture's within the JAX tests' bounds, then
+              with --photometric on PHOTO_FRAMES frames spread over the turn
+              (seconds, peak memory, poses); fit_landmarks' first
+              FIT_CHECK_STEPS steps on the card against the CPU, its ms a
+              step and launches (torch.profiler); rasterize_topk at 128² and
+              512² beside its bound; ernerf_cli for DATA_TRAIN_ITERS
+              iterations on the produced set, the counts zeroed (K3 must
+              launch); make_engine on its workspace serving one frame (K2
+              once, against its plain version within K2_ATOL); genavatar
+              --kind musetalk --dwpose_ckpt with seeded RTMPose-l.
+15. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
               scale=0.1), written by write_graphdef) with its bytes and the
               seconds to write, read and upload it; one 8,960-sample window
@@ -237,7 +259,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               rendered frame, the body around it untouched); then
               tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
               seconds, the real-time factor.
-15. sampler_stages — the profiling entry points prof_r5m.main and
+16. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -260,7 +282,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               read with bf16 weights only: with f32 weights shade's
               16-column 3xTF32 products cost more than K2's two narrow
               dots, so shade does not bound K2 f32's head.
-16. record   — session recording through POST /record: Config() Wav2Lip
+17. record   — session recording through POST /record: Config() Wav2Lip
               sessions (phase lip's .pth, bf16, batch 16, loopback) on
               synthesized 240×320 and 720×1280 bundles, told TRANSPORT_TALK,
               recorded to .mp4 until the assembly loop has queued
@@ -277,7 +299,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the MPEG-4 video decodes to; a writer that does not open must be
               refused) at 240×320; OpenCV's Video I/O build lines; no kernel
               of the repo launched.
-17. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
+18. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
               720×1280 face video written with OpenCV's mp4v and decoded by
               video_to_frames (the synthesized frames go on directly when it
               does not decode, which is printed); the seeded S3FD
@@ -293,7 +315,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               kernel counts zeroed just before: K1 exactly 5 launches a
               generate; genavatar's seconds split by its meters (decode,
               detect, landmarks, parse, crop, encode, write).
-18. asr      — the caller's side of a call: whisper-tiny at its published
+19. asr      — the caller's side of a call: whisper-tiny at its published
               widths (seeded, init_whisper(TINY, 0)) in f32 with TF32 off on
               one 30 s window of speech_pcm: the encode and the beam-5
               decode, unprompted and with a full 96-token prompt (CUDA-event
@@ -301,7 +323,8 @@ its seconds; any failure is fatal (exit code 1, no result line):
               busy share (torch.profiler over the decode's first
               ASR_PROFILE_TOKENS tokens' steps), each one's bound;
               the beam-5 and greedy tokens on the card identical to the
-              port's on the CPU on the same weights and audio, the largest
+              port's on the CPU on the same weights and audio (the prompted
+              beam-5 decode on the card alone, for the script's time), the largest
               logit difference (and, were they to differ, the first
               differing step and the CPU's top-two gap there). Then the
               session's ASR alone (make_backend as Session.ensure_upstream
@@ -316,7 +339,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the first phrase at put_msg_txt and to the reply's first
               frame, lip.infer_batch p50 with the caller speaking and
               without; no kernel of the repo launched.
-19. asr_offline — a recorded file transcribed on the card: a WAV of
+20. asr_offline — a recorded file transcribed on the card: a WAV of
               ASR_OFFLINE_WINDOWS 30 s windows of speech_pcm (12.5 min: one
               group of ASR_OFFLINE_BATCH and a remainder) through the port's
               load_wav_16k and TorchWhisperBackend.transcribe_long (whisper-
@@ -336,7 +359,7 @@ its seconds; any failure is fatal (exit code 1, no result line):
               server.handle_connection on a socket pair with a card-backed
               StreamingTranscriber fed ASR_SERVER_SECONDS of PCM16: the lines
               received and process_iter ms; no kernel of the repo launched.
-20. perception — the caller's camera: YOLOv10-x (seeded, the person
+21. perception — the caller's camera: YOLOv10-x (seeded, the person
               logit raised by PERSON_BIAS so that every analysed frame sees a
               person) at 640 px, f32 with TF32 off on the card against the
               CPU on the same weights and canvas (box and class logits within
@@ -5401,21 +5424,28 @@ def phase_asr(state: dict) -> dict:
         for dname, (decode, decode_cpu) in decoders.items():
             toks, avg, ns = decode(xa, p, plen)
             steps = decode.stats["steps"]
-            toks_cpu, avg_cpu, ns_cpu = decode_cpu(xa_cpu, p, plen)
-            card, host = toks[0].cpu().numpy(), toks_cpu[0].numpy()
-            with torch.no_grad():
-                logits = model.logits(toks, xa).cpu()
-                logits_cpu = cpu_model.logits(toks.cpu(), xa_cpu)
-            row = {"steps": steps, "prompt_len": plen, "tokens_equal": bool((card == host).all()),
-                   "max_logit_diff": float((logits - logits_cpu).abs().max()),
-                   "avg_logprob": float(avg[0]), "avg_logprob_cpu": float(avg_cpu[0]),
-                   "no_speech_prob": float(ns[0]), "no_speech_prob_cpu": float(ns_cpu[0]),
+            card = toks[0].cpu().numpy()
+            row = {"steps": steps, "prompt_len": plen, "avg_logprob": float(avg[0]),
+                   "no_speech_prob": float(ns[0]),
                    "eot_generated": bool((card[plen:] == 50257).any())}
-            first = first_difference(card, host)
-            if first is not None:
+            # the CPU's decodes, against which the card's tokens are held; the
+            # prompted beam-5 one (the CPU's longest) is left out for the
+            # script's time: its greedy twin and the unprompted beam 5 stay
+            if (dname, pname) != ("beam5", "prompted"):
+                toks_cpu, avg_cpu, ns_cpu = decode_cpu(xa_cpu, p, plen)
+                host = toks_cpu[0].numpy()
                 with torch.no_grad():
-                    top2 = torch.topk(cpu_model.logits(toks_cpu, xa_cpu)[0, first - 1], 2).values
-                row.update(first_diff_step=first, cpu_top2_gap=float(top2[0] - top2[1]))
+                    logits = model.logits(toks, xa).cpu()
+                    logits_cpu = cpu_model.logits(toks.cpu(), xa_cpu)
+                row.update(tokens_equal=bool((card == host).all()),
+                           max_logit_diff=float((logits - logits_cpu).abs().max()),
+                           avg_logprob_cpu=float(avg_cpu[0]), no_speech_prob_cpu=float(ns_cpu[0]))
+                first = first_difference(card, host)
+                if first is not None:
+                    with torch.no_grad():
+                        top2 = torch.topk(cpu_model.logits(toks_cpu, xa_cpu)[0, first - 1],
+                                          2).values
+                    row.update(first_diff_step=first, cpu_top2_gap=float(top2[0] - top2[1]))
             if dname == "beam5":
                 row["ms"] = p50_ms(lambda: decode(xa, p, plen), iters=ASR_DECODE_ITERS)
                 # the profiler over the first ASR_PROFILE_TOKENS tokens' steps
@@ -5437,7 +5467,7 @@ def phase_asr(state: dict) -> dict:
                 row["bound_ms"] = cross_ms + steps * step["bound_ms"]
                 row["bound_by"] = step["bound_by"]
             out["decode"][f"{dname}_{pname}"] = row
-            if not row["tokens_equal"]:
+            if not row.get("tokens_equal", True):
                 raise AssertionError(f"{dname} {pname} tokens differ, card vs CPU: {row}")
     if not all(np.isfinite(r["avg_logprob"]) for r in out["decode"].values()):
         raise AssertionError(f"non-finite scores: {out['decode']}")

@@ -51,13 +51,13 @@ def one_thread():
 def scene():
     """The face at the three ground-truth poses: (model, colors, faces,
     JAX points [3, N, 3], the port's points)."""
-    model, colors = synthetic_face()
+    model, colors = synthetic_face(n_side=16)   # two chunks of JAX's scan
     euler, trans = gt_poses()
     pj = jr.geometry_world(model, jnp.zeros(4), jnp.zeros((3, 4)), jnp.asarray(euler),
                            jnp.asarray(trans))
     pt = tr.geometry_world(model, torch.zeros(4), torch.zeros(3, 4), torch.from_numpy(euler),
                            torch.from_numpy(trans))
-    return model, colors, grid_faces(), pj, pt
+    return model, colors, grid_faces(16), pj, pt
 
 
 def t(a) -> torch.Tensor:
@@ -121,7 +121,7 @@ def test_rasterize_topk_ids_equal_jax(scene):
             want = np.asarray(jr.rasterize_topk(jnp.asarray(uvs[i]), jnp.asarray(zns[i]),
                                                 jnp.asarray(faces), HW, d_max=d_max))
         got = tr.rasterize_topk(t(uvs[i]), t(zns[i]), t(faces), HW, d_max=d_max)
-        assert got.dtype == torch.int32 and (want >= 0).sum() > 2_000
+        assert got.dtype == torch.int32 and (want >= 0).sum() > 1_000
         np.testing.assert_array_equal(got.numpy(), want)
         ids[i] = got
     batch = tr.rasterize_topk(t(np.stack(uvs)), t(np.stack(zns)), t(faces), HW, d_max=1.2)

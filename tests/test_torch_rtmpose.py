@@ -1,11 +1,11 @@
 """The port's RTMPose wholebody landmarker against the JAX package's.
 
 At deepen 1/3, widen 0.25 (rtmpose-s-ish, as tests/test_rtmpose.py), the
-weights from the flax init (batch statistics drawn from a numpy seed)
-carried across by ``convert.rtmpose_from_flax``: the SimCC logits in
-float32 within 3e-4 of their largest magnitude (flax's lecun init makes
-logits in the thousands), the decoded keypoints equal and the scores within
-the same 3e-4; the bf16 network within 3% of the largest logit of JAX's
+flax init's variable tree drawn from numpy seeds by its initialisers' laws
+(batch statistics too) carried across by ``convert.rtmpose_from_flax``:
+the SimCC logits in float32 within 3e-4 of their largest magnitude (lecun
+weights make logits in the thousands), the decoded keypoints equal and the
+scores within the same 3e-4; the bf16 network within 3% of the largest logit of JAX's
 float32 one; ``bbox_center_scale`` and ``crop_affine`` equal to JAX's;
 ``convert_rtmpose`` on an mmpose-layout state dict, against JAX's converter
 of the same dict. One torch thread.
@@ -51,17 +51,38 @@ def seeded_stats(tree, rng):
     return out
 
 
+def seeded_params(tree, rng, path=()):
+    """The flax init's parameter tree filled from ``rng`` by its initialisers'
+    laws: kernels N(0, 1/fan_in) (lecun), biases 0, BatchNorm scales and
+    ScaleNorm/res_scale gains 1, the GAU's gamma and beta U[0, 1)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = seeded_params(v, rng, path + (k,))
+        elif k == "kernel":
+            out[k] = rng.normal(0, 1 / np.sqrt(np.prod(v.shape[:-1])), v.shape).astype(np.float32)
+        elif k in ("gamma", "beta"):
+            out[k] = rng.uniform(0, 1, v.shape).astype(np.float32)
+        elif k == "bias" and path[-1:] != ("bn",):
+            out[k] = np.zeros(v.shape, np.float32)
+        else:   # BatchNorm scale and bias, ScaleNorm g, res_scale
+            out[k] = (np.zeros if k == "bias" else np.ones)(v.shape, np.float32)
+    return out
+
+
 @pytest.fixture(scope="module")
 def twins():
     """(JAX variables, the port's float32 RTMPose, JAX's keypoints, scores
-    and SimCC logits of one 384x288 input, that input)."""
+    and SimCC logits of one 384x288 input, that input). The variables
+    have the flax init's tree (``jax.eval_shape``), seeded by numpy."""
     model = jrtm.RTMPose(deepen=DEEPEN, widen=WIDEN, dtype=jnp.float32)
     x = np.random.default_rng(0).standard_normal((1, jrtm.INPUT_H, jrtm.INPUT_W, 3)) \
         .astype(np.float32)
-    variables = flax.core.unfreeze(jax.jit(model.init)(jax.random.PRNGKey(0), x))
-    variables["batch_stats"] = seeded_stats(variables["batch_stats"], np.random.default_rng(1))
-    (kpts, score), inter = model.apply(variables, jnp.asarray(x),
-                                       capture_intermediates=lambda m, _: m.name == "head")
+    shapes = flax.core.unfreeze(jax.eval_shape(model.init, jax.random.PRNGKey(0), x))
+    variables = {"params": seeded_params(shapes["params"], np.random.default_rng(2)),
+                 "batch_stats": seeded_stats(shapes["batch_stats"], np.random.default_rng(1))}
+    (kpts, score), inter = jax.jit(lambda v, a: model.apply(
+        v, a, capture_intermediates=lambda m, _: m.name == "head"))(variables, jnp.asarray(x))
     logits = inter["intermediates"]["head"]["__call__"][0]
     net = rtm.RTMPose(DEEPEN, WIDEN)
     net.load_state_dict(rtmpose_from_flax(variables, DEEPEN, WIDEN), strict=True)
