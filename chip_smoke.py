@@ -3903,6 +3903,7 @@ def phase_nerf_data(state: dict) -> dict:
     from scipy.io import wavfile
 
     from mere_fusion_tpu_torch.audio import deepspeech as ds
+    from mere_fusion_tpu_torch.data.provider import write_au_csv
     from mere_fusion_tpu_torch.engines import make_engine
     from mere_fusion_tpu_torch.models.bisenet import FaceParsing
     from mere_fusion_tpu_torch.models.fan import LandmarkDetector
@@ -3960,7 +3961,7 @@ def phase_nerf_data(state: dict) -> dict:
         raise AssertionError(f"capture frame {first.shape}, std {first.std()}")
     pcm = np.concatenate([speech_pcm(8960, seed=11 + k) for k in range(8)])[: 640 * DATA_FRAMES]
     wavfile.write(os.path.join(root, "aud.wav"), 16000, (pcm * 32767).astype(np.int16))
-    synthesize_au(os.path.join(root, "au.csv"), DATA_FRAMES)
+    write_au_csv(os.path.join(root, "au.csv"), DATA_FRAMES)
 
     # 2. tasks 2 and 4-7 through the CLI, seeded weights written as checkpoints
     pb = os.path.join(tmp, "ds.pb")
@@ -4129,14 +4130,6 @@ def phase_nerf_data(state: dict) -> dict:
     out["dwpose"] = genavatar_dwpose(tmp, ori, dev)
     out["step_seconds"] = seconds
     return out
-
-
-def synthesize_au(path: str, n: int) -> None:
-    """au.csv as OpenFace writes it (the AU45_r column the loader reads)."""
-    with open(path, "w") as f:
-        f.write("frame, face_id, timestamp, confidence, success, AU45_r\n")
-        for i in range(n):
-            f.write(f"{i + 1}, 0, {i * 0.04:.3f}, 0.98, 1, {0.2 + 0.1 * (i % 3):.2f}\n")
 
 
 def genavatar_dwpose(tmp: str, ori: str, dev) -> dict:

@@ -467,9 +467,15 @@ def synthesize_nerf_dataset(dirpath: str, n_frames: int = 4, hw: int = 64,
     pose_path = os.path.join(dirpath, "transforms.json")
     with open(pose_path, "w") as f:
         json.dump({"cx": hw / 2, "cy": hw / 2, "focal_len": hw * 1.2, "frames": frames}, f)
-    au_path = os.path.join(dirpath, "au.csv")
-    with open(au_path, "w") as f:
+    write_au_csv(os.path.join(dirpath, "au.csv"), n_frames)
+    return dirpath
+
+
+def write_au_csv(path: str, n_frames: int) -> str:
+    """A procedural au.csv as OpenFace writes it: the AU45_r blink column
+    the loaders read, 25 fps timestamps."""
+    with open(path, "w") as f:
         f.write("frame, face_id, timestamp, confidence, success, AU45_r\n")
         for i in range(n_frames):
             f.write(f"{i+1}, 0, {i*0.04:.3f}, 0.98, 1, {0.2 + 0.1 * (i % 3):.2f}\n")
-    return dirpath
+    return path
