@@ -2045,7 +2045,7 @@ def phase_nerf_session(state: dict) -> dict:
 
 # ---- transport: the live legs out of a session ------------------------------------
 
-TRANSPORT_FRAMES = 100            # frames each rtp session sends (4 s at 25 fps) ...
+TRANSPORT_FRAMES = 50             # frames each rtp session sends (2 s at 25 fps) ...
 TRANSPORT_SIZES = ((240, 320), (720, 1280))   # ... at phase_lip's size and a video call's
 RTMP_FRAMES = 50
 NERF_RTP_FRAMES = 50
@@ -5279,7 +5279,7 @@ ASR_SEED = 0                      # the session's own backend: init_whisper(TINY
 ASR_DECODE_ITERS = 10             # CUDA-event p50 of the encode and of each decode
 ASR_PROMPT_TOKENS = 96            # a full prompt bucket (ASRConfig's backend default)
 ASR_PROFILE_TOKENS = 16           # tokens of the decodes torch.profiler reads
-ASR_CALLER_SECONDS = 10           # the caller's speech in the live call, 20 ms frames
+ASR_CALLER_SECONDS = 4            # the caller's speech in the live call, 20 ms frames
 ASR_TALK = ("good afternoon and welcome, this is the avatar of the port speaking while "
             "the caller talks over it, so that the speech recognizer and the lip sync "
             "generator share one card for a while, as they do in a real call where both "
