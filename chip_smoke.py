@@ -3525,7 +3525,7 @@ def k2_texel_rows(planes, jobs, uv, spec):
 def dump_k2(args, got, ref, name: str, tol: float = 0.0) -> str:
     """K2's operands, its output and the plain output on the tiles whose
     output misses ``tol`` (the worst tile when none does), saved as
-    chiprun_out/<name>.pt small enough to bring back: of the planes only
+    chiprun_out/<name>.pt, kept small: of the planes only
     the texel rows those tiles read. ``load_k2_dump`` rebuilds operands on
     which K2 and its plain version compute those tiles as they did."""
     import os
