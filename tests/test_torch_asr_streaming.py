@@ -34,18 +34,9 @@ from mere_fusion_tpu_torch.asr import vad as tvad
 from mere_fusion_tpu_torch.convert import whisper_from_flax
 from mere_fusion_tpu_torch.models import whisper as tw
 from mere_fusion_tpu_torch.utils import bpe as tbpe
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SR = 16000
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The decode loops run many small operations: one intra-op thread, so
-    that this file does not oversubscribe the cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def make_script(words, t0=0.2, dt=0.3):

@@ -26,16 +26,7 @@ from jax.experimental import pallas as pl
 
 import mere_fusion_tpu.ops.attention as jax_attention
 from mere_fusion_tpu_torch.ops import attention
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture()

@@ -19,19 +19,10 @@ from mere_fusion_tpu_torch.convert import whisper_encoder_from_flax
 from mere_fusion_tpu_torch.models.whisper import AudioEncoder, WhisperDims
 from mere_fusion_tpu_torch.ops import mel as torch_mel
 from tests.test_musetalk import SMALL_WHISPER
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 DIMS = WhisperDims(**SMALL_WHISPER.__dict__)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _max_rel(a: np.ndarray, b: np.ndarray) -> float:

@@ -37,20 +37,11 @@ from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.server import upstream
 from mere_fusion_tpu_torch.server.sessions import Session
 from mere_fusion_tpu_torch.utils import env
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 SCRIPT = [(0.2 + 0.3 * i, 0.45 + 0.3 * i, w)
           for i, w in enumerate(["nice", "to", "meet", "you", "today"])]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 class _Engine:

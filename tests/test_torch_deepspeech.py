@@ -22,6 +22,7 @@ from chip_smoke import deepspeech_graph_names, speech_pcm, write_graphdef
 from mere_fusion_tpu.audio import deepspeech as jds
 from mere_fusion_tpu_torch.audio import deepspeech as pds
 from tests.test_deepspeech import _const_node, _len_delim
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 TOY_SHAPES = {
@@ -30,16 +31,6 @@ TOY_SHAPES = {
     "lstm_bw_kernel": (192, 256), "lstm_bw_bias": (256,),
     "h5": (128, 64), "b5": (64,), "h6": (64, 29), "b6": (29,),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture()

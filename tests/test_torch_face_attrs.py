@@ -22,6 +22,7 @@ from mere_fusion_tpu.utils import keras_convert as jkeras
 from mere_fusion_tpu_torch.convert import face_attrs_from_flax
 from mere_fusion_tpu_torch.models import face_attrs
 from mere_fusion_tpu_torch.utils import keras_convert
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 WIDTH = 0.125
@@ -29,14 +30,6 @@ VGG_ATOL = 3e-4
 EMOTION_ATOL = 2e-5
 PERCENT_ATOL = 3e-2
 TASKS = {"age": 101, "gender": 2, "race": 6}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _seeded(module, shape, seed: int) -> dict:

@@ -27,22 +27,13 @@ from mere_fusion_tpu.models import s3fd as jax_s3fd
 from mere_fusion_tpu.utils import torch_convert as jax_convert
 from mere_fusion_tpu_torch.convert import bisenet_from_flax, fan_from_flax, s3fd_from_flax
 from mere_fusion_tpu_torch.models import bisenet, fan, s3fd
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 S3FD_ATOL = 3e-4
 FAN_REL = 2e-5
 BISENET_ATOL = 1e-4
 MASK_EQUAL_SHARE = 0.999
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _fill(rng):

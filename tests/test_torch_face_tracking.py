@@ -18,18 +18,11 @@ import jax.numpy as jnp
 
 from mere_fusion_tpu.tools import face_tracking as jft
 from mere_fusion_tpu_torch.tools import face_tracking as ft
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 REL = 1e-4                 # 20 Adam steps, each leaf against its largest entry
 ATOL = 2e-5                # rotation and projection
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def synth(seed: int, n: int = 68, ki: int = 8, ke: int = 6):

@@ -40,6 +40,7 @@ from mere_fusion_tpu_torch.models.musetalk import UNetConfig, VAEConfig
 from mere_fusion_tpu_torch.tools import genavatar
 from tests.test_musetalk import TINY_UNET, TINY_VAE
 from tests.test_torch_face_models import seeded_tree
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 PORT_VAE = VAEConfig(**dataclasses.asdict(TINY_VAE))
@@ -48,16 +49,6 @@ LATENT_REL = 3e-4          # the VAE against JAX's (tests/test_torch_musetalk.py
 BATCHED_REL = 2e-5         # batched encode against one call
 MASK_EQUAL_SHARE = 0.999
 BOX = (40, 30, 104, 94)    # (x1, y1, x2, y2) in a 120×160 frame
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def synth_frames(n: int = 8, h: int = 120, w: int = 160, seed: int = 0) -> list[np.ndarray]:

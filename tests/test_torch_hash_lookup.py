@@ -27,22 +27,13 @@ from mere_fusion_tpu.ops.hashgrid import GridSpec as JGridSpec
 from mere_fusion_tpu_torch.models.ernerf import network as pnetwork
 from mere_fusion_tpu_torch.ops import hash_lookup as hl
 from mere_fusion_tpu_torch.ops.hashgrid import GridSpec, corner_indices_weights
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPEC_KW = dict(input_dim=2, num_levels=4, level_dim=1, base_resolution=16,
                log2_hashmap_size=10, desired_resolution=64)
 SPEC = GridSpec(**SPEC_KW)
 JSPEC = JGridSpec(**SPEC_KW)
 BOUND = 1.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(autouse=True)

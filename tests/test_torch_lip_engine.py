@@ -37,19 +37,10 @@ from mere_fusion_tpu_torch.engines.lip import (
     mel_window_starts,
 )
 from tests.test_torch_wav2lip import BF16_SHARE, generator_tree
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 MEL_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -25,20 +25,11 @@ import torch
 from mere_fusion_tpu.models import lpips as jlpips
 from mere_fusion_tpu_torch.convert import lpips_from_flax
 from mere_fusion_tpu_torch.models import lpips
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 VALUE_RTOL = 1e-5
 GRAD_REL = 2e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small convolutions: one intra-op thread, so that this file does not
-    oversubscribe the cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -53,21 +53,12 @@ from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.server.app import MANAGER, create_app
 from mere_fusion_tpu_torch.transport.mp4 import parse_boxes
 from tests.test_musetalk import SMALL_WHISPER, TINY_UNET, TINY_VAE
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 PORT_VAE = VAEConfig(**dataclasses.asdict(TINY_VAE))
 PORT_UNET = UNetConfig(**dataclasses.asdict(TINY_UNET))
 PORT_WHISPER = WhisperDims(**dataclasses.asdict(SMALL_WHISPER))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _max_rel(a: np.ndarray, b: np.ndarray) -> float:

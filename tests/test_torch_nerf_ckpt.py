@@ -25,6 +25,7 @@ from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
 from mere_fusion_tpu_torch.train import ernerf_cli
 from mere_fusion_tpu_torch.utils import torch_convert as pconv
 from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
@@ -35,16 +36,6 @@ OVERRIDES = {
     "nerf.desired_resolution": 64, "nerf.log2_hashmap_size": 10, "nerf.max_steps": 8,
     "nerf.scale": 1.0,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def seeded_state(torso: bool, frames: int = 3) -> dict:

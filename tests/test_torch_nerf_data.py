@@ -24,16 +24,9 @@ import jax.numpy as jnp
 from mere_fusion_tpu.tools import face_tracking as jft
 from mere_fusion_tpu.tools import nerf_data as jnd
 from mere_fusion_tpu_torch.tools import nerf_data as nd
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mask_parser(img, size=(512, 512)):

@@ -42,6 +42,7 @@ from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwo
 from mere_fusion_tpu_torch.ops import sampler as psamp
 from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.server.app import create_app
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 OVERRIDES = {
@@ -58,16 +59,6 @@ OVERRIDES = {
 }
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
 N_TILES = 64 * 64 // (Config().nerf.pallas_tile_w * Config().nerf.pallas_tile_h)  # 64² frame
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,7 @@ from mere_fusion_tpu_torch.engines.nerf_step import make_render_step
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig
 from mere_fusion_tpu_torch.runtime.metrics import metrics
 from tests.test_torch_deepspeech import TOY_SHAPES, assert_close
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10,
@@ -55,16 +56,6 @@ OVERRIDES = {
     "nerf.log2_hashmap_size": 10, "nerf.max_steps": 8, "nerf.tile_budget": 8,
     "nerf.audio_in_dim": 29,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture()

@@ -43,6 +43,7 @@ from mere_fusion_tpu_torch.engines.nerf_baked import (
 from mere_fusion_tpu_torch.models.ernerf import renderer as prend
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig, NeRFNetwork
 from mere_fusion_tpu_torch.ops import triplane_bake as pbake
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
 OVERRIDES = {
@@ -53,16 +54,6 @@ OVERRIDES = {
     "nerf.log2_hashmap_size": 10,
     "nerf.max_steps": 8,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:

@@ -62,6 +62,7 @@ from mere_fusion_tpu_torch.ops import hashgrid as pgrid
 from mere_fusion_tpu_torch.train import ernerf_cli
 from mere_fusion_tpu_torch.train import ernerf_train as ptrain
 from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10,
@@ -75,16 +76,6 @@ J_TORSO_SPEC = jgrid.GridSpec(input_dim=2, num_levels=16, level_dim=2, base_reso
                               log2_hashmap_size=16, desired_resolution=2048, gridtype="tiled")
 COARSE_LEVELS = 3      # the torso grid's levels that the train-step test keeps
 EDGES = np.asarray([[-1, -1], [1, 1], [1, -1], [-1, 1], [0, 1], [1, 0], [-1, 0.3]], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:

@@ -23,6 +23,7 @@ from mere_fusion_tpu.utils import torch_convert as jconvert
 from mere_fusion_tpu_torch.convert import craft_from_flax, crnn_from_flax
 from mere_fusion_tpu_torch.models import ocr
 from mere_fusion_tpu_torch.utils import torch_convert
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 WIDTH = 0.125
@@ -31,14 +32,6 @@ N_CLS = 1 + len(ocr.DEFAULT_CHARSET)
 LOGIT_ATOL = 3e-4
 CONF_ATOL = 1e-5
 BOX_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _seeded(module, shape, seed: int) -> dict:

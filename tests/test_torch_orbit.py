@@ -44,6 +44,7 @@ from mere_fusion_tpu_torch.engines.orbit import OrbitCamera
 from mere_fusion_tpu_torch.models.ernerf.network import NeRFNetConfig
 from mere_fusion_tpu_torch.server.app import create_app
 from tests.fakes import FakeEngine
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10)
@@ -54,16 +55,6 @@ OVERRIDES = {
 }
 MOVES = [("orbit", (120.0, -40.0)), ("scale", (1.0,)), ("pan", (100.0, -50.0)),
          ("orbit", (2000.0, 0.0)), ("pan", (3.0, 4.0, 5.0)), ("scale", (-2.5,))]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def test_orbit_camera_matches_jax():

@@ -49,6 +49,7 @@ from tests.test_torch_face_attrs import _seeded as seeded_plain
 from tests.test_torch_ocr import _maps
 from tests.test_torch_ocr import _seeded as seeded_ocr
 from tests.test_torch_yolo import IMGSZ, NC, TINY_SPEC, seeded_tree
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CONF = 0.52
@@ -58,14 +59,6 @@ N_CLS = 1 + len(ocr.DEFAULT_CHARSET)
 # the seeded detector's most frequent class is 2: call it a person
 NAMES = [f"c{i}" for i in range(NC)]
 NAMES[2] = "person"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -44,18 +44,9 @@ from mere_fusion_tpu_torch.server.app import create_app
 from mere_fusion_tpu_torch.transport import mp4
 from mere_fusion_tpu_torch.transport.flv import decode_screen_video, read_flv_tags
 from mere_fusion_tpu_torch.transport.frames import AudioChunk, VideoImage
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _children(data, start, end):

@@ -31,20 +31,13 @@ from mere_fusion_tpu.tools import render_3dmm as jr
 from mere_fusion_tpu_torch.tools import face_tracking as ft
 from mere_fusion_tpu_torch.tools import render_3dmm as tr
 from tests.test_render_3dmm import bump_texture, grid_faces, gt_poses, synthetic_face
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ATOL = 2e-5                 # renders, geometry, blur
 SOLVE = 1e-4                # LM and Adam results
 HW = (64, 64)
 FOCAL = 1150.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -24,18 +24,11 @@ from mere_fusion_tpu.utils.torch_convert import convert_rtmpose as jax_convert_r
 from mere_fusion_tpu_torch.convert import rtmpose_from_flax
 from mere_fusion_tpu_torch.models import rtmpose as rtm
 from mere_fusion_tpu_torch.utils.torch_convert import convert_rtmpose
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DEEPEN, WIDEN = 1.0 / 3.0, 0.25
 REL = 3e-4                 # logits and scores, of the largest logit
 BF16_REL = 3e-2            # the bf16 network against JAX's float32 one
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded_stats(tree, rng):

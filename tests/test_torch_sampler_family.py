@@ -38,6 +38,7 @@ from mere_fusion_tpu.ops import pallas_sampler as jsamp
 from mere_fusion_tpu.ops.triplane_bake import encode_x_baked as j_encode_x_baked
 from mere_fusion_tpu_torch.engines.nerf_step import composite_grouped
 from mere_fusion_tpu_torch.ops import sampler as psamp
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SAMPLER = dict(resolution=128, channels=4, tile_w=4, tile_h=4, k=8, kg=2, wu=32, wv=16)
 JSPEC, PSPEC = jsamp.SamplerSpec(**SAMPLER), psamp.SamplerSpec(**SAMPLER)
@@ -47,16 +48,6 @@ SHAPES = {"wx_aud": (48, 64), "w_aud1": (64, 32), "wx_sig": (48, 64),
           "w_sig_e": (8, 64), "w_sig1": (64, 64), "w_sigcol": (64, 16),
           "w_geo": (64, 64), "w_col_g": (64, 64), "w_rgb": (64, 16),
           "col_bias": (8, 64)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:

@@ -40,21 +40,12 @@ from mere_fusion_tpu.ops.pallas_sampler import SamplerSpec as JSpec
 from mere_fusion_tpu_torch.ops import sampler as psamp
 from mere_fusion_tpu_torch.ops import sampler_stages
 from mere_fusion_tpu_torch.scripts import prof_r5k, prof_r5m
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SAMPLER = dict(resolution=128, channels=4, tile_w=4, tile_h=4, k=8, kg=2, wu=32, wv=16)
 JSPEC, PSPEC = JSpec(**SAMPLER), psamp.SamplerSpec(**SAMPLER)
 TILES = 4
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

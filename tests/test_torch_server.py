@@ -15,18 +15,9 @@ from mere_fusion_tpu_torch.config import Config
 from mere_fusion_tpu_torch.parallel.placement import DevicePlacer
 from mere_fusion_tpu_torch.server.app import MANAGER, create_app
 from tests.fakes import FakeEngine
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def make_client(max_sessions: int = 2) -> TestClient:

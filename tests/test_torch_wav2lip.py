@@ -43,6 +43,7 @@ from mere_fusion_tpu_torch.utils.torch_convert import (
     convert_wav2lip_disc,
     load_torch_checkpoint,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B = 2
 ATOL = 2e-5
@@ -50,16 +51,6 @@ ATOL = 2e-5
 # bf16 frames. Both round at the same places (conv output, bias add, BN
 # output, residual add), so only sums in another order differ; measured 0
 BF16_SHARE = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _fill(rng):

@@ -46,6 +46,7 @@ from mere_fusion_tpu_torch.models.syncnet import SyncNet
 from mere_fusion_tpu_torch.models.wav2lip import ConvBNRelu, Wav2Lip, Wav2LipDisc
 from mere_fusion_tpu_torch.train import wav2lip_train as train
 from tests.test_torch_wav2lip import disc_tree, generator_tree, syncnet_tree
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-5
 FLOOR = 1e-6
@@ -59,16 +60,6 @@ C = 1.0 / (1.0 + SYNC_WT + DISC_WT)
 # optax transformation whose state is the gradient it was given
 CAPTURE = optax.GradientTransformation(
     lambda params: {}, lambda g, state, params=None: (jax.tree.map(jnp.zeros_like, g), g))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so that this file does not oversubscribe the
-    cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

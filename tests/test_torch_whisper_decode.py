@@ -21,6 +21,7 @@ import torch
 from mere_fusion_tpu.models import whisper as jw
 from mere_fusion_tpu_torch.convert import load_whisper_checkpoint, whisper_from_flax
 from mere_fusion_tpu_torch.models import whisper as tw
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DIMS = dict(n_mels=80, n_audio_ctx=32, n_audio_state=64, n_audio_head=2, n_audio_layer=2,
             n_vocab=51865, n_text_ctx=448, n_text_state=64, n_text_head=2, n_text_layer=2)
@@ -28,16 +29,6 @@ JDIMS, TDIMS = jw.WhisperDims(**DIMS), tw.WhisperDims(**DIMS)
 LOGIT_ATOL = 2e-5
 SCORE_ATOL = 1e-5
 MAX_NEW = 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The decode loops run many small operations: one intra-op thread, so
-    that this file does not oversubscribe the cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from mere_fusion_tpu_torch.convert import _INDEX_NAMES, _with_stats_from_flax, y
 from mere_fusion_tpu_torch.engines import shared_device_tree
 from mere_fusion_tpu_torch.models import yolo
 from mere_fusion_tpu_torch.utils import yolo_convert
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 SCORE_ATOL = 3e-4
@@ -68,16 +69,6 @@ TINY_SPEC = (
 NC = 8
 IMGSZ = 64
 NAMES = ["person"] + [f"c{i}" for i in range(1, NC)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small convolutions: one intra-op thread, so that this file does not
-    oversubscribe the cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def _fill(rng):
