@@ -5,7 +5,10 @@
 
 Run from the root of a checkout (``chip_smoke.py --receive SPEC`` is the
 receiver process that phase transport starts). Phases, each printing one JSON line with
-its seconds; any failure is fatal (exit code 1, no result line):
+its seconds; any failure is fatal (exit code 1, no result line). ``--phases
+build,nerf_train,nerf_avatar,nerf_train,nerf_avatar`` runs the phases named,
+in that order, and prints no result line; ``--keep-going`` runs on past a
+failed phase (K2's avatar check repeated, each miss dumped):
 
 1. build    — build kernels K1 (csrc/attention.cu), the sampler family K2,
               K2b, K2c, K2d (csrc/sampler.cu), K3 (csrc/hash_lookup.cu) and
@@ -210,8 +213,8 @@ its seconds; any failure is fatal (exit code 1, no result line):
               the cached torso and the same checkpoint served as a head
               (nerf.torso unset) in turns; one live torso pass (a cache
               miss) by CUDA events and under torch.profiler; warmup on a
-              pose track at the cap (nerf.span_cache_poses, the 8 poses
-              tiled): its seconds, and the span and torso caches' bytes
+              pose track of AVATAR_PREFILL_POSES (the 8 poses tiled): its
+              seconds, and the span and torso caches' bytes
               beside the device memory they took; then a
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
@@ -224,17 +227,22 @@ its seconds; any failure is fatal (exit code 1, no result line):
               frames at 512² of a slow head turn rendered by render_mesh_ss,
               speech_pcm as aud.wav and an au.csv; the data CLI's tasks 2
               (a seeded DeepSpeech graph), 4-6 (seeded BiSeNet) and 7
-              (seeded FAN and S3FD on one LANDMARK_HW² frame, timed only),
+              (seeded FAN on every frame, S3FD's boxes fixed, timed only),
               each timed; tasks 8-9 from the ground-truth landmarks, the
               poses against the capture's within the JAX tests' bounds, then
-              with --photometric on PHOTO_FRAMES frames spread over the turn
-              (seconds, peak memory, poses); fit_landmarks' first
+              with --photometric on PHOTO_FRAMES frames spread over the turn,
+              more than one LM solve holds at 128², so the refinement solves
+              an anchor set jointly and the rest in chunks (seconds and peak
+              memory of each kind of solve, the run's seconds, poses);
+              fit_landmarks' first
               FIT_CHECK_STEPS steps on the card against the CPU, its ms a
               step and launches (torch.profiler); rasterize_topk at 128² and
               512² beside its bound; ernerf_cli for DATA_TRAIN_ITERS
-              iterations on the produced set, the counts zeroed (K3 must
-              launch); make_engine on its workspace serving one frame (K2
-              once, against its plain version within K2_ATOL); genavatar
+              iterations on the produced set at --scale DATA_SCALE, the
+              counts zeroed (K3 must launch); make_engine on its workspace
+              at that scale serving one frame (K2 once on at least
+              DATA_MIN_TILES tiles, against its plain version within
+              K2_ATOL); genavatar
               --kind musetalk --dwpose_ckpt with seeded RTMPose-l.
 15. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
@@ -456,6 +464,7 @@ MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
 TORSO_ITERS = 300                 # the torso stage's iterations in nerf_avatar
+AVATAR_PREFILL_POSES = 256        # nerf_avatar's warmup track, an eighth of the cache's cap
 # the DeepSpeech featurizer on the card (nerf_speech): bf16 products against the
 # f32 logits on the CPU, the JAX package's own bound (tests/test_deepspeech.py);
 # the card's f32 against the CPU's f32 (sums in another order), of the largest logit
@@ -3545,7 +3554,10 @@ def dump_k2(args, got, ref, name: str, tol: float = 0.0) -> str:
     rows = k2_texel_rows(planes, sub_jobs, sub_uv, spec)
     cpu = lambda x: x.detach().cpu()
     os.makedirs("chiprun_out", exist_ok=True)
-    path = os.path.join("chiprun_out", f"{name}.pt")
+    path, n = os.path.join("chiprun_out", f"{name}.pt"), 1
+    while os.path.exists(path):             # a repeated phase keeps every dump
+        n += 1
+        path = os.path.join("chiprun_out", f"{name}_{n}.pt")
     torch.save({"planes_shape": tuple(planes.shape), "planes_dtype": planes.dtype,
                 "texel_rows": cpu(rows), "texels": cpu(planes.reshape(-1, CP)[rows]),
                 "jobs": cpu(sub_jobs), "uv": cpu(sub_uv), "dproj": cpu(dproj[tiles]),
@@ -3701,9 +3713,9 @@ def phase_nerf_avatar(state: dict) -> dict:
 
     out["torso_pass_ms"] = time_ms(live, iters=5, warmup=1)
     out["torso_pass_profile"] = profile_launches(live)
-    # warmup on a pose track at the cap (the 8 poses tiled to
-    # nerf.span_cache_poses): one span probe and one torso pass a pose
-    cap = cfg.nerf.span_cache_poses
+    # warmup on a pose track of AVATAR_PREFILL_POSES (the 8 poses tiled):
+    # one span probe and one torso pass a pose
+    cap = AVATAR_PREFILL_POSES
     track = engine.dataset.poses
     engine.dataset.poses = np.resize(track, (cap, *track.shape[1:]))
     step.span_cache.clear()
@@ -3716,10 +3728,10 @@ def phase_nerf_avatar(state: dict) -> dict:
     prefill_s = time.perf_counter() - t0
     engine.dataset.poses = track
     if len(step.span_cache) != cap or len(step.torso_cache) != cap:
-        raise AssertionError(f"prefill at the cap: {len(step.span_cache)} spans, "
+        raise AssertionError(f"prefill of {cap} poses: {len(step.span_cache)} spans, "
                              f"{len(step.torso_cache)} torso composites for {cap} poses")
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-    out["prefill_at_cap"] = {
+    out["prefill"] = {
         "poses": cap, "s": prefill_s, "ms_per_pose": prefill_s / cap * 1e3,
         "span_bytes": nbytes(t for sp, va, _ in step.span_cache.values() for t in (sp, va)),
         "torso_bytes": nbytes(step.torso_cache.values()),
@@ -3756,9 +3768,14 @@ DATA_HW = 512                     # ... of 512² frames
 DATA_FOCAL = 1150.0               # the tracker's initial focal and depth (fit_landmarks'
 DATA_DEPTH = 600.0                # defaults), the capture's own
 DATA_RENDER_BATCH = 10            # frames rendered a call
-PHOTO_FRAMES = 4                  # frames of the photometric run (task 8 --photometric),
+PHOTO_FRAMES = 12                 # frames of the photometric run (task 8 --photometric),
 #                                   spread over the turn: the run fits its landmarks anew,
-#                                   and the first few frames alone barely turn (23.9° off)
+#                                   and the first few frames alone barely turn (23.9° off);
+#                                   at 128² lm_frame_budget holds 6 frames a joint solve, so
+#                                   6 anchors solve id and focal, one chunk the other 6
+DATA_SCALE = 1.5 / DATA_DEPTH     # --scale and nerf.scale: the camera 1.5 from the box's
+#                                   centre, as the synthetic training sets sit at scale 4
+DATA_MIN_TILES = 256              # the served frame's K2 tiles, at least (2,048 in a frame)
 DATA_TRAIN_ITERS = 100
 FIT_CHECK_STEPS = 20              # fit_landmarks' first steps, card against the CPU ...
 FIT_CHECK_REL = 1e-4              # ... each leaf against its largest entry
@@ -3768,10 +3785,6 @@ FIT_CHECK_REL = 1e-4              # ... each leaf against its largest entry
 LANDMARK_ROT_DEG, LANDMARK_FOCAL_REL = 1.5, 0.1
 PHOTO_ROT_DEG, PHOTO_TRANS, PHOTO_FOCAL_REL = 1.0, 6.0, 0.02
 DWPOSE_FRAMES = 8                 # genavatar --dwpose_ckpt: a short clip of the capture
-# task 7 on a copy of the capture's first frame at 128²: seeded S3FD keeps
-# ~1,150 boxes a 512² frame after NMS, and FAN runs on every box (as
-# face_alignment does; nerf_data keeps the first)
-LANDMARK_HW = 128
 
 
 def synthetic_bfm(seed: int = 0):
@@ -3906,12 +3919,13 @@ def phase_nerf_data(state: dict) -> dict:
     from mere_fusion_tpu_torch.data.provider import write_au_csv
     from mere_fusion_tpu_torch.engines import make_engine
     from mere_fusion_tpu_torch.models.bisenet import FaceParsing
+    from mere_fusion_tpu_torch.models import s3fd as s3fd_mod
     from mere_fusion_tpu_torch.models.fan import LandmarkDetector
-    from mere_fusion_tpu_torch.models.s3fd import FaceDetector
     from mere_fusion_tpu_torch.ops import sampler
     from mere_fusion_tpu_torch.tools import face_tracking as ft
     from mere_fusion_tpu_torch.tools import nerf_data
     from mere_fusion_tpu_torch.tools import render_3dmm as r3
+    from mere_fusion_tpu_torch.tools.genavatar import FixedBoxDetector
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3968,19 +3982,24 @@ def phase_nerf_data(state: dict) -> dict:
     write_graphdef(pb, deepspeech_graph_names(ds.init_params(np.random.default_rng(11),
                                                              scale=0.1)))
     ckpts = {"bisenet": os.path.join(tmp, "79999_iter.pth"),
-             "fan": os.path.join(tmp, "2DFAN4.pth"), "s3fd": os.path.join(tmp, "s3fd.pth")}
+             "fan": os.path.join(tmp, "2DFAN4.pth")}
     torch.save(FaceParsing(device=dev).model.state_dict(), ckpts["bisenet"])
     torch.save(LandmarkDetector(num_modules=4, device=dev).model.state_dict(), ckpts["fan"])
-    torch.save(FaceDetector(device=dev).model.state_dict(), ckpts["s3fd"])
-    few = os.path.join(tmp, "few_frames")
-    os.makedirs(os.path.join(few, "ori_imgs"))
-    cv2.imwrite(os.path.join(few, "ori_imgs", "0.jpg"),
-                cv2.resize(first, (LANDMARK_HW, LANDMARK_HW), interpolation=cv2.INTER_AREA))
+    # task 7: seeded S3FD keeps ~1,150 boxes a 512² frame and FAN would run
+    # on each (face_alignment's behaviour), so a fixed box around the
+    # capture's landmarks stands in for S3FD, as in genavatar_dwpose
+    face_box = (*lmk.min((0, 1)) - 24, *lmk.max((0, 1)) + 24)
     flags = {2: ["--deepspeech_pb", pb], 4: ["--bisenet_ckpt", ckpts["bisenet"]], 5: [], 6: [],
-             7: ["--fan_ckpt", ckpts["fan"], "--s3fd_ckpt", ckpts["s3fd"]]}
+             7: ["--fan_ckpt", ckpts["fan"]]}
     for task, extra in flags.items():
         t0 = time.perf_counter()
-        nerf_data.main([few if task == 7 else root, "--task", str(task), *extra])
+        real = s3fd_mod.FaceDetector
+        if task == 7:
+            s3fd_mod.FaceDetector = lambda *a, **k: FixedBoxDetector(face_box)
+        try:
+            nerf_data.main([root, "--task", str(task), *extra])
+        finally:
+            s3fd_mod.FaceDetector = real
         torch.cuda.synchronize()
         seconds[f"task_{task}"] = time.perf_counter() - t0
         print(json.dumps({"nerf_data_step": f"task_{task}", "s": seconds[f"task_{task}"]}),
@@ -3991,8 +4010,11 @@ def phase_nerf_data(state: dict) -> dict:
     for sub, ext in (("parsing", "png"), ("gt_imgs", "jpg"), ("torso_imgs", "png")):
         if len([f for f in os.listdir(os.path.join(root, sub)) if f.endswith(ext)]) != DATA_FRAMES:
             raise AssertionError(f"{sub}/ does not hold a file a frame")
-    out["task_7_lms_written"] = len([f for f in os.listdir(os.path.join(few, "ori_imgs"))
-                                     if f.endswith(".lms")])
+    written = len([f for f in os.listdir(ori) if f.endswith(".lms")])
+    if written != DATA_FRAMES:
+        raise AssertionError(f"task 7 wrote {written} .lms for {DATA_FRAMES} frames")
+    out["task_7"] = {"frames": written, "ms_per_frame": seconds["task_7"] / DATA_FRAMES * 1e3,
+                     "box": [float(v) for v in face_box]}
     for i in range(DATA_FRAMES):    # the ground truth landmarks (seeded FAN's are arbitrary)
         np.savetxt(os.path.join(ori, f"{i}.lms"), lmk[i], "%f")
 
@@ -4015,15 +4037,43 @@ def phase_nerf_data(state: dict) -> dict:
         for ext in ("jpg", "lms"):
             shutil.copy(os.path.join(ori, f"{i}.{ext}"),
                         os.path.join(photo, "ori_imgs", f"{j}.{ext}"))
+    # each LM solve's kind (a chunk's passes its frames' targets as args),
+    # parameters, seconds and peak memory
+    lm, solves = r3._lm_minimize, []
+
+    def timed_lm(resid_fn, v0, iters, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0, t1 = torch.cuda.memory_allocated(), time.perf_counter()
+        result = lm(resid_fn, v0, iters, *a, **k)
+        torch.cuda.synchronize()
+        solves.append({"kind": "chunk" if k.get("args") else "joint", "params": v0.numel(),
+                       "s": time.perf_counter() - t1,
+                       "peak_bytes": torch.cuda.max_memory_allocated() - m0})
+        return result
+
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
+    r3._lm_minimize = timed_lm
     t0 = time.perf_counter()
-    nerf_data.main([photo, "--task", "8", "--bfm_dir", bfm, "--photometric"])
+    try:
+        nerf_data.main([photo, "--task", "8", "--bfm_dir", bfm, "--photometric"])
+    finally:
+        r3._lm_minimize = lm
     torch.cuda.synchronize()
     seconds["task_8_photometric"] = time.perf_counter() - t0
     print(json.dumps({"nerf_data_step": "task_8_photometric", "s": seconds["task_8_photometric"]}),
           flush=True)
     out["photometric_peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    kinds = {kind: {"solves": len(rows), "params": sorted({r["params"] for r in rows}),
+                    "s": sum(r["s"] for r in rows),
+                    "peak_bytes": max(r["peak_bytes"] for r in rows)}
+             for kind in ("joint", "chunk")
+             for rows in [[r for r in solves if r["kind"] == kind]] if rows}
+    print(json.dumps({"nerf_data_photometric_solves": kinds}), flush=True)
+    if set(kinds) != {"joint", "chunk"}:
+        raise AssertionError(f"the photometric run did not solve anchors and chunks: {kinds}")
+    out["photometric_solves"] = kinds
     photo_poses = pose_figures(os.path.join(photo, "transforms.json"), euler[picked],
                                trans[picked])
     print(json.dumps({"nerf_data_photometric_poses": photo_poses}), flush=True)
@@ -4044,7 +4094,7 @@ def phase_nerf_data(state: dict) -> dict:
         raise AssertionError(f"fit_landmarks on the card against the CPU: {fit_err}")
     steps = 100
     fit_ms = time_ms(lambda: ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW), iters=steps,
-                                              device=dev), iters=3, warmup=1) / steps
+                                              device=dev), iters=1, warmup=0) / steps
     prof = profile_launches(lambda: ft.fit_landmarks(lmk_model, lmk, (DATA_HW, DATA_HW),
                                                      iters=10, device=dev))
     out["fit_landmarks"] = {"card_vs_cpu_rel": fit_err, "limit": FIT_CHECK_REL,
@@ -4078,7 +4128,7 @@ def phase_nerf_data(state: dict) -> dict:
     zero_kernel_counts()
     t0 = time.perf_counter()
     lines = run_cli([root, "--workspace", ws, "--iters", str(DATA_TRAIN_ITERS),
-                     "--audio_dim", "29"])
+                     "--audio_dim", "29", "--scale", str(DATA_SCALE)])
     seconds["train"] = time.perf_counter() - t0
     print(json.dumps({"nerf_data_step": "train", "s": seconds["train"]}),
           flush=True)
@@ -4091,7 +4141,7 @@ def phase_nerf_data(state: dict) -> dict:
     cfg = nerf_config(os.path.join(root, "transforms.json"), os.path.join(root, "au.csv"))
     # the tracker exports −Rᵀ (a reflection, as the JAX package's does), which
     # the path smoothing's scipy Rotation refuses (ROADMAP §3): served unsmoothed
-    cfg = cfg.override(**{"nerf.scale": 4.0, "nerf.audio_in_dim": 29, "nerf.ckpt": ws,
+    cfg = cfg.override(**{"nerf.scale": DATA_SCALE, "nerf.audio_in_dim": 29, "nerf.ckpt": ws,
                           "nerf.smooth_path": False})
     kernel, recorded = sampler.sample_shade_comp_tiles, []
 
@@ -4115,12 +4165,17 @@ def phase_nerf_data(state: dict) -> dict:
     if sampler.launches != 1 or img.shape != (DATA_HW, DATA_HW, 3):
         raise AssertionError(f"the served frame: K2 {sampler.launches}, {img.shape}")
     (args, got), = recorded
+    tiles = args[2].shape[0] // 3
+    print(json.dumps({"nerf_data_served_tiles": tiles}), flush=True)
+    if tiles < DATA_MIN_TILES:
+        raise AssertionError(f"the served frame ran K2 on {tiles} tiles (< {DATA_MIN_TILES})")
     ref = sampler.sample_shade_comp_tiles_plain(*args)
     k2_err = (got - ref).abs().max().item()
     if not k2_err <= K2_ATOL["bfloat16"]:
         dump = dump_k2(args, got, ref, "k2_nerf_data_miss", K2_ATOL["bfloat16"])
         raise AssertionError(f"K2 on the produced set's frame: {k2_err} (operands in {dump})")
-    out["serve"] = {"k2_launches": 1, "k2_max_abs_err": k2_err, "k2_tiles": args[2].shape[0] // 3}
+    out["serve"] = {"k2_launches": 1, "k2_max_abs_err": k2_err, "k2_tiles": tiles,
+                    "frame_std": float(img.std())}
     state["data_k2_launches"] = 1
     state["k3_data_launches"] = list(k3)
     del engine, args, got, ref
@@ -6429,11 +6484,33 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("asr_offline", phase_asr_offline), ("perception", phase_perception))
 
 
+def parse_phases(argv: list) -> tuple[list, bool]:
+    """``--phases a,b,...`` (names may repeat; each runs in the order given,
+    sharing one state, so a phase needs the phases it reads state from) and
+    ``--keep-going`` (a failed phase does not stop the rest). No arguments:
+    every phase once, stopping at the first failure."""
+    import argparse
+
+    p = argparse.ArgumentParser("chip_smoke")
+    p.add_argument("--phases", default=None)
+    p.add_argument("--keep-going", action="store_true")
+    args = p.parse_args(argv)
+    table = dict(PHASES)
+    if args.phases is None:
+        return list(PHASES), args.keep_going
+    names = args.phases.split(",")
+    unknown = [n for n in names if n not in table]
+    if unknown:
+        p.error(f"unknown phases {unknown}; the phases are {list(table)}")
+    return [(n, table[n]) for n in names], args.keep_going
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--receive"]:      # a receiver process of phase transport
         spec = json.loads(sys.argv[2])
         {"rtp": receive_rtp, "rtmp": receive_rtmp}[spec["kind"]](spec)
         return 0
+    phases, keep_going = parse_phases(sys.argv[1:])
     try:
         import torch
     except ImportError:
@@ -6451,20 +6528,27 @@ def main() -> int:
     torch.cuda.set_device(0)
     gpu = card()
     state: dict = {}
+    failed = 0
     try:
-        for name, fn in PHASES:
+        for name, fn in phases:
             t0 = time.perf_counter()
             try:
                 result = fn(state)
             except Exception:
                 traceback.print_exc()
                 emit({"phase": name, "ok": False, "seconds": time.perf_counter() - t0})
+                failed += 1
+                if keep_going:
+                    continue
                 return 1
             emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0,
                   "card": gpu, **result})
     finally:
         for tmp in state.get("tmp_dirs", []):
             shutil.rmtree(tmp, ignore_errors=True)
+    if failed or [n for n, _ in phases] != [n for n, _ in PHASES]:
+        print(gpu, flush=True)          # a chosen set of phases: no result line
+        return 1 if failed else 0
     k1, k2, k3 = state["kernel_numbers"], state["k2_numbers"], state["k3_numbers"]
     k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
     fam, st, k3e = state["family_numbers"], state["stage_numbers"], state["k3_encode_numbers"]

@@ -53,6 +53,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log2_hashmap_size", type=int, default=14)
     p.add_argument("--ckpt_every", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--scale", type=float, default=4.0,
+                   help="scale of camera positions into the [-bound, bound]^3 box (the "
+                        "upstream ER-NeRF main.py's --scale; a serving config's nerf.scale "
+                        "must match)")
     p.add_argument("--preload", type=int, default=1, choices=(0, 1, 2),
                    help="dataset tier: 0 disk-lazy, 1 host RAM, 2 device-resident frames")
     p.add_argument("--device", default=None,
@@ -107,7 +111,8 @@ def main(argv=None) -> None:
     from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
 
     device = resolve_device(args.device)
-    dataset = NeRFTrainDataset.load(args.data_dir, preload=args.preload, device=device)
+    dataset = NeRFTrainDataset.load(args.data_dir, scale=args.scale, preload=args.preload,
+                                    device=device)
     print(f"[train] {len(dataset)} frames, {dataset.H}x{dataset.W}, on {device}")
 
     net_cfg = NeRFNetConfig(

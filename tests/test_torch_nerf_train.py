@@ -59,21 +59,12 @@ from mere_fusion_tpu_torch.train import ernerf_cli
 from mere_fusion_tpu_torch.train import ernerf_train as ptrain
 from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
 from chip_smoke import write_lms
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NET = dict(num_levels=4, base_resolution=16, desired_resolution=64, log2_hashmap_size=10,
            individual_dim=4, num_train_frames=4)
 TRAIN = dict(grid_size=16, n_candidates=16, n_steps=4, iters=1000)
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small tensors: one intra-op thread, so that this file does not
-    oversubscribe the cores other test workers share."""
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n_threads)
 
 
 def t_(a) -> torch.Tensor:
@@ -628,6 +619,26 @@ def test_cli_trains_checkpoints_and_resumes(scene, tmp_path, capsys):
     assert "resumed from step 3" in capsys.readouterr().out
     assert Checkpointer(ws).steps() == [3, 5]
     assert Checkpointer(ws).restore()["step"] == 5
+
+
+@pytest.mark.parametrize("argv,scale", [([], 4.0), (["--scale", "0.0025"], 0.0025)],
+                         ids=["default", "given"])
+def test_cli_scale_reaches_the_loader(scene, monkeypatch, argv, scale):
+    """--scale (the upstream ER-NeRF main.py's flag; the JAX CLI always loads
+    at the default 4) is the scale the CLI loads its dataset at."""
+    seen = {}
+
+    class Loaded(Exception):
+        pass
+
+    def load(root, **kw):
+        seen.update(kw)
+        raise Loaded
+
+    monkeypatch.setattr(pprov.NeRFTrainDataset, "load", load)
+    with pytest.raises(Loaded):
+        ernerf_cli.main([scene, "--iters", "1", *argv, *TOY_FLAGS])
+    assert seen["scale"] == scale
 
 
 def converted_workspaces(nets, root: str, tmp_path) -> tuple:
