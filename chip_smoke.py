@@ -8,10 +8,13 @@ receiver process that phase transport starts). Phases, each printing one JSON li
 its seconds; any failure is fatal (exit code 1, no result line). ``--phases
 build,nerf_train,nerf_avatar,nerf_train,nerf_avatar`` runs the phases named,
 in that order, and prints no result line; ``--keep-going`` runs on past a
-failed phase (K2's avatar check repeated, each miss dumped):
+failed phase (K2's avatar check repeated, each miss dumped); ``--seed N``
+gives the ER-NeRF training CLI's --seed in nerf_train and nerf_avatar (each
+seed trains another avatar):
 
 1. build    — build kernels K1 (csrc/attention.cu), the sampler family K2,
-              K2b, K2c, K2d (csrc/sampler.cu), K3 (csrc/hash_lookup.cu) and
+              K2b, K2c, K2d (csrc/sampler.cu), K3 (csrc/hash_lookup.cu),
+              K5 (csrc/int8_conv.cu) and
               K2's stages S1, S2 (csrc/sampler_stages.cu) with nvcc for
               sm_90a, one nvcc each, started together; ptxas's registers and
               spills per kernel.
@@ -71,7 +74,25 @@ failed phase (K2's avatar check repeated, each miss dumped):
               loopback transport, bf16, batch 16: start a session, talk,
               wait for 32 generated frames, stop. Kernel counts are zeroed
               just before and read just after; K1 must have launched.
-5. lip      — the Wav2Lip avatar, the default engine (no kernel of the repo
+5. int8     — MuseTalk's int8 serving tier (bf16, batch 16, full width): K5
+              (csrc/int8_conv.cu, the quantize pass and the int8 implicit-GEMM
+              conv) against its plain version on the same shared operands at
+              each distinct shape of the decode's int8 convs (INT8_SHAPES):
+              equal (limit 0), the f32 epilogue equal, the limit failed by one
+              output channel's scale moved by an ulp and by one int8 weight
+              moved by one; kernel, whole-call, plain and cuDNN bf16 conv
+              times beside the bound; its registers, spills and IMMA count.
+              MuseModels(vae_int8="auto"): each rung's gate PSNR, the kept
+              rung, the gate's seconds; every tier's composed PSNR on a batch
+              of 16 against the float step and its K5 launches per generate
+              (exact); generate and decode p50 in turns (float, "on", the
+              kept rung); one generate of the kept rung under torch.profiler.
+              Then a session on the configuration's default (vae_int8
+              "auto") with the counts zeroed just before: the kept rung, K5
+              launched, muse.infer_batch p50 beside phase session's float
+              one, at least INT8_SESSION_FPS generated frames a second; then
+              prof_r5_int8 once.
+6. lip      — the Wav2Lip avatar, the default engine (no kernel of the repo
               on its path: its convolutions are cuDNN's): a full-width
               generator (seeded kernels, BatchNorm statistics randomised:
               lip_reference_state) written as a reference-layout .pth and
@@ -96,7 +117,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               one's weight tree. Then the GAN step with a frozen SyncNet at
               hparams batch 16 in f32 for LIP_TRAIN_STEPS steps on one fixed
               batch: L1 falls, step ms and it/s, one step under torch.profiler.
-6. nerf_model   — one full-width ER-NeRF frame (12 hash levels, 1024² bf16
+7. nerf_model   — one full-width ER-NeRF frame (12 hash levels, 1024² bf16
               baked planes, 512² frame, dense 128³ grid, seeded random
               weights) through make_render_step with K2 against the plain
               step on the same inputs: frames within 1 LSB, exactly one K2
@@ -111,13 +132,13 @@ failed phase (K2's avatar check repeated, each miss dumped):
               K3's plain version: within 1 LSB, exactly one launch of K3's
               encode kernel per frame and none of the corner route (counts
               zeroed just before); frame times in turns with the plain step.
-7. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
+8. nerf_session — the aiohttp app in-process with avatar.kind ernerf, a
               synthesized 512² dataset in a temporary directory, procedural
               TTS, loopback transport: start a session, talk, wait for 50
               rendered frames, stop. Kernel counts are zeroed just before
               and read just after; K2 launches must equal the nerf.render
               observations.
-8. transport  — the live legs out of a session, each session built on the
+9. transport  — the live legs out of a session, each session built on the
               card through make_engine and SessionManager: a Config()
               Wav2Lip session (bf16, batch 16, phase lip's .pth) with
               transport.mode "rtp" on synthesized 240×320 and 720×1280
@@ -142,7 +163,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               NERF_RTP_FRAMES frames, counts zeroed just before: K2
               launches equal to the rendered frames (the kernels line's
               rtp_launches), the first frame received bit-equal.
-9. sampler_family — the dense 512² job set of the K2 check through each
+10. sampler_family — the dense 512² job set of the K2 check through each
               member of the sampler family, with bf16 and float32 shade
               weights, kernel counts zeroed just before and read just after
               (one launch each of K2, K2b, K2c, K2d): K2b's per-sample σ/rgb
@@ -155,13 +176,13 @@ failed phase (K2's avatar check repeated, each miss dumped):
               their registers and spills (none allowed) and their HGMMA
               (bf16) or HMMA (f32) count, K2d's kernel for its registers and
               spills (none allowed); wrong shapes and dtypes must raise.
-10. nerf_modes  — the nerf_model frame through the bilinear and nearest
+11. nerf_modes  — the nerf_model frame through the bilinear and nearest
               steps (nerf.max_active_rays = 512²), each at least 20 dB PSNR
               against the K2 frame with no sampler kernel launched; frame
               times in turns; one bilinear frame under torch.profiler. Then a
               loopback session with nerf.sample_mode = "bilinear" at the
               default config: at least 20 rendered frames, no sampler launch.
-11. nerf_train  — ER-NeRF head training at full width on a synthesized 512²,
+12. nerf_train  — ER-NeRF head training at full width on a synthesized 512²,
               8-frame dataset in a temporary directory: one train step's loss,
               gradient norm and gradients with K3 against the plain encode
               from the same state, batch and jitter noise (3 encode + 3
@@ -177,7 +198,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               none of the corner route's forward,
               the loss logged at it 100 below the one at it 0, a checkpoint;
               and a second call to 216 iterations that resumes from step 200.
-12. nerf_finetune — the reference recipe after the head stage, on a copy
+13. nerf_finetune — the reference recipe after the head stage, on a copy
               of nerf_train's step-200 checkpoint and its dataset (68-point
               .lms landmarks written here by write_lms): one patch step
               (four 32² patches, 0.1 × LPIPS with seeded weights) and one
@@ -195,7 +216,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               frame with K3 within EVAL_ENCODE_ATOL of plain); the viewer
               during a VIEWER_ITERS-iteration run (--viewer_port: one JPEG
               from /preview over HTTP, /stats, a POST /camera).
-13. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
+14. nerf_avatar — a trained ER-NeRF avatar served from its checkpoint, at
               full width with the torso (Config() defaults, nerf.torso, 512²):
               the training CLI's --torso --head_ckpt stage for TORSO_ITERS
               iterations on nerf_train's head workspace and dataset (RGBA
@@ -208,7 +229,8 @@ failed phase (K2's avatar check repeated, each miss dumped):
               the counts zeroed just before (exactly one K2 launch each; K2
               on the last one's operands within K2_ATOL of its plain
               version; dump_k2 writes the tiles that miss under
-              chiprun_out/ before the phase fails), the first frame bit-equal to a NeRFReal's given the
+              chiprun_out/ before the phase fails; the worst tile of every
+              avatar as chiprun_out/k2_avatar_worst*.pt), the first frame bit-equal to a NeRFReal's given the
               workspace's EMA weights and density directly; the frame with
               the cached torso and the same checkpoint served as a head
               (nerf.torso unset) in turns; one live torso pass (a cache
@@ -219,7 +241,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               full-width reference-layout .pth written from seeded weights
               (Morton-order density_grid, mean_density beside 'model')
               served for one frame, its grid loaded as the raster written.
-14. nerf_data — an ER-NeRF training set made from a video on the card: a
+15. nerf_data — an ER-NeRF training set made from a video on the card: a
               seeded morphable model at the ER-NeRF tracker's widths
               (synthetic_bfm: 34,650 vertices, 100 identity and 79 expression
               coefficients, local bump bases, a triangle grid, 68 landmark
@@ -244,7 +266,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               DATA_MIN_TILES tiles, against its plain version within
               K2_ATOL); genavatar
               --kind musetalk --dwpose_ckpt with seeded RTMPose-l.
-15. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
+16. nerf_speech — the ER-NeRF avatar driven by speech through the DeepSpeech
               featurizer: a full-width graph (init_params(default_rng(11),
               scale=0.1), written by write_graphdef) with its bytes and the
               seconds to write, read and upload it; one 8,960-sample window
@@ -267,7 +289,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               rendered frame, the body around it untouched); then
               tools.nerf_asr on a SPEECH_SECONDS wav with the graph: frames,
               seconds, the real-time factor.
-16. sampler_stages — the profiling entry points prof_r5m.main and
+17. sampler_stages — the profiling entry points prof_r5m.main and
               prof_r5k.main (K2's stages S1 and S2 and K2 itself on operands
               made on the card: R 1024, 512² rays in 16×8 tiles, k 16, kg 4,
               wu 64, wv 32, bf16 weights) with the kernel counts zeroed just
@@ -290,7 +312,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               read with bf16 weights only: with f32 weights shade's
               16-column 3xTF32 products cost more than K2's two narrow
               dots, so shade does not bound K2 f32's head.
-17. record   — session recording through POST /record: Config() Wav2Lip
+18. record   — session recording through POST /record: Config() Wav2Lip
               sessions (phase lip's .pth, bf16, batch 16, loopback) on
               synthesized 240×320 and 720×1280 bundles, told TRANSPORT_TALK,
               recorded to .mp4 until the assembly loop has queued
@@ -307,7 +329,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               the MPEG-4 video decodes to; a writer that does not open must be
               refused) at 240×320; OpenCV's Video I/O build lines; no kernel
               of the repo launched.
-18. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
+19. avatar_prep — genavatar on the card: a synthesized PREP_FRAMES-frame
               720×1280 face video written with OpenCV's mp4v and decoded by
               video_to_frames (the synthesized frames go on directly when it
               does not decode, which is printed); the seeded S3FD
@@ -323,7 +345,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               kernel counts zeroed just before: K1 exactly 5 launches a
               generate; genavatar's seconds split by its meters (decode,
               detect, landmarks, parse, crop, encode, write).
-19. asr      — the caller's side of a call: whisper-tiny at its published
+20. asr      — the caller's side of a call: whisper-tiny at its published
               widths (seeded, init_whisper(TINY, 0)) in f32 with TF32 off on
               one 30 s window of speech_pcm: the encode and the beam-5
               decode, unprompted and with a full 96-token prompt (CUDA-event
@@ -347,7 +369,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               the first phrase at put_msg_txt and to the reply's first
               frame, lip.infer_batch p50 with the caller speaking and
               without; no kernel of the repo launched.
-20. asr_offline — a recorded file transcribed on the card: a WAV of
+21. asr_offline — a recorded file transcribed on the card: a WAV of
               ASR_OFFLINE_WINDOWS 30 s windows of speech_pcm (12.5 min: one
               group of ASR_OFFLINE_BATCH and a remainder) through the port's
               load_wav_16k and TorchWhisperBackend.transcribe_long (whisper-
@@ -367,7 +389,7 @@ failed phase (K2's avatar check repeated, each miss dumped):
               server.handle_connection on a socket pair with a card-backed
               StreamingTranscriber fed ASR_SERVER_SECONDS of PCM16: the lines
               received and process_iter ms; no kernel of the repo launched.
-21. perception — the caller's camera: YOLOv10-x (seeded, the person
+22. perception — the caller's camera: YOLOv10-x (seeded, the person
               logit raised by PERSON_BIAS so that every analysed frame sees a
               person) at 640 px, f32 with TF32 off on the card against the
               CPU on the same weights and canvas (box and class logits within
@@ -464,6 +486,7 @@ MODES_SESSION_FRAMES = 20
 NERF_HW = 512
 TRAIN_N = 65536                   # points of one training render (4096 rays × 16)
 TORSO_ITERS = 300                 # the torso stage's iterations in nerf_avatar
+TRAIN_SEED = 0                    # the training CLI's --seed (chip_smoke.py --seed)
 AVATAR_PREFILL_POSES = 256        # nerf_avatar's warmup track, an eighth of the cache's cap
 # the DeepSpeech featurizer on the card (nerf_speech): bf16 products against the
 # f32 logits on the CPU, the JAX package's own bound (tests/test_deepspeech.py);
@@ -671,9 +694,10 @@ def profile_launches(fn) -> dict:
 def phase_build(state: dict) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
-    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler, sampler_stages
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, quant, sampler, sampler_stages
 
-    mods = {"K1": attention, "K2": sampler, "K3": hash_lookup, "S1, S2": sampler_stages}
+    mods = {"K1": attention, "K2": sampler, "K3": hash_lookup, "S1, S2": sampler_stages,
+            "K5": quant}
     with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source, together
         paths = dict(zip(mods, pool.map(lambda m: m.build(), mods.values())))
     out = {}
@@ -1366,19 +1390,24 @@ def phase_model(state: dict) -> dict:
             **times}
 
 
-async def _session(state: dict) -> dict:
+async def _session(state: dict, vae_int8: str | None = "off") -> dict:
+    """A MuseTalk session through the app (phase session, and the int8
+    phase's with ``vae_int8`` None: the configuration's default)."""
     import torch
     from aiohttp.test_utils import TestClient, TestServer
 
     from mere_fusion_tpu_torch.config import Config
     from mere_fusion_tpu_torch.engines import make_engine
-    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.ops import attention, quant, sampler
     from mere_fusion_tpu_torch.runtime.metrics import metrics
     from mere_fusion_tpu_torch.server.app import create_app
 
+    for name in ("muse.infer_batch", "muse.featurize", "muse.first_frame"):
+        metrics.latency(name).reset()
+    # vae_int8 None: the configuration's default ("auto", the load-time gate)
     cfg = Config().override(**{
         "avatar.kind": "musetalk", "avatar.dtype": "bfloat16", "avatar.batch_size": 16,
-        "avatar.vae_int8": "off", "tts.backend": "procedural",
+        **({"avatar.vae_int8": vae_int8} if vae_int8 else {}), "tts.backend": "procedural",
         "transport.mode": "loopback", "server.max_sessions": 1})
     engines = []
 
@@ -1386,7 +1415,7 @@ async def _session(state: dict) -> dict:
         from mere_fusion_tpu_torch.engines.muse import MuseModels, synthesize_muse_avatar
 
         device = kw["device"]
-        models = MuseModels(dtype=torch.bfloat16, device=device, vae_int8="off")
+        models = MuseModels(dtype=torch.bfloat16, device=device, vae_int8=c.avatar.vae_int8)
         engine = make_engine(c, models=models, avatar=synthesize_muse_avatar(models, 8),
                              **kw)
         engines.append(engine)
@@ -1428,6 +1457,7 @@ async def _session(state: dict) -> dict:
     finally:
         await client.close()
     launches = attention.launches              # ... and ends here
+    k5_launches = quant.launches
     if launches == 0:
         raise AssertionError("K1 never launched during the session")
     if sampler.launches or any(k3_counts()):
@@ -1437,10 +1467,16 @@ async def _session(state: dict) -> dict:
     lat = {k: metrics.latency(k) for k in ("muse.infer_batch", "muse.featurize",
                                             "muse.first_frame")}
     infer_p50 = lat["muse.infer_batch"].quantile(0.5)
-    state["session_launches"] = launches
+    tier = engines[0].models.int8_tier
+    if vae_int8 == "off":
+        state["session_launches"] = launches
+        state["session_infer_p50_ms"] = infer_p50 * 1e3
+        if k5_launches:
+            raise AssertionError(f"K5 launched {k5_launches} times in the float session")
     return {
         "generated_frames": counter("muse.generated_frames"),
-        "k1_launches": launches,
+        "k1_launches": launches, "k5_launches": k5_launches, "int8_tier": tier,
+        "int8_gate_probes": engines[0].models.int8_gate_probes,
         "session_build_s": t_started - t0,
         "talk_to_32_frames_s": t_frames - t_started,
         "infer_batch_p50_ms": infer_p50 * 1e3,
@@ -1454,6 +1490,192 @@ async def _session(state: dict) -> dict:
 
 def phase_session(state: dict) -> dict:
     return asyncio.run(_session(state))
+
+
+# MuseTalk's int8 serving tier (phase "int8"): K5 at each distinct shape of
+# the decode's int8 convs, sd-vae-ft-mse at 256 px faces (32² latents), batch
+# 16, bf16: (cin, h = w, cout, k) of conv_in, mid and up_0, up_0's upsample and
+# up_1, up_1's upsample, up_2's convs and 1×1 shortcut and its upsample, up_3's
+INT8_BATCH = 16
+INT8_SHAPES = ((4, 32, 512, 3), (512, 32, 512, 3), (512, 64, 512, 3), (512, 128, 512, 3),
+               (512, 128, 256, 3), (256, 128, 256, 3), (512, 128, 256, 1),
+               (256, 256, 256, 3), (256, 256, 128, 3), (128, 256, 128, 3), (256, 256, 128, 1))
+INT8_HEADLINE = (512, 64, 512, 3)   # the kernels line's ms: up_1's convs, 7 of a decode
+PEAK_INT8_OPS = 1979e12           # H100 SXM dense int8 tensor rate
+# K5's launches per generate by tier: the decode's int8 convs (conv_in, mid,
+# up_0 and up_1 with their upsamples: 19; up_2 with its upsample: +8; up_3:
+# +7), and the UNet's 64 resnet and resample convs in a unet_int8 rung
+K5_DECODE_CONVS = {0: 34, 1: 27, 2: 19}
+K5_UNET_CONVS = 64
+INT8_SESSION_FPS = 25             # generated frames a second the default session keeps
+INT8_SANITY_DB = 30               # every tier's batch-16 PSNR against the float step, at least
+
+
+def k5_shape_name(cin: int, hw: int, cout: int, k: int) -> str:
+    return f"[{INT8_BATCH}, {cin}, {hw}, {hw}] -> {cout} ({k}x{k})"
+
+
+def k5_bound_ms(n: int, cin: int, hw: int, cout: int, k: int) -> tuple[float, str]:
+    """Least time for one int8 conv at stride 1: 2·M·cout·K operations at the
+    int8 tensor rate, against the int8 input and weights read once and the
+    bf16 output written once."""
+    m = n * hw * hw
+    t_ops = 2.0 * m * cout * cin * k * k / PEAK_INT8_OPS * 1e3
+    t_bytes = (m * cin + cout * cin * k * k + 2 * m * cout) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k5_check(dev) -> dict:
+    """K5 (quantize pass + int8 implicit-GEMM conv) against its plain version
+    on the same shared operands at each INT8_SHAPES shape, bf16 output: equal
+    (limit 0: the integer sums are exact in both and the epilogue rounds alike);
+    kernel / plain / cuDNN bf16 conv times (CUDA events) beside the bound. Then
+    the f32 epilogue equal, and the limit failed by one output channel's scale
+    moved by an ulp (f32 output) and by one int8 weight moved by one (bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mere_fusion_tpu_torch.ops import quant
+
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for cin, hw, cout, k in INT8_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn((INT8_BATCH, cin, hw, hw), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((cout, cin, k, k), generator=gen, device=dev)
+             / (cin * k * k) ** 0.5).to(torch.bfloat16)
+        b = (0.1 * torch.randn((cout,), generator=gen, device=dev)).to(torch.bfloat16)
+        ops = quant.int8_operands(x, w)
+        got = quant.conv_q_cuda(x, *ops, b, 1, k // 2)
+        torch.cuda.synchronize()
+        ref = quant.conv_q_plain(x, *ops, b, 1, k // 2)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K5 at {(cin, hw, cout, k)}: max abs err {err}, limit 0")
+        bound, by = k5_bound_ms(INT8_BATCH, cin, hw, cout, k)
+        name = k5_shape_name(cin, hw, cout, k)
+        out[name] = {
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "kernel_ms": time_ms(lambda: quant.conv_q_cuda(x, *ops, b, 1, k // 2),
+                                 iters=10, warmup=2),
+            # the whole int8_conv call: amax, SmoothQuant factors and weight rounding in torch
+            "call_ms": time_ms(lambda: quant.int8_conv(x, w, b, 1, k // 2), iters=10, warmup=2),
+            "plain_ms": time_ms(lambda: quant.conv_q_plain(x, *ops, b, 1, k // 2),
+                                iters=2, warmup=1),
+            "library_ms": time_ms(lambda: F.conv2d(x, w, b, 1, k // 2), iters=10, warmup=2),
+        }
+        if (cin, hw, cout, k) == (512, 32, 512, 3):
+            mult, kq, scale = ops
+            f32 = quant.conv_q_cuda(x, *ops, b, 1, 1, torch.float32)
+            f32_ref = quant.conv_q_plain(x, *ops, b, 1, 1, torch.float32)
+            nudged = scale.clone()
+            nudged[7] = torch.nextafter(nudged[7], torch.tensor(float("inf"), device=dev))
+            moved = kq.clone()
+            moved[3, 5, 1, 1] += 1 if moved[3, 5, 1, 1] < 127 else -1
+            controls = {
+                "f32_epilogue_err": (f32 - f32_ref).abs().max().item(),
+                "scale_ulp_err": (quant.conv_q_cuda(x, mult, kq, nudged, b, 1, 1, torch.float32)
+                                  - f32_ref).abs().max().item(),
+                "weight_step_err": (quant.conv_q_cuda(x, mult, moved, scale, b, 1, 1).float()
+                                    - ref.float()).abs().max().item()}
+            if controls["f32_epilogue_err"] != 0 or not (
+                    controls["scale_ulp_err"] > 0 and controls["weight_step_err"] > 0):
+                raise AssertionError(f"K5's limit 0 and its controls: {controls}")
+            out["controls"] = controls
+            del f32, f32_ref, nudged, moved
+        del x, w, b, ops, got, ref
+        torch.cuda.empty_cache()
+    out["build"] = kernel_build(quant.build(), "int8_conv_kernelI13__nv_bfloat16", "IMMA")
+    return out
+
+
+def phase_int8(state: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.engines.muse import MuseModels, psnr_db
+    from mere_fusion_tpu_torch.models.musetalk import positional_encoding
+    from mere_fusion_tpu_torch.ops import quant
+    from mere_fusion_tpu_torch.scripts import prof_r5_int8
+
+    dev = torch.device("cuda", 0)
+    out = {"k5": k5_check(dev)}
+    state["k5_numbers"] = out["k5"]
+
+    # the default tier: the load-time gate on the loaded (seeded) weights
+    models = MuseModels(dtype=torch.bfloat16, device=dev, vae_int8="auto")
+    chosen = models.int8_tier
+    out["gate"] = {"tier": chosen, "psnr_db": models.int8_gate_probes,
+                   "seconds": models.int8_gate_seconds, "floor_db": models.INT8_GATE_DB}
+    # every rung's composed PSNR on a full batch of 16, against the float step
+    rng = np.random.default_rng(0)
+    b, s = INT8_BATCH, models.latent_size
+    lat = torch.from_numpy(rng.standard_normal((b, s, s, 8)).astype(np.float32)).to(dev)
+    feats = torch.from_numpy(rng.standard_normal(
+        (b, 50, models.unet_cfg.cross_attention_dim)).astype(np.float32)).to(dev)
+    tiers = ["off", "full"] + [name for name, *_ in models.INT8_RUNGS]
+    rungs = {name: (unet_q, fp) for name, unet_q, fp in models.INT8_RUNGS}
+    rungs.update({"off": (False, None), "full": (False, 0)})
+    images, launches = {}, {}
+    for tier in tiers:
+        models.set_int8_tier(tier)
+        quant.launches = 0
+        images[tier] = models.image(lat, feats)
+        torch.cuda.synchronize()
+        launches[tier] = quant.launches
+        unet_q, fp = rungs[tier]
+        want = (K5_UNET_CONVS if unet_q else 0) + (K5_DECODE_CONVS[fp] if fp is not None else 0)
+        if launches[tier] != want:
+            raise AssertionError(f"K5 launched {launches[tier]} times in a {tier} generate, "
+                                 f"want {want}")
+    if not all(torch.isfinite(img).all() for img in images.values()):
+        raise AssertionError("a tier's image is not finite")
+    out["batch16_psnr_db"] = {t: psnr_db(images[t], images["off"]) for t in tiers[1:]}
+    # an int8 route that is wrong (a lost tile, a wrong scale) falls far below the
+    # rungs' 36–42 dB on this batch (NVIDIA H100 80GB HBM3, 700.00 W)
+    if min(out["batch16_psnr_db"].values()) < INT8_SANITY_DB:
+        raise AssertionError(f"a tier's batch-16 PSNR {out['batch16_psnr_db']} is under "
+                             f"{INT8_SANITY_DB} dB")
+    out["k5_launches_per_generate"] = state["k5_launches_per_generate"] = launches
+    del images
+    # generate and the VAE decode in turns: float, "on" (full), the kept rung
+    turns = ["off", "full", chosen]
+    times = {}
+    with torch.no_grad():                     # the decode's input, from the float UNet
+        models.set_int8_tier("off")
+        pz = models.unet(lat.permute(0, 3, 1, 2).to(torch.bfloat16), torch.zeros(b, device=dev),
+                         positional_encoding(feats)) / models.scaling_factor
+    for tier in turns + turns[::-1]:
+        models.set_int8_tier(tier)
+        times.setdefault(f"generate_{tier}_ms", []).append(
+            p50_ms(lambda: models.generate(lat, feats), iters=10, warmup=2))
+        with torch.no_grad():
+            times.setdefault(f"decode_{tier}_ms", []).append(
+                p50_ms(lambda: models.vae.decode(pz), iters=10, warmup=2))
+    out["times"] = times
+    models.set_int8_tier(chosen)
+    out["profile"] = profile_generate(lambda: models.generate(lat, feats),
+                                      kernel="int8_conv_kernel")
+    del models, lat, feats, pz
+    torch.cuda.empty_cache()
+
+    # a session on the configuration's default (vae_int8 "auto")
+    zero_kernel_counts()
+    sess = asyncio.run(_session(state, vae_int8=None))
+    if sess["int8_tier"] != chosen or sess["k5_launches"] <= 0:
+        raise AssertionError(f"the default session served {sess['int8_tier']} with "
+                             f"{sess['k5_launches']} K5 launches (the gate kept {chosen})")
+    fps = sess["generated_fps_at_p50"]
+    if not fps or fps < INT8_SESSION_FPS:
+        raise AssertionError(f"the default session keeps {fps} generated fps, want "
+                             f">= {INT8_SESSION_FPS}")
+    state["int8_session_launches"] = sess["k5_launches"]
+    out["session"] = {**sess, "float_session_infer_batch_p50_ms":
+                      state.get("session_infer_p50_ms")}
+    torch.cuda.empty_cache()
+    out["prof_r5_int8"] = prof_r5_int8.main(dev)
+    torch.cuda.empty_cache()
+    return out
 
 
 # the Wav2Lip avatar (phase "lip"): the bf16 generate against the f32 one on
@@ -1628,10 +1850,12 @@ async def _lip_session(state: dict, base: dict, avatar) -> dict:
 
     from mere_fusion_tpu_torch.config import Config
     from mere_fusion_tpu_torch.engines import _DEVICE_TREES, make_engine
-    from mere_fusion_tpu_torch.ops import attention, sampler
+    from mere_fusion_tpu_torch.ops import attention, quant, sampler
     from mere_fusion_tpu_torch.runtime.metrics import metrics
     from mere_fusion_tpu_torch.server.app import create_app
 
+    for name in ("muse.infer_batch", "muse.featurize", "muse.first_frame"):
+        metrics.latency(name).reset()
     cfg = Config().override(**base)
     if (cfg.avatar.kind, cfg.avatar.batch_size, cfg.avatar.img_size, cfg.avatar.dtype) != (
             "wav2lip", 16, 96, "bfloat16"):
@@ -2843,9 +3067,10 @@ def k3_counts() -> tuple[int, int, int]:
 
 
 def zero_kernel_counts() -> None:
-    from mere_fusion_tpu_torch.ops import attention, hash_lookup, sampler, sampler_stages
+    from mere_fusion_tpu_torch.ops import attention, hash_lookup, quant, sampler, sampler_stages
 
     attention.launches = sampler.launches = 0
+    quant.launches = 0
     sampler.shade_launches = sampler.rays_launches = sampler.sample_launches = 0
     hash_lookup.encode_launches = hash_lookup.fwd_launches = hash_lookup.bwd_launches = 0
     sampler_stages.m1_launches = sampler_stages.section_launches = 0
@@ -3020,7 +3245,7 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
     ws = os.path.join(tmp, "workspace")
     zero_kernel_counts()
     t0 = time.perf_counter()
-    lines = run_cli([root, "--workspace", ws, "--iters", "200"])
+    lines = run_cli([root, "--workspace", ws, "--iters", "200", "--seed", str(TRAIN_SEED)])
     cli_s = time.perf_counter() - t0
     counts = k3_counts()                                    # ... and ends here
     want = (200 * 3 + 13 * 32, 0, 200 * 3)
@@ -3037,7 +3262,7 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
         raise AssertionError(f"checkpoints after the CLI run: {Checkpointer(ws).steps()}")
     state["k3_cli_launches"] = counts
     zero_kernel_counts()
-    resumed = run_cli([root, "--workspace", ws, "--iters", "216"])
+    resumed = run_cli([root, "--workspace", ws, "--iters", "216", "--seed", str(TRAIN_SEED)])
     if "[train] resumed from step 200" not in resumed or Checkpointer(ws).latest_step != 216:
         raise AssertionError(f"the second CLI call did not resume: {resumed}")
     if k3_counts() != (16 * 3 + 32, 0, 16 * 3):
@@ -3049,6 +3274,7 @@ def _nerf_train(state: dict, dev, tmp: str) -> dict:
             "cli_seconds_200_iters": cli_s, "cli_k3_launches": list(counts),
             "cli_lines": lines, "cli_resume_lines": resumed,
             "loss_it0": logged[0]["loss"], "loss_it100": logged[100]["loss"],
+            "seed": TRAIN_SEED, "loss_final": logged[max(logged)]["loss"],
             "it_per_s_at_it100": logged[100]["it_per_s"]}
 
 
@@ -3616,7 +3842,7 @@ def phase_nerf_avatar(state: dict) -> dict:
     zero_kernel_counts()
     t0 = time.perf_counter()
     lines = run_cli([root, "--workspace", torso_ws, "--iters", str(TORSO_ITERS), "--torso",
-                     "--head_ckpt", head_ws])
+                     "--head_ckpt", head_ws, "--seed", str(TRAIN_SEED)])
     out["torso_cli_s"] = time.perf_counter() - t0
     counts = {**family_counts(), "K1": attention.launches, "K3": k3_counts()}
     if any(counts["K3"]) or any(v for k, v in counts.items() if k != "K3"):
@@ -3686,6 +3912,8 @@ def phase_nerf_avatar(state: dict) -> dict:
         dump = dump_k2(args, got, ref, "k2_avatar_miss", K2_ATOL["bfloat16"])
         raise AssertionError(f"K2 on the avatar's frame: {k2_err} > {K2_ATOL['bfloat16']} "
                              f"(operands in {dump})")
+    # the worst tile of every avatar, for the CPU witness of K2's roundings
+    out["k2_worst_dump"] = dump_k2(args, got, ref, "k2_avatar_worst", K2_ATOL["bfloat16"])
     if frames[0].shape != (NERF_HW, NERF_HW, 3) or float(frames[0].std()) <= 2:
         raise AssertionError(f"avatar frame {frames[0].shape}, std {frames[0].std()}")
     raw = Checkpointer(torso_ws).restore(map_location=dev)
@@ -6473,7 +6701,8 @@ async def _perception_call(state: dict, dev, perception, frames, tmp: str) -> di
 
 
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
-          ("session", phase_session), ("lip", phase_lip), ("nerf_model", phase_nerf_model),
+          ("session", phase_session), ("int8", phase_int8), ("lip", phase_lip),
+          ("nerf_model", phase_nerf_model),
           ("nerf_session", phase_nerf_session), ("transport", phase_transport),
           ("sampler_family", phase_sampler_family),
           ("nerf_modes", phase_nerf_modes), ("nerf_train", phase_nerf_train),
@@ -6494,7 +6723,11 @@ def parse_phases(argv: list) -> tuple[list, bool]:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--phases", default=None)
     p.add_argument("--keep-going", action="store_true")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the ER-NeRF training CLI's --seed in nerf_train and nerf_avatar")
     args = p.parse_args(argv)
+    global TRAIN_SEED
+    TRAIN_SEED = args.seed
     table = dict(PHASES)
     if args.phases is None:
         return list(PHASES), args.keep_going
@@ -6553,6 +6786,8 @@ def main() -> int:
     k1f, k2f = state["k1_f32_numbers"], state["k2_f32_numbers"]
     fam, st, k3e = state["family_numbers"], state["stage_numbers"], state["k3_encode_numbers"]
     fam32 = state["family_f32_numbers"]
+    k5 = state["k5_numbers"]
+    k5_head = k5_shape_name(*INT8_HEADLINE)
     print(gpu, flush=True)
     emit({"kernels": [{
         "name": "self_attention (K1)", "route": "cuda",
@@ -6614,6 +6849,24 @@ def main() -> int:
         "tf32x3_bound_ms": k2f["tf32x3_bound_ms"], "single_tf32_err": k2f["single_tf32_err"],
         "registers": k2f["build"]["registers"], "spill_bytes": k2f["build"]["spill_bytes"],
         "hmma": k2f["build"]["hmma"],
+    }, {
+        # MuseTalk's int8 tier: the default session's launches (the kept rung)
+        "name": "int8_conv (K5)", "route": "cuda",
+        "source": "mere_fusion_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "mere_fusion_tpu/ops/quant.py:51",
+        "note": "XLA int8 conv, not a Pallas site",
+        "launches": state["int8_session_launches"],
+        "max_abs_err": max(v["max_abs_err"] for k, v in k5.items() if k.startswith("[")),
+        "ms": k5[k5_head]["kernel_ms"], "plain_ms": k5[k5_head]["plain_ms"],
+        "bound_ms": k5[k5_head]["bound_ms"], "bound_by": k5[k5_head]["bound_by"],
+        # cuDNN's bf16 conv2d at the same shape: the float conv the tier replaces
+        "library_ms": k5[k5_head]["library_ms"], "shape": k5_head,
+        "ms_measure": "per call (quantize pass + conv), CUDA events", "dtype": "bfloat16",
+        "launches_per_generate": state["k5_launches_per_generate"],
+        "shapes": {k: v for k, v in k5.items() if k.startswith("[")},
+        "controls": k5["controls"],
+        "registers": k5["build"]["registers"], "spill_bytes": k5["build"]["spill_bytes"],
+        "imma": k5["build"]["imma"],
     }] + [{
         "name": f"{fn} ({kernel})", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",

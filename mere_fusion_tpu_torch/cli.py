@@ -123,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="musetalk UNet weights (diffusers .bin/.pth)")
     p.add_argument("--unet_config", default="", help="musetalk.json UNet architecture")
     p.add_argument("--vae_int8", default="auto", choices=["auto", "on", "off"],
-                   help="int8 VAE decode tier: not ported, auto serves float")
+                   help="int8 serving tier (musetalk, kernel K5): auto (default) serves "
+                        "the first int8 rung that the load-time 40 dB PSNR gate passes on "
+                        "the loaded weights; on: the int8 VAE decode; off: float")
     p.add_argument("--whisper_ckpt", default="",
                    help="whisper-tiny weights for MuseASR features (OpenAI .pt)")
     # ER-NeRF serving flags

@@ -7,9 +7,12 @@ Port of mere_fusion_tpu/engines/muse.py:
     ─▶ pinned one-deep readback ─▶ res_frame_queue
     ─▶ assembly: feathered-mask blend ─▶ tracks
 
-The UNet's long self-attentions run kernel K1 (ops/attention.py). Only the
-float step is ported: the int8 VAE tier (JAX ops/quant.py, ROADMAP K5) is
-not, so ``vae_int8="on"`` raises and ``"auto"`` serves float.
+The UNet's long self-attentions run kernel K1 (ops/attention.py). The int8
+serving tier runs its convolutions on kernel K5 (ops/quant.py):
+``vae_int8="on"`` serves the int8 VAE decode with a float UNet (the JAX
+"full" tier), and ``"auto"`` (the default) runs the JAX package's load-time
+gate over six (UNet, VAE) int8 rungs and serves the first whose composed
+step stays within INT8_GATE_DB of the float step's PSNR, else float.
 """
 from __future__ import annotations
 
@@ -43,7 +46,6 @@ from mere_fusion_tpu_torch.runtime.metrics import metrics
 from mere_fusion_tpu_torch.transport.frames import AudioChunk, VideoImage
 
 logger = logging.getLogger(__name__)
-_int8_notice_logged = False
 
 
 def blend_face(image: np.ndarray, face: np.ndarray, face_box, mask: np.ndarray,
@@ -106,6 +108,13 @@ def preprocess_face(img_bgr: np.ndarray, size: int, half_mask: bool) -> np.ndarr
     return (x - 0.5) / 0.5
 
 
+def psnr_db(img: torch.Tensor, ref: torch.Tensor) -> float:
+    """PSNR in dB of images in [0, 1]: 10·log10(1 / max(MSE, 1e-12)), the
+    MSE a float32 mean as the JAX gate takes it."""
+    mse = float(((img.float() - ref.float()) ** 2).mean())
+    return 10 * float(np.log10(1.0 / max(mse, 1e-12)))
+
+
 def _materialise(module: torch.nn.Module, state, seed: int, device, dtype):
     """A module built on the meta device, filled from ``state`` (strict key
     match; tensors are taken over without a copy where device and dtype
@@ -121,6 +130,17 @@ def _materialise(module: torch.nn.Module, state, seed: int, device, dtype):
 class MuseModels:
     """VAE + UNet pair with the fused generation step."""
 
+    # the composed step's int8-vs-float PSNR floor of the auto tier (the JAX
+    # package's, its fidelity bar "PSNR > 40 dB")
+    INT8_GATE_DB = 40.0
+    # the gate's rungs in the JAX package's order, fastest first:
+    # (name, UNet on the int8 route, VAE up blocks kept float)
+    INT8_RUNGS = (("unet_int8+vae_full", True, 0), ("unet_int8+vae_keep_top", True, 1),
+                  ("vae_full", False, 0), ("vae_keep_top1", False, 1),
+                  ("unet_int8+vae_keep_top2", True, 2), ("vae_keep_top2", False, 2))
+    GATE_ROWS = 2          # the gate's probe batch
+    GATE_FEATURE_ROWS = 50  # the probe's whisper feature rows
+
     def __init__(self, vae_cfg: VAEConfig | None = None,
                  unet_cfg: UNetConfig | None = None,
                  vae_state=None, unet_state=None, face_size: int = 256,
@@ -128,23 +148,14 @@ class MuseModels:
                  vae_int8: bool | str = "auto"):
         """vae_state / unet_state: diffusers-named state dicts; None means
         random weights (seeds 0 and 1). vae_int8: "off" is the float step;
-        "on" raises (the int8 tier is not ported); "auto" serves float."""
-        global _int8_notice_logged
+        "on" (or True) the int8 VAE decode with a float UNet; "auto" runs
+        ``int8_gate`` on the loaded weights and serves the rung it keeps.
+        Every rung runs on the same weights: a rung only switches the
+        convolutions' arithmetic."""
         if isinstance(vae_int8, bool):
             vae_int8 = "on" if vae_int8 else "off"
-        if vae_int8 == "on":
-            raise NotImplementedError(
-                "the int8 VAE decode tier is not ported to the PyTorch package "
-                "(ROADMAP K5 ops/quant.py::int8_conv); use vae_int8='off'")
-        if vae_int8 not in ("auto", "off"):
+        if vae_int8 not in ("auto", "on", "off"):
             raise ValueError(f"vae_int8 must be auto|on|off, got {vae_int8!r}")
-        if vae_int8 == "auto" and not _int8_notice_logged:
-            _int8_notice_logged = True
-            logger.info("vae_int8=auto: no int8 rung is ported (ROADMAP K5); "
-                        "serving the float step")
-        self.int8_tier = "off"
-        self.int8_gate_probes: dict = {}
-
         self.device = resolve_device(device)
         self.dtype = dtype
         self.vae_cfg = vae_cfg or VAEConfig()
@@ -158,17 +169,84 @@ class MuseModels:
         self.unet = _materialise(unet, unet_state, 1, self.device, dtype)
         self.scaling_factor = self.vae_cfg.scaling_factor
 
+        self.int8_gate_psnr: float | None = None
+        self.int8_gate_probes: dict = {}
+        self.int8_gate_seconds: float | None = None
+        if vae_int8 == "auto":
+            self.int8_gate()
+        else:
+            self.set_int8_tier("off" if vae_int8 == "off" else "full")
+
+    def set_int8_tier(self, tier: str) -> None:
+        """Serve ``tier``: "off" (float), "full" (the int8 VAE decode, a
+        float UNet) or one of INT8_RUNGS' names."""
+        rungs = {name: (unet_q, fp_up) for name, unet_q, fp_up in self.INT8_RUNGS}
+        rungs["full"] = (False, 0)
+        if tier != "off" and tier not in rungs:
+            raise ValueError(f"unknown int8 tier {tier!r}")
+        unet_q, fp_up = rungs.get(tier, (False, 0))
+        self.unet.set_int8(unet_q)
+        self.vae.set_int8_decode(tier != "off", fp_up)
+        self.int8_tier = tier
+        self.int8_enabled = tier != "off"
+
+    def gate_probe(self):
+        """The gate's probe: [2, h, w, 8] latents and [2, 50, 384] whisper
+        features, unit normal from a torch.Generator seeded 2 on the CPU."""
+        gen = torch.Generator().manual_seed(2)
+        z = torch.randn((self.GATE_ROWS, self.latent_size, self.latent_size,
+                         self.unet_cfg.in_channels), generator=gen)
+        fz = torch.randn((self.GATE_ROWS, self.GATE_FEATURE_ROWS,
+                          self.unet_cfg.cross_attention_dim), generator=gen)
+        return z, fz
+
     @torch.no_grad()
-    def generate(self, latents: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-        """[B,h,w,8] latents + [B,W,384] whisper features (NHWC, as the JAX
-        twin) → [B,S,S,3] BGR uint8 faces on the device."""
+    def int8_gate(self, probe=None) -> str:
+        """The JAX package's load-time gate: the composed step (UNet at t = 0,
+        then the VAE decode, clipped to [0, 1]) on ``probe`` (latents, feats;
+        ``gate_probe()`` when None) through the float route and each rung in
+        INT8_RUNGS' order; serves the first rung whose PSNR against the float
+        step is at least INT8_GATE_DB, else float ("off"). Records each
+        rung's PSNR in ``int8_gate_probes``, the last one probed in
+        ``int8_gate_psnr`` and the gate's wall time in
+        ``int8_gate_seconds``; returns the tier served."""
+        t0 = time.perf_counter()
+        z, fz = probe if probe is not None else self.gate_probe()
+        self.set_int8_tier("off")
+        ref = self.image(z, fz)
+        self.int8_gate_probes = {}
+        chosen = "off"
+        for name, *_ in self.INT8_RUNGS:
+            self.set_int8_tier(name)
+            self.int8_gate_psnr = psnr_db(self.image(z, fz), ref)
+            self.int8_gate_probes[name] = self.int8_gate_psnr
+            if self.int8_gate_psnr >= self.INT8_GATE_DB:
+                chosen = name
+                break
+        self.set_int8_tier(chosen)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.int8_gate_seconds = time.perf_counter() - t0
+        logger.info("vae_int8=auto: serving %s (PSNR by rung %s)", chosen,
+                    self.int8_gate_probes)
+        return chosen
+
+    @torch.no_grad()
+    def image(self, latents: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        """The composed step: [B,h,w,8] latents + [B,W,384] whisper features
+        (NHWC, as the JAX twin) → [B,3,S,S] float32 RGB in [0, 1]."""
         lat = latents.to(self.device).permute(0, 3, 1, 2).to(self.dtype)
         ctx = positional_encoding(feats.to(self.device, torch.float32))
         t = torch.zeros(lat.shape[0], device=self.device)
         pred = self.unet(lat, t, ctx)
         img = self.vae.decode(pred / self.scaling_factor)
-        img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
-        img = torch.round(img * 255.0).to(torch.uint8)
+        return torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def generate(self, latents: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        """[B,h,w,8] latents + [B,W,384] whisper features (NHWC, as the JAX
+        twin) → [B,S,S,3] BGR uint8 faces on the device."""
+        img = torch.round(self.image(latents, feats) * 255.0).to(torch.uint8)
         return img.permute(0, 2, 3, 1).flip(-1).contiguous()   # RGB → BGR
 
     @torch.no_grad()

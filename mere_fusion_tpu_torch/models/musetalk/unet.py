@@ -13,6 +13,12 @@ Self-attention at sequence length >= 512 goes through kernel K1
 (``ops/attention.self_attention``), exactly where the JAX package calls its
 Pallas kernel; every other attention stays plain torch. GroupNorm eps is
 ``cfg.norm_eps`` (1e-5) in the resnets and 1e-6 in the transformers' norm.
+
+``UNet2DCondition(int8=True)`` (the JAX ``int8``) runs the resnets' convs
+and the down- and upsample convs on the int8 route (``QConv``, kernel K5);
+``conv_in``, ``conv_out``, attention, ``proj_in``/``proj_out`` and the time
+MLP stay float. ``set_int8`` switches a built model without a second copy
+of its weights.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from mere_fusion_tpu_torch.models.musetalk.vae import (
     ResnetBlock2D,
     Upsample2D,
     _Block,
+    set_quant,
 )
 from mere_fusion_tpu_torch.ops import attention
 
@@ -175,7 +182,7 @@ class Transformer2D(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig | None = None):
+    def __init__(self, cfg: UNetConfig | None = None, int8: bool = False):
         super().__init__()
         self.cfg = cfg = cfg or MUSETALK_UNET
         g, eps = cfg.norm_num_groups, cfg.norm_eps
@@ -227,6 +234,13 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(g, c, eps=eps)
         self.conv_out = nn.Conv2d(c, cfg.out_channels, 3, padding=1)
+        self.set_int8(int8)
+
+    def set_int8(self, on: bool) -> None:
+        """The int8 route for every resnet conv and resample conv (the
+        QConvs of the down, mid and up blocks), or the float one."""
+        for part in (self.down_blocks, self.mid_block, self.up_blocks):
+            set_quant(part, on)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,16 @@ sd-vae-ft-mse torch checkpoint loads with ``load_state_dict(strict=True)``.
 Encoder: down blocks × resnets, then mid (resnet, attention, resnet) →
 8-channel moments; the decoder mirrors it with one more resnet per up block.
 GroupNorm eps is 1e-6 throughout; the stride-2 downsample pads (0, 1)
-asymmetrically like diffusers. The int8 decode tier is not ported
-(ROADMAP K5).
+asymmetrically like diffusers.
+
+The int8 decode tier (``AutoencoderKL(int8_decode=True)``, the JAX
+``Decoder(int8=True)``): the resnets' convs, the upsample convs and the
+decoder's ``conv_in`` are ``QConv`` (ops/quant.py, kernel K5), whose
+``quant`` flag switches the arithmetic over the same parameters. Up block i
+is quantised when ``i < len(up_blocks) − int8_fp_up_blocks``, with its
+upsample conv; ``conv_out``, ``quant_conv``, ``post_quant_conv`` and the
+whole encoder stay float. ``set_int8_decode`` moves a built model between
+rungs without a second copy of its weights.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mere_fusion_tpu_torch.ops.quant import QConv
 
 
 @dataclass(frozen=True)
@@ -38,13 +48,13 @@ class ResnetBlock2D(nn.Module):
                  temb_dim: int | None = None):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, cin, eps=eps)
-        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
+        self.conv1 = QConv(cin, cout, 3, padding=1)
         if temb_dim is not None:
             self.time_emb_proj = nn.Linear(temb_dim, cout)
         self.norm2 = nn.GroupNorm(groups, cout, eps=eps)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.conv2 = QConv(cout, cout, 3, padding=1)
         if cin != cout:
-            self.conv_shortcut = nn.Conv2d(cin, cout, 1)
+            self.conv_shortcut = QConv(cin, cout, 1)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
@@ -82,7 +92,7 @@ class Downsample2D(nn.Module):
     def __init__(self, c: int, asymmetric: bool):
         super().__init__()
         self.asymmetric = asymmetric
-        self.conv = nn.Conv2d(c, c, 3, stride=2, padding=0 if asymmetric else 1)
+        self.conv = QConv(c, c, 3, stride=2, padding=0 if asymmetric else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.asymmetric:   # diffusers' VAE pads (0, 1) before a VALID conv
@@ -93,7 +103,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, c: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, padding=1)
+        self.conv = QConv(c, c, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -101,6 +111,15 @@ class Upsample2D(nn.Module):
 
 class _Block(nn.Module):
     """Container so state-dict paths read like diffusers'."""
+
+
+def set_quant(module: nn.Module, on: bool) -> int:
+    """Switch every QConv inside ``module`` to the int8 route (on) or the
+    float one; returns how many it switched."""
+    convs = [m for m in module.modules() if isinstance(m, QConv)]
+    for m in convs:
+        m.quant = on
+    return len(convs)
 
 
 def _mid_block(c: int, groups: int) -> _Block:
@@ -155,7 +174,7 @@ class Decoder(nn.Module):
         g = cfg.norm_num_groups
         chans = cfg.block_out_channels
         c = chans[-1]
-        self.conv_in = nn.Conv2d(cfg.latent_channels, c, 3, padding=1)
+        self.conv_in = QConv(cfg.latent_channels, c, 3, padding=1)
         self.mid_block = _mid_block(c, g)
         self.up_blocks = nn.ModuleList()
         for i, ch in enumerate(reversed(chans)):
@@ -180,14 +199,32 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
+    def set_int8(self, on: bool, fp_up_blocks: int = 0) -> None:
+        """The int8 route for conv_in, the mid block's resnets and each up
+        block i < len(up_blocks) − fp_up_blocks (its resnets and upsample)."""
+        set_quant(self, False)
+        if on:
+            set_quant(self.conv_in, True)
+            set_quant(self.mid_block, True)
+            for i, blk in enumerate(self.up_blocks):
+                set_quant(blk, i < len(self.up_blocks) - int(fp_up_blocks))
+
+
 class AutoencoderKL(nn.Module):
-    def __init__(self, cfg: VAEConfig | None = None):
+    def __init__(self, cfg: VAEConfig | None = None, int8_decode: bool = False,
+                 int8_fp_up_blocks: int = 0):
         super().__init__()
         self.cfg = cfg = cfg or VAEConfig()
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.set_int8_decode(int8_decode, int8_fp_up_blocks)
+
+    def set_int8_decode(self, on: bool, fp_up_blocks: int = 0) -> None:
+        """Move the decode between the float route and an int8 rung (the
+        JAX ``AutoencoderKL(int8_decode, int8_fp_up_blocks)``)."""
+        self.decoder.set_int8(on, fp_up_blocks)
 
     def moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x [B,3,H,W] in [-1,1] → (mean, logvar), each [B,4,H/8,W/8]."""

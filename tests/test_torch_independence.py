@@ -54,6 +54,8 @@ REQUIRED = (
     "mere_fusion_tpu_torch.tools.render_3dmm",
     "mere_fusion_tpu_torch.tools.nerf_data",
     "mere_fusion_tpu_torch.models.rtmpose",
+    "mere_fusion_tpu_torch.ops.quant",
+    "mere_fusion_tpu_torch.scripts.prof_r5_int8",
 )
 
 

@@ -244,10 +244,17 @@ def test_torch_checkpoints_load_natively(tmp_path, port_models):
 # ---- engine contracts ---------------------------------------------------------
 
 def test_vae_int8_modes():
-    with pytest.raises(NotImplementedError, match="K5"):
-        MuseModels(PORT_VAE, PORT_UNET, face_size=64, device=CPU, vae_int8="on")
+    """"on" serves the int8 VAE decode (the JAX "full" tier); "auto" runs the
+    load-time gate over the rungs in order and serves the first at or above
+    40 dB, else float (tests/test_torch_quant.py holds it against JAX)."""
+    m = MuseModels(PORT_VAE, PORT_UNET, face_size=64, device=CPU, vae_int8="on")
+    assert m.int8_tier == "full" and m.int8_enabled and m.int8_gate_probes == {}
     m = MuseModels(PORT_VAE, PORT_UNET, face_size=64, device=CPU, vae_int8="auto")
-    assert m.int8_tier == "off" and m.int8_gate_probes == {}
+    names = [name for name, *_ in MuseModels.INT8_RUNGS]
+    assert list(m.int8_gate_probes) == names[:len(m.int8_gate_probes)]
+    passed = [n for n, db in m.int8_gate_probes.items() if db >= MuseModels.INT8_GATE_DB]
+    assert m.int8_tier == (passed[0] if passed else "off")
+    assert passed in ([], [list(m.int8_gate_probes)[-1]])
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
