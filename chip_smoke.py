@@ -82,6 +82,9 @@ seed trains another avatar):
               output channel's scale moved by an ulp and by one int8 weight
               moved by one; kernel, whole-call, plain and cuDNN bf16 conv
               times beside the bound; its registers, spills and IMMA count.
+              Then K5 against its plain version (limit 0) on the operands of
+              every int8 conv of one unet_int8 UNet forward at the gate's
+              batch 2 and at batch 16, once for each distinct shape.
               MuseModels(vae_int8="auto"): each rung's gate PSNR, the kept
               rung, the gate's seconds; every tier's composed PSNR on a batch
               of 16 against the float step and its K5 launches per generate
@@ -1589,6 +1592,60 @@ def k5_check(dev) -> dict:
     return out
 
 
+def k5_unet_check(models, dev) -> dict:
+    """K5 against its plain version (limit 0) on the live operands of every
+    int8 conv of the UNet: one composed step of a unet_int8 rung at the
+    gate's batch (MuseModels.GATE_ROWS) and at INT8_BATCH, each distinct
+    (input, weight, stride, padding) shape held once, caught by forward
+    pre-hooks on the UNet's QConvs. Leaves the models on the float tier."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops import quant
+
+    checked, calls = {}, [0]
+
+    def hold(mod, args):
+        if not mod.quant:
+            return
+        x = args[0]
+        calls[0] += 1
+        st, pad = mod.stride[0], mod.padding[0]
+        key = (f"{list(x.shape)} -> {mod.out_channels} "
+               f"({mod.kernel_size[0]}x{mod.kernel_size[1]}/s{st})")
+        if key in checked:
+            return
+        ops = quant.int8_operands(x, mod.weight)
+        got = quant.conv_q_cuda(x, *ops, mod.bias, st, pad, mod.weight.dtype)
+        ref = quant.conv_q_plain(x, *ops, mod.bias, st, pad, mod.weight.dtype)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K5 on the UNet's {key}: max abs err {err}, limit 0")
+        checked[key] = err
+
+    convs = [m for m in models.unet.modules() if isinstance(m, quant.QConv)]
+    hooks = [m.register_forward_pre_hook(hold) for m in convs]
+    rng = torch.Generator(device=dev).manual_seed(5)
+    s, feat = models.latent_size, models.unet_cfg.cross_attention_dim
+    try:
+        models.set_int8_tier("unet_int8+vae_keep_top2")
+        for rows in (models.GATE_ROWS, INT8_BATCH):
+            calls[0] = 0
+            models.image(torch.randn((rows, s, s, models.unet_cfg.in_channels),
+                                     generator=rng, device=dev),
+                         torch.randn((rows, models.GATE_FEATURE_ROWS, feat),
+                                     generator=rng, device=dev))
+            if calls[0] != K5_UNET_CONVS:
+                raise AssertionError(f"the UNet ran {calls[0]} int8 convs at batch {rows}, "
+                                     f"want {K5_UNET_CONVS}")
+    finally:
+        for h in hooks:
+            h.remove()
+        models.set_int8_tier("off")
+    torch.cuda.synchronize()
+    return {"shapes": checked, "distinct": len(checked),
+            "max_abs_err": max(checked.values())}
+
+
 def phase_int8(state: dict) -> dict:
     import numpy as np
     import torch
@@ -1607,6 +1664,8 @@ def phase_int8(state: dict) -> dict:
     chosen = models.int8_tier
     out["gate"] = {"tier": chosen, "psnr_db": models.int8_gate_probes,
                    "seconds": models.int8_gate_seconds, "floor_db": models.INT8_GATE_DB}
+    out["k5_unet"] = state["k5_unet"] = k5_unet_check(models, dev)
+    torch.cuda.empty_cache()
     # every rung's composed PSNR on a full batch of 16, against the float step
     rng = np.random.default_rng(0)
     b, s = INT8_BATCH, models.latent_size
@@ -6856,14 +6915,17 @@ def main() -> int:
         "replaces": "mere_fusion_tpu/ops/quant.py:51",
         "note": "XLA int8 conv, not a Pallas site",
         "launches": state["int8_session_launches"],
-        "max_abs_err": max(v["max_abs_err"] for k, v in k5.items() if k.startswith("[")),
+        "max_abs_err": max([v["max_abs_err"] for k, v in k5.items() if k.startswith("[")]
+                           + [state["k5_unet"]["max_abs_err"]]),
         "ms": k5[k5_head]["kernel_ms"], "plain_ms": k5[k5_head]["plain_ms"],
         "bound_ms": k5[k5_head]["bound_ms"], "bound_by": k5[k5_head]["bound_by"],
         # cuDNN's bf16 conv2d at the same shape: the float conv the tier replaces
         "library_ms": k5[k5_head]["library_ms"], "shape": k5_head,
-        "ms_measure": "per call (quantize pass + conv), CUDA events", "dtype": "bfloat16",
+        "ms_measure": "per call (the int8 weights' repack to tap-major, quantize pass, conv), "
+                      "CUDA events", "dtype": "bfloat16",
         "launches_per_generate": state["k5_launches_per_generate"],
         "shapes": {k: v for k, v in k5.items() if k.startswith("[")},
+        "unet_shapes_err": state["k5_unet"]["shapes"],
         "controls": k5["controls"],
         "registers": k5["build"]["registers"], "spill_bytes": k5["build"]["spill_bytes"],
         "imma": k5["build"]["imma"],

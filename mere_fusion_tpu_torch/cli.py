@@ -125,7 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vae_int8", default="auto", choices=["auto", "on", "off"],
                    help="int8 serving tier (musetalk, kernel K5): auto (default) serves "
                         "the first int8 rung that the load-time 40 dB PSNR gate passes on "
-                        "the loaded weights; on: the int8 VAE decode; off: float")
+                        "the loaded weights; on: the int8 VAE decode; off: float. On an "
+                        "H100, until K5 is redesigned, off generates faster than every "
+                        "int8 tier and gives exactly the float frames")
     p.add_argument("--whisper_ckpt", default="",
                    help="whisper-tiny weights for MuseASR features (OpenAI .pt)")
     # ER-NeRF serving flags

@@ -7,10 +7,10 @@
 // scales) are computed by the wrapper in PyTorch (ops/quant.py); the two big
 // passes are here:
 //
-// - int8_quantize_kernel: the bf16 or f32 activation (NCHW, or channels-last)
-//   times a per-input-channel multiplier, rounded half to even, clipped to
-//   ±127, written as int8 NHWC with the channels padded with zeros to a
-//   multiple of 16 (cp): the K-contiguous layout of the implicit GEMM.
+// - int8_quantize_kernel: the bf16 or f32 NCHW activation times a
+//   per-input-channel multiplier, rounded half to even, clipped to ±127,
+//   written as int8 NHWC with the channels padded with zeros to a multiple
+//   of 16 (cp): the K-contiguous layout of the implicit GEMM.
 // - int8_conv_kernel: an implicit-GEMM convolution, M = N·Ho·Wo output
 //   pixels by N = cout by K = kh·kw·cp, on the int8 tensor cores
 //   (mma.sync m16n8k32 s8·s8 → s32). Each block computes a 128×128 output
@@ -55,11 +55,11 @@ __device__ __forceinline__ int q8(float v, float mult) {
   return __float2int_rn(f);
 }
 
-// x: [n, c, hw] (layout 0) or [n, hw, c] (layout 1); xq: [n, hw, cp] int8.
+// x: [n, c, hw]; xq: [n, hw, cp] int8.
 template <typename T>
 __global__ void __launch_bounds__(QPIX) int8_quantize_kernel(
     const T* __restrict__ x, const float* __restrict__ mult, int8_t* __restrict__ xq,
-    int n, int c, int hw, int cp, int layout) {
+    int n, int c, int hw, int cp) {
   const long long p = (long long)blockIdx.x * QPIX + threadIdx.x;
   if (p >= (long long)n * hw) return;
   const int c0 = blockIdx.y * 16;
@@ -72,10 +72,7 @@ __global__ void __launch_bounds__(QPIX) int8_quantize_kernel(
     for (int b = 0; b < 4; ++b) {
       const int ch = c0 + j + b;
       int v = 0;
-      if (ch < c) {
-        const long long at = layout == 0 ? (ni * c + ch) * hw + q : p * c + ch;
-        v = q8(to_f32(x[at]), mult[ch]);
-      }
+      if (ch < c) v = q8(to_f32(x[(ni * c + ch) * hw + q]), mult[ch]);
       word |= (uint32_t)(uint8_t)(int8_t)v << (8 * b);
     }
     packed[j / 4] = word;
@@ -283,8 +280,8 @@ int launch_conv(const int8_t* xq, const int8_t* wq, const float* scale, const fl
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16; layout: 0 NCHW, 1 channels-last. cp % 16 == 0.
-int mf_int8_quantize(int device, int dtype, int layout, const void* x, const float* mult,
+// dtype: 0 float32, 1 bfloat16; x NCHW. cp % 16 == 0.
+int mf_int8_quantize(int device, int dtype, const void* x, const float* mult,
                      void* xq, int n, int c, int hw, int cp, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -293,12 +290,10 @@ int mf_int8_quantize(int device, int dtype, int layout, const void* x, const flo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     int8_quantize_kernel<float><<<grid, QPIX, 0, s>>>(static_cast<const float*>(x), mult,
-                                                      static_cast<int8_t*>(xq), n, c, hw, cp,
-                                                      layout);
+                                                      static_cast<int8_t*>(xq), n, c, hw, cp);
   else
     int8_quantize_kernel<__nv_bfloat16><<<grid, QPIX, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), mult, static_cast<int8_t*>(xq), n, c, hw, cp,
-        layout);
+        static_cast<const __nv_bfloat16*>(x), mult, static_cast<int8_t*>(xq), n, c, hw, cp);
   return (int)cudaGetLastError();
 }
 

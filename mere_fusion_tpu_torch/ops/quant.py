@@ -22,10 +22,10 @@ bit for bit:
   4,608·127² ≈ 7.4·10⁷, more than an f32 sum holds exactly).
 - ``conv_q_cuda``: the hand-written kernels of ``csrc/int8_conv.cu``, built
   with nvcc for sm_90a on first use and bound through ctypes: a quantize
-  pass (bf16 or f32 NCHW or channels-last in, int8 NHWC out, channels
-  padded to a multiple of 16) and an implicit-GEMM convolution on the int8
-  tensor cores (mma.sync m16n8k32 s8) with the dequantising epilogue fused,
-  written NCHW as nn.Conv2d writes it. It raises on anything the kernels do
+  pass (bf16 or f32 NCHW in, int8 NHWC out, channels padded to a multiple
+  of 16) and an implicit-GEMM convolution on the int8 tensor cores
+  (mma.sync m16n8k32 s8) with the dequantising epilogue fused, written
+  NCHW as nn.Conv2d writes it. It raises on anything the kernels do
   not take; there is no fallback.
 
 ``launches`` counts K5's launches in this process, one an int8 conv (its
@@ -71,8 +71,8 @@ def quantize_per_out_channel(weight: torch.Tensor):
 def int8_operands(x: torch.Tensor, weight: torch.Tensor):
     """The per-call quantisation of ``int8_conv`` for x [N, cin, H, W] and
     weight [cout, cin, kh, kw]: (mult [cin], the activation's multiplier
-    1 / (s·sx); kq [cout, cin, kh, kw], the int8 values of s·K as float32;
-    scale [cout], the dequantising sx·sw), all float32 on x's device."""
+    1 / (s·sx); kq [cout, cin, kh, kw], the int8 values of s·K; scale
+    [cout], the dequantising sx·sw), on x's device, the two vectors float32."""
     # amax in x's own dtype (exact: abs and max do not round), as max(x) and
     # −min(x), which reads x twice and writes no |x| copy
     dims = (0, 2, 3)
@@ -85,7 +85,7 @@ def int8_operands(x: torch.Tensor, weight: torch.Tensor):
     sx = (torch.where(ok, ax / s, ax).max() / 127.0).clamp_min(1e-12)
     mult = 1.0 / (s * sx)
     kq, sw = quantize_per_out_channel(kf * s[None, :, None, None])
-    return mult, kq.float(), sx * sw
+    return mult, kq, sx * sw
 
 
 def _geometry(x: torch.Tensor, kq: torch.Tensor, stride: int, padding: int):
@@ -136,7 +136,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             lib.mf_int8_quantize.argtypes = (
-                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p])
             lib.mf_int8_quantize.restype = ctypes.c_int
             lib.mf_int8_conv.argtypes = (
@@ -157,6 +157,8 @@ def _check(x, mult, kq, scale, bias, out_dtype) -> None:
     if x.dim() != 4 or kq.dim() != 4:
         raise ValueError(f"K5 takes x [N, C, H, W] and a weight [cout, cin, kh, kw]; got "
                          f"{tuple(x.shape)}, {tuple(kq.shape)}")
+    if kq.dtype != torch.int8:
+        raise TypeError(f"K5 takes the weights' int8 values, got {kq.dtype}")
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise TypeError(f"K5 takes and gives float32 or bfloat16; x is {x.dtype}, the output "
                         f"{out_dtype}")
@@ -177,24 +179,19 @@ def conv_q_cuda(x, mult, kq, scale, bias, stride: int = 1, padding: int = 0,
     out_dtype = out_dtype or x.dtype
     _check(x, mult, kq, scale, bias, out_dtype)
     n, c, h, w, cout, kh, kw, ho, wo = _geometry(x, kq, stride, padding)
-    if x.is_contiguous():
-        layout = 0
-    elif x.is_contiguous(memory_format=torch.channels_last):
-        layout = 1
-    else:
-        x, layout = x.contiguous(), 0
+    x = x.contiguous()
     cp = -(-c // CHANNEL_STEP) * CHANNEL_STEP
     dev = x.device
     mult = mult.float().contiguous()
     scale = scale.float().contiguous()
     bias = bias.float().contiguous() if bias is not None else None
     # the weights' int8 values tap-major, channels padded with zeros: [cout, kh, kw, cp]
-    wq = F.pad(kq.permute(0, 2, 3, 1), (0, cp - c)).to(torch.int8).contiguous()
+    wq = F.pad(kq.permute(0, 2, 3, 1), (0, cp - c)).contiguous()
     xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=dev)
     out = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=dev)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mf_int8_quantize(dev.index, _DTYPES[x.dtype], layout, x.data_ptr(),
+    err = lib.mf_int8_quantize(dev.index, _DTYPES[x.dtype], x.data_ptr(),
                                mult.data_ptr(), xq.data_ptr(), n, c, h * w, cp, stream)
     if err != 0:
         raise RuntimeError(f"K5's quantize pass failed to launch with cudaError {err}")

@@ -323,7 +323,8 @@ def main(argv=None) -> None:
             from mere_fusion_tpu_torch.engines import load_serving_tree
 
             vae_state, _ = load_serving_tree("vae", args.vae_ckpt)
-        models = MuseModels(vae_state=vae_state, device=device)
+        # the bundle holds the float encoder's latents: no int8 tier is served
+        models = MuseModels(vae_state=vae_state, device=device, vae_int8="off")
         landmark_detector = None
         if args.dwpose_ckpt:
             from mere_fusion_tpu_torch.models.rtmpose import WholebodyLandmarker

@@ -273,8 +273,14 @@ def test_main_writes_a_muse_bundle(tmp_path, fixed_s3fd, muse_pair, parsers, mon
     the seeded BiSeNet written as torch files), the models built at the
     tiny widths; the bundle loads and a MuseReal serves it."""
     _, pm = muse_pair
-    monkeypatch.setattr(muse_mod, "MuseModels", lambda vae_state=None, device=None: MuseModels(
-        PORT_VAE, PORT_UNET, vae_state=vae_state, face_size=64, device=device, vae_int8="off"))
+    asked = []
+
+    def models(vae_state=None, device=None, vae_int8="auto"):
+        asked.append(vae_int8)
+        return MuseModels(PORT_VAE, PORT_UNET, vae_state=vae_state, face_size=64,
+                          device=device, vae_int8=vae_int8)
+
+    monkeypatch.setattr(muse_mod, "MuseModels", models)
     video = str(tmp_path / "in.mp4")
     _write_video(video, n=3, hw=(72, 80))
     vae_pth, parse_pth = str(tmp_path / "vae.pth"), str(tmp_path / "parse.pth")
@@ -283,6 +289,7 @@ def test_main_writes_a_muse_bundle(tmp_path, fixed_s3fd, muse_pair, parsers, mon
     out = str(tmp_path / "muse")
     genavatar.main([video, "--kind", "musetalk", "--out", out, "--device", "cpu",
                     "--vae_ckpt", vae_pth, "--bisenet_ckpt", parse_pth])
+    assert asked == ["off"]            # avatar preparation runs no int8 gate
     avatar = load_muse_avatar(out)
     assert len(avatar) == 3 and avatar.latent_cycle.shape == (3, 32, 32, 8)
     assert avatar.coords[0] == (10, 10, 50, 50) and avatar.mask_coords[0] == (0, 0, 66, 66)
@@ -310,7 +317,8 @@ def test_dwpose_raises_naming_the_roadmap_item(tmp_path, fixed_s3fd, muse_pair, 
     monkeypatch.setattr(rtmpose.WholebodyLandmarker, "from_checkpoint", classmethod(
         lambda cls, path, **kw: build(cls, path, dtype=torch.float32, **size, **kw)))
     _, pm = muse_pair
-    monkeypatch.setattr(muse_mod, "MuseModels", lambda vae_state=None, device=None: pm)
+    monkeypatch.setattr(muse_mod, "MuseModels",
+                        lambda vae_state=None, device=None, vae_int8="auto": pm)
     video = str(tmp_path / "in.mp4")
     _write_video(video, n=3, hw=(72, 80))
     out = str(tmp_path / "muse")
