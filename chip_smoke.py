@@ -75,16 +75,21 @@ seed trains another avatar):
               wait for 32 generated frames, stop. Kernel counts are zeroed
               just before and read just after; K1 must have launched.
 5. int8     — MuseTalk's int8 serving tier (bf16, batch 16, full width): K5
-              (csrc/int8_conv.cu, the quantize pass and the int8 implicit-GEMM
-              conv) against its plain version on the same shared operands at
-              each distinct shape of the decode's int8 convs (INT8_SHAPES):
-              equal (limit 0), the f32 epilogue equal, the limit failed by one
-              output channel's scale moved by an ulp and by one int8 weight
-              moved by one; kernel, whole-call, plain and cuDNN bf16 conv
-              times beside the bound; its registers, spills and IMMA count.
-              Then K5 against its plain version (limit 0) on the operands of
-              every int8 conv of one unet_int8 UNet forward at the gate's
-              batch 2 and at batch 16, once for each distinct shape.
+              (csrc/int8_conv.cu: amax, factors, weight pack, quantize pass
+              and the int8 implicit-GEMM conv on wgmma s8 fed by TMA) against
+              its plain version at each distinct shape of the decode's int8
+              convs (INT8_SHAPES): the conv on shared operands, each operand
+              kernel and the whole int8_conv equal (limit 0), the f32 epilogue
+              equal, the limit failed by one output channel's scale moved by
+              an ulp and by one int8 weight moved by one; the conv, each
+              operand kernel, the whole call, plain, cuDNN bf16 conv and (1×1)
+              torch._int_mm times beside the bound; the conv's registers,
+              spills and IGMMA count (no IMMA). Then K5 against its plain
+              version (limit 0) on the operands of every int8 conv of one
+              unet_int8 UNet forward at the gate's batch 2 and at batch 16,
+              once for each distinct shape, with the conv timed at the
+              largest K and stride-2 shapes; torch.profiler's launches of one
+              int8 conv (at most 6) and of one kept-rung decode.
               MuseModels(vae_int8="auto"): each rung's gate PSNR, the kept
               rung, the gate's seconds; every tier's composed PSNR on a batch
               of 16 against the float step and its K5 launches per generate
@@ -604,11 +609,12 @@ def exp_floor_ms(shape) -> float:
     return b * h * lq * lq / (EX2_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
 
 
-def kernel_build(path: str, tag: str, instruction: str) -> dict:
+def kernel_build(path: str, tag: str, instruction: str, absent: tuple[str, ...] = ()) -> dict:
     """ptxas's registers and spills of the kernel whose mangled name holds
     tag (nvcc -Xptxas -v, the library's .log) and the count of instruction
-    (HMMA: mma.sync; HGMMA: wgmma) in its SASS (cuobjdump -sass on the
-    library). Raises if it spills or has no such instruction."""
+    (HMMA: mma.sync; HGMMA: bf16 wgmma; IGMMA: int8 wgmma) in its SASS
+    (cuobjdump -sass on the library), and of each instruction in absent.
+    Raises if it spills, has no such instruction or has one of absent."""
     import os
 
     from mere_fusion_tpu_torch.ops import attention
@@ -622,12 +628,13 @@ def kernel_build(path: str, tag: str, instruction: str) -> dict:
                           timeout=300, check=True).stdout.splitlines()
     first = next(i for i, ln in enumerate(sass) if "Function" in ln and tag in ln)
     end = next((i for i in range(first + 1, len(sass)) if "Function" in sass[i]), len(sass))
-    count = sum(bool(re.search(rf"\b{instruction}\b", ln)) for ln in sass[first:end])
+    counts = {ins: sum(bool(re.search(rf"\b{ins}\b", ln)) for ln in sass[first:end])
+              for ins in (instruction, *absent)}
     registers = int(next(ln for ln in notes if "registers" in ln).split("Used ")[1].split()[0])
     spills = [int(w) for ln in notes if "spill" in ln for w in ln.split() if w.isdigit()]
     out = {"instance": tag, "registers": registers, "spill_bytes": sum(spills[1:]),
-           instruction.lower(): count, "ptxas": notes}
-    if count <= 0 or out["spill_bytes"]:
+           **{ins.lower(): n for ins, n in counts.items()}, "ptxas": notes}
+    if counts[instruction] <= 0 or out["spill_bytes"] or any(counts[a] for a in absent):
         raise AssertionError(f"{tag} build: {out}")
     return out
 
@@ -1510,6 +1517,10 @@ PEAK_INT8_OPS = 1979e12           # H100 SXM dense int8 tensor rate
 # +7), and the UNet's 64 resnet and resample convs in a unet_int8 rung
 K5_DECODE_CONVS = {0: 34, 1: 27, 2: 19}
 K5_UNET_CONVS = 64
+# device launches of one int8 conv on the card: K5's amax, factors, weight
+# pack, quantize pass and conv, and no PyTorch kernel (at most 6 allowed)
+K5_KERNELS_PER_CONV = 5
+K5_MAX_LAUNCHES_PER_CONV = 6
 INT8_SESSION_FPS = 25             # generated frames a second the default session keeps
 INT8_SANITY_DB = 30               # every tier's batch-16 PSNR against the float step, at least
 
@@ -1518,23 +1529,72 @@ def k5_shape_name(cin: int, hw: int, cout: int, k: int) -> str:
     return f"[{INT8_BATCH}, {cin}, {hw}, {hw}] -> {cout} ({k}x{k})"
 
 
-def k5_bound_ms(n: int, cin: int, hw: int, cout: int, k: int) -> tuple[float, str]:
-    """Least time for one int8 conv at stride 1: 2·M·cout·K operations at the
-    int8 tensor rate, against the int8 input and weights read once and the
-    bf16 output written once."""
-    m = n * hw * hw
+def k5_bound_ms(n: int, cin: int, hw: int, cout: int, k: int,
+                stride: int = 1) -> tuple[float, str]:
+    """Least time for one int8 conv of an hw² input: 2·M·cout·K operations
+    at the int8 tensor rate (M = n·(hw // stride)² output pixels), against
+    the int8 input and weights read once and the bf16 output written once."""
+    m = n * (hw // stride) ** 2
     t_ops = 2.0 * m * cout * cin * k * k / PEAK_INT8_OPS * 1e3
-    t_bytes = (m * cin + cout * cin * k * k + 2 * m * cout) / PEAK_BYTES * 1e3
+    t_bytes = (n * hw * hw * cin + cout * cin * k * k + 2 * m * cout) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k5_operands_equal(quant, x, w) -> dict:
+    """Each operand kernel of K5 against its plain step on the card, limit 0:
+    the amax (as partial maxima), the factors, the weight pack (in the conv's
+    tap-major layout) and the quantize pass (int8 NHWC). Raises on a
+    difference; returns the packed operands."""
+    import torch
+    import torch.nn.functional as F
+
+    ax, ak = quant.channel_amax(x, w)
+    ax_part, ak_part = quant.channel_amax_cuda(x, w)
+    s, sx, mult = quant.smooth_factors(ax, ak)
+    got = quant.smooth_factors_cuda(ax_part, ak_part)
+    kq, scale = quant.pack_weights(w, s, sx)
+    wq, scale_k = quant.pack_weights_cuda(w, s, sx)
+    cp = quant.padded_channels(x.shape[1])
+    xq = quant.quantize_activation_cuda(x, mult)
+    xq_ref = F.pad(quant.quantize_activation_plain(x, mult).permute(0, 2, 3, 1),
+                   (0, cp - x.shape[1])).to(torch.int8)
+    checks = {"amax": torch.equal(ax_part.amax(dim=1), ax) and torch.equal(ak_part.amax(dim=1), ak),
+              "factors": all(torch.equal(a, b) for a, b in zip(got, (s, sx, mult))),
+              "pack": torch.equal(wq, quant.tap_major(kq, cp)) and torch.equal(scale_k, scale),
+              "quantize": torch.equal(xq, xq_ref)}
+    if not all(checks.values()):
+        raise AssertionError(f"K5's operand kernels against their plain steps: {checks}")
+    return {"ax_part": ax_part, "ak_part": ak_part, "s": s, "sx": sx, "mult": mult,
+            "xq": xq, "wq": wq, "scale": scale}
+
+
+def int_mm_ms(xq, wq) -> float | None:
+    """torch._int_mm (cuBLASLt's int8 GEMM) on K5's int8 operands of a 1×1
+    conv: the same function as the conv's integer sums, timed as a
+    yardstick (the port never calls it); None where it refuses them."""
+    import torch
+
+    a = xq.view(-1, xq.shape[-1])
+    b = wq.view(wq.shape[0], -1).t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        print(f"torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {e}", flush=True)
+        return None
+    return time_ms(lambda: torch._int_mm(a, b), iters=10, warmup=2)
+
+
 def k5_check(dev) -> dict:
-    """K5 (quantize pass + int8 implicit-GEMM conv) against its plain version
-    on the same shared operands at each INT8_SHAPES shape, bf16 output: equal
-    (limit 0: the integer sums are exact in both and the epilogue rounds alike);
-    kernel / plain / cuDNN bf16 conv times (CUDA events) beside the bound. Then
-    the f32 epilogue equal, and the limit failed by one output channel's scale
-    moved by an ulp (f32 output) and by one int8 weight moved by one (bf16)."""
+    """K5 against its plain version at each INT8_SHAPES shape, bf16 output:
+    the conv on shared operands equal (limit 0: the integer sums are exact
+    in both and the epilogue rounds alike), each operand kernel equal to its
+    plain step, the whole int8_conv (five kernels) equal to int8_conv_plain;
+    the conv alone, each operand kernel, the whole call, conv_q_cuda (the
+    PR 23 measure: repack, quantize, conv), plain and cuDNN bf16 conv times
+    (CUDA events) beside the bound; torch._int_mm at the 1×1 shapes. Then
+    the f32 epilogue equal, and the limit failed by one output channel's
+    scale moved by an ulp (f32 output) and by one int8 weight moved by one
+    (bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -1555,18 +1615,40 @@ def k5_check(dev) -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.equal(got, ref):
             raise AssertionError(f"K5 at {(cin, hw, cout, k)}: max abs err {err}, limit 0")
+        whole = quant.int8_conv(x, w, b, 1, k // 2)
+        if not torch.equal(whole, quant.int8_conv_plain(x, w, b, 1, k // 2)):
+            raise AssertionError(f"int8_conv's five kernels at {(cin, hw, cout, k)} differ "
+                                 "from int8_conv_plain")
+        o = k5_operands_equal(quant, x, w)
+        xq, wq, scale = o["xq"], o["wq"], o["scale"]
         bound, by = k5_bound_ms(INT8_BATCH, cin, hw, cout, k)
         name = k5_shape_name(cin, hw, cout, k)
+        conv_ms = time_ms(lambda: quant.conv_packed_cuda(xq, wq, (k, k), scale, b, 1, k // 2,
+                                                         torch.bfloat16), iters=10, warmup=2)
         out[name] = {
-            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "whole_call_err": 0.0, "operand_kernels_err": 0.0,
+            "bound_ms": bound, "bound_by": by,
+            "conv_ms": conv_ms,
+            "tops": 2.0 * INT8_BATCH * hw * hw * cout * cin * k * k / conv_ms / 1e9,
+            "amax_ms": time_ms(lambda: quant.channel_amax_cuda(x, w), iters=10, warmup=2),
+            "factors_ms": time_ms(lambda: quant.smooth_factors_cuda(o["ax_part"], o["ak_part"]),
+                                  iters=10, warmup=2),
+            "pack_ms": time_ms(lambda: quant.pack_weights_cuda(w, o["s"], o["sx"]),
+                               iters=10, warmup=2),
+            "quantize_ms": time_ms(lambda: quant.quantize_activation_cuda(x, o["mult"]),
+                                   iters=10, warmup=2),
+            # the whole int8_conv call: its five kernels
+            "call_ms": time_ms(lambda: quant.int8_conv(x, w, b, 1, k // 2), iters=10, warmup=2),
+            # PR 23's "kernel ms": the int8 weights' repack in torch, quantize pass, conv
             "kernel_ms": time_ms(lambda: quant.conv_q_cuda(x, *ops, b, 1, k // 2),
                                  iters=10, warmup=2),
-            # the whole int8_conv call: amax, SmoothQuant factors and weight rounding in torch
-            "call_ms": time_ms(lambda: quant.int8_conv(x, w, b, 1, k // 2), iters=10, warmup=2),
             "plain_ms": time_ms(lambda: quant.conv_q_plain(x, *ops, b, 1, k // 2),
                                 iters=2, warmup=1),
+            # cuDNN's bf16 conv: the float conv the tier replaces
             "library_ms": time_ms(lambda: F.conv2d(x, w, b, 1, k // 2), iters=10, warmup=2),
         }
+        if k == 1:   # the same function's integer sums: cuBLASLt's int8 GEMM
+            out[name]["library_same_ms"] = int_mm_ms(xq, wq)
         if (cin, hw, cout, k) == (512, 32, 512, 3):
             mult, kq, scale = ops
             f32 = quant.conv_q_cuda(x, *ops, b, 1, 1, torch.float32)
@@ -1586,9 +1668,10 @@ def k5_check(dev) -> dict:
                 raise AssertionError(f"K5's limit 0 and its controls: {controls}")
             out["controls"] = controls
             del f32, f32_ref, nudged, moved
-        del x, w, b, ops, got, ref
+        del x, w, b, ops, got, ref, whole, o, xq, wq, scale
         torch.cuda.empty_cache()
-    out["build"] = kernel_build(quant.build(), "int8_conv_kernelI13__nv_bfloat16", "IMMA")
+    out["build"] = kernel_build(quant.build(), "int8_conv_kernelI13__nv_bfloat16", "IGMMA",
+                                absent=("IMMA",))
     return out
 
 
@@ -1597,12 +1680,15 @@ def k5_unet_check(models, dev) -> dict:
     int8 conv of the UNet: one composed step of a unet_int8 rung at the
     gate's batch (MuseModels.GATE_ROWS) and at INT8_BATCH, each distinct
     (input, weight, stride, padding) shape held once, caught by forward
-    pre-hooks on the UNet's QConvs. Leaves the models on the float tier."""
+    pre-hooks on the UNet's QConvs: the conv on shared operands and the
+    whole int8_conv (five kernels). At INT8_BATCH the conv alone and the
+    whole call are timed beside the bound at the largest K (cin·kh·kw) and
+    at the largest stride-2 conv. Leaves the models on the float tier."""
     import torch
 
     from mere_fusion_tpu_torch.ops import quant
 
-    checked, calls = {}, [0]
+    checked, calls, timed = {}, [0], {}
 
     def hold(mod, args):
         if not mod.quant:
@@ -1620,7 +1706,16 @@ def k5_unet_check(models, dev) -> dict:
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.equal(got, ref):
             raise AssertionError(f"K5 on the UNet's {key}: max abs err {err}, limit 0")
+        whole = quant.int8_conv(x, mod.weight, mod.bias, st, pad, mod.weight.dtype)
+        if not torch.equal(whole, quant.int8_conv_plain(x, mod.weight, mod.bias, st, pad,
+                                                         mod.weight.dtype)):
+            raise AssertionError(f"int8_conv's five kernels on the UNet's {key} differ")
         checked[key] = err
+        if x.shape[0] == INT8_BATCH:
+            depth = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            for kind, size in (("largest_k", depth), ("stride_2", x.numel() if st == 2 else -1)):
+                if size > timed.get(kind, (None, -1))[1]:
+                    timed[kind] = (key, size, x.clone(), mod)
 
     convs = [m for m in models.unet.modules() if isinstance(m, quant.QConv)]
     hooks = [m.register_forward_pre_hook(hold) for m in convs]
@@ -1642,8 +1737,94 @@ def k5_unet_check(models, dev) -> dict:
             h.remove()
         models.set_int8_tier("off")
     torch.cuda.synchronize()
+    times = {}
+    for kind, (key, _, x, mod) in timed.items():
+        st, pad, (kh, kw) = mod.stride[0], mod.padding[0], mod.kernel_size
+        mult, kq, scale = quant.int8_operands(x, mod.weight)
+        xq = quant.quantize_activation_cuda(x, mult)
+        wq = quant.tap_major(kq, xq.shape[3])
+        conv_ms = time_ms(lambda: quant.conv_packed_cuda(xq, wq, (kh, kw), scale, mod.bias, st,
+                                                         pad, mod.weight.dtype),
+                          iters=10, warmup=2)
+        bound, by = k5_bound_ms(x.shape[0], mod.in_channels, x.shape[2], mod.out_channels,
+                                kh, st)
+        times[kind] = {"shape": key, "conv_ms": conv_ms, "bound_ms": bound, "bound_by": by,
+                       "call_ms": time_ms(lambda: quant.int8_conv(x, mod.weight, mod.bias, st,
+                                                                  pad, mod.weight.dtype),
+                                          iters=10, warmup=2)}
+    del timed
     return {"shapes": checked, "distinct": len(checked),
-            "max_abs_err": max(checked.values())}
+            "max_abs_err": max(checked.values()), "times": times}
+
+
+def device_kernels(fn, tries: int = 3) -> tuple[int, dict] | None:
+    """torch.profiler over one call of fn (after one warm-up call): the
+    device operations it launched, and {name: [count, device ms]}. None
+    when the profiler records no device operation in any of ``tries``
+    profiles: in a whole run of the script it has come back empty after
+    the earlier phases' profiles (profile_generate then reads "not
+    measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = {e.key: [e.count, e.self_device_time_total / 1e3] for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if rows:
+            return sum(n for n, _ in rows.values()), rows
+    return None
+
+
+def k5_launch_profile(models, pz, tier: str, dev) -> dict:
+    """Launches a conv, counted by torch.profiler: one int8_conv at
+    INT8_HEADLINE alone (each K5 kernel's device ms), and one VAE decode on
+    ``tier`` against the float decode (K5's kernels among its launches).
+    "not measured" where the profiler records nothing."""
+    import torch
+
+    from mere_fusion_tpu_torch.ops import quant
+
+    cin, hw, cout, k = INT8_HEADLINE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((INT8_BATCH, cin, hw, hw), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((cout, cin, k, k), generator=gen, device=dev)
+         / (cin * k * k) ** 0.5).to(torch.bfloat16)
+    b = torch.zeros((cout,), device=dev, dtype=torch.bfloat16)
+    out = {"one_conv": "not measured", "decode": "not measured"}
+    one = device_kernels(lambda: quant.int8_conv(x, w, b, 1, k // 2))
+    if one is not None:
+        n_call, rows = one
+        if n_call > K5_MAX_LAUNCHES_PER_CONV:
+            raise AssertionError(f"one int8 conv launched {n_call} device operations: {rows}")
+        out["one_conv"] = {"shape": k5_shape_name(*INT8_HEADLINE), "device_launches": n_call,
+                           "kernels": {key[:60]: v for key, v in rows.items()}}
+    counts = {}
+    with torch.no_grad():
+        for t in ("off", tier):
+            models.set_int8_tier(t)
+            counts[t] = device_kernels(lambda: models.vae.decode(pz))
+    if None in counts.values():
+        return out
+    convs = K5_DECODE_CONVS[dict((n, fp) for n, _, fp in models.INT8_RUNGS).get(tier, 0)]
+    k5_rows = {key: v for key, v in counts[tier][1].items() if "int8_" in key}
+    k5_kernels = sum(n for n, _ in k5_rows.values())
+    if k5_kernels > K5_KERNELS_PER_CONV * convs:
+        raise AssertionError(f"a {tier} decode launched {k5_kernels} K5 kernels for {convs} "
+                             f"int8 convs: {k5_rows}")
+    out["decode"] = {
+        "tier": tier, "int8_convs": convs, "device_launches_off": counts["off"][0],
+        f"device_launches_{tier}": counts[tier][0], "k5_kernels": k5_kernels,
+        "k5_kernels_per_conv": k5_kernels / convs,
+        "launches_per_int8_conv_beyond_float": (counts[tier][0] - counts["off"][0]) / convs,
+        "k5_device_ms": {key[:60]: v for key, v in k5_rows.items()},
+        "device_ms_off": sum(ms for _, ms in counts["off"][1].values()),
+        f"device_ms_{tier}": sum(ms for _, ms in counts[tier][1].values())}
+    return out
 
 
 def phase_int8(state: dict) -> dict:
@@ -1712,6 +1893,8 @@ def phase_int8(state: dict) -> dict:
             times.setdefault(f"decode_{tier}_ms", []).append(
                 p50_ms(lambda: models.vae.decode(pz), iters=10, warmup=2))
     out["times"] = times
+    out["launches"] = state["k5_launch_profile"] = k5_launch_profile(
+        models, pz, chosen if rungs[chosen][1] is not None else "full", dev)
     models.set_int8_tier(chosen)
     out["profile"] = profile_generate(lambda: models.generate(lat, feats),
                                       kernel="int8_conv_kernel")
@@ -6917,18 +7100,20 @@ def main() -> int:
         "launches": state["int8_session_launches"],
         "max_abs_err": max([v["max_abs_err"] for k, v in k5.items() if k.startswith("[")]
                            + [state["k5_unet"]["max_abs_err"]]),
-        "ms": k5[k5_head]["kernel_ms"], "plain_ms": k5[k5_head]["plain_ms"],
+        "ms": k5[k5_head]["conv_ms"], "plain_ms": k5[k5_head]["plain_ms"],
         "bound_ms": k5[k5_head]["bound_ms"], "bound_by": k5[k5_head]["bound_by"],
         # cuDNN's bf16 conv2d at the same shape: the float conv the tier replaces
         "library_ms": k5[k5_head]["library_ms"], "shape": k5_head,
-        "ms_measure": "per call (the int8 weights' repack to tap-major, quantize pass, conv), "
-                      "CUDA events", "dtype": "bfloat16",
+        "ms_measure": "the conv kernel alone on packed int8 operands, CUDA events; call_ms: "
+                      "the whole int8_conv (amax, factors, pack, quantize, conv)",
+        "call_ms": k5[k5_head]["call_ms"], "dtype": "bfloat16",
         "launches_per_generate": state["k5_launches_per_generate"],
+        "launches_per_conv": state["k5_launch_profile"],
         "shapes": {k: v for k, v in k5.items() if k.startswith("[")},
-        "unet_shapes_err": state["k5_unet"]["shapes"],
+        "unet_shapes_err": state["k5_unet"]["shapes"], "unet_times": state["k5_unet"]["times"],
         "controls": k5["controls"],
         "registers": k5["build"]["registers"], "spill_bytes": k5["build"]["spill_bytes"],
-        "imma": k5["build"]["imma"],
+        "igmma": k5["build"]["igmma"], "imma": k5["build"]["imma"],
     }] + [{
         "name": f"{fn} ({kernel})", "route": "cuda",
         "source": "mere_fusion_tpu_torch/csrc/sampler.cu",

@@ -166,6 +166,90 @@ def test_quantizers_match_jax(seed):
     assert (xp.permute(0, 2, 3, 1).numpy() != xj).sum() <= 2
 
 
+# ---- int8_operands step by step: the plain functions K5's operand kernels hold to ----
+
+def toy_operands(dtype: str, seed: int = 4):
+    """(JAX x NHWC, JAX kernel HWIO, port x NCHW, port weight OIHW) in dtype:
+    an outlier channel, a dead activation channel and a dead weight column
+    (both give s = 1), 12 input channels (cp 16)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2, 6, 5, 12)) * 2.0).astype(np.float32)
+    x[..., 1] *= 30.0
+    x[..., 4] = 0.0
+    k = (rng.standard_normal((3, 3, 12, 20)) / 6.0).astype(np.float32)
+    k[:, :, 7, :] = 0.0
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    return (jnp.asarray(x, jdt), jnp.asarray(k, jdt),
+            torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2),
+            torch.from_numpy(k).to(tdt).permute(3, 2, 0, 1))
+
+
+def jax_factors(jx, jk):
+    """JAX int8_conv's amax and SmoothQuant factors (mere_fusion_tpu/ops/
+    quant.py:79-92) as numpy: ax, ak, s, sx, mult."""
+    kf = jk.astype(jnp.float32)
+    ax = jnp.max(jnp.abs(jx), axis=(0, 1, 2)).astype(jnp.float32)
+    ak = jnp.max(jnp.abs(kf), axis=(0, 1, 3))
+    ok = (ax > 0) & (ak > 0)
+    s = jnp.where(ok, jnp.maximum(ax, 1e-8) ** 0.7 / jnp.maximum(ak, 1e-8) ** 0.3, 1.0)
+    sx = jnp.maximum(jnp.max(jnp.where(ok, ax / s, ax)) / 127.0, 1e-12)
+    return tuple(np.asarray(a) for a in (ax, ak, s, sx, 1.0 / (s * sx)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_channel_amax_matches_jax(dtype):
+    jx, jk, px, pk = toy_operands(dtype)
+    ax, ak = quant.channel_amax(px, pk)
+    jax_ax, jax_ak, *_ = jax_factors(jx, jk)
+    assert ax.dtype == ak.dtype == torch.float32
+    assert np.array_equal(ax.numpy(), jax_ax) and np.array_equal(ak.numpy(), jax_ak)
+    assert ax[4] == 0 and ak[7] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smooth_factors_match_jax(dtype):
+    jx, jk, _, _ = toy_operands(dtype)
+    jax_ax, jax_ak, jax_s, jax_sx, jax_mult = jax_factors(jx, jk)
+    s, sx, mult = quant.smooth_factors(t_(jax_ax.copy()), t_(jax_ak.copy()))
+    assert s.shape == mult.shape == (12,) and sx.dim() == 0
+    assert s[4] == 1 and s[7] == 1            # a dead channel either side: no equalisation
+    assert ulps(s.numpy(), jax_s).max() <= 2
+    assert ulps(sx.numpy(), jax_sx).max() <= 2
+    assert ulps(mult.numpy(), jax_mult).max() <= 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pack_weights_matches_jax(dtype):
+    """The packed weights and sx·sw against JAX's quantize_per_out_channel
+    on s·K (mere_fusion_tpu/ops/quant.py:43) for the same s and sx, and the
+    conv kernel's tap-major layout against JAX's HWIO values transposed."""
+    jx, jk, _, pk = toy_operands(dtype)
+    *_, jax_s, jax_sx, _ = jax_factors(jx, jk)
+    kq, scale = quant.pack_weights(pk, t_(jax_s.copy()), torch.tensor(float(jax_sx)))
+    jkq, jsw = jq.quantize_per_out_channel(
+        jk.astype(jnp.float32) * jnp.asarray(jax_s)[None, None, :, None])
+    jkq = np.asarray(jkq)
+    assert kq.dtype == torch.int8 and scale.dtype == torch.float32
+    assert (kq.permute(2, 3, 1, 0).numpy() != jkq).sum() <= 2
+    assert ulps(scale.numpy(), jax_sx * np.asarray(jsw)).max() <= 2
+    cp = quant.padded_channels(12)
+    packed = quant.tap_major(kq, cp)
+    assert cp == 16 and packed.shape == (20, 9, 16) and packed.dtype == torch.int8
+    want = np.zeros((20, 9, cp), np.int8)
+    want[:, :, :12] = np.transpose(jkq, (3, 0, 1, 2)).reshape(20, 9, 12)
+    assert (packed.numpy() != want).sum() <= 2
+    assert not packed[:, :, 12:].any()
+
+
+def test_int8_operands_compose_the_steps():
+    _, _, px, pk = toy_operands("bfloat16")
+    s, sx, mult = quant.smooth_factors(*quant.channel_amax(px, pk))
+    kq, scale = quant.pack_weights(pk, s, sx)
+    for got, want in zip(quant.int8_operands(px, pk), (mult, kq, scale)):
+        assert torch.equal(got, want)
+
+
 # (n, h, w, cin, cout, k, stride)
 CONV_CASES = {
     "3x3": (2, 9, 9, 24, 40, 3, 1),
