@@ -28,10 +28,13 @@ OpenAI whisper ``.pt`` itself. Layouts:
   ``ff.net.0.proj``.
 
 A key the port's module lacks, or one it has that the tree does not give,
-raises KeyError.
+raises KeyError. ``state_from_flax`` dispatches a family of the converter
+CLI (``tools/convert_ckpt.py``) to its function, given the tree the JAX
+package's orbax directory holds (``utils.checkpoint.restore_orbax_raw``).
 """
 from __future__ import annotations
 
+import math
 import re
 from typing import Mapping
 
@@ -147,10 +150,13 @@ def _infer_vae_config(tree: Mapping) -> VAEConfig:
     layers = len([k for k in enc if re.fullmatch(r"down_0_res_\d+", k)])
     chans = tuple(int(np.shape(enc[f"down_{i}_res_0"]["conv1"]["kernel"])[-1])
                   for i in range(n_down))
+    # the group count leaves no trace in the shapes: sd-vae's 32, or the
+    # largest count that divides a narrower tree's channels
+    groups = math.gcd(VAEConfig().norm_num_groups, *chans)
     return VAEConfig(
         in_channels=int(np.shape(enc["conv_in"]["kernel"])[2]),
         latent_channels=int(np.shape(p["post_quant_conv"]["kernel"])[-1]),
-        block_out_channels=chans, layers_per_block=layers)
+        block_out_channels=chans, layers_per_block=layers, norm_num_groups=groups)
 
 
 def vae_from_flax(tree: Mapping, cfg: VAEConfig | None = None) -> dict[str, torch.Tensor]:
@@ -206,11 +212,13 @@ def load_whisper_checkpoint(path: str) -> Whisper:
     return model.eval()
 
 
-def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig) -> dict[str, torch.Tensor]:
+def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig | None = None) -> dict[str, torch.Tensor]:
     """JAX NeRFNetwork variables → the port's NeRFNetwork state dict. The
     hash tables and individual codes are top-level leaves and keep their
-    names; dense and conv kernels are transposed."""
+    names; dense and conv kernels are transposed. ``cfg`` defaults to the
+    one the tree's names imply."""
     p = tree.get("params", tree)
+    cfg = cfg or _infer_ernerf_config(p)
     leaves = {k: v for k, v in p.items() if not isinstance(v, Mapping)}
     modules = {k: v for k, v in p.items() if isinstance(v, Mapping)}
     expected = _expected_keys(lambda: NeRFNetwork(cfg))
@@ -222,13 +230,29 @@ def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig) -> dict[str, torch.Tenso
     return sd
 
 
+def _infer_ernerf_config(tree: Mapping) -> NeRFNetConfig:
+    """The NeRFNetConfig whose parameter names the tree has: the torso when
+    it holds ``anchor_points``, the individual codes' widths and rows from
+    their tables (absent: none). Widths the names do not show keep their
+    defaults."""
+    p = tree.get("params", tree)
+    head, torso = p.get("individual_codes"), p.get("individual_codes_torso")
+    rows = next((np.shape(t)[0] for t in (head, torso) if t is not None), 1)
+    return NeRFNetConfig(
+        torso="anchor_points" in p, num_train_frames=rows,
+        individual_dim=np.shape(head)[1] if head is not None else 0,
+        individual_dim_torso=np.shape(torso)[1] if torso is not None else 0)
+
+
 def density_from_flax(density, device=None) -> DensityGrid:
     """The JAX package's DensityGrid (any object with ``grid``, ``occupancy``
-    and ``mean_density`` arrays) → the port's."""
+    and ``mean_density`` arrays, or a mapping of them, as an orbax
+    directory restores it) → the port's."""
+    field = density.__getitem__ if isinstance(density, Mapping) else density.__getattribute__
     return DensityGrid(
-        grid=torch.from_numpy(np.array(density.grid, dtype=np.float32)).to(device),
-        occupancy=torch.from_numpy(np.array(density.occupancy, dtype=bool)).to(device),
-        mean_density=torch.tensor(float(np.asarray(density.mean_density)), device=device))
+        grid=torch.from_numpy(np.array(field("grid"), dtype=np.float32)).to(device),
+        occupancy=torch.from_numpy(np.array(field("occupancy"), dtype=bool)).to(device),
+        mean_density=torch.tensor(float(np.asarray(field("mean_density"))), device=device))
 
 
 # flax module names of the Wav2Lip family → the reference's
@@ -454,3 +478,81 @@ def rtmpose_from_flax(tree: Mapping, deepen: float = 1.0,
         extra[f"head.gau.{name}"] = as_t(gau.pop(name))
     return _with_stats_from_flax({"params": params, "batch_stats": tree["batch_stats"]},
                                  _RTMPOSE_NAMES, lambda: RTMPose(deepen, widen), extra)
+
+
+# the face-attribute families' class counts (None: EmotionNet)
+FACE_CLASSES = {"face-age": 101, "face-gender": 2, "face-race": 6, "face-emotion": None}
+
+
+def _numpy_leaves(tree):
+    """``tree`` with torch tensors (an orbax tree's bfloat16 leaves) as
+    float32 numpy arrays, which every bfloat16 value is exactly."""
+    if isinstance(tree, Mapping):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_leaves(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
+                    unet_config: UNetConfig | None = None, scale: str = "x", nc: int = 80,
+                    num_modules: int = 4) -> dict[str, torch.Tensor]:
+    """A family of the converter CLI, its JAX tree (an orbax directory's, as
+    ``restore_orbax_raw`` returns it) → the port's state dict, by the
+    family's ``*_from_flax``. Each family's configuration comes from:
+
+    - vae: the tree's shapes; musetalk-unet: ``unet_config`` (default
+      UNetConfig()); whisper: ``meta["dims"]`` (family.json's; default
+      whisper-tiny), the full model under OpenAI's names; yolo: ``scale``
+      and ``nc``; fan: ``num_modules``; face-*: the class count the family
+      names;
+    - ernerf: a converted tree (``params``, optionally ``density``) or a
+      JAX training workspace (``NeRFTrainState``: its EMA parameters and
+      density grid are served), through ``engines.nerf.split_checkpoint_tree``;
+      the density grid, when there is one, joins the state dict as
+      ``density.grid``, ``density.occupancy`` and ``density.mean_density``.
+    """
+    tree = _numpy_leaves(tree)
+    meta = meta or {}
+    simple = {"wav2lip": wav2lip_from_flax, "wav2lip-disc": wav2lip_disc_from_flax,
+              "syncnet": syncnet_from_flax, "vae": vae_from_flax, "s3fd": s3fd_from_flax,
+              "bisenet": bisenet_from_flax, "craft": craft_from_flax, "crnn": crnn_from_flax,
+              "rtmpose": rtmpose_from_flax}
+    if family in simple:
+        return simple[family](tree)
+    if family == "musetalk-unet":
+        return unet_from_flax(tree, unet_config or UNetConfig())
+    if family == "whisper":
+        fields = WhisperDims.__dataclass_fields__
+        dims = WhisperDims(**{k: v for k, v in (meta.get("dims") or {}).items() if k in fields})
+        return whisper_from_flax(tree, dims)
+    if family == "yolo":
+        return yolo_from_flax(tree, scale=scale, nc=nc)
+    if family == "fan":
+        return fan_from_flax(tree, num_modules)
+    if family in FACE_CLASSES:
+        return face_attrs_from_flax(tree, FACE_CLASSES[family])
+    if family == "ernerf":
+        from mere_fusion_tpu_torch.engines.nerf import split_checkpoint_tree
+
+        params, density = split_checkpoint_tree(tree)
+        state = ernerf_from_flax(params)
+        if density is not None:
+            state.update(density_state(density))
+        return state
+    raise ValueError(f"unknown family {family!r}")
+
+
+def density_state(density: DensityGrid) -> dict[str, torch.Tensor]:
+    """A DensityGrid as the state dict entries ``density.<field>``."""
+    return {f"density.{k}": getattr(density, k) for k in ("grid", "occupancy", "mean_density")}
+
+
+def split_density(state: Mapping) -> tuple[dict, DensityGrid | None]:
+    """(the network's entries, the DensityGrid of the ``density.*`` ones, or
+    None when there are none) of an ernerf state dict."""
+    net = {k: v for k, v in state.items() if not k.startswith("density.")}
+    fields = {k[len("density."):]: v for k, v in state.items() if k.startswith("density.")}
+    return net, DensityGrid(**fields) if fields else None

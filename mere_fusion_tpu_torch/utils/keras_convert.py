@@ -27,8 +27,16 @@ def _decode(name) -> str:
 def h5_weight_arrays(path: str) -> list[tuple[str, list[np.ndarray]]]:
     """(layer_name, [arrays...]) for every weighted layer, in the file's
     layer order; weights-only files and full model saves (which nest
-    everything under ``model_weights``) both read."""
-    import h5py
+    everything under ``model_weights``) both read. Needs ``h5py``: an
+    ImportError names it when it is absent."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"reading the Keras weights {path!r} needs the h5py package, which is not "
+            "installed here: convert them on a host that has h5py with python -m "
+            "mere_fusion_tpu_torch.tools.convert_ckpt face-<task> <file.h5> <out_dir>, "
+            "and serve out_dir") from e
 
     out = []
     with h5py.File(path, "r") as f:
