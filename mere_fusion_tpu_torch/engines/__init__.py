@@ -8,6 +8,7 @@ engine (one render loop over kernel K2, with its live featurizer).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -34,13 +35,16 @@ _LEGACY_VAE_ATTN = {".query.": ".to_q.", ".key.": ".to_k.", ".value.": ".to_v.",
 
 def _native_state(family: str, raw) -> tuple[dict, dict]:
     """(state dict under the port's module names, metadata) from a loaded
-    torch checkpoint of ``family``."""
+    torch checkpoint of ``family`` (wav2lip, vae, musetalk-unet or whisper,
+    whose modules carry the reference's names)."""
     if family == "whisper":
         # OpenAI whisper .pt: {"dims": ..., "model_state_dict": ...}; the
-        # feature extractor needs the encoder only
-        sd = raw.get("model_state_dict", raw)
-        enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
-        return enc, {"dims": raw.get("dims")}
+        # dims ride in the metadata (whisper-tiny's when the file has none)
+        from mere_fusion_tpu_torch.models.whisper import WhisperDims
+
+        fields = WhisperDims.__dataclass_fields__
+        dims = WhisperDims(**{k: v for k, v in (raw.get("dims") or {}).items() if k in fields})
+        return dict(raw.get("model_state_dict", raw)), {"dims": dataclasses.asdict(dims)}
     sd = raw.get("state_dict", raw)
     if family == "wav2lip":
         from mere_fusion_tpu_torch.utils.torch_convert import convert_wav2lip
@@ -58,11 +62,32 @@ def _native_state(family: str, raw) -> tuple[dict, dict]:
     return sd, {}
 
 
-def load_serving_tree(family: str, path: str, loader=None):
-    """(host state dict, metadata) for serving: a torch checkpoint
-    (.pth/.pt/.bin) whose keys the port's modules carry natively (family
-    "yolo": an ultralytics ``yolov10*.pt``, read without the ultralytics
-    package), or what a custom ``loader(path)`` returns. Cached per path."""
+def read_serving_tree(family: str, path: str, unet_config: str | None = None,
+                      **cfg) -> tuple[dict, dict]:
+    """(state dict under the port's module names, metadata) of ``path``,
+    uncached: a torch checkpoint (.pth/.pt/.bin; family "yolo": an
+    ultralytics ``yolov10*.pt``, read without the ultralytics package), a
+    directory that tools/convert_ckpt.py wrote (with its family.json's
+    metadata), or the JAX package's orbax directory (its converter's, with
+    its family.json; or, for "ernerf", a training workspace), translated on
+    the host, which needs ``tensorstore``. ``unet_config`` (a JSON path)
+    and ``cfg`` (``scale``, ``nc``) configure families as
+    ``tools.convert_ckpt.convert_with_meta`` says. Raises ValueError for a
+    file of any other kind."""
+    if not (os.path.isdir(path) or path.endswith(_TORCH_SUFFIXES)):
+        raise ValueError(f"serving checkpoint {path!r} is neither a directory nor a "
+                         f"torch file ({'/'.join(_TORCH_SUFFIXES)})")
+    from mere_fusion_tpu_torch.tools.convert_ckpt import convert_with_meta
+
+    return convert_with_meta(family, path, unet_config, **cfg)
+
+
+def load_serving_tree(family: str, path: str, unet_config: str | None = None,
+                      loader=None, **cfg):
+    """(host state dict, metadata) for serving: what ``read_serving_tree``
+    reads of ``path``, or what a custom ``loader(path)`` returns; family
+    "whisper" serves its encoder (the feature extractor's state dict,
+    OpenAI's ``encoder.*`` entries without the prefix). Cached per path."""
     key = (family, os.path.abspath(path))
     with _TREE_LOCK:
         hit = _HOST_TREES.get(key)
@@ -70,39 +95,28 @@ def load_serving_tree(family: str, path: str, loader=None):
             return hit
         if loader is not None:
             tree, meta = loader(path), {}
-        elif os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path!r} is an orbax directory; the PyTorch package loads "
-                "torch checkpoints only (ROADMAP: 'Checkpoints' — "
-                "utils/checkpoint.py and tools/convert_ckpt.py)")
-        elif path.endswith(_TORCH_SUFFIXES) and family == "yolo":
-            # an ultralytics .pt pickles its model object, which the weights-only
-            # unpickler refuses: the tolerant unpickler reads its tensors
-            from mere_fusion_tpu_torch.utils.yolo_convert import convert_yolo_file
-
-            tree, meta = convert_yolo_file(path), {}
-        elif path.endswith(_TORCH_SUFFIXES):
-            tree, meta = _native_state(
-                family, torch.load(path, map_location="cpu", weights_only=True))
         else:
-            raise ValueError(f"serving checkpoint {path!r} is not a torch file "
-                             f"({'/'.join(_TORCH_SUFFIXES)})")
+            tree, meta = read_serving_tree(family, path, unet_config, **cfg)
+        if family == "whisper" and loader is None:
+            tree = {k[len("encoder."):]: v for k, v in tree.items() if k.startswith("encoder.")}
         _HOST_TREES[key] = (tree, meta)
         return tree, meta
 
 
-def shared_device_tree(family: str, path: str, device=None, dtype=None, loader=None,
-                       cast=None):
+def shared_device_tree(family: str, path: str, device=None, dtype=None,
+                       unet_config: str | None = None, loader=None, cast=None, **cfg):
     """State dict on ``device`` (float32 entries cast to ``dtype`` when
     given, only those for which ``cast(tensor)`` holds when that is given),
-    shared by every session placed on that device. ``loader`` as in
-    load_serving_tree; its arrays may be numpy."""
+    shared by every session placed on that device: one copy a (path,
+    device, dtype), a directory as much as a file. ``unet_config``,
+    ``loader`` and ``cfg`` as in load_serving_tree; a loader's arrays may be
+    numpy."""
     key = (family, os.path.abspath(path), str(device), str(dtype))
     with _TREE_LOCK:
         tree = _DEVICE_TREES.get(key)
         if tree is not None:
             return tree
-        tree, _ = load_serving_tree(family, path, loader)
+        tree, _ = load_serving_tree(family, path, unet_config, loader, **cfg)
         out = {}
         for k, v in tree.items():
             v = torch.as_tensor(v)
@@ -176,7 +190,8 @@ def make_engine(cfg: Config, **kw):
                 vae_cfg=kw.pop("vae_cfg", None),
                 unet_cfg=unet_cfg,
                 vae_state=shared_device_tree("vae", ac.vae_ckpt, device, cast),
-                unet_state=shared_device_tree("musetalk-unet", ac.unet_ckpt, device, cast),
+                unet_state=shared_device_tree("musetalk-unet", ac.unet_ckpt, device, cast,
+                                              unet_config=ac.unet_config or None),
                 face_size=kw.pop("face_size", 256),
                 dtype=dtype, device=device, vae_int8=ac.vae_int8,
             )

@@ -16,11 +16,11 @@ step) or "nearest"/"bilinear" (the baked-texture step,
 engines/nerf_baked.py), or with ``bake_planes=False`` the unbaked per-frame
 hash-encode step (engines/nerf_baked.py, kernel K3), on random weights from
 a fixed seed or on a trained avatar that ``load_nerf_checkpoint`` reads
-(``nerf.ckpt``: a reference ``.pth`` or the port's training workspace),
-with the torso net when ``nerf.torso`` is set, from the dataset's camera
-path or a free orbit camera (engines/orbit.py), pasted into full-body
-frames when given. Not yet ported, raising and naming its ROADMAP item:
-the JAX package's orbax checkpoints.
+(``nerf.ckpt``: a reference ``.pth``, the port's training workspace, a
+directory that tools/convert_ckpt.py wrote, or the JAX package's orbax
+directory: a converted tree or a training workspace), with the torso net
+when ``nerf.torso`` is set, from the dataset's camera path or a free orbit
+camera (engines/orbit.py), pasted into full-body frames when given.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from mere_fusion_tpu_torch.config import Config
-from mere_fusion_tpu_torch.convert import ernerf_from_flax
+from mere_fusion_tpu_torch.convert import density_from_flax, ernerf_from_flax, split_density
 from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
 from mere_fusion_tpu_torch.device import resolve_device
 from mere_fusion_tpu_torch.engines.base import BaseReal, track_put
@@ -247,8 +247,14 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     Morton-order density grid with the top-level ``mean_density``. A
     directory of the port's ``ckpt-<step>.pt`` (``ernerf_cli``'s workspace;
     the newest step) or one such file: its EMA parameters and its density
-    grid, as the JAX package serves a training state's EMA. Anything else,
-    such as the JAX package's orbax directories, raises.
+    grid, as the JAX package serves a training state's EMA. Any other
+    directory is read as ``make_engine`` reads served weights
+    (``engines.read_serving_tree``): a directory that tools/convert_ckpt.py
+    wrote (family ``ernerf``), or the JAX package's orbax directory, either
+    its converter's tree or its training workspace, whose EMA parameters
+    and density grid are served (``split_checkpoint_tree``). Reading orbax
+    needs ``tensorstore``; without it an ImportError names it. A file of
+    any other kind raises ValueError.
 
     Returns (the port's network state dict, DensityGrid or None). Raises
     ValueError when the hash tables, ``audio_in_dim`` or the density grid do
@@ -258,27 +264,20 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     nc = cfg.nerf
     path = nc.ckpt
     if path.endswith(".pth"):
-        top = load_torch_checkpoint(path)
-        model = top.get("model", top)
-        model = strip_prefix(model.get("state_dict", model))
-        tree = convert_ernerf(model)
-        params = tree["params"]
-        conv = dataclasses.replace(net_config(cfg, params), torso="anchor_points" in params)
-        state = ernerf_from_flax(tree, conv)
-        density = (density_from_ernerf(model, nc.grid_size, nc.density_thresh,
-                                       mean_density=top.get("mean_density"))
-                   if "density_grid" in model else None)
+        state, density = read_reference_pth(path, nc.grid_size, nc.density_thresh)
+    elif os.path.isdir(path) and not Checkpointer(path).steps():
+        from mere_fusion_tpu_torch.engines import read_serving_tree
+
+        state, density = split_density(read_serving_tree("ernerf", path)[0])
     else:
-        workspace = Checkpointer(path) if os.path.isdir(path) else None
-        if workspace is not None and workspace.steps():
-            raw = workspace.restore(map_location="cpu")
+        if os.path.isdir(path):
+            raw = Checkpointer(path).restore(map_location="cpu")
         elif os.path.isfile(path) and os.path.basename(path).startswith("ckpt-"):
             raw = torch.load(path, map_location="cpu", weights_only=True)["state"]
         else:
-            raise NotImplementedError(
-                f"nerf.ckpt {path!r} is neither a reference .pth nor a workspace of the "
-                "port's ckpt-<step>.pt; the JAX package's orbax checkpoints are not "
-                "ported (ROADMAP: 'Checkpoints')")
+            raise ValueError(
+                f"nerf.ckpt {path!r} is neither a reference .pth, a ckpt-<step>.pt of the "
+                "port's workspace nor a directory")
         state = {k: v.float() for k, v in raw["ema"].items()}
         density = DensityGrid(**raw["density"])
 
@@ -308,6 +307,40 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     else:
         state = {k: v for k, v in state.items() if not is_torso_param(k)}
     return state, density
+
+
+def read_reference_pth(path: str, grid_size: int | None = None,
+                       density_thresh: float = 10.0) -> tuple[dict, DensityGrid | None]:
+    """(the port's network state dict, DensityGrid or None) of a reference
+    Trainer checkpoint (``ngp_kf.pth``): its ``model`` state dict
+    (``state_dict``-wrapped or ``module.``-prefixed keys too) through
+    ``convert_ernerf`` and ``convert.ernerf_from_flax``, and its Morton-order
+    density grid with the top-level ``mean_density``, of ``grid_size``³
+    cells (None: the cube its cells make)."""
+    top = load_torch_checkpoint(path)
+    model = top.get("model", top)
+    model = strip_prefix(model.get("state_dict", model))
+    state = ernerf_from_flax(convert_ernerf(model))
+    if "density_grid" not in model:
+        return state, None
+    if grid_size is None:
+        grid_size = round(np.shape(model["density_grid"])[-1] ** (1 / 3))
+    return state, density_from_ernerf(model, grid_size, density_thresh,
+                                      mean_density=top.get("mean_density"))
+
+
+def split_checkpoint_tree(raw) -> tuple[dict, DensityGrid | None]:
+    """(parameter tree, DensityGrid or None) of a tree restored from the JAX
+    package's orbax directory without a template: a training workspace
+    (``NeRFTrainState``: its EMA parameters are served, as the reference's
+    EMA-aware load does, utils.py:1479-1538) or a converted tree
+    (tools/convert_ckpt: ``params`` and an optional ``density``)."""
+    if isinstance(raw, dict) and "ema_params" in raw:
+        return raw["ema_params"], density_from_flax(raw["density"])
+    if isinstance(raw, dict) and "params" in raw:
+        return raw["params"], density_from_flax(raw["density"]) if "density" in raw else None
+    raise ValueError("unrecognized checkpoint layout: top-level "
+                     f"{list(raw) if isinstance(raw, dict) else type(raw)}")
 
 
 class NeRFReal(BaseReal):

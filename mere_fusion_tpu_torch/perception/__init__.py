@@ -105,8 +105,10 @@ class TPUYoloPerception:
     person is seen, scene text.
 
     ``ckpt`` is an ultralytics ``yolov10*.pt``, read by the tolerant
-    unpickler of utils/yolo_convert.py without the ultralytics package; one
-    copy of its weights a (ckpt, device), shared by the sessions there.
+    unpickler of utils/yolo_convert.py without the ultralytics package, or a
+    converted directory (tools/convert_ckpt.py's, or the JAX package's orbax
+    one, which needs ``tensorstore``); one copy of its weights a (ckpt,
+    device), shared by the sessions there.
     Without it the weights are seeded random ones. ``face_attrs`` and ``ocr``
     are specs for ``make_face_attrs`` / ``make_ocr`` (None: the deepface /
     easyocr libraries when importable). With no ``device`` the current CUDA
@@ -129,7 +131,7 @@ class TPUYoloPerception:
 
                 # the convolutions' kernels in bf16, BatchNorm in float32
                 state = shared_device_tree("yolo", ckpt, self.device, torch.bfloat16,
-                                           cast=lambda t: t.ndim == 4)
+                                           cast=lambda t: t.ndim == 4, scale=scale)
                 with device_scope(self.device):
                     model = build_yolo(state, scale=scale, device=self.device,
                                        dtype=torch.bfloat16)

@@ -93,7 +93,9 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser("mere-fusion-tpu-torch perception")
     p.add_argument("input", help="video file, image dir, or rtp://host:port")
     p.add_argument("--backend", default="yolo-tpu", choices=["stub", "yolo-tpu", "yolo"])
-    p.add_argument("--ckpt", default="", help="yolov10*.pt weights")
+    p.add_argument("--ckpt", default="",
+                   help="yolov10*.pt weights, or a converted dir (tools/convert_ckpt; "
+                        "the JAX package's orbax dir needs tensorstore)")
     p.add_argument("--scale", default="x", choices=["n", "s", "m", "b", "l", "x"])
     p.add_argument("--conf", type=float, default=0.25)
     p.add_argument("-fpt", "--fpsthrottle", type=int, default=10,

@@ -22,7 +22,8 @@ viewer (train/viewer.py) during the run. ``--test`` renders every frame from
 the workspace's EMA weights and writes PSNR and SSIM to its eval.json.
 ``--torso`` trains only the torso nets on one random frame's torso batch an
 iteration, with the head's raw parameters and density grid loaded from the
-``--head_ckpt`` workspace and frozen; it starts afresh each run, as the JAX
+``--head_ckpt`` workspace (the port's, or the JAX package's orbax one) and
+frozen; it starts afresh each run, as the JAX
 CLI does. Both stages checkpoint ``ckpt-<step>.pt`` into their workspace,
 which ``nerf.ckpt`` serves. LPIPS runs with seeded random weights unless
 ``--lpips_alex`` and ``--lpips_lins`` name torchvision's AlexNet and the
@@ -85,7 +86,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torso stage: train only the torso nets against torso_imgs/, "
                         "the head loaded from --head_ckpt and frozen")
     p.add_argument("--head_ckpt", default="",
-                   help="workspace of the trained head stage to load and freeze")
+                   help="workspace of the trained head stage to load and freeze (or a "
+                        "converted dir; the JAX package's orbax workspace needs tensorstore)")
     return p.parse_args(argv)
 
 
@@ -297,13 +299,43 @@ def _evaluate(args, dataset, net_cfg, tcfg, device) -> None:
           f"({len(dataset)} frames in {dt:.1f} s)")
 
 
+def head_checkpoint(path: str, device) -> tuple[dict, "DensityGrid | None"]:
+    """(the head stage's raw parameters as a state dict, its density grid or
+    None) on ``device``, from ``--head_ckpt``: the port's workspace (its
+    ``network``, not its EMA), a directory tools/convert_ckpt.py wrote, or
+    the JAX package's orbax directory, whose ``params`` and ``density`` are
+    taken as the JAX CLI takes a head workspace's (reading it needs
+    tensorstore)."""
+    from mere_fusion_tpu_torch.convert import split_density, state_from_flax
+    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
+    from mere_fusion_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        is_converted,
+        load_converted,
+        restore_orbax_raw,
+    )
+
+    workspace = Checkpointer(path)
+    if workspace.steps():
+        head = workspace.restore(map_location=device)
+        return head["network"], DensityGrid(**head["density"])
+    if is_converted(path):
+        state = load_converted(path)[0]
+    else:
+        raw = restore_orbax_raw(path)
+        state = state_from_flax("ernerf", {k: raw[k] for k in ("params", "density") if k in raw})
+    params, density = split_density(state)
+    if density is not None:
+        density = DensityGrid(**{k: v.to(device) for k, v in vars(density).items()})
+    return {k: v.to(device) for k, v in params.items()}, density
+
+
 def _train_torso(args, dataset, network, tcfg, device) -> None:
     """The torso stage: the head workspace's raw parameters (``network``,
     not its EMA) and trained density grid, the torso trained alone, a
     checkpoint of the whole state in the workspace."""
     import numpy as np
 
-    from mere_fusion_tpu_torch.models.ernerf.renderer import DensityGrid
     from mere_fusion_tpu_torch.train.ernerf_train import (
         init_torso_train,
         make_torso_train_step,
@@ -311,13 +343,11 @@ def _train_torso(args, dataset, network, tcfg, device) -> None:
     from mere_fusion_tpu_torch.train.logger import ScalarLogger, StopFlag
     from mere_fusion_tpu_torch.utils.checkpoint import Checkpointer
 
-    head = None
-    if args.head_ckpt:
-        head = Checkpointer(args.head_ckpt).restore(map_location=device)
-    state = init_torso_train(network, tcfg, head_params=head["network"] if head else None)
-    if head is not None:
+    head, density = head_checkpoint(args.head_ckpt, device) if args.head_ckpt else (None, None)
+    state = init_torso_train(network, tcfg, head_params=head)
+    if density is not None:
         # the head's trained grid rides along (a model buffer in the reference)
-        state.density = DensityGrid(**head["density"])
+        state.density = density
     step = make_torso_train_step()
     ckpt = Checkpointer(args.workspace)
     slog = ScalarLogger(args.workspace)

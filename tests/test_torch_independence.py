@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of mere_fusion_tpu_torch (its
 scripts/ included), and not chip_smoke.py, imports jax, flax, optax, the JAX
-package or the JAX package's scripts/."""
+package or the JAX package's scripts/; the optional tensorstore, h5py and
+orbax are imported only inside the functions that read their formats."""
 from __future__ import annotations
 
 import ast
@@ -56,7 +57,12 @@ REQUIRED = (
     "mere_fusion_tpu_torch.models.rtmpose",
     "mere_fusion_tpu_torch.ops.quant",
     "mere_fusion_tpu_torch.scripts.prof_r5_int8",
+    "mere_fusion_tpu_torch.utils.checkpoint",
+    "mere_fusion_tpu_torch.tools.convert_ckpt",
 )
+# optional packages a module may import only inside the function that needs
+# them, each raising an ImportError that names it when absent
+LAZY = ("tensorstore", "h5py", "orbax")
 
 
 def _port_sources() -> list[str]:
@@ -86,10 +92,24 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_optional_packages_import_inside_functions(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            top.add(node.module.split(".")[0])
+    assert not top & set(LAZY), f"{os.path.relpath(path, ROOT)} imports {top & set(LAZY)}"
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mere_fusion_tpu', 'scripts'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mere_fusion_tpu', 'scripts',\n"
+        "             'tensorstore', 'h5py', 'orbax'):\n"
         "    sys.modules[name] = None\n"
         "import mere_fusion_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"

@@ -226,7 +226,8 @@ def test_converters_reject_missing_and_extra_keys():
 
 def test_torch_checkpoints_load_natively(tmp_path, port_models):
     """Diffusers-named .bin files load with strict=True, legacy VAE
-    attention names included; orbax directories are refused."""
+    attention names included; a directory that holds no checkpoint is
+    refused."""
     vae_sd = {k: v.clone() for k, v in port_models.vae.state_dict().items()}
     legacy = {k.replace(".to_out.0.", ".proj_attn.").replace(".to_q.", ".query."): v
               for k, v in vae_sd.items()}
@@ -237,7 +238,7 @@ def test_torch_checkpoints_load_natively(tmp_path, port_models):
     m = MuseModels(PORT_VAE, PORT_UNET, vae_state=vae_state, unet_state=unet_state,
                    face_size=64, device=CPU, vae_int8="off")
     _assert_same_state(m.vae.state_dict(), vae_sd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         load_serving_tree("vae", str(tmp_path))
 
 

@@ -139,13 +139,13 @@ def test_checks_raise(scene, tmp_path):
     for over, match in cases:
         with pytest.raises(ValueError, match=match):
             load_nerf_checkpoint(serve_cfg(scene, **over, **{"nerf.ckpt": ws.directory}))
-    # an orbax directory (a step directory of the JAX package's Checkpointer)
+    # an orbax step directory without its tree metadata, and an empty one
     orbax = tmp_path / "orbax" / "200"
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     for path in (str(tmp_path / "orbax"), str(tmp_path / "empty")):
         os.makedirs(path, exist_ok=True)
-        with pytest.raises(NotImplementedError, match="'Checkpoints'"):
+        with pytest.raises(FileNotFoundError):
             make_engine(serve_cfg(scene, **{"nerf.ckpt": path}), device=CPU)
 
 

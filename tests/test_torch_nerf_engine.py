@@ -255,7 +255,7 @@ def test_unported_options_raise(datasets, data_dir, tmp_path, monkeypatch):
     assert len(engine.fullbody_frames) == 3 and engine.fullbody_offset == (4, 8)
     assert (engine.fullbody_frames[2] == 80).all()
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP: 'Checkpoints'"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         make_engine(Config().override(**OVERRIDES, **paths,
                                       **{"nerf.ckpt": str(tmp_path / "orbax")}), device=CPU)
 
