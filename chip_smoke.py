@@ -419,6 +419,28 @@ seed trains another avatar):
               p50 with the camera and without, the avatar's frames a second;
               no kernel of the repo launched.
 
+23. checkpoints — the converter CLI on the card and the three engines served
+              from what it writes: seeded reference-layout sources at full
+              width (sd-vae's and MuseTalk's UNet as diffusers-named .bin,
+              the VAE's attention under its published legacy names, an
+              OpenAI whisper-tiny .pt, phase lip's wav2lip.pth, an ER-NeRF
+              ngp_kf.pth with the torso) each converted by python -m
+              mere_fusion_tpu_torch.tools.convert_ckpt, one process a
+              family, all started together (each one's seconds to its exit,
+              its bytes); each family's weights loaded to the card
+              from the source and from the converted directory (seconds);
+              make_engine from each at the configuration's defaults:
+              MuseTalk (bf16, batch 16, vae_int8 "auto": the gate keeps the
+              same rung) with its whisper features and two generates, the
+              Wav2Lip device step on 16 faces, eight 512² ER-NeRF frames with
+              the torso, every one bit-equal between the two; K1, K5 and K2
+              counted from zero just before the converted engines' generates
+              and frames (5 K1 a generate, K5 as the kept rung's convs, one K2
+              a frame) and each held against its plain version on the
+              operands of its last launch there; an orbax directory refused
+              with an ImportError that names tensorstore, which the card's
+              machine lacks.
+
 Then the card's name and power limit as nvidia-smi gives them, the
 per-kernel JSON line, and last {"ok": true, "device": {...}}. Exits non-zero
 without a result when no CUDA device is visible or the package is missing.
@@ -6942,6 +6964,291 @@ async def _perception_call(state: dict, dev, perception, frames, tmp: str) -> di
     return out
 
 
+# ---- checkpoints: the three engines served from converted directories ------------------
+CKPT_FRAMES = 8                   # ER-NeRF frames rendered from each checkpoint
+# K1 on the UNet's live bf16 operands against its plain version, relative to
+# the plain output's largest magnitude: the outputs round to bf16's 8
+# significant bits, so two units in the last place of the largest output
+# (ATOL's bf16 1e-2 is absolute, for the kernels phase's operands, |o| < 1)
+K1_LIVE_REL = 2.0 ** -7
+
+
+def convert_all(jobs: dict) -> dict:
+    """tools/convert_ckpt as one process a family, all started together
+    (``jobs``: family → (source, out_dir)): each one's seconds from the
+    common start to its exit, its last line and the bytes in and out."""
+    t0 = time.perf_counter()
+    procs = {family: subprocess.Popen(
+        [sys.executable, "-m", "mere_fusion_tpu_torch.tools.convert_ckpt", family, src, out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for family, (src, out) in jobs.items()}
+    exited: dict = {}
+    try:
+        while len(exited) < len(procs):         # each one's own exit time
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"convert_ckpt still running after 300 s: "
+                                     f"{sorted(set(procs) - set(exited))}")
+            for family, proc in procs.items():
+                if family not in exited and proc.poll() is not None:
+                    exited[family] = time.perf_counter() - t0
+            time.sleep(0.02)
+        done = {}
+        for family, proc in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"convert_ckpt {family} failed: {stderr[-2000:]}")
+            src, out = jobs[family]
+            done[family] = {"seconds": exited[family], "line": stdout.strip().splitlines()[-1],
+                            "source_bytes": os.path.getsize(src),
+                            "weights_bytes": os.path.getsize(os.path.join(out, "weights.pt"))}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def recording(module, name: str, calls: list):
+    """Swap ``module.name`` for a wrapper that keeps the last call's
+    arguments, keyword arguments and result in ``calls``; returns the
+    original."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        result = fn(*args, **kw)
+        calls[:] = [(args, kw, result)]
+        return result
+
+    setattr(module, name, wrapper)
+    return fn
+
+
+def phase_checkpoints(state: dict) -> dict:
+    """Reference-layout weights at full width (seeded) converted by the
+    converter CLI, and the MuseTalk (default vae_int8), Wav2Lip and ER-NeRF
+    engines built by make_engine from the converted directories, each
+    generate and frame bit-equal to the same engine built from the source
+    files; K1, K5 and K2 counted from zero on the converted engines and held
+    against their plain versions on the operands they were last given; an
+    orbax directory refused, naming tensorstore, where it is absent."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mere_fusion_tpu_torch.config import Config
+    from mere_fusion_tpu_torch.engines import make_engine, shared_device_tree
+    from mere_fusion_tpu_torch.engines.avatar import synthesize_avatar
+    from mere_fusion_tpu_torch.engines.lip import make_lip_feature_fn
+    from mere_fusion_tpu_torch.engines.muse import MuseModels, synthesize_muse_avatar
+    from mere_fusion_tpu_torch.models.whisper import TINY, init_whisper
+    from mere_fusion_tpu_torch.ops import attention, quant, sampler
+    from mere_fusion_tpu_torch.runtime.metrics import metrics
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    state.setdefault("tmp_dirs", []).append(tmp)
+    src = {k: os.path.join(tmp, name) for k, name in (
+        ("vae", "diffusion_pytorch_model.bin"), ("musetalk-unet", "pytorch_model.bin"),
+        ("whisper", "tiny.pt"), ("wav2lip", "wav2lip.pth"), ("ernerf", "ngp_kf.pth"))}
+    out: dict = {}
+
+    # 1. the reference-layout sources, from seeded weights
+    t0 = time.perf_counter()
+    models = MuseModels(dtype=torch.float32, device=dev, vae_int8="off")
+    vae = {k: v.cpu() for k, v in models.vae.state_dict().items()}
+    for new, old in ((".to_q.", ".query."), (".to_k.", ".key."), (".to_v.", ".value."),
+                     (".to_out.0.", ".proj_attn.")):     # sd-vae-ft-mse's published names
+        vae = {k.replace(new, old) if ".mid_block.attentions." in k else k: v
+               for k, v in vae.items()}
+    torch.save(vae, src["vae"])
+    torch.save({k: v.cpu() for k, v in models.unet.state_dict().items()}, src["musetalk-unet"])
+    muse_avatar = synthesize_muse_avatar(models, 8)
+    del models, vae
+    torch.cuda.empty_cache()
+    torch.save({"dims": dataclasses.asdict(TINY),
+                "model_state_dict": init_whisper(TINY, ASR_SEED).state_dict()}, src["whisper"])
+    write_lip_pth(src["wav2lip"], lip_reference_state())
+    pose_path, au_path = nerf_dataset(CKPT_FRAMES)
+    state["tmp_dirs"].append(os.path.dirname(pose_path))
+    ncfg = nerf_config(pose_path, au_path).override(**{"nerf.torso": True})
+    reference_pth(src["ernerf"], ncfg, CKPT_FRAMES)
+    out["write_sources_s"] = time.perf_counter() - t0
+
+    # 2. the converter CLI on each
+    t_part = time.perf_counter()
+    conv = {family: os.path.join(tmp, f"{family}.converted") for family in src}
+    out["convert"] = convert_all({family: (path, conv[family]) for family, path in src.items()})
+
+    out["part_s"] = {"convert": time.perf_counter() - t_part}
+
+    # 3. the weights' loads (host read, device copy), as make_engine asks for them
+    t_part = time.perf_counter()
+    bf16, loads = torch.bfloat16, {}
+    for kind, paths in (("source", src), ("converted", conv)):
+        for family, args in (("vae", (bf16,)), ("musetalk-unet", (bf16,)), ("whisper", ()),
+                             ("wav2lip", (bf16,))):
+            t0 = time.perf_counter()
+            shared_device_tree(family, paths[family], dev, *args,
+                               **({"cast": lambda t: t.ndim == 4} if family == "wav2lip" else {}))
+            torch.cuda.synchronize()
+            loads[f"{family}.{kind}"] = time.perf_counter() - t0
+    out["load_s"] = loads
+    out["part_s"]["load"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # 4. MuseTalk, the configuration's default vae_int8 ("auto": the gate)
+    muse = Config().override(**{"avatar.kind": "musetalk", "avatar.dtype": "bfloat16",
+                                "avatar.batch_size": 16, "tts.backend": "procedural"})
+    engines, build = {}, {}
+    for kind, paths in (("source", src), ("converted", conv)):
+        t0 = time.perf_counter()
+        engines[kind] = make_engine(muse.override(**{
+            "avatar.vae_ckpt": paths["vae"], "avatar.unet_ckpt": paths["musetalk-unet"],
+            "avatar.whisper_ckpt": paths["whisper"]}), avatar=muse_avatar, device=dev)
+        torch.cuda.synchronize()
+        build[kind] = time.perf_counter() - t0
+    tiers = {k: e.models.int8_tier for k, e in engines.items()}
+    if tiers["source"] != tiers["converted"]:
+        raise AssertionError(f"the gate kept {tiers}")
+    pcm = speech_pcm(16000 * 2)
+    feats, frames = {}, {}
+    k1_calls, k5_calls = [], []
+    plain_attention = recording(attention, "self_attention", k1_calls)
+    plain_int8 = recording(quant, "int8_conv", k5_calls)
+    try:
+        for kind in ("source", "converted"):
+            e = engines[kind]
+            arr = e.asr.features.audio2feat(pcm)
+            feats[kind] = arr
+            chunks = torch.from_numpy(np.stack(e.asr.features.feature2chunks(arr, 25, 16))).to(dev)
+            if kind == "converted":
+                zero_kernel_counts()            # the converted engine's generates start here
+            frames[kind] = []
+            for start in (0, 16):               # two batches, the avatar's cycle mirrored
+                idx = [e.mirror_index(len(muse_avatar), start + i) for i in range(16)]
+                lat = e._latents_dev[torch.tensor(idx, device=dev)]
+                frames[kind].append(e.models.generate(lat, chunks).cpu().numpy())
+            if kind == "converted":
+                torch.cuda.synchronize()
+                muse_launches = {"K1": attention.launches, "K5": quant.launches}  # ... end
+    finally:
+        attention.self_attention, quant.int8_conv = plain_attention, plain_int8
+    if not np.array_equal(feats["source"], feats["converted"]):
+        raise AssertionError("the converted whisper's features differ from the source's")
+    if not all(np.array_equal(a, b) for a, b in zip(frames["source"], frames["converted"])):
+        raise AssertionError("the converted MuseTalk's faces differ from the source's")
+    rungs = {name: (unet_q, fp) for name, unet_q, fp in MuseModels.INT8_RUNGS}
+    rungs.update({"off": (False, None), "full": (False, 0)})
+    unet_q, fp = rungs[tiers["converted"]]
+    want_k5 = 2 * ((K5_UNET_CONVS if unet_q else 0)
+                   + (K5_DECODE_CONVS[fp] if fp is not None else 0))
+    if muse_launches["K1"] != 2 * 5 or muse_launches["K5"] != want_k5 or not want_k5:
+        raise AssertionError(f"two generates launched {muse_launches}, want K1 10, "
+                             f"K5 {want_k5} (tier {tiers['converted']})")
+    (q, k, v), _, got = k1_calls[0]
+    ref = attention.self_attention_plain(q, k, v).float()
+    k1_err = (got.float() - ref).abs().max().item()
+    k1_rel = k1_err / ref.abs().max().item()
+    if not k1_rel <= K1_LIVE_REL:
+        raise AssertionError(f"K1 on the converted UNet's operands: {k1_err} "
+                             f"({k1_rel} of the largest output, limit {K1_LIVE_REL})")
+    args, kw, got = k5_calls[0]
+    if not torch.equal(got, quant.int8_conv_plain(*args, **kw)):
+        raise AssertionError("K5 on the converted model's last int8 conv differs from plain")
+    out["musetalk"] = {"build_s": build, "int8_tier": tiers["converted"],
+                       "gate_s": engines["converted"].models.int8_gate_seconds,
+                       "launches": muse_launches, "k1_max_abs_err": k1_err,
+                       "k1_rel_err": k1_rel, "k1_shape": list(q.shape),
+                       "k5_max_abs_err": 0.0, "generates": 2, "batch": 16,
+                       "faces_bit_equal": True, "features_bit_equal": True}
+    del engines, frames, k1_calls, k5_calls
+    torch.cuda.empty_cache()
+    out["part_s"]["musetalk"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # 5. Wav2Lip at Config() defaults (bf16, batch 16)
+    lip_avatar = synthesize_avatar(os.path.join(tmp, "lip_avatar"), n_frames=16)
+    u8, build = {}, {}
+    for kind, paths in (("source", src), ("converted", conv)):
+        t0 = time.perf_counter()
+        e = make_engine(Config().override(**{"avatar.ckpt": paths["wav2lip"],
+                                             "tts.backend": "procedural"}),
+                        avatar=lip_avatar, device=dev)
+        build[kind] = time.perf_counter() - t0
+        features, n_chunks = make_lip_feature_fn(e.cfg, dev)
+        mel = features(speech_pcm(n_chunks * e.cfg.audio.chunk))
+        idx = torch.tensor([e.mirror_index(len(lip_avatar), i) for i in range(16)], device=dev)
+        u8[kind] = e._device_step(mel, e._faces_dev[idx]).cpu().numpy()
+    if not np.array_equal(u8["source"], u8["converted"]):
+        raise AssertionError("the converted Wav2Lip's faces differ from the source's")
+    out["wav2lip"] = {"build_s": build, "faces_bit_equal": True, "batch": 16,
+                      "unsaturated_share": float(((u8["source"] > 0)
+                                                  & (u8["source"] < 255)).mean())}
+    del e, u8
+    out["part_s"]["wav2lip"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # 6. ER-NeRF with the torso at Config() defaults (512², K2)
+    auds = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, ncfg.nerf.audio_in_dim, 16)).astype(np.float32)).to(dev)
+    imgs, build, k2_calls = {}, {}, []
+    # the K2 step takes its kernel when it is built: record through the builds
+    plain_k2 = recording(sampler, "sample_shade_comp_tiles", k2_calls)
+    try:
+        for kind, paths in (("source", src), ("converted", conv)):
+            t0 = time.perf_counter()
+            e = make_engine(ncfg.override(**{"nerf.ckpt": paths["ernerf"]}), device=dev)
+            build[kind] = {"total_s": time.perf_counter() - t0,
+                           "load_s": metrics.latency("nerf.build.load").last}
+            if kind == "converted":
+                zero_kernel_counts()            # the converted engine's frames start here
+            imgs[kind] = []
+            for i in range(CKPT_FRAMES):
+                d = e.dataset.collate(i)
+                imgs[kind].append(e._render_step(d["pose"], auds, d["eye"], e.density,
+                                                 e._bg_dev, pose_key=i)[0].cpu().numpy())
+            k2_launches = sampler.launches      # ... and end here
+            del e
+    finally:
+        sampler.sample_shade_comp_tiles = plain_k2
+    if not all(np.array_equal(a, b) for a, b in zip(imgs["source"], imgs["converted"])):
+        raise AssertionError("the converted ER-NeRF's frames differ from the source's")
+    if k2_launches != CKPT_FRAMES or float(imgs["converted"][0].std()) <= 2:
+        raise AssertionError(f"K2 launched {k2_launches} times for {CKPT_FRAMES} frames, "
+                             f"std {imgs['converted'][0].std()}")
+    args, _, got = k2_calls[0]
+    k2_err = (got - sampler.sample_shade_comp_tiles_plain(*args)).abs().max().item()
+    if not k2_err <= K2_ATOL["bfloat16"]:
+        raise AssertionError(f"K2 on the converted avatar's frame: {k2_err}")
+    out["ernerf"] = {"build_s": build, "frames": CKPT_FRAMES, "frames_bit_equal": True,
+                     "k2_launches": k2_launches, "k2_max_abs_err": k2_err}
+    state["ckpt_launches"] = {"K1": muse_launches["K1"], "K5": muse_launches["K5"],
+                              "K2": k2_launches}
+    out["part_s"]["ernerf"] = time.perf_counter() - t_part
+
+    # 7. an orbax directory: refused, never served with random weights
+    orbax = os.path.join(tmp, "orbax", "0")
+    os.makedirs(os.path.join(orbax, "default"))
+    with open(os.path.join(orbax, "default", "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": {}, "use_ocdbt": True}, f)
+    if importlib.util.find_spec("tensorstore") is not None:
+        raise AssertionError("tensorstore is installed on the card's machine")
+    try:
+        make_engine(Config().override(**{"avatar.ckpt": os.path.dirname(orbax),
+                                         "tts.backend": "procedural"}),
+                    avatar=lip_avatar, device=dev)
+        raise AssertionError("an orbax directory was served")
+    except ImportError as e:
+        if "tensorstore" not in str(e):
+            raise AssertionError(f"the ImportError does not name tensorstore: {e}") from e
+        out["orbax_refused"] = str(e)[:160]
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_model),
           ("session", phase_session), ("int8", phase_int8), ("lip", phase_lip),
           ("nerf_model", phase_nerf_model),
@@ -6952,7 +7259,8 @@ PHASES = (("build", phase_build), ("kernels", phase_kernels), ("model", phase_mo
           ("nerf_data", phase_nerf_data), ("nerf_speech", phase_nerf_speech),
           ("sampler_stages", phase_sampler_stages), ("record", phase_record),
           ("avatar_prep", phase_avatar_prep), ("asr", phase_asr),
-          ("asr_offline", phase_asr_offline), ("perception", phase_perception))
+          ("asr_offline", phase_asr_offline), ("perception", phase_perception),
+          ("checkpoints", phase_checkpoints))
 
 
 def parse_phases(argv: list) -> tuple[list, bool]:
@@ -7038,6 +7346,8 @@ def main() -> int:
         "launches": state["session_launches"], "max_abs_err": k1["max_abs_err"],
         # a session served from a bundle genavatar made (avatar_prep)
         "prepared_bundle_launches": state["prep_k1_launches"],
+        # two generates of the engine served from converted directories (checkpoints)
+        "checkpoint_launches": state["ckpt_launches"]["K1"],
         "prepared_bundle_generates": state["prep_generates"],
         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -7075,6 +7385,8 @@ def main() -> int:
         "rtp_launches": state["rtp_k2_launches"],
         # a frame of the avatar trained on the set nerf_data produced
         "data_launches": state["data_k2_launches"],
+        # the avatar served from a converted directory (checkpoints)
+        "checkpoint_launches": state["ckpt_launches"]["K2"],
         "ms_measure": "per call, CUDA events", "dtype": "bfloat16 weights",
         "registers": k2["build"]["registers"], "spill_bytes": k2["build"]["spill_bytes"],
         "hgmma": k2["build"]["hgmma"],
@@ -7098,6 +7410,8 @@ def main() -> int:
         "replaces": "mere_fusion_tpu/ops/quant.py:51",
         "note": "XLA int8 conv, not a Pallas site",
         "launches": state["int8_session_launches"],
+        # two generates of the engine served from converted directories (checkpoints)
+        "checkpoint_launches": state["ckpt_launches"]["K5"],
         "max_abs_err": max([v["max_abs_err"] for k, v in k5.items() if k.startswith("[")]
                            + [state["k5_unet"]["max_abs_err"]]),
         "ms": k5[k5_head]["conv_ms"], "plain_ms": k5[k5_head]["plain_ms"],

@@ -497,8 +497,8 @@ def _numpy_leaves(tree):
 
 
 def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
-                    unet_config: UNetConfig | None = None, scale: str = "x", nc: int = 80,
-                    num_modules: int = 4) -> dict[str, torch.Tensor]:
+                    unet_config: UNetConfig | None = None, scale: str = "x",
+                    nc: int = 80) -> dict[str, torch.Tensor]:
     """A family of the converter CLI, its JAX tree (an orbax directory's, as
     ``restore_orbax_raw`` returns it) → the port's state dict, by the
     family's ``*_from_flax``. Each family's configuration comes from:
@@ -506,8 +506,8 @@ def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
     - vae: the tree's shapes; musetalk-unet: ``unet_config`` (default
       UNetConfig()); whisper: ``meta["dims"]`` (family.json's; default
       whisper-tiny), the full model under OpenAI's names; yolo: ``scale``
-      and ``nc``; fan: ``num_modules``; face-*: the class count the family
-      names;
+      and ``nc``; face-*: the class count the family names; the others'
+      names do not depend on their widths;
     - ernerf: a converted tree (``params``, optionally ``density``) or a
       JAX training workspace (``NeRFTrainState``: its EMA parameters and
       density grid are served), through ``engines.nerf.split_checkpoint_tree``;
@@ -518,8 +518,8 @@ def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
     meta = meta or {}
     simple = {"wav2lip": wav2lip_from_flax, "wav2lip-disc": wav2lip_disc_from_flax,
               "syncnet": syncnet_from_flax, "vae": vae_from_flax, "s3fd": s3fd_from_flax,
-              "bisenet": bisenet_from_flax, "craft": craft_from_flax, "crnn": crnn_from_flax,
-              "rtmpose": rtmpose_from_flax}
+              "bisenet": bisenet_from_flax, "fan": fan_from_flax, "craft": craft_from_flax,
+              "crnn": crnn_from_flax, "rtmpose": rtmpose_from_flax}
     if family in simple:
         return simple[family](tree)
     if family == "musetalk-unet":
@@ -530,8 +530,6 @@ def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
         return whisper_from_flax(tree, dims)
     if family == "yolo":
         return yolo_from_flax(tree, scale=scale, nc=nc)
-    if family == "fan":
-        return fan_from_flax(tree, num_modules)
     if family in FACE_CLASSES:
         return face_attrs_from_flax(tree, FACE_CLASSES[family])
     if family == "ernerf":

@@ -62,32 +62,18 @@ def _native_state(family: str, raw) -> tuple[dict, dict]:
     return sd, {}
 
 
-def read_serving_tree(family: str, path: str, unet_config: str | None = None,
-                      **cfg) -> tuple[dict, dict]:
-    """(state dict under the port's module names, metadata) of ``path``,
-    uncached: a torch checkpoint (.pth/.pt/.bin; family "yolo": an
-    ultralytics ``yolov10*.pt``, read without the ultralytics package), a
-    directory that tools/convert_ckpt.py wrote (with its family.json's
-    metadata), or the JAX package's orbax directory (its converter's, with
-    its family.json; or, for "ernerf", a training workspace), translated on
-    the host, which needs ``tensorstore``. ``unet_config`` (a JSON path)
-    and ``cfg`` (``scale``, ``nc``) configure families as
-    ``tools.convert_ckpt.convert_with_meta`` says. Raises ValueError for a
-    file of any other kind."""
-    if not (os.path.isdir(path) or path.endswith(_TORCH_SUFFIXES)):
-        raise ValueError(f"serving checkpoint {path!r} is neither a directory nor a "
-                         f"torch file ({'/'.join(_TORCH_SUFFIXES)})")
-    from mere_fusion_tpu_torch.tools.convert_ckpt import convert_with_meta
-
-    return convert_with_meta(family, path, unet_config, **cfg)
-
-
 def load_serving_tree(family: str, path: str, unet_config: str | None = None,
                       loader=None, **cfg):
-    """(host state dict, metadata) for serving: what ``read_serving_tree``
-    reads of ``path``, or what a custom ``loader(path)`` returns; family
-    "whisper" serves its encoder (the feature extractor's state dict,
-    OpenAI's ``encoder.*`` entries without the prefix). Cached per path."""
+    """(host state dict, metadata) for serving, cached per path: what
+    ``tools.convert_ckpt.convert_with_meta`` makes of ``path`` (a torch
+    checkpoint, .pth/.pt/.bin, whose family "yolo" is an ultralytics
+    ``yolov10*.pt``; a directory tools/convert_ckpt.py wrote, with its
+    family.json's metadata; or the JAX package's orbax directory, which
+    needs ``tensorstore``), configured by ``unet_config`` (a JSON path) and
+    ``cfg`` (``scale``, ``nc``), or what a custom ``loader(path)`` returns.
+    Family "whisper" serves its encoder (the feature extractor's state
+    dict, OpenAI's ``encoder.*`` entries without the prefix). Raises
+    ValueError for a file of any other kind."""
     key = (family, os.path.abspath(path))
     with _TREE_LOCK:
         hit = _HOST_TREES.get(key)
@@ -95,8 +81,13 @@ def load_serving_tree(family: str, path: str, unet_config: str | None = None,
             return hit
         if loader is not None:
             tree, meta = loader(path), {}
+        elif os.path.isdir(path) or path.endswith(_TORCH_SUFFIXES):
+            from mere_fusion_tpu_torch.tools.convert_ckpt import convert_with_meta
+
+            tree, meta = convert_with_meta(family, path, unet_config, **cfg)
         else:
-            tree, meta = read_serving_tree(family, path, unet_config, **cfg)
+            raise ValueError(f"serving checkpoint {path!r} is neither a directory nor a "
+                             f"torch file ({'/'.join(_TORCH_SUFFIXES)})")
         if family == "whisper" and loader is None:
             tree = {k[len("encoder."):]: v for k, v in tree.items() if k.startswith("encoder.")}
         _HOST_TREES[key] = (tree, meta)

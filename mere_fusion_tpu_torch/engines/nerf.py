@@ -248,13 +248,13 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     directory of the port's ``ckpt-<step>.pt`` (``ernerf_cli``'s workspace;
     the newest step) or one such file: its EMA parameters and its density
     grid, as the JAX package serves a training state's EMA. Any other
-    directory is read as ``make_engine`` reads served weights
-    (``engines.read_serving_tree``): a directory that tools/convert_ckpt.py
-    wrote (family ``ernerf``), or the JAX package's orbax directory, either
-    its converter's tree or its training workspace, whose EMA parameters
-    and density grid are served (``split_checkpoint_tree``). Reading orbax
-    needs ``tensorstore``; without it an ImportError names it. A file of
-    any other kind raises ValueError.
+    directory is read by ``tools.convert_ckpt.convert``: a directory that
+    tools/convert_ckpt.py wrote (family ``ernerf``), or the JAX package's
+    orbax directory, either its converter's tree or its training
+    workspace, whose EMA parameters and density grid are served
+    (``split_checkpoint_tree``). Reading orbax needs ``tensorstore``;
+    without it an ImportError names it. A file of any other kind raises
+    ValueError.
 
     Returns (the port's network state dict, DensityGrid or None). Raises
     ValueError when the hash tables, ``audio_in_dim`` or the density grid do
@@ -266,9 +266,9 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     if path.endswith(".pth"):
         state, density = read_reference_pth(path, nc.grid_size, nc.density_thresh)
     elif os.path.isdir(path) and not Checkpointer(path).steps():
-        from mere_fusion_tpu_torch.engines import read_serving_tree
+        from mere_fusion_tpu_torch.tools.convert_ckpt import convert
 
-        state, density = split_density(read_serving_tree("ernerf", path)[0])
+        state, density = split_density(convert("ernerf", path))
     else:
         if os.path.isdir(path):
             raw = Checkpointer(path).restore(map_location="cpu")

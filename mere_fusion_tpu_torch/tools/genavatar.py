@@ -298,8 +298,8 @@ def main(argv=None) -> None:
     p.add_argument("--bisenet_ckpt", default=None,
                    help="79999_iter.pth for parsing-based blend masks")
     p.add_argument("--vae_ckpt", default=None,
-                   help="musetalk sd-vae weights (diffusers .bin/.pth, or a converted "
-                        "dir; seeded random VAE without it)")
+                   help="musetalk sd-vae weights (diffusers .bin/.pth; seeded "
+                        "random VAE without it)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
     args = p.parse_args(argv)

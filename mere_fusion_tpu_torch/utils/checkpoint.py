@@ -127,13 +127,13 @@ def restore_orbax_raw(path: str, step: int | None = None):
             "and serve out_dir") from e
     with open(meta_path) as f:
         meta = json.load(f)
-    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
-    base = {"driver": "file", "path": os.path.abspath(item) + "/"}
+    if not meta.get("use_ocdbt", True) or meta.get("use_zarr3"):
+        raise ValueError(f"{item!r} is not the JAX Checkpointer's layout (zarr v2 arrays "
+                         "in one OCDBT store)")
+    kvstore = {"driver": "ocdbt", "base": {"driver": "file", "path": os.path.abspath(item) + "/"}}
 
     def read(name: str):
-        kvstore = ({"driver": "ocdbt", "base": base} if meta.get("use_ocdbt", True)
-                   else base)
-        spec = {"driver": driver, "kvstore": kvstore, "path": name}
+        spec = {"driver": "zarr", "kvstore": kvstore, "path": name}
         return ts.open(spec, open=True, read=True).result().read().result()
 
     tree: dict = {}

@@ -156,14 +156,16 @@ def _compare_raw(ref, got, path="") -> None:
 def jax_tree_dir(tmp_path_factory):
     """A JAX workspace of two steps whose tree holds a bfloat16 leaf (not a
     value bfloat16 rounds to a float's), uint8, int32, a scalar, an optax
-    chain's state (a tuple holding an EmptyState), a list and an empty dict."""
+    chain's state (a tuple holding an EmptyState), a list, an empty dict and
+    an empty tuple."""
     rng = np.random.default_rng(0)
     params = {"net": {"kernel": jnp.asarray(rng.standard_normal((3, 5)), jnp.float32),
                       "bias": jnp.asarray(rng.standard_normal(5), jnp.bfloat16)},
               "codes": jnp.asarray(rng.integers(0, 255, 4), jnp.uint8)}
     tx = optax.chain(optax.scale_by_adam(), optax.scale(-1e-3))
     tree = {"params": params, "opt_state": tx.init(params), "step": jnp.int32(7),
-            "loss": 0.25, "seq": [jnp.ones(12), jnp.arange(12)] * 6, "empty": {}}
+            "loss": 0.25, "seq": [jnp.ones(12), jnp.arange(12)] * 6, "empty": {},
+            "no_fields": ()}
     d = str(tmp_path_factory.mktemp("raw") / "ws")
     ckpt = JaxCheckpointer(d)
     ckpt.save(3, tree)
