@@ -180,10 +180,10 @@ def is_converted(path: str) -> bool:
     return os.path.isfile(os.path.join(path, WEIGHTS))
 
 
-def save_converted(out_dir: str, family: str, state: dict, meta: dict, source: str) -> str:
+def save_converted(out_dir: str, family: str, state: dict, meta: dict, source: str) -> None:
     """Write a converted directory: ``family.json`` (``family``, ``source``
     and the metadata's entries, as the JAX converter writes it) and the
-    state dict as ``weights.pt``. Returns the weights' path."""
+    state dict as ``weights.pt``."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, WEIGHTS)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -191,7 +191,6 @@ def save_converted(out_dir: str, family: str, state: dict, meta: dict, source: s
     os.replace(tmp, path)
     with open(os.path.join(out_dir, FAMILY_JSON), "w") as f:
         json.dump({"family": family, "source": os.path.abspath(source), **meta}, f)
-    return path
 
 
 def read_family_json(path: str) -> dict:
@@ -203,8 +202,8 @@ def read_family_json(path: str) -> dict:
         return json.load(f)
 
 
-def load_converted(path: str, map_location="cpu") -> tuple[dict, dict]:
-    """(state dict, family.json's entries) of a converted directory."""
-    state = torch.load(os.path.join(path, WEIGHTS), map_location=map_location,
-                       weights_only=True)
+def load_converted(path: str) -> tuple[dict, dict]:
+    """(state dict on the CPU, family.json's entries) of a converted
+    directory."""
+    state = torch.load(os.path.join(path, WEIGHTS), map_location="cpu", weights_only=True)
     return state, read_family_json(path)
