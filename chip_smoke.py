@@ -6977,10 +6977,11 @@ def convert_all(jobs: dict) -> dict:
     """tools/convert_ckpt as one process a family, all started together
     (``jobs``: family → (source, out_dir)): each one's seconds from the
     common start to its exit, its last line and the bytes in and out."""
+    root = os.path.dirname(os.path.abspath(__file__))     # the port of this checkout
     t0 = time.perf_counter()
     procs = {family: subprocess.Popen(
         [sys.executable, "-m", "mere_fusion_tpu_torch.tools.convert_ckpt", family, src, out],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for family, (src, out) in jobs.items()}
     exited: dict = {}
     try:

@@ -34,6 +34,7 @@ package's orbax directory holds (``utils.checkpoint.restore_orbax_raw``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 from typing import Mapping
@@ -230,18 +231,22 @@ def ernerf_from_flax(tree: Mapping, cfg: NeRFNetConfig | None = None) -> dict[st
     return sd
 
 
+def individual_code_sizes(params: Mapping) -> dict:
+    """NeRFNetConfig's ``num_train_frames``, ``individual_dim`` and
+    ``individual_dim_torso`` as the individual-code tables of ``params`` (a
+    state dict or a JAX tree's top level) size them: none where absent."""
+    head, torso = params.get("individual_codes"), params.get("individual_codes_torso")
+    return {"num_train_frames": next((np.shape(t)[0] for t in (head, torso) if t is not None), 1),
+            "individual_dim": np.shape(head)[1] if head is not None else 0,
+            "individual_dim_torso": np.shape(torso)[1] if torso is not None else 0}
+
+
 def _infer_ernerf_config(tree: Mapping) -> NeRFNetConfig:
     """The NeRFNetConfig whose parameter names the tree has: the torso when
-    it holds ``anchor_points``, the individual codes' widths and rows from
-    their tables (absent: none). Widths the names do not show keep their
-    defaults."""
+    it holds ``anchor_points``, the individual codes as their tables size
+    them. Widths the names do not show keep their defaults."""
     p = tree.get("params", tree)
-    head, torso = p.get("individual_codes"), p.get("individual_codes_torso")
-    rows = next((np.shape(t)[0] for t in (head, torso) if t is not None), 1)
-    return NeRFNetConfig(
-        torso="anchor_points" in p, num_train_frames=rows,
-        individual_dim=np.shape(head)[1] if head is not None else 0,
-        individual_dim_torso=np.shape(torso)[1] if torso is not None else 0)
+    return NeRFNetConfig(torso="anchor_points" in p, **individual_code_sizes(p))
 
 
 def density_from_flax(density, device=None) -> DensityGrid:
@@ -253,6 +258,20 @@ def density_from_flax(density, device=None) -> DensityGrid:
         grid=torch.from_numpy(np.array(field("grid"), dtype=np.float32)).to(device),
         occupancy=torch.from_numpy(np.array(field("occupancy"), dtype=bool)).to(device),
         mean_density=torch.tensor(float(np.asarray(field("mean_density"))), device=device))
+
+
+def split_checkpoint_tree(raw) -> tuple[dict, DensityGrid | None]:
+    """(parameter tree, DensityGrid or None) of a tree restored from the JAX
+    package's orbax directory without a template: a training workspace
+    (``NeRFTrainState``: its EMA parameters are served, as the reference's
+    EMA-aware load does, utils.py:1479-1538) or a converted tree
+    (tools/convert_ckpt: ``params`` and an optional ``density``)."""
+    if isinstance(raw, dict) and "ema_params" in raw:
+        return raw["ema_params"], density_from_flax(raw["density"])
+    if isinstance(raw, dict) and "params" in raw:
+        return raw["params"], density_from_flax(raw["density"]) if "density" in raw else None
+    raise ValueError("unrecognized checkpoint layout: top-level "
+                     f"{list(raw) if isinstance(raw, dict) else type(raw)}")
 
 
 # flax module names of the Wav2Lip family → the reference's
@@ -336,7 +355,8 @@ def _with_stats_from_flax(tree: Mapping, rules, build, extra=None) -> dict[str, 
     """``{"params", "batch_stats"}`` → the state dict of ``build()``: leaves
     as in ``_translate``, each BatchNorm's ``mean``/``var`` →
     ``running_mean``/``running_var`` and a ``num_batches_tracked`` of 0;
-    ``extra`` entries, mapped by the caller, join them."""
+    ``extra`` entries, mapped by the caller, join them. With ``build``
+    None the names are not checked here."""
     tree = dict(tree)
     stats = _flatten(tree.pop("batch_stats", {}))
     sd = _translate(tree, rules, None)
@@ -353,6 +373,8 @@ def _with_stats_from_flax(tree: Mapping, rules, build, extra=None) -> dict[str, 
         module = rename(module)
         sd[f"{module}.running_{leaf}"] = torch.from_numpy(np.ascontiguousarray(value))
         sd[f"{module}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    if build is None:
+        return sd
     expected = _expected_keys(build)
     missing, extra = expected - set(sd), set(sd) - expected
     if missing or extra:
@@ -480,6 +502,38 @@ def rtmpose_from_flax(tree: Mapping, deepen: float = 1.0,
                                  _RTMPOSE_NAMES, lambda: RTMPose(deepen, widen), extra)
 
 
+# legacy diffusers VAE attention names → the current ones the port uses
+_LEGACY_VAE_ATTN = {".query.": ".to_q.", ".key.": ".to_k.", ".value.": ".to_v.",
+                    ".proj_attn.": ".to_out.0."}
+
+
+def native_state(family: str, raw) -> tuple[dict, dict]:
+    """(state dict under the port's module names, metadata) from a loaded
+    torch checkpoint of ``family`` (wav2lip, vae, musetalk-unet or whisper,
+    whose modules carry the reference's names)."""
+    if family == "whisper":
+        # OpenAI whisper .pt: {"dims": ..., "model_state_dict": ...}; the
+        # dims ride in the metadata (whisper-tiny's when the file has none)
+        fields = WhisperDims.__dataclass_fields__
+        dims = WhisperDims(**{k: v for k, v in (raw.get("dims") or {}).items() if k in fields})
+        return dict(raw.get("model_state_dict", raw)), {"dims": dataclasses.asdict(dims)}
+    sd = raw.get("state_dict", raw)
+    if family == "wav2lip":
+        from mere_fusion_tpu_torch.utils.torch_convert import convert_wav2lip
+
+        return convert_wav2lip(sd), {}
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    if family == "vae":
+        renamed = {}
+        for k, v in sd.items():
+            if ".mid_block.attentions." in k:
+                for old, new in _LEGACY_VAE_ATTN.items():
+                    k = k.replace(old, new)
+            renamed[k] = v
+        sd = renamed
+    return sd, {}
+
+
 # the face-attribute families' class counts (None: EmotionNet)
 FACE_CLASSES = {"face-age": 101, "face-gender": 2, "face-race": 6, "face-emotion": None}
 
@@ -497,20 +551,20 @@ def _numpy_leaves(tree):
 
 
 def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
-                    unet_config: UNetConfig | None = None, scale: str = "x",
-                    nc: int = 80) -> dict[str, torch.Tensor]:
+                    unet_config: UNetConfig | None = None) -> dict[str, torch.Tensor]:
     """A family of the converter CLI, its JAX tree (an orbax directory's, as
     ``restore_orbax_raw`` returns it) → the port's state dict, by the
     family's ``*_from_flax``. Each family's configuration comes from:
 
     - vae: the tree's shapes; musetalk-unet: ``unet_config`` (default
       UNetConfig()); whisper: ``meta["dims"]`` (family.json's; default
-      whisper-tiny), the full model under OpenAI's names; yolo: ``scale``
-      and ``nc``; face-*: the class count the family names; the others'
-      names do not depend on their widths;
+      whisper-tiny), the full model under OpenAI's names; yolo: none, its
+      names are translated unchecked and ``build_yolo``'s strict load
+      checks them against the model's scale; face-*: the class count the
+      family names; the others' names do not depend on their widths;
     - ernerf: a converted tree (``params``, optionally ``density``) or a
       JAX training workspace (``NeRFTrainState``: its EMA parameters and
-      density grid are served), through ``engines.nerf.split_checkpoint_tree``;
+      density grid are served), through ``split_checkpoint_tree``;
       the density grid, when there is one, joins the state dict as
       ``density.grid``, ``density.occupancy`` and ``density.mean_density``.
     """
@@ -529,12 +583,10 @@ def state_from_flax(family: str, tree: Mapping, meta: Mapping | None = None, *,
         dims = WhisperDims(**{k: v for k, v in (meta.get("dims") or {}).items() if k in fields})
         return whisper_from_flax(tree, dims)
     if family == "yolo":
-        return yolo_from_flax(tree, scale=scale, nc=nc)
+        return _with_stats_from_flax(tree, _INDEX_NAMES, None)
     if family in FACE_CLASSES:
         return face_attrs_from_flax(tree, FACE_CLASSES[family])
     if family == "ernerf":
-        from mere_fusion_tpu_torch.engines.nerf import split_checkpoint_tree
-
         params, density = split_checkpoint_tree(tree)
         state = ernerf_from_flax(params)
         if density is not None:

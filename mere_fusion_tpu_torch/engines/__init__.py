@@ -8,7 +8,6 @@ engine (one render loop over kernel K2, with its live featurizer).
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import threading
 import time
@@ -28,49 +27,14 @@ _TREE_LOCK = threading.RLock()
 
 _TORCH_SUFFIXES = (".pth", ".pt", ".bin")
 
-# legacy diffusers VAE attention names → the current ones the port uses
-_LEGACY_VAE_ATTN = {".query.": ".to_q.", ".key.": ".to_k.", ".value.": ".to_v.",
-                    ".proj_attn.": ".to_out.0."}
-
-
-def _native_state(family: str, raw) -> tuple[dict, dict]:
-    """(state dict under the port's module names, metadata) from a loaded
-    torch checkpoint of ``family`` (wav2lip, vae, musetalk-unet or whisper,
-    whose modules carry the reference's names)."""
-    if family == "whisper":
-        # OpenAI whisper .pt: {"dims": ..., "model_state_dict": ...}; the
-        # dims ride in the metadata (whisper-tiny's when the file has none)
-        from mere_fusion_tpu_torch.models.whisper import WhisperDims
-
-        fields = WhisperDims.__dataclass_fields__
-        dims = WhisperDims(**{k: v for k, v in (raw.get("dims") or {}).items() if k in fields})
-        return dict(raw.get("model_state_dict", raw)), {"dims": dataclasses.asdict(dims)}
-    sd = raw.get("state_dict", raw)
-    if family == "wav2lip":
-        from mere_fusion_tpu_torch.utils.torch_convert import convert_wav2lip
-
-        return convert_wav2lip(sd), {}
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
-    if family == "vae":
-        renamed = {}
-        for k, v in sd.items():
-            if ".mid_block.attentions." in k:
-                for old, new in _LEGACY_VAE_ATTN.items():
-                    k = k.replace(old, new)
-            renamed[k] = v
-        sd = renamed
-    return sd, {}
-
-
-def load_serving_tree(family: str, path: str, unet_config: str | None = None,
-                      loader=None, **cfg):
+def load_serving_tree(family: str, path: str, unet_config: str | None = None, loader=None):
     """(host state dict, metadata) for serving, cached per path: what
     ``tools.convert_ckpt.convert_with_meta`` makes of ``path`` (a torch
     checkpoint, .pth/.pt/.bin, whose family "yolo" is an ultralytics
     ``yolov10*.pt``; a directory tools/convert_ckpt.py wrote, with its
     family.json's metadata; or the JAX package's orbax directory, which
-    needs ``tensorstore``), configured by ``unet_config`` (a JSON path) and
-    ``cfg`` (``scale``, ``nc``), or what a custom ``loader(path)`` returns.
+    needs ``tensorstore``; a musetalk-unet tree is translated by
+    ``unet_config``, a JSON path), or what a custom ``loader(path)`` returns.
     Family "whisper" serves its encoder (the feature extractor's state
     dict, OpenAI's ``encoder.*`` entries without the prefix). Raises
     ValueError for a file of any other kind."""
@@ -84,7 +48,7 @@ def load_serving_tree(family: str, path: str, unet_config: str | None = None,
         elif os.path.isdir(path) or path.endswith(_TORCH_SUFFIXES):
             from mere_fusion_tpu_torch.tools.convert_ckpt import convert_with_meta
 
-            tree, meta = convert_with_meta(family, path, unet_config, **cfg)
+            tree, meta = convert_with_meta(family, path, unet_config)
         else:
             raise ValueError(f"serving checkpoint {path!r} is neither a directory nor a "
                              f"torch file ({'/'.join(_TORCH_SUFFIXES)})")
@@ -95,19 +59,18 @@ def load_serving_tree(family: str, path: str, unet_config: str | None = None,
 
 
 def shared_device_tree(family: str, path: str, device=None, dtype=None,
-                       unet_config: str | None = None, loader=None, cast=None, **cfg):
+                       unet_config: str | None = None, loader=None, cast=None):
     """State dict on ``device`` (float32 entries cast to ``dtype`` when
     given, only those for which ``cast(tensor)`` holds when that is given),
     shared by every session placed on that device: one copy a (path,
-    device, dtype), a directory as much as a file. ``unet_config``,
-    ``loader`` and ``cfg`` as in load_serving_tree; a loader's arrays may be
-    numpy."""
+    device, dtype), a directory as much as a file. ``unet_config`` and
+    ``loader`` as in load_serving_tree; a loader's arrays may be numpy."""
     key = (family, os.path.abspath(path), str(device), str(dtype))
     with _TREE_LOCK:
         tree = _DEVICE_TREES.get(key)
         if tree is not None:
             return tree
-        tree, _ = load_serving_tree(family, path, unet_config, loader, **cfg)
+        tree, _ = load_serving_tree(family, path, unet_config, loader)
         out = {}
         for k, v in tree.items():
             v = torch.as_tensor(v)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from mere_fusion_tpu_torch.config import Config
-from mere_fusion_tpu_torch.convert import density_from_flax, ernerf_from_flax, split_density
+from mere_fusion_tpu_torch.convert import ernerf_from_flax, individual_code_sizes, split_density
 from mere_fusion_tpu_torch.data.provider import NeRFTestDataset
 from mere_fusion_tpu_torch.device import resolve_device
 from mere_fusion_tpu_torch.engines.base import BaseReal, track_put
@@ -230,12 +230,7 @@ def net_config(cfg: Config, state: dict | None = None) -> NeRFNetConfig:
         torso=nc.torso, level_dim=nc.level_dim)
     if state is None:
         return net
-    head, torso = state.get("individual_codes"), state.get("individual_codes_torso")
-    rows = next((t.shape[0] for t in (head, torso) if t is not None), 1)
-    return dataclasses.replace(
-        net, num_train_frames=rows,
-        individual_dim=head.shape[1] if head is not None else 0,
-        individual_dim_torso=torso.shape[1] if torso is not None else 0)
+    return dataclasses.replace(net, **individual_code_sizes(state))
 
 
 def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
@@ -252,7 +247,7 @@ def load_nerf_checkpoint(cfg: Config) -> tuple[dict, DensityGrid | None]:
     tools/convert_ckpt.py wrote (family ``ernerf``), or the JAX package's
     orbax directory, either its converter's tree or its training
     workspace, whose EMA parameters and density grid are served
-    (``split_checkpoint_tree``). Reading orbax needs ``tensorstore``;
+    (``convert.split_checkpoint_tree``). Reading orbax needs ``tensorstore``;
     without it an ImportError names it. A file of any other kind raises
     ValueError.
 
@@ -327,20 +322,6 @@ def read_reference_pth(path: str, grid_size: int | None = None,
         grid_size = round(np.shape(model["density_grid"])[-1] ** (1 / 3))
     return state, density_from_ernerf(model, grid_size, density_thresh,
                                       mean_density=top.get("mean_density"))
-
-
-def split_checkpoint_tree(raw) -> tuple[dict, DensityGrid | None]:
-    """(parameter tree, DensityGrid or None) of a tree restored from the JAX
-    package's orbax directory without a template: a training workspace
-    (``NeRFTrainState``: its EMA parameters are served, as the reference's
-    EMA-aware load does, utils.py:1479-1538) or a converted tree
-    (tools/convert_ckpt: ``params`` and an optional ``density``)."""
-    if isinstance(raw, dict) and "ema_params" in raw:
-        return raw["ema_params"], density_from_flax(raw["density"])
-    if isinstance(raw, dict) and "params" in raw:
-        return raw["params"], density_from_flax(raw["density"]) if "density" in raw else None
-    raise ValueError("unrecognized checkpoint layout: top-level "
-                     f"{list(raw) if isinstance(raw, dict) else type(raw)}")
 
 
 class NeRFReal(BaseReal):

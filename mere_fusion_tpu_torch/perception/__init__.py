@@ -131,7 +131,7 @@ class TPUYoloPerception:
 
                 # the convolutions' kernels in bf16, BatchNorm in float32
                 state = shared_device_tree("yolo", ckpt, self.device, torch.bfloat16,
-                                           cast=lambda t: t.ndim == 4, scale=scale)
+                                           cast=lambda t: t.ndim == 4)
                 with device_scope(self.device):
                     model = build_yolo(state, scale=scale, device=self.device,
                                        dtype=torch.bfloat16)

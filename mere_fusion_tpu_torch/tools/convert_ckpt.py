@@ -15,7 +15,7 @@ arguments. ``input`` is one of:
 
 - a reference torch file (``.pth``/``.pt``/``.bin``), through the port's
   utils/torch_convert.py, utils/yolo_convert.py (an ultralytics
-  ``yolov10*.pt``) or the engines' own loader (wav2lip, vae,
+  ``yolov10*.pt``) or convert.py's ``native_state`` (wav2lip, vae,
   musetalk-unet, whisper, whose modules carry the reference's names);
 - a DeepFace Keras ``.h5`` for the ``face-*`` families (needs ``h5py``);
 - the JAX package's orbax directory: a tree its converter wrote (with its
@@ -43,26 +43,25 @@ import os
 FAMILIES = ("wav2lip", "wav2lip-disc", "syncnet", "whisper", "vae", "musetalk-unet",
             "s3fd", "bisenet", "fan", "ernerf", "yolo", "face-age", "face-gender",
             "face-race", "face-emotion", "craft", "crnn", "rtmpose")
-# families whose modules carry the reference's names (engines._native_state)
+# families whose modules carry the reference's names (convert.native_state)
 _NATIVE = ("wav2lip", "vae", "musetalk-unet", "whisper")
 
 
-def convert(family: str, in_path: str, unet_config: str | None = None, **cfg) -> dict:
-    return convert_with_meta(family, in_path, unet_config, **cfg)[0]
+def convert(family: str, in_path: str, unet_config: str | None = None) -> dict:
+    return convert_with_meta(family, in_path, unet_config)[0]
 
 
-def convert_with_meta(family: str, in_path: str, unet_config: str | None = None,
-                      scale: str = "x", nc: int = 80) -> tuple[dict, dict]:
+def convert_with_meta(family: str, in_path: str,
+                      unet_config: str | None = None) -> tuple[dict, dict]:
     """(state dict under the port's module names, metadata) of ``in_path``.
     Metadata holds what the weights do not show (whisper's ``dims``), so a
     converted directory rebuilds the right model. ``unet_config`` is a
     UNetConfig JSON (musetalk-unet from orbax: the translation needs the
-    UNet's layout; default UNetConfig()); ``scale`` and ``nc`` are the YOLO
-    model's, against which an orbax tree's names are checked."""
+    UNet's layout; default UNetConfig())."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
     if os.path.isdir(in_path):
-        return _convert_dir(family, in_path, unet_config, scale=scale, nc=nc)
+        return _convert_dir(family, in_path, unet_config)
     if family.startswith("face-"):
         from mere_fusion_tpu_torch.convert import FACE_CLASSES
         from mere_fusion_tpu_torch.utils import keras_convert as kc
@@ -74,9 +73,9 @@ def convert_with_meta(family: str, in_path: str, unet_config: str | None = None,
     if family in _NATIVE:
         import torch
 
-        from mere_fusion_tpu_torch.engines import _native_state
+        from mere_fusion_tpu_torch.convert import native_state
 
-        return _native_state(family, torch.load(in_path, map_location="cpu",
+        return native_state(family, torch.load(in_path, map_location="cpu",
                                                 weights_only=True))
     if family == "yolo":
         from mere_fusion_tpu_torch.utils.yolo_convert import convert_yolo_file
@@ -102,7 +101,7 @@ def convert_with_meta(family: str, in_path: str, unet_config: str | None = None,
             "rtmpose": tc.convert_rtmpose}[family](sd), {}
 
 
-def _convert_dir(family: str, path: str, unet_config: str | None, **cfg) -> tuple[dict, dict]:
+def _convert_dir(family: str, path: str, unet_config: str | None) -> tuple[dict, dict]:
     """A directory this tool wrote, or the JAX package's orbax directory."""
     from mere_fusion_tpu_torch.utils.checkpoint import (
         is_converted,
@@ -124,7 +123,7 @@ def _convert_dir(family: str, path: str, unet_config: str | None, **cfg) -> tupl
         from mere_fusion_tpu_torch.models.musetalk.unet import UNetConfig
 
         ucfg = UNetConfig.from_json(unet_config) if unet_config else None
-        state = state_from_flax(family, restore_orbax_raw(path), meta, unet_config=ucfg, **cfg)
+        state = state_from_flax(family, restore_orbax_raw(path), meta, unet_config=ucfg)
     return state, meta
 
 
@@ -134,13 +133,9 @@ def main(argv=None) -> None:
     p.add_argument("input")
     p.add_argument("out_dir")
     p.add_argument("--unet-config", default=None)
-    p.add_argument("--scale", default="x", choices=["n", "s", "m", "b", "l", "x"],
-                   help="yolo from an orbax dir: the model's scale")
-    p.add_argument("--nc", type=int, default=80, help="yolo from an orbax dir: its classes")
     args = p.parse_args(argv)
 
-    state, meta = convert_with_meta(args.family, args.input, args.unet_config,
-                                    scale=args.scale, nc=args.nc)
+    state, meta = convert_with_meta(args.family, args.input, args.unet_config)
 
     from mere_fusion_tpu_torch.utils.checkpoint import save_converted
 

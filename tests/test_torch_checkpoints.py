@@ -3,7 +3,9 @@ sizes: ``utils.checkpoint.restore_orbax_raw`` against the JAX
 ``Checkpointer.restore_raw`` (tolerance 0), the port's
 ``tools/convert_ckpt.py`` on directories the JAX converter wrote against
 ``convert.*_from_flax`` on the same trees in memory and on reference torch
-files against what the port served of them before, the engines served from
+files against what the port served of them before and against the JAX
+converter's tree of the same file through ``convert.*_from_flax``, the
+engines served from
 the JAX package's orbax directories against JAX's ``make_engine`` on the
 same directories (uint8 frames within 1 LSB; ER-NeRF frames equal to a
 ``NeRFReal`` given the weights JAX's loader reads), ``--head_ckpt`` from a
@@ -39,7 +41,6 @@ from mere_fusion_tpu_torch.config import Config
 from mere_fusion_tpu_torch.device import random_init_
 from mere_fusion_tpu_torch.engines import (
     _DEVICE_TREES,
-    _native_state,
     load_serving_tree,
     make_engine,
     shared_device_tree,
@@ -257,8 +258,7 @@ def _from_flax_in_memory(family: str, sources: dict) -> dict:
 def test_convert_jax_dir_equals_from_flax(sources, jax_dirs, tmp_path, family, capsys):
     out = str(tmp_path / "out")
     extra = ["--unet-config", sources["unet_config"]] if family == "musetalk-unet" else []
-    convert_ckpt.main([family, jax_dirs[family], out, *extra,
-                       *(["--scale", "n"] if family == "yolo" else [])])
+    convert_ckpt.main([family, jax_dirs[family], out, *extra])
     assert f"converted {family}:" in capsys.readouterr().out
     got, info = load_converted(out)
     _assert_same(got, _from_flax_in_memory(family, sources))
@@ -280,15 +280,21 @@ def _served_before(family: str, path: str) -> dict:
     if family == "whisper":
         return {k[len("encoder."):]: v for k, v in raw["model_state_dict"].items()
                 if k.startswith("encoder.")}
-    return _native_state(family, raw)[0]
+    return pconvert.native_state(family, raw)[0]
 
 
 @pytest.mark.parametrize("family", list(FAMILY_SOURCE))
 def test_convert_torch_file_serves_what_the_file_served(sources, tmp_path, family):
+    """The port's converter on a reference torch file serves what the port
+    served of that file before, and what JAX's converter makes of the same
+    file once ``convert.*_from_flax`` translates it."""
     src, out = sources[FAMILY_SOURCE[family]], str(tmp_path / "out")
     convert_ckpt.main([family, src, out])
     info = json.loads(open(os.path.join(out, "family.json")).read())
     assert info["family"] == family and info["source"] == os.path.abspath(src)
+    via_jax = _from_flax_in_memory(family, sources)
+    if family == "whisper":         # served: the encoder
+        via_jax = {k[len("encoder."):]: v for k, v in via_jax.items() if k.startswith("encoder.")}
     if family == "ernerf":
         scene = str(tmp_path / "scene")
         from mere_fusion_tpu_torch.data.provider import synthesize_nerf_dataset
@@ -299,10 +305,13 @@ def test_convert_torch_file_serves_what_the_file_served(sources, tmp_path, famil
         (want, wd), (got, gd) = (load_nerf_checkpoint(cfg.override(**{"nerf.ckpt": p}))
                                  for p in (src, out))
         _assert_same(got, want)
+        _assert_same(got, via_jax)
         for k in ("grid", "occupancy", "mean_density"):
             assert torch.equal(getattr(gd, k), getattr(wd, k)), k
         return
-    _assert_same(load_serving_tree(family, out)[0], _served_before(family, src))
+    served = load_serving_tree(family, out)[0]
+    _assert_same(served, _served_before(family, src))
+    _assert_same(served, via_jax)
     if family == "whisper":
         assert info["dims"] == dataclasses.asdict(PORT_WHISPER)
         assert load_serving_tree(family, out)[1]["dims"] == info["dims"]
@@ -475,6 +484,10 @@ def test_perception_ckpt_takes_converted_dirs(sources, jax_dirs, tmp_path):
             if v.is_floating_point():
                 assert torch.equal(got[k], v.to(torch.bfloat16).float() if v.ndim == 4
                                    else v), k
+    # the names are checked where the model is built, at its scale
+    with pytest.raises(ValueError, match="spec"):
+        TPUYoloPerception(ckpt=jax_dirs["yolo"], scale="s", device=CPU, use_deepface=False,
+                          use_ocr=False)
 
 
 def test_genavatar_vae_ckpt_takes_a_converted_dir(sources, tmp_path, fixed_s3fd,  # noqa: F811
