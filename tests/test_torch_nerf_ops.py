@@ -523,6 +523,118 @@ def test_k2_recorded_miss_flips_are_ties(dump):
     assert (psamp.sample_shade_comp_tiles_plain(*args) - got).abs().max().item() <= 1e-5
 
 
+def _k2_ray_head(x, ds, w, flip=None):
+    """The plain version's head (``psamp.head_hidden`` and the two last
+    products) on one ray's samples, every left operand's bf16 rounding
+    recorded as {name: (f32 value, order-error bound γₙ·Σ|aₖ·wₖ| of its
+    sum)}. ``flip`` = (name, index): that value takes its other bf16
+    neighbour. Returns (σ logits, rgb logits, the record)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    rec = {}
+
+    def rnd(name, v, b):
+        rec[name] = (v, b)
+        r = v.to(bf).float()
+        if flip is not None and flip[0] == name:
+            o = torch.nextafter(r[flip[1]].to(bf), (v[flip[1]] - r[flip[1]]).sign().to(bf)
+                                * torch.tensor(float("inf"), dtype=bf))
+            r = r.clone()
+            r[flip[1]] = o.float()
+        return r
+
+    def mm(a, name):                            # (a @ w, Σ|aₖ·wₖ|)
+        wt = w[name].float()
+        return a @ wt, a.abs() @ wt.abs()
+
+    na, ns_ = w["wx_aud"].shape[1], w["wx_sig"].shape[1]
+    xr = x.to(bf).float()
+    nx = xr.shape[-1]
+    wx = torch.cat([w["wx_aud"], w["wx_sig"], w["wx_eye"]], dim=1).float()
+    hx, hb = xr @ wx, xr.abs() @ wx.abs()
+    aud_h = rnd("aud_h", torch.relu(hx[:, :na]), _gamma(nx) * hb[:, :na])
+    eye_h = rnd("eye_h", torch.relu(hx[:, na + ns_:]), _gamma(nx) * hb[:, na + ns_:])
+    c, cb = mm(aud_h, "w_aud1")
+    aud_ch = rnd("aud_ch", c, _gamma(na) * cb)
+    s2, s2b = mm(aud_ch, "w_aud_sig")
+    eye1 = w["w_eye1"][:, :1].float()
+    logit = psamp._dot_seq(eye_h, eye1[:, 0], f32)[:, None]
+    w_se = w["w_sig_e"][0].float()
+    pre1 = hx[:, na:na + ns_] + s2 + torch.sigmoid(logit) * w_se
+    b1 = (_gamma(nx + aud_ch.shape[-1] + 1) * (hb[:, na:na + ns_] + s2b + w_se.abs())
+          + w_se.abs() * 0.25 * _gamma(eye_h.shape[-1]) * (eye_h.abs() @ eye1.abs()))
+    h1 = rnd("h1", torch.relu(pre1), b1)
+    v, vb = mm(h1, "w_sig1")
+    h2 = rnd("h2", torch.relu(v), _gamma(h1.shape[-1]) * vb)
+    g, gb = mm(h2, "w_geo")
+    geo = rnd("geo", g, _gamma(h2.shape[-1]) * gb)
+    c, cb = mm(geo, "w_col_g")
+    bias = w["col_bias"][0].float()
+    rch = rnd("rch", torch.relu(c + ds + bias),
+              _gamma(geo.shape[-1] + 2) * (cb + ds.abs() + bias.abs()))
+    return (h2 @ w["w_sigcol"][:, :1].float())[:, 0], rch @ w["w_rgb"][:, 1:4].float(), rec
+
+
+def k2_tie_witness(path: str, side: str = "ref", tol: float = 1e-5) -> list:
+    """The witness of a K2 miss on the card (ROADMAP §3): for each ray of a
+    dump_k2 file whose kernel output (``got``) and the card's plain output
+    (``ref``) differ by more than ``tol``, the ties of the plain version's
+    head on the CPU (values within the order-error bound of a bf16 rounding
+    midpoint, zeros of the relu aside) and the one tie whose other rounding
+    brings the CPU's output for that ray closest to the card's ``side``.
+    Returns [(tile, ray, error before, error after, (layer, index), its
+    distance from the midpoint / bound)]."""
+    from chip_smoke import load_k2_dump
+
+    args, got, ref = load_k2_dump(path, torch.device("cpu"))
+    planes, jobs, uv, dproj, dtv, w, spec = args
+    t, ks, rpt = uv.shape[0] // 3, spec.k // spec.kg, spec.rays_per_tile
+    target = {"ref": ref, "got": got}[side]
+    out = []
+    for ti, r in torch.nonzero((got - ref).abs().amax(-1) > tol).tolist():
+        x = psamp._tile_features(planes, jobs.reshape(t, 3, -1)[ti:ti + 1],
+                                 uv.reshape(t, 3, spec.kg, 2, spec.sg)[ti:ti + 1], spec)[0]
+        ds = psamp._sample_rows(dproj[ti:ti + 1], spec)[0]
+        rows = [g * rpt * ks + r * ks + j for g in range(spec.kg) for j in range(ks)]
+        x, ds = x[rows], ds[rows]                       # the ray's samples in depth order
+
+        def ray(flip=None):
+            sig, rgb, rec = _k2_ray_head(x, ds, w, flip)
+            comp = psamp._composite(sig.reshape(1, spec.kg, 1, ks).expand(1, spec.kg, rpt, ks)
+                                    .reshape(1, -1), rgb.reshape(1, spec.kg, 1, ks, 3)
+                                    .expand(1, spec.kg, rpt, ks, 3).reshape(1, -1, 3),
+                                    dtv[ti:ti + 1, :, 0], spec)[0, r]
+            return (comp - target[ti, r]).abs().max().item(), rec
+
+        before, rec = ray()
+        ties = []
+        for name, (v, b) in rec.items():
+            near = v.to(torch.bfloat16).float()
+            other = torch.nextafter(near.to(torch.bfloat16), ((v - near).sign() * float("inf"))
+                                    .to(torch.bfloat16)).float()
+            ratio = (v - (near + other) / 2).abs() / b
+            ties += [((name, tuple(i)), ratio[tuple(i)].item())
+                     for i in torch.nonzero((v != 0) & (v != near) & (ratio <= 1)).tolist()]
+        after, tie, q = min((ray(f)[0], f, q) for f, q in ties)
+        out.append((ti, r, before, after, tie, q))
+    return out
+
+
+def test_k2_recorded_miss_is_one_tie_of_the_plain_version():
+    """PR 22's recorded miss on the card, kernel against the card's plain
+    version (1.4e-5 on one ray): on the CPU the plain version gives the
+    kernel's output for that ray, and rounding one tie of its head the other
+    way (h1, a sum 0.5% of its order-error bound from the bf16 midpoint)
+    gives the card's plain output, bit for bit. The card's torch.matmul
+    summed that value in another order; neither the kernel nor the plain
+    version is at fault."""
+    (tile, ray, before, after, tie, q), = k2_tie_witness(K2_MISS, "ref")
+    print(f"K2's recorded miss, ray {ray}: the CPU's plain output {before:.3e} from the "
+          f"card's; {tie} rounded the other way: {after:.3e} (distance / bound {q:.4f})")
+    assert before > 1e-5 and after == 0.0 and q <= 1.0 and tie[0] == "h1"
+    (_, _, before, _, _, _), = k2_tie_witness(K2_MISS, "got")
+    assert before <= 2.4e-7                    # the kernel's output: the CPU's, unflipped
+
+
 def test_k2_cuda_path_refuses_cpu_operands():
     scal, uv, planes, weights, proj, dtv = k2_inputs(1, "bfloat16", t=2)
     args = k2_torch(scal, uv, planes, weights, proj, dtv, "bfloat16")
