@@ -620,8 +620,8 @@ def k2_tie_witness(path: str, side: str = "ref", tol: float = 1e-5) -> list:
 
 
 def test_k2_recorded_miss_is_one_tie_of_the_plain_version():
-    """PR 22's recorded miss on the card, kernel against the card's plain
-    version (1.4e-5 on one ray): on the CPU the plain version gives the
+    """The recorded miss on the card (K2_MISS), the kernel against the
+    card's plain version (1.4e-5 on one ray): on the CPU the plain version gives the
     kernel's output for that ray, and rounding one tie of its head the other
     way (h1, a sum 0.5% of its order-error bound from the bf16 midpoint)
     gives the card's plain output, bit for bit. The card's torch.matmul
